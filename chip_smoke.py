@@ -1,0 +1,614 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+nvcc, holds each against its plain PyTorch version on the card, serves
+``minicpm_2b`` at full width (40 layers, d_model 2304, bf16, random
+weights from a seed) through ``repro_torch.serving.LLMEngine`` —
+``generate``, then ``new_cache`` / ``prefill`` / ``insert`` / ``decode``
+/ ``verify`` on a 4-slot cache — checks the launch counters and the
+outputs, and times each kernel.  Every phase and check prints a
+JSON line; any failure raises and exits non-zero.  The last lines are
+the card's name and power limit, the kernel summary, and
+``{"ok": true, "device": {...}}``.
+
+It needs a CUDA device and the repository's ``src/`` beside it, and
+exits non-zero without either.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+MAX_LEN = 512
+GEN_PROMPT = (2, 16)          # generate: [batch, prompt length]
+GEN_NEW = 8
+GROUPS = (14, 18)             # serving: two prefill groups of 2 rows
+TICKS = 16                    # serving decode ticks (slot 3 idle for half)
+VERIFY_WIDTH = 4
+REPS = 30                     # timed repetitions per kernel (median)
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
+# FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+# tolerance of a kernel against its plain version, as allclose with
+# atol = rtol: f32 differs by reduction order and approximate rsqrt/exp
+# only; bf16 adds one rounding of the output
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the full-depth f32 model, kernel path against plain path: the limit
+# on the logits' difference, and the top-2 gap above which greedy tokens
+# must agree.  On an H100 the 40 layers differed by 4.0e-4 at a logit
+# scale of 5.2 (4 rows x 8 steps), and every row's top-2 gap was wider
+# than this limit
+F32_MODEL_TOL = 1e-3
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def setup():
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on the card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             f"a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+# ---------------------------------------------------------------------------
+# phase 1 — build
+# ---------------------------------------------------------------------------
+
+def phase_build(torch):
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.lib()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    ptxas = [ln.strip() for ln in build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "nvcc_seconds": build.build_seconds, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0), "ptxas": ptxas})
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2 — each kernel against its plain version on the card
+# ---------------------------------------------------------------------------
+
+def close(a, b, tol):
+    """(max abs error, allclose with atol = rtol = tol)."""
+    err = (a.float() - b.float()).abs()
+    return float(err.max()), bool((err <= tol + tol * b.float().abs()).all())
+
+
+def phase_kernels(torch):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_decode import fused_flash_decode_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import paging
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0,
+            "fused_flash_decode": 0.0}
+
+    def rand(shape, dt, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(dt)
+
+    def record(name, dtype, case, a, b, tol):
+        err, ok = close(a, b, tol)
+        emit({"phase": "kernel_vs_plain", "kernel": name, "dtype": dtype,
+              "case": case, "max_abs_err": err, "tol": tol, "ok": ok})
+        check(ok, f"{name} {dtype} {case}: max abs err {err} beyond "
+                  f"allclose(atol=rtol={tol})")
+        if dtype == "bfloat16":
+            errs[name] = max(errs[name], err)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        tol = TOL[dtype]
+        # K1: the prefill and decode rows of minicpm_2b, d = 2304
+        for rows in (2 * GROUPS[1], 4):
+            x = rand((rows, 2304), dt)
+            s = (1 + rand((2304,), torch.float32, 0.1)).to(dt)
+            out = rmsnorm_cuda(x, s)
+            record("rmsnorm", dtype, f"[{rows},2304]", out,
+                   ref.rmsnorm_ref(x, s), tol)
+            alone = rmsnorm_cuda(x[2:3].contiguous(), s)
+            check(torch.equal(alone, out[2:3]), "rmsnorm: row 2 alone is "
+                  "not bitwise equal to row 2 of the batch")
+        # K3: the serving prefill [2, 18, 36, 64], then [4, 128, 36, 64]
+        # causal and its suffixes at q_offset
+        q, k, v = (rand((2, GROUPS[1], 36, 64), dt) for _ in range(3))
+        record("flash_attention", dtype, f"[2,{GROUPS[1]},36,64] causal",
+               flash_attention_cuda(q, k, v),
+               ref.flash_attention_ref(q, k, v), tol)
+        q, k, v = (rand((4, 128, 36, 64), dt) for _ in range(3))
+        full = flash_attention_cuda(q, k, v)
+        record("flash_attention", dtype, "[4,128,36,64] causal", full,
+               ref.flash_attention_ref(q, k, v), tol)
+        for off in (1, 50, 127):
+            suf = flash_attention_cuda(q[:, off:].contiguous(), k, v,
+                                       q_offset=off)
+            record("flash_attention", dtype, f"q_offset={off}", suf,
+                   ref.flash_attention_ref(q[:, off:], k, v, q_offset=off),
+                   tol)
+            check(torch.equal(suf, full[:, off:]),
+                  f"flash_attention: suffix at q_offset={off} is not bitwise "
+                  f"equal to the full prefill's rows")
+        alone = flash_attention_cuda(q[2:3].contiguous(), k[2:3].contiguous(),
+                                     v[2:3].contiguous())
+        check(torch.equal(alone, full[2:3]), "flash_attention: row 2 alone "
+              "is not bitwise equal to row 2 of the batch")
+        # K2: 4 rows, max_len 512, page 8, windows of 1 and 4
+        B, KV, hd, page = 4, 36, 64, 8
+        P = MAX_LEN // page
+        freqs = ref.rope_freqs(hd, 10_000.0, dev)
+        for Sq in (1, VERIFY_WIDTH):
+            pos = torch.randint(0, MAX_LEN - Sq, (B,), device=dev,
+                                generator=g).int()
+            layouts = {
+                "slot": (B * P, paging.slot_arena_tables(B, MAX_LEN, page,
+                                                         dev)),
+            }
+            # paged: trash block 0, each row's pages scattered, tables
+            # padded with 0 past the row's last page
+            need = (pos + Sq + page - 1) // page
+            perm = 1 + torch.randperm(B * P, device=dev, generator=g)
+            tbl = torch.zeros(B, P, dtype=torch.int32, device=dev)
+            for b in range(B):
+                n = int(need[b])
+                tbl[b, :n] = perm[b * P:b * P + n].int()
+            layouts["paged"] = (1 + B * P, tbl)
+            for lay, (NB, tables) in layouts.items():
+                qd = rand((B, Sq, 36, hd), dt)
+                kn, vn = rand((B, Sq, KV, hd), dt), rand((B, Sq, KV, hd), dt)
+                kp, vp = rand((NB, page, KV, hd), dt), rand((NB, page, KV, hd),
+                                                           dt)
+                kp0, vp0 = kp.clone(), vp.clone()
+                kp2, vp2 = kp.clone(), vp.clone()
+                out = fused_flash_decode_cuda(qd, kn, vn, kp, vp, tables, pos,
+                                              freqs)
+                want = ref.fused_flash_decode_ref(qd, kn, vn, kp2, vp2,
+                                                  tables, pos, freqs)
+                case = f"S'={Sq} {lay}"
+                record("fused_flash_decode", dtype, case, out, want, tol)
+                record("fused_flash_decode", dtype, case + " k arena",
+                       kp[1:], kp2[1:], tol)
+                record("fused_flash_decode", dtype, case + " v arena",
+                       vp[1:], vp2[1:], tol)
+                kp3, vp3 = kp0.clone(), vp0.clone()
+                alone = fused_flash_decode_cuda(
+                    qd[2:3].contiguous(), kn[2:3].contiguous(),
+                    vn[2:3].contiguous(), kp3, vp3, tables[2:3].contiguous(),
+                    pos[2:3].contiguous(), freqs)
+                check(torch.equal(alone, out[2:3]),
+                      f"fused_flash_decode {case}: row 2 alone is not "
+                      f"bitwise equal to row 2 of the batch")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 3 — the main path at full width
+# ---------------------------------------------------------------------------
+
+def top2_agree(want_tok, got_tok, logits, tol):
+    """Tokens equal wherever ``logits``' top-2 gap exceeds ``tol``."""
+    import torch
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1] > tol).cpu()
+    want = torch.as_tensor(want_tok).cpu()
+    got = torch.as_tensor(got_tok).cpu()
+    return bool((want[sure] == got[sure]).all()), int(sure.sum())
+
+
+def phase_main_path(torch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = get_config("minicpm_2b")
+    L = cfg.num_layers
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.padded_vocab)
+          == (40, 2304, 36, 122880), "minicpm_2b is not at full width")
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    prompt = rng.randint(0, cfg.vocab_size, GEN_PROMPT).astype(np.int32)
+    groups = [rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+              for S in GROUPS]
+    drafts = rng.randint(0, cfg.vocab_size,
+                         (4, VERIFY_WIDTH - 1)).astype(np.int32)
+    backend = types.SimpleNamespace(kind="slot", num_slots=4)
+
+    # ---- the main path, with every launch counter at 0 -------------------
+    for name in build.launches:
+        build.launches[name] = 0
+    t0 = time.perf_counter()
+    gen = engine.generate(prompt, GEN_NEW)
+    cache = engine.new_cache(backend)
+    last = np.zeros(4, np.int32)
+    pos = np.zeros(4, np.int32)
+    for gi, toks in enumerate(groups):
+        first, rows = engine.prefill(toks)
+        for r in range(2):
+            cache = engine.insert(backend, cache, rows, r, 2 * gi + r)
+            last[2 * gi + r], pos[2 * gi + r] = first[r], toks.shape[1]
+    emitted = [last.copy()]
+    for t in range(TICKS):
+        active = np.array([True, True, True, t >= TICKS // 2])
+        tok, cache = engine.decode(backend, cache, last, pos, active)
+        emitted.append(tok)
+        last = np.where(active, tok, last)
+        pos = pos + active
+    window = np.concatenate([last[:, None], drafts], axis=1)
+    guess, cache = engine.verify(backend, cache, window, pos,
+                                 np.ones(4, bool))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = dict(build.launches)
+
+    prefills = 1 + len(GROUPS)
+    ticks = (GEN_NEW - 1) + TICKS
+    expected = {"rmsnorm": (2 * L + 1) * (prefills + ticks + 1),
+                "flash_attention": L * prefills,
+                "fused_flash_decode": L * (ticks + 1)}
+    emit({"phase": "main_path", "arch": cfg.name, "layers": L,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+          "dtype": cfg.dtype, "init_seconds": init_s,
+          "path_seconds": path_s, "launches": counts,
+          "expected_launches": expected, "generate": gen.tolist(),
+          "verify": guess.tolist()})
+    check(counts == expected, f"launch counts {counts} != {expected}")
+    for arr in [gen, guess] + emitted:
+        arr = np.asarray(arr)
+        check(((arr >= 0) & (arr < cfg.vocab_size)).all(),
+              "a token outside the vocab")
+    check(gen.shape == (2, GEN_NEW) and guess.shape == (4, VERIFY_WIDTH),
+          "output shapes")
+
+    # ---- against the plain path on the same weights ----------------------
+    # bf16 kernel and plain paths, and the plain path in f32 on the same
+    # weights (upcast) as the reference for both
+    plain_flags = RuntimeFlags(use_flash=False, fused_rmsnorm=False,
+                               use_fused_decode=False)
+    plain = LLMEngine(cfg, dict(engine.model.named_parameters()),
+                      max_len=MAX_LEN, flags=plain_flags)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    w32 = {k: v.float() for k, v in engine.model.named_parameters()}
+    p32 = LLMEngine(cfg32, w32, max_len=MAX_LEN, flags=plain_flags)
+    cmp = compare_first_tick(torch, engine, plain, p32, groups[0], cfg)
+    emit({"phase": "main_vs_plain", **cmp})
+    check(cmp["ok"], "first-tick logits disagree with the plain path")
+    del plain
+
+    # ---- end-to-end decode of the 4-slot batch ---------------------------
+    e2e = time_decode(torch, engine, backend, cache, last, pos)
+    emit({"phase": "e2e_decode", **e2e})
+    del engine, cache
+
+    # ---- all 40 layers in f32: greedy tokens vs the plain path -----------
+    k32 = LLMEngine(cfg32, w32, max_len=MAX_LEN)
+    toks32 = rng.randint(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    cmp32 = compare_greedy(torch, k32, p32, toks32, steps=8,
+                           tol=F32_MODEL_TOL)
+    emit({"phase": "f32_model_vs_plain", **cmp32})
+    check(cmp32["ok"], "f32 greedy tokens or logits disagree with the "
+                       "plain path")
+    del k32, p32, w32
+    return counts, e2e
+
+
+def compare_first_tick(torch, engine, plain, ref32, toks, cfg):
+    """Prefill the same prompt on the bf16 kernel path, the bf16 plain
+    path and the f32 plain reference ``ref32`` (the same weights,
+    upcast), run one decode tick, and compare the logits.  bf16 rounds
+    at different points on the two bf16 paths and 40 random layers
+    amplify a 1-ulp difference until both sit about a quarter of the
+    logits' scale from the f32 run, so no top-2 gap is wide enough to
+    compare greedy tokens here (the f32 comparison does that).  The
+    test: finite logits, the kernel path no further from the f32
+    reference than twice the plain path's distance, and kernel and
+    plain logits within ``tol`` of the logits' scale."""
+    x = torch.as_tensor(toks).long().cuda()
+    out = {}
+    nxt = None
+    for name, e in (("kernel", engine), ("plain", plain), ("f32", ref32)):
+        l0, c = e.model.prefill(x, MAX_LEN, flags=e.flags)
+        if nxt is None:
+            nxt = torch.argmax(l0, -1)[:, None]
+        p = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                       device="cuda")
+        l1, _ = e.model.decode_step(nxt, c, p, flags=e.flags)
+        out[name] = (l0[:, :cfg.vocab_size].float(),
+                     l1[:, :cfg.vocab_size].float())
+    res = {}
+    tol = 0.1
+    ok = True
+    for i, step in enumerate(("prefill", "tick1")):
+        k, p, r = (out[n][i] for n in ("kernel", "plain", "f32"))
+        finite = bool(torch.isfinite(k).all() and torch.isfinite(p).all())
+        scale = float(r.abs().max())
+        err_kp = float((k - p).abs().max())
+        err_k = float((k - r).abs().max())
+        err_p = float((p - r).abs().max())
+        res[step] = {"kernel_vs_plain": err_kp, "kernel_vs_f32": err_k,
+                     "plain_vs_f32": err_p, "logit_scale": scale,
+                     "finite": finite}
+        ok = ok and finite and err_k <= 2 * err_p and err_kp <= tol * scale
+    return {"tol_rel": tol, "ok": ok, **res}
+
+
+def compare_greedy(torch, engine, plain, toks, steps, tol):
+    """Greedy decode on the kernel path; the plain path is teacher-forced
+    on its tokens.  Tokens must agree wherever the plain logits' top-2
+    gap exceeds ``tol``, and at least half of the rows must be compared
+    so; logits are held at ``tol`` too."""
+    x = torch.as_tensor(toks).long().cuda()
+    B, S = x.shape
+    V = engine.cfg.vocab_size
+    lk, ck = engine.model.prefill(x, MAX_LEN)
+    lp, cp = plain.model.prefill(x, MAX_LEN, flags=plain.flags)
+    worst, scale, agree_all, compared = 0.0, 0.0, True, 0
+    for i in range(steps):
+        lk, lp = lk[:, :V], lp[:, :V]
+        for a in (lk, lp):
+            check(bool(torch.isfinite(a).all()), "non-finite logits")
+        worst = max(worst, float((lk - lp).abs().max()))
+        scale = max(scale, float(lp.abs().max()))
+        tok = torch.argmax(lk, -1)
+        agree, n = top2_agree(torch.argmax(lp, -1), tok, lp, tol)
+        agree_all, compared = agree_all and agree, compared + n
+        pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+        lk, ck = engine.model.decode_step(tok[:, None], ck, pos)
+        lp, cp = plain.model.decode_step(tok[:, None], cp, pos,
+                                         flags=plain.flags)
+    total = steps * B
+    return {"steps": steps, "rows": B, "max_abs_logit_err": worst,
+            "logit_scale": scale, "tol": tol, "tokens_agree": agree_all,
+            "tokens_compared": compared, "tokens_total": total,
+            "ok": agree_all and worst <= tol and 2 * compared >= total}
+
+
+def time_decode(torch, engine, backend, cache, last, pos, ticks=20):
+    import numpy as np
+    active = np.ones(4, bool)
+    pos = pos.copy()
+    for _ in range(3):                                   # warm-up
+        _, cache = engine.decode(backend, cache, last, pos, active)
+    times = []
+    for _ in range(ticks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = engine.decode(backend, cache, last, pos, active)
+        times.append(time.perf_counter() - t0)
+        last, pos = tok, pos + 1
+    ms = statistics.median(times) * 1e3
+    # device time per tick by kernel, from the profiler over 5 ticks;
+    # the busy share sets it against the tick's wall time without the
+    # profiler
+    from torch.profiler import ProfilerActivity, profile
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            last, cache = engine.decode(backend, cache, last, pos, active)
+            pos = pos + 1
+        torch.cuda.synchronize()
+    per = device_ms_by_kernel(prof, n)
+    device_ms = sum(per.values())
+    check(device_ms > 0, "the profiler recorded no device time")
+    top = [(name[:80], t) for name, t in
+           sorted(per.items(), key=lambda kv: -kv[1])[:8]]
+    ours = {k: sum(v for name, v in per.items() if k in name)
+            for k in ("rmsnorm_kernel", "fused_decode_kernel")}
+    return {"slots": 4, "ticks": ticks, "ms_per_tick_median": ms,
+            "ms_per_tick_min": min(times) * 1e3,
+            "tokens_per_s": 4 / (ms / 1e3),
+            "device_ms_per_tick": device_ms,
+            "device_busy_share": device_ms / ms,
+            "port_kernels_ms_per_tick": ours,
+            "top_kernels_ms_per_tick": top}
+
+
+# ---------------------------------------------------------------------------
+# phase 4 — times at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def device_ms_by_kernel(prof, calls):
+    """{kernel name: device ms per call} from a profiler run over
+    ``calls`` calls, counting device-side events only."""
+    from torch.autograd import DeviceType
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            per[e.key] = per.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3 / calls
+    return per
+
+
+def cuda_ms(torch, fn, reps=REPS):
+    """(device ms per call, host ms per call): the card's kernel time
+    over ``reps`` calls as the profiler records it, and the median wall
+    time of one synchronised call as the host sees it."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_ms = sum(device_ms_by_kernel(prof, reps).values())
+    check(device_ms > 0, "the profiler recorded no device time")
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return device_ms, statistics.median(walls)
+
+
+def measure(torch, kernel, plain, library):
+    """Device and host times of the kernel, its plain version and the
+    library call (``None``: there is none)."""
+    out = {}
+    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        dev, wall = cuda_ms(torch, fn) if fn is not None else (None, None)
+        out[key + "ms"], out[key + "host_ms"] = dev, wall
+    return out
+
+
+def bound(bytes_, flops, peak_flops):
+    t_bytes, t_ops = bytes_ / HBM_BPS * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_times(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_decode import fused_flash_decode_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import paging
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    from repro_torch.configs import get_config
+    cfg = get_config("minicpm_2b")
+    bf = torch.bfloat16
+    d, H, hd, L = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.num_layers
+    rows = {}
+
+    # K1 at the decode tick's shape: 4 rows of d_model
+    x = torch.randn(4, d, device=dev, generator=g).to(bf)
+    s = torch.ones(d, device=dev, dtype=bf)
+    nbytes = 2 * x.numel() * 2 + d * 2
+    b_ms, b_by = bound(nbytes, 4 * x.numel(), F32_FLOPS)
+    rows["rmsnorm"] = {
+        "shape": [4, d],
+        **measure(torch, lambda: rmsnorm_cuda(x, s),
+                  lambda: ref.rmsnorm_ref(x, s),
+                  (lambda: F.rms_norm(x, (d,), s, 1e-5))
+                  if hasattr(F, "rms_norm") else None),
+        "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 2 * L + 1}
+
+    # K3 at the serving prefill's shape: 2 rows of 18 tokens, causal
+    B, S = 2, GROUPS[1]
+    q, k, v = (torch.randn(B, S, H, hd, device=dev, generator=g).to(bf)
+               for _ in range(3))
+    pairs = B * H * S * (S + 1) // 2
+    b_ms, b_by = bound(4 * q.numel() * 2, 4 * hd * pairs, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows["flash_attention"] = {
+        "shape": [B, S, H, hd],
+        **measure(torch, lambda: flash_attention_cuda(q, k, v),
+                  lambda: ref.flash_attention_ref(q, k, v),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 0,
+        "launches_per_prefill": L}
+
+    # K2 at the decode tick's shape: 4 slots, max_len 512, S' = 1, rows
+    # at the serving run's lengths (32..50 tokens)
+    B, page = 4, 8
+    pos = torch.tensor([30, 32, 46, 50], dtype=torch.int32, device=dev)
+    tables = paging.slot_arena_tables(B, MAX_LEN, page, dev)
+    arena = [torch.randn(B * MAX_LEN // page, page, H, hd, device=dev,
+                         generator=g).to(bf) for _ in range(2)]
+    qd = torch.randn(B, 1, H, hd, device=dev, generator=g).to(bf)
+    kn, vn = (torch.randn(B, 1, H, hd, device=dev, generator=g).to(bf)
+              for _ in range(2))
+    freqs = ref.rope_freqs(hd, 10_000.0, dev)
+    keys = int((pos + 1).sum())
+    nbytes = (2 * keys * H * hd * 2 + 4 * qd.numel() * 2
+              + 2 * qd.numel() * 2 + tables.numel() * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * hd * H * keys, BF16_FLOPS)
+    rows["fused_flash_decode"] = {
+        "shape": [B, 1, H, hd], "max_len": MAX_LEN,
+        **measure(torch, lambda: fused_flash_decode_cuda(
+            qd, kn, vn, arena[0], arena[1], tables, pos, freqs),
+            lambda: ref.fused_flash_decode_ref(
+                qd, kn, vn, arena[0], arena[1], tables, pos, freqs), None),
+        "library_note": "no single PyTorch call rotates, scatters into a "
+                        "paged arena and attends",
+        "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": L}
+    for name, r in rows.items():
+        emit({"phase": "times", "kernel": name, **r})
+    return rows
+
+
+SOURCES = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:24"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:88"),
+    "fused_flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                           "src/repro/kernels/flash_decode.py:225"),
+}
+
+
+def main() -> int:
+    torch = setup()
+    smi = phase_build(torch)
+    errs = phase_kernels(torch)
+    counts, e2e = phase_main_path(torch)
+    times = phase_times(torch)
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        t = times[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": errs[name], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,65 @@
+"""K2 — fused flash decode: the CUDA kernel's wrapper and its plain
+version.
+
+Replaces the JAX package's
+``kernels/flash_decode.py:fused_flash_decode_kernel`` (the gathered
+variant, ``split_k=False``); the kernel is ``csrc/flash_decode.cu``:
+RoPE on q and the new K, the window scattered into the arenas **in
+place**, and per-query-masked GQA attention streamed over the row's
+pages, one CTA per (row, kv head).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .ref import fused_flash_decode_ref, rope_freqs
+
+__all__ = ["fused_flash_decode_cuda", "fused_flash_decode_ref",
+           "rope_freqs"]
+
+
+def fused_flash_decode_cuda(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_tables: torch.Tensor,
+                            positions: torch.Tensor, freqs: torch.Tensor
+                            ) -> torch.Tensor:
+    """The contract of :func:`fused_flash_decode_ref`, on the card.
+    ``k_pages``/``v_pages`` are updated in place; returns the attention
+    output [B, S', H, hd]."""
+    build.check_operand("q", q)
+    for name, t in (("k_new", k_new), ("v_new", v_new),
+                    ("k_pages", k_pages), ("v_pages", v_pages)):
+        build.check_operand(name, t, q.dtype)
+    build.check_operand("block_tables", block_tables, torch.int32, False)
+    build.check_operand("positions", positions, torch.int32, False)
+    build.check_operand("freqs", freqs, torch.float32, False)
+    B, Sq, H, hd = q.shape
+    NB, bs, KV = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    P = block_tables.shape[1]
+    if (tuple(k_new.shape) != (B, Sq, KV, hd) or k_new.shape != v_new.shape
+            or tuple(k_pages.shape) != (NB, bs, KV, hd)
+            or k_pages.shape != v_pages.shape
+            or tuple(block_tables.shape) != (B, P)
+            or tuple(positions.shape) != (B,)
+            or tuple(freqs.shape) != (hd // 2,)):
+        raise ValueError(
+            f"fused flash decode: inconsistent shapes q {tuple(q.shape)}, "
+            f"k_new {tuple(k_new.shape)}, v_new {tuple(v_new.shape)}, "
+            f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)}, tables "
+            f"{tuple(block_tables.shape)}, positions "
+            f"{tuple(positions.shape)}, freqs {tuple(freqs.shape)}")
+    if H % KV or hd % 8:
+        raise ValueError(f"fused flash decode: needs heads % kv_heads == 0 "
+                         f"and head_dim % 8 == 0 (H={H}, KV={KV}, hd={hd})")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    err = build.lib().repro_fused_flash_decode(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(), positions.data_ptr(),
+        freqs.data_ptr(), out.data_ptr(), B, Sq, H, KV, hd, bs, P,
+        build.DTYPE_CODE[q.dtype], build.stream_handle(q))
+    build.check(err, "fused_flash_decode")
+    build.launches["fused_flash_decode"] += 1
+    return out

@@ -1,0 +1,47 @@
+"""Dispatch for the port's kernels — the counterpart of the JAX
+package's ``kernels/ops.py`` and its ``INTERPRET`` switch.
+
+Each op looks at where its tensor lies: a CPU tensor runs the plain
+PyTorch version, a CUDA tensor launches the CUDA kernel, which raises if
+it cannot build or launch.  Nothing falls back from the kernel to the
+plain version.  ``launches`` counts the kernel launches by name.
+"""
+from __future__ import annotations
+
+import torch
+
+from .build import launches
+from .flash_attention import flash_attention_cuda, flash_attention_ref
+from .flash_decode import fused_flash_decode_cuda, fused_flash_decode_ref
+from .rmsnorm import rmsnorm_cuda, rmsnorm_ref
+
+__all__ = ["launches", "rmsnorm", "flash_attention", "fused_flash_decode"]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    if x.is_cuda:
+        return rmsnorm_cuda(x, scale, eps=eps)
+    return rmsnorm_ref(x, scale, eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+def fused_flash_decode(q, k_new, v_new, k_pages, v_pages, block_tables,
+                       positions, freqs) -> torch.Tensor:
+    """One-call fused decode/verify attention: RoPE + tail-block scatter
+    (in place into ``k_pages``/``v_pages``) + per-query-masked attention
+    over the arena.  Returns the attention output."""
+    if q.is_cuda:
+        return fused_flash_decode_cuda(q, k_new, v_new, k_pages, v_pages,
+                                       block_tables, positions, freqs)
+    return fused_flash_decode_ref(q, k_new, v_new, k_pages, v_pages,
+                                  block_tables, positions, freqs)

@@ -1,0 +1,102 @@
+"""Model facade: one ``nn.Module`` per architecture holding its weights,
+with prefill / decode and the cache shapes.
+
+The weights are registered under the JAX param-tree paths, so
+``state_dict()`` keys read ``blocks.l0.mixer.wq`` and the stacked
+``[R, ...]`` leaves keep their JAX shapes; ``params_from_jax`` output
+loads as it is.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from . import transformer as tf
+from .config import ArchConfig
+from .params import flatten, init_params, unflatten
+
+
+class _Node(nn.Module):
+    """A container module: one per inner node of the param tree."""
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card.  Without one, only an explicit
+    ``device="cpu"`` runs: nothing moves to the CPU by itself."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        """Random weights from ``seed`` (a ``torch.Generator`` on
+        ``device``), or ``params``: a flat ``state_dict`` such as
+        ``params_from_jax`` returns, moved to ``device``.  ``device=None``
+        is the card, as for ``LLMEngine`` (:func:`resolve_device`)."""
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.template = tf.model_template(cfg)
+        if params is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            tree = init_params(self.template, gen, cfg.dtype, device)
+        else:
+            want = flatten(self.template)
+            if set(params) != set(want):
+                raise ValueError(
+                    f"params do not match the {cfg.name} template: missing "
+                    f"{sorted(set(want) - set(params))}, extra "
+                    f"{sorted(set(params) - set(want))}")
+            for path, spec in want.items():
+                if tuple(params[path].shape) != spec.shape:
+                    raise ValueError(f"{path}: shape "
+                                     f"{tuple(params[path].shape)} != "
+                                     f"{spec.shape}")
+            tree = unflatten({k: params[k].to(device) for k in want})
+        self._register(self, tree)
+        _, _, R = tf.group_structure(cfg)
+        # per-layer-group views of the stacked leaves, made once
+        self.groups = tf.unstack_groups(self.params["blocks"], R)
+
+    @staticmethod
+    def _register(module: nn.Module, tree) -> None:
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                child = _Node()
+                module.add_module(name, child)
+                Model._register(child, v)
+            else:
+                module.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+
+    @property
+    def params(self):
+        """The weights as a nested dict of tensors (the JAX tree)."""
+        return unflatten(dict(self.named_parameters()))
+
+    # ---- compute ------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_cache_len: int,
+                flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS):
+        return tf.prefill(self.params, self.cfg, tokens, max_cache_len,
+                          flags, groups=self.groups)
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache, cache_pos,
+                    flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,
+                    all_logits: bool = False):
+        return tf.decode_step(self.params, self.cfg, tokens, cache,
+                              cache_pos, flags, all_logits=all_logits,
+                              groups=self.groups)
+
+    def new_cache(self, batch: int, max_len: int):
+        """Zeroed cache of the JAX ``abstract_cache`` shapes."""
+        device = next(self.parameters()).device
+        return tf.new_cache(self.cfg, batch, max_len, device)

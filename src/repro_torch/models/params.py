@@ -1,0 +1,124 @@
+"""Parameter templates: shapes and init, and the weight bridge from JAX.
+
+A model's parameters are described once as a nested dict of
+:class:`ParamSpec` leaves.  ``init_params`` materialises it with an
+explicit ``torch.Generator`` (the same distributions as the JAX
+package's ``_init_leaf``, not the same bits); ``params_from_jax`` turns
+a JAX param tree (nested dicts of numpy arrays) into the port's
+``state_dict`` so both packages can hold identical weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+# float64 runs the plain versions only (the tests' exact reference); the
+# CUDA kernels refuse it
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"      # normal | ones | scaled
+    scale: float = 1.0
+
+
+Template = Dict[str, Any]   # nested dict with ParamSpec leaves
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts (all trees share the
+    first tree's keys)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> ``{"blocks.l0.mixer.wq": leaf}`` (insertion order)."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def stack_template(template: Template, n: int) -> Template:
+    """Add a leading stacking dimension (one slice per layer group)."""
+    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
+                    template)
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    # the JAX rule: fan_in is the leading dim of a >=2-d leaf
+    fan_in = spec.shape[0] if len(spec.shape) >= 2 \
+        else max(spec.shape[-1], 1)
+    std = spec.scale if spec.init == "scaled" \
+        else spec.scale / math.sqrt(fan_in)
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(dtype)
+
+
+def init_params(template: Template, gen: torch.Generator, dtype: str,
+                device) -> Dict[str, Any]:
+    """Materialise ``template`` on ``device`` in leaf order, drawing from
+    ``gen`` (which must live on ``device``)."""
+    dt = DTYPES[dtype]
+    return tree_map(lambda s: _init_leaf(s, gen, dt, device), template)
+
+
+def _from_numpy(a) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart in from_numpy:
+        # cross through the raw 16-bit pattern, which both share
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg, device="cpu"
+                    ) -> Dict[str, torch.Tensor]:
+    """The weight bridge: a JAX param tree (nested dicts of numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, engine.params)``) to the
+    port's ``state_dict`` — the same dotted paths, the same shapes,
+    stacked ``[R, ...]`` leaves kept as they are, values bit-exact."""
+    from .transformer import model_template
+    want = flatten(model_template(cfg))
+    got = flatten(np_tree)
+    if set(want) != set(got):
+        raise ValueError(f"param paths differ from the {cfg.name} template: "
+                         f"missing {sorted(set(want) - set(got))}, "
+                         f"extra {sorted(set(got) - set(want))}")
+    out = {}
+    for path, spec in want.items():
+        t = _from_numpy(got[path])
+        if tuple(t.shape) != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != template "
+                             f"{spec.shape}")
+        out[path] = t.to(device)
+    return out

@@ -1,0 +1,61 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+The kernels have no CPU mode: the tests here carry the ``cuda`` marker
+and skip without a CUDA device (the fixture decides, at run time).  The
+module imports no JAX, so it also runs on a machine without it
+(``--noconftest`` skips the JAX package's fixtures):
+
+    PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain(cuda_device, dtype):
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dt)
+
+    x, s = rand(9, 2304), rand(2304)
+    assert (ops.rmsnorm(x, s).float()
+            - ref.rmsnorm_ref(x, s).float()).abs().max() < TOL[dtype]
+    q, k, v = rand(2, 140, 4, 64), rand(2, 140, 2, 64), rand(2, 140, 2, 64)
+    full = ops.flash_attention(q, k, v)
+    assert (full.float() - ref.flash_attention_ref(q, k, v).float()
+            ).abs().max() < TOL[dtype]
+    suffix = ops.flash_attention(q[:, 37:].contiguous(), k, v, q_offset=37)
+    assert torch.equal(suffix, full[:, 37:])
+    B, Sq, P, bs = 3, 3, 6, 8
+    args = [rand(B, Sq, 4, 64), rand(B, Sq, 2, 64), rand(B, Sq, 2, 64),
+            rand(1 + B * P, bs, 2, 64), rand(1 + B * P, bs, 2, 64)]
+    tables = (1 + torch.arange(B, device=cuda_device)[:, None] * P
+              + torch.arange(P, device=cuda_device)).int()
+    pos = torch.tensor([0, 20, 44], dtype=torch.int32, device=cuda_device)
+    freqs = ref.rope_freqs(64, 10_000.0, cuda_device)
+    plain = [a.clone() for a in args]
+    out = ops.fused_flash_decode(*args, tables, pos, freqs)
+    want = ref.fused_flash_decode_ref(*plain, tables, pos, freqs)
+    assert (out.float() - want.float()).abs().max() < TOL[dtype]
+    # the arenas on every non-trash block, as allclose(atol=rtol=TOL):
+    # the kernel's cosf/sinf and torch's cos/sin may round the rotated K
+    # one ulp apart
+    for got, ref_arena in ((args[3], plain[3]), (args[4], plain[4])):
+        torch.testing.assert_close(got[1:].float(), ref_arena[1:].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])

@@ -1,0 +1,202 @@
+"""The port's kernels (repro_torch.kernels) against the JAX package's.
+
+On the CPU each port op runs its plain PyTorch version; it is held
+against the JAX Pallas kernel (interpret mode, as tests/test_kernels.py
+runs it) and against the JAX ``ref.py`` oracle on the same numpy-seeded
+inputs, at f32 2e-5 and bf16 2e-2.  The CUDA wrappers' input checks run
+here too; the CUDA kernels themselves run only on the card
+(tests/test_torch_cuda.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention_kernel  # noqa: E402
+from repro.kernels.flash_decode import fused_flash_decode_kernel  # noqa: E402
+from repro.kernels.ref import (  # noqa: E402
+    flash_attention_ref as jax_flash_ref,
+    fused_flash_decode_ref as jax_decode_ref, rmsnorm_ref as jax_rmsnorm_ref)
+from repro.kernels.rmsnorm import rmsnorm_kernel  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    fused_flash_decode_cuda)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX and a torch array of ``dtype`` (both
+    round f32 to bf16 to nearest even)."""
+    return (jnp.asarray(a, jnp.float32).astype(JDT[dtype]),
+            torch.tensor(a, dtype=torch.float32).to(TDT[dtype]))
+
+
+def _err(j, t) -> float:
+    return float(np.abs(np.asarray(j, np.float32)
+                        - t.float().numpy()).max())
+
+
+# ---------------------------------------------------------------------------
+# K1 rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(7, 256), (33, 512), (3, 2304)])
+def test_rmsnorm_plain_matches_jax(rows, d, dtype):
+    rng = np.random.RandomState(rows * d)
+    jx, tx = _pair(rng.randn(rows, d), dtype)
+    js, ts = _pair(rng.randn(d), dtype)
+    out = ops.rmsnorm(tx, ts, eps=1e-5)
+    assert out.dtype == TDT[dtype] and out.shape == (rows, d)
+    assert _err(rmsnorm_kernel(jx, js, eps=1e-5), out) < TOL[dtype]
+    assert _err(jax_rmsnorm_ref(jx, js), out) < TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# K3 flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, S_total, KV, G, hd, window, q_offset
+    (2, 40, 2, 1, 64, 0, 0),
+    (1, 150, 1, 2, 64, 0, 0),
+    (2, 64, 2, 2, 64, 24, 0),
+    (2, 100, 2, 2, 64, 0, 37),
+    (1, 90, 1, 2, 64, 32, 50),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,KV,G,hd,window,off", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(B, S, KV, G, hd, window, off,
+                                           dtype):
+    H = KV * G
+    rng = np.random.RandomState(S * H + hd + off)
+    jq, tq = _pair(rng.randn(B, S - off, H, hd), dtype)
+    jk, tk = _pair(rng.randn(B, S, KV, hd), dtype)
+    jv, tv = _pair(rng.randn(B, S, KV, hd), dtype)
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              q_offset=off)
+    assert out.shape == (B, S - off, H, hd) and out.dtype == TDT[dtype]
+    jout = flash_attention_kernel(jq, jk, jv, causal=True, window=window,
+                                  q_offset=off)
+    assert _err(jout, out) < TOL[dtype]
+    if off == 0:
+        assert _err(jax_flash_ref(jq, jk, jv, causal=True, window=window),
+                    out) < TOL[dtype]
+    else:
+        # the JAX oracle has no q_offset: compare with its full rows
+        full_q = _pair(np.concatenate([rng.randn(B, off, H, hd),
+                                       np.asarray(jq, np.float32)], axis=1),
+                       dtype)[0]
+        jfull = jax_flash_ref(full_q, jk, jv, causal=True, window=window)
+        assert _err(jfull[:, off:], out) < TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# K2 fused flash decode
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(seed, B, Sq, KV, G, hd, bs, P, positions, dtype):
+    """Arena with trash block 0 and tables padded with 0 past each row's
+    last page, as the paged layout lays them out."""
+    H = KV * G
+    rng = np.random.RandomState(seed)
+    NB = 1 + B * P
+    arrays = [rng.randn(B, Sq, H, hd), rng.randn(B, Sq, KV, hd),
+              rng.randn(B, Sq, KV, hd), rng.randn(NB, bs, KV, hd),
+              rng.randn(NB, bs, KV, hd)]
+    tbl = np.zeros((B, P), np.int32)
+    for b in range(B):
+        n_pages = -(-(positions[b] + Sq) // bs)
+        tbl[b, :n_pages] = 1 + b * P + np.arange(n_pages)
+    pos = np.asarray(positions, np.int32)
+    pairs = [_pair(a, dtype) for a in arrays]
+    jax_args = [p[0] for p in pairs] + [jnp.asarray(tbl), jnp.asarray(pos)]
+    torch_args = [p[1] for p in pairs] + [torch.from_numpy(tbl),
+                                          torch.from_numpy(pos)]
+    return jax_args, torch_args
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,G,positions", [
+    (1, 1, [5, 17]), (1, 2, [0, 23]), (3, 1, [6, 13]), (3, 2, [0, 28])])
+def test_fused_decode_plain_matches_jax(Sq, G, positions, dtype):
+    KV, hd, bs, P = 2, 64, 8, 4
+    jargs, targs = _decode_inputs(Sq * 7 + G + positions[1], 2, Sq, KV, G,
+                                  hd, bs, P, positions, dtype)
+    freqs = ref.rope_freqs(hd, 10_000.0)
+    out = ops.fused_flash_decode(*targs, freqs)
+    k_pages, v_pages = targs[3], targs[4]
+    for fn in (fused_flash_decode_kernel, jax_decode_ref):
+        jout, jk, jv = fn(*jargs)
+        assert _err(jout, out) < TOL[dtype], fn.__name__
+        # every non-trash block: the window written in place, the rest
+        # untouched
+        assert _err(jk[1:], k_pages[1:]) < TOL[dtype], fn.__name__
+        assert _err(jv[1:], v_pages[1:]) < TOL[dtype], fn.__name__
+
+
+def test_fused_decode_slot_arena_view_updates_cache():
+    """The slot layout: a [B, max_len, KV, hd] cache viewed as an arena
+    through slot_arena_tables is written in place at pos..pos+S'-1."""
+    from repro_torch.models import paging
+    B, L, KV, hd, Sq = 2, 32, 2, 64, 2
+    rng = np.random.RandomState(3)
+    cache_k = torch.tensor(rng.randn(B, L, KV, hd), dtype=torch.float32)
+    cache_v = torch.tensor(rng.randn(B, L, KV, hd), dtype=torch.float32)
+    before_k = cache_k.clone()
+    q = torch.tensor(rng.randn(B, Sq, 2 * KV, hd), dtype=torch.float32)
+    kn = torch.tensor(rng.randn(B, Sq, KV, hd), dtype=torch.float32)
+    vn = torch.tensor(rng.randn(B, Sq, KV, hd), dtype=torch.float32)
+    pos = torch.tensor([7, 20], dtype=torch.int32)
+    page = paging.fused_page_size(L)
+    tables = paging.slot_arena_tables(B, L, page)
+    ops.fused_flash_decode(q, kn, vn, cache_k.view(-1, page, KV, hd),
+                           cache_v.view(-1, page, KV, hd), tables, pos,
+                           ref.rope_freqs(hd, 10_000.0))
+    for b in range(B):
+        p = int(pos[b])
+        assert torch.equal(cache_v[b, p:p + Sq], vn[b])
+        changed = (cache_k[b] != before_k[b]).any(-1).any(-1)
+        assert changed.nonzero().flatten().tolist() == list(range(p, p + Sq))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA wrappers' checks (reachable without a card)
+# ---------------------------------------------------------------------------
+
+def _wrapper_calls(x):
+    """Each CUDA wrapper called with ``x`` as its first operand."""
+    B, S, H, hd = 1, 4, 2, 64
+    k = torch.zeros(B, S, H, hd)
+    arena = torch.zeros(3, 8, H, hd)
+    return [
+        lambda: rmsnorm_cuda(x, torch.ones(hd)),
+        lambda: flash_attention_cuda(x, k, k),
+        lambda: fused_flash_decode_cuda(
+            x, k, k, arena, arena, torch.zeros(B, 3, dtype=torch.int32),
+            torch.zeros(B, dtype=torch.int32), torch.zeros(hd // 2)),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("misuse,match", [
+    ("dtype", "dtype"), ("strided", "contiguous"), ("cpu", "CUDA tensor")])
+def test_cuda_wrappers_refuse_misuse(which, misuse, match):
+    x = torch.zeros(1, 4, 2, 64)
+    if misuse == "dtype":
+        x = x.to(torch.float16)
+    elif misuse == "strided":
+        x = torch.zeros(1, 4, 2, 128)[..., ::2]
+    before = dict(build.launches)
+    with pytest.raises(ValueError, match=match):
+        _wrapper_calls(x)[which]()
+    assert build.launches == before
