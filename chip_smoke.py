@@ -3,16 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, holds each against its plain PyTorch version on the card, serves
-``minicpm_2b`` at full width (40 layers, d_model 2304, bf16, random
-weights from a seed) through ``repro_torch.serving.LLMEngine`` —
-``generate``, then ``new_cache`` / ``prefill`` / ``insert`` / ``decode``
-/ ``verify`` on a 4-slot cache — checks the launch counters and the
-outputs, and times each kernel.  Every phase and check prints a
-JSON line; any failure raises and exits non-zero.  The last lines are
-the card's name and power limit, the kernel summary, and
-``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels (K1-K5) from
+``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
+PyTorch version on the card, reads whether cuBLAS rows depend on the
+row count, serves ``minicpm_2b`` at full width and depth (40 layers,
+d_model 2304, bf16, random weights from a seed) through
+``repro_torch.serving.LLMEngine`` — ``generate``, then ``new_cache`` /
+``prefill`` / ``insert`` / ``decode`` / ``verify`` on a 4-slot cache —
+and through the ``Scheduler`` on a paged arena (chunked prefill, prefix
+sharing, speculative verify, preemption) once per decode kernel, checks
+the launch counters against the schedule and the outputs (slot and
+paged layouts bitwise equal; an f32 run against per-request greedy),
+and times each kernel.  Every phase and check prints a JSON line; any
+failure raises and exits non-zero.  The last lines are the card's name
+and power limit, the kernel summary, and ``{"ok": true, "device":
+{...}}``.
 
 It needs a CUDA device and the repository's ``src/`` beside it, and
 exits non-zero without either.
@@ -121,8 +126,7 @@ def phase_kernels(torch):
     from repro_torch.models import paging
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"rmsnorm": 0.0, "flash_attention": 0.0,
-            "fused_flash_decode": 0.0}
+    errs = {name: 0.0 for name in SOURCES}
 
     def rand(shape, dt, scale=1.0):
         return (torch.randn(shape, device=dev, generator=g) * scale).to(dt)
@@ -217,8 +221,166 @@ def phase_kernels(torch):
                 check(torch.equal(alone, out[2:3]),
                       f"fused_flash_decode {case}: row 2 alone is not "
                       f"bitwise equal to row 2 of the batch")
+        for shape in DECODE_SHAPES:
+            check_paged_kernels(torch, dev, g, dtype, shape, record)
     torch.cuda.synchronize()
     return errs
+
+
+#: (name, H, KV, hd) of the attention shapes K4 and K5 are held at:
+#: minicpm_2b's (the served path) and qwen3_32b's (GQA, wide heads)
+DECODE_SHAPES = (("minicpm_2b", 36, 36, 64), ("qwen3_32b", 64, 8, 128))
+#: keys seen by the first window query of each active row, and the one
+#: inactive row (all-zero table) at a stale position
+ROW_KEYS = (1, 15, 16, 17, 300, 4095)
+INACTIVE_POS = 37
+
+
+def paged_layout(torch, dev, g, row_keys, Sq, bs, P):
+    """Block tables of a paged arena with trash block 0: each active
+    row's pages drawn at random from the pool, padded with 0 past the
+    row's last page (window included); one inactive row, all zeros.
+    Returns (tables [B, P] int32, positions [B] int32, blocks)."""
+    B = len(row_keys) + 1
+    pos = torch.tensor([n - 1 for n in row_keys] + [INACTIVE_POS],
+                       dtype=torch.int32, device=dev)
+    need = [-(-(n - 1 + Sq) // bs) for n in row_keys]
+    NB = 1 + sum(need) + 8
+    perm = 1 + torch.randperm(NB - 1, device=dev, generator=g)
+    tbl = torch.zeros(B, P, dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(need):
+        tbl[b, :n] = perm[at:at + n].int()
+        at += n
+    return tbl, pos, NB
+
+
+def check_paged_kernels(torch, dev, g, dtype, shape, record):
+    """K4 against its plain version and against K2, K5 against its
+    plain version, at ``shape``; S' = 1 and 5; the rows of ROW_KEYS and
+    an inactive row.  Bitwise: each row alone equals its row of the
+    batch (K4, K5); K4 on the same rows as a slot arena (page 8) equals
+    K4 on the paged arena (bs 16); an inactive row writes nothing
+    outside block 0 and its output is finite."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (
+        fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    name, H, KV, hd = shape
+    dt = getattr(torch, dtype)
+    tol = TOL[dtype]
+    bs, page = 16, 8
+    T_len = 4112                       # the longest row's window fits
+    P = T_len // bs
+    freqs = ref.rope_freqs(hd, 10_000.0, dev)
+
+    def rand(*shp):
+        return torch.randn(*shp, device=dev, generator=g).to(dt)
+
+    def sub(t, b):
+        return t[b:b + 1].contiguous()
+
+    for Sq in (1, 5):
+        tbl, pos, NB = paged_layout(torch, dev, g, ROW_KEYS, Sq, bs, P)
+        B = tbl.shape[0]
+        q, kn, vn = rand(B, Sq, H, hd), rand(B, Sq, KV, hd), rand(B, Sq, KV,
+                                                                  hd)
+        kp, vp = rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)
+        case = f"{name} S'={Sq}"
+        # K4 and K2 and the plain version on copies of the same arenas
+        a4, a2, ap = ([kp.clone(), vp.clone()] for _ in range(3))
+        out4 = fused_flash_decode_splitk_cuda(q, kn, vn, *a4, tbl, pos, freqs)
+        out2 = fused_flash_decode_cuda(q, kn, vn, *a2, tbl, pos, freqs)
+        want = ref.fused_flash_decode_ref(q, kn, vn, *ap, tbl, pos, freqs)
+        act = slice(0, B - 1)              # the active rows
+        record("fused_flash_decode_splitk", dtype, case, out4[act],
+               want[act], tol)
+        record("fused_flash_decode_splitk", dtype, case + " vs K2",
+               out4[act], out2[act], tol)
+        for i, label in ((0, "k arena"), (1, "v arena")):
+            record("fused_flash_decode_splitk", dtype, f"{case} {label}",
+                   a4[i][1:], ap[i][1:], tol)
+        check(bool(torch.isfinite(out4).all()),
+              f"K4 {case}: non-finite output")
+        # each row alone; the inactive row's output is unspecified (it
+        # reads block 0 while its window lands there), so it is held
+        # to writing block 0 only
+        for b in range(B):
+            c = [kp.clone(), vp.clone()]
+            alone = fused_flash_decode_splitk_cuda(
+                sub(q, b), sub(kn, b), sub(vn, b), *c, sub(tbl, b),
+                sub(pos, b), freqs)
+            if b < B - 1:
+                check(torch.equal(alone, out4[b:b + 1]),
+                      f"K4 {case}: row {b} alone is not bitwise equal to "
+                      f"its row of the batch")
+            else:
+                check(torch.equal(c[0][1:], kp[1:])
+                      and torch.equal(c[1][1:], vp[1:]),
+                      f"K4 {case}: the inactive row wrote outside block 0")
+        # layout independence: the same rows as slot rows, page 8
+        ks = kp[tbl.long()].reshape(B, T_len, KV, hd)
+        vs = vp[tbl.long()].reshape(B, T_len, KV, hd)
+        from repro_torch.models import paging
+        stbl = paging.slot_arena_tables(B, T_len, page, dev)
+        arena = [ks.reshape(-1, page, KV, hd).clone(),
+                 vs.reshape(-1, page, KV, hd).clone()]
+        slot4 = fused_flash_decode_splitk_cuda(q, kn, vn, *arena, stbl, pos,
+                                               freqs)
+        check(torch.equal(slot4[act], out4[act]),
+              f"K4 {case}: slot arena (page {page}) and paged arena "
+              f"(bs {bs}) outputs are not bitwise equal")
+        if Sq > 1:
+            continue
+        # K5: the rotated single query, the arena as the window left it
+        q5 = rand(B, H, hd)
+        out5 = paged_attention_cuda(q5, kp, vp, tbl, pos)
+        want5 = ref.paged_attention_ref(q5, kp, vp, tbl, pos)
+        record("paged_attention", dtype, name, out5[act], want5[act], tol)
+        check(bool(torch.isfinite(out5).all()),
+              f"K5 {name}: non-finite output")
+        for b in range(B):
+            alone = paged_attention_cuda(sub(q5, b), kp, vp, sub(tbl, b),
+                                         sub(pos, b))
+            check(torch.equal(alone, out5[b:b + 1]),
+                  f"K5 {name}: row {b} alone is not bitwise equal to its "
+                  f"row of the batch")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b — are cuBLAS GEMM rows independent of the row count?
+# ---------------------------------------------------------------------------
+
+def phase_gemm_width(torch):
+    """For minicpm_2b's four GEMM shapes (K x N) in bf16 and f32: is row
+    i of ``x[:M] @ W`` bitwise equal to row i of ``x[:16] @ W`` for M =
+    1, 2, 4, 8, 16?  (The logits GEMM multiplies by the tied embedding's
+    transpose, as the model does.)"""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    shapes = {"qkvo": (2304, 2304), "gate_up": (2304, 5760),
+              "down": (5760, 2304), "logits": (2304, 122880)}
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for name, (K, N) in shapes.items():
+            x = torch.randn(16, K, device=dev, generator=g).to(dt)
+            if name == "logits":
+                w = torch.randn(N, K, device=dev, generator=g).to(dt).t()
+            else:
+                w = torch.randn(K, N, device=dev, generator=g).to(dt)
+            full = x @ w
+            row = {}
+            for M in (1, 2, 4, 8, 16):
+                part = x[:M] @ w
+                row[M] = {"equal": bool(torch.equal(part, full[:M])),
+                          "max_abs_diff": float(
+                              (part.float() - full[:M].float()).abs().max())}
+            out[f"{name} {dtype}"] = row
+            emit({"phase": "gemm_width", "gemm": name, "K": K, "N": N,
+                  "dtype": dtype, "rows_equal_to_width_16": row})
+    torch.cuda.synchronize()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +448,10 @@ def phase_main_path(torch):
 
     prefills = 1 + len(GROUPS)
     ticks = (GEN_NEW - 1) + TICKS
-    expected = {"rmsnorm": (2 * L + 1) * (prefills + ticks + 1),
-                "flash_attention": L * prefills,
-                "fused_flash_decode": L * (ticks + 1)}
+    expected = {name: 0 for name in build.launches}
+    expected.update({"rmsnorm": (2 * L + 1) * (prefills + ticks + 1),
+                     "flash_attention": L * prefills,
+                     "fused_flash_decode": L * (ticks + 1)})
     emit({"phase": "main_path", "arch": cfg.name, "layers": L,
           "d_model": cfg.d_model, "heads": cfg.num_heads,
           "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
@@ -334,6 +497,334 @@ def phase_main_path(torch):
                        "plain path")
     del k32, p32, w32
     return counts, e2e
+
+
+# ---------------------------------------------------------------------------
+# phase 3b — the Scheduler over a paged arena at full width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_MAX_LEN = 1024
+SERVE_BLOCK = 16
+SERVE_SLOTS = 4
+SERVE_CHUNK = 256
+SERVE_SPEC = 4
+SERVE_REQUESTS = 8
+SERVE_PREFIX = 256            # tokens every prompt starts with
+SERVE_NEW = 32
+SERVE_MOTIF = 37              # each prompt's body repeats a motif, so
+                              # prompt lookup has drafts to propose
+#: prompt lengths: the first request's, then the others' (drawn from the
+#: seed).  Every prompt ingests in three chunks after the first 256-token
+#: chunk of the shared prefix, which only the first request computes, so
+#: the request admitted last is always the last to finish its prompt
+SERVE_PROMPT = ((724, 768), (804, 850))
+#: the arena with room for every slot's longest request (no pressure)
+ROOMY_BLOCKS = 1 + SERVE_SLOTS * SERVE_MAX_LEN // SERVE_BLOCK
+#: the f32 exactness check compares a step while the reference's top-2
+#: logit gap is at least this
+TOP2_GAP = 1e-3
+
+
+def serve_requests(vocab: int):
+    """The served prompts: the shared 256-token prefix, then a body that
+    repeats a random motif; lengths from SERVE_PROMPT."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 3)
+    prefix = rng.randint(0, vocab, SERVE_PREFIX)
+    (lo0, hi0), (lo, hi) = SERVE_PROMPT
+    lengths = [rng.randint(lo0, hi0 + 1)] + list(
+        rng.randint(lo, hi + 1, SERVE_REQUESTS - 1))
+    out = []
+    for n in lengths:
+        motif = rng.randint(0, vocab, SERVE_MOTIF)
+        body = np.tile(motif, -(-(n - SERVE_PREFIX) // SERVE_MOTIF))
+        out.append(np.concatenate([prefix, body[:n - SERVE_PREFIX]])
+                   .astype(np.int32))
+    return out
+
+
+def pressure_blocks(requests):
+    """The arena under pressure: (num_blocks, the fewest blocks four
+    prompts take, the most three requests take at their end).
+
+    Pressure preempts the youngest request in a slot.  A victim that has
+    streamed tokens replays its prompt and tokens through prefill and
+    must re-derive its last token, which a decode step produced; in
+    bf16 the two round differently and 40 random layers amplify one ulp
+    into a different token about half of the time, so a victim must
+    hold no streamed token.  The arena is sized so that any three
+    requests fit at their last token (a decode step never runs short
+    while at most three slots decode) and no four prompts fit together
+    (so four slots never decode at once, and pressure only arises while
+    the youngest request still ingests its prompt).  Blocks are counted
+    beside the shared prefix's 16, held once."""
+    import itertools
+    bs, shared = SERVE_BLOCK, SERVE_PREFIX // SERVE_BLOCK
+    prompt = [-(-p.size // bs) - shared for p in requests]
+    end = [-(-(p.size + SERVE_NEW + SERVE_SPEC + 1) // bs) - shared
+           for p in requests]
+    three = shared + max(sum(c) for c in itertools.combinations(end, 3))
+    four = shared + min(sum(c) for c in itertools.combinations(prompt, 4))
+    check(three < four, f"no arena size separates three requests' ends "
+                        f"({three} blocks) from four prompts ({four})")
+    return 1 + three, four, three
+
+
+def always_draft(context, k):
+    """Prompt lookup's draft, or else the last token repeated: random
+    weights seldom emit a token of the prompt, and lookup alone would
+    leave nearly every tick a plain decode.  So every tick of a
+    speculating request but its last verifies a window of 1 + k."""
+    import numpy as np
+    from repro_torch.serving import lookup_draft
+    d = lookup_draft(context, k)
+    return d if d.size else np.repeat(np.asarray(context[-1:], np.int32), k)
+
+
+def serve(torch, engine, requests, num_blocks, *, paged=True,
+          prefix_sharing=True, speculate_k=SERVE_SPEC):
+    """Serve ``requests`` through the port's ``Scheduler`` to completion,
+    with every launch counter at 0 before the first call.  Returns
+    ({id: tokens}, scheduler stats, launch counts, wall seconds)."""
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.serving import PagedBackend, Scheduler, SlotBackend
+    if paged:
+        backend = PagedBackend(engine, SERVE_SLOTS, num_blocks=num_blocks,
+                               block_size=SERVE_BLOCK,
+                               prefix_sharing=prefix_sharing)
+    else:
+        backend = SlotBackend(engine, SERVE_SLOTS)
+    sched = Scheduler(backend, max_new_tokens=SERVE_NEW,
+                      chunk_size=SERVE_CHUNK, speculate_k=speculate_k,
+                      draft_fn=always_draft)
+    for i, p in enumerate(requests):
+        sched.submit({"tokens": p, "id": i})
+    for name in build.launches:
+        build.launches[name] = 0
+    t0 = time.perf_counter()
+    got = {}
+    while sched.has_work():
+        for ev in sched.admit() + sched.step():
+            if ev.finished:
+                got[ev.request.id] = np.asarray(ev.request.tokens, np.int32)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return got, dict(sched.stats), dict(build.launches), wall
+
+
+def expected_serve_launches(cfg, stats, attend: str):
+    """Launches the schedule in ``stats`` implies: every forward pass
+    runs 2 norms per layer and the final one; every prefill or extend
+    call one K3 per layer; every decode or verify tick one ``attend``
+    per layer."""
+    from repro_torch.kernels import build
+    L = cfg.num_layers
+    pre, ticks = stats["prefill_calls"], stats["decode_steps"]
+    want = {name: 0 for name in build.launches}
+    want.update({"rmsnorm": (2 * L + 1) * (pre + ticks),
+                 "flash_attention": L * pre, attend: L * ticks})
+    return want
+
+
+#: the three runs of the serve phase: (name, flags, speculate_k, the
+#: decode attention kernel they must launch)
+SERVE_RUNS = (
+    ("default", {}, SERVE_SPEC, "fused_flash_decode"),
+    ("split_k", {"fused_split_k": True}, SERVE_SPEC,
+     "fused_flash_decode_splitk"),
+    ("paged_kernel", {"use_fused_decode": False, "use_paged_kernel": True},
+     0, "paged_attention"),
+)
+
+
+def phase_serve(torch):
+    """The Scheduler on a PagedBackend at full width and depth (bf16
+    minicpm_2b, random weights from the seed): three runs launched by
+    the engine's flags, each held to the launches its schedule implies;
+    the layout check (paged and slot backends, bitwise equal tokens);
+    the exactness check in f32 against a per-request greedy reference;
+    and the paged decode tick's time."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = get_config("minicpm_2b")
+    requests = serve_requests(cfg.vocab_size)
+    check(all(p.size + SERVE_NEW <= SERVE_MAX_LEN for p in requests),
+          "a served request longer than max_len")
+    blocks, four, three = pressure_blocks(requests)
+    emit({"phase": "serve_workload", "prompt_lengths":
+          [int(p.size) for p in requests], "num_blocks": blocks,
+          "blocks_four_prompts": four, "blocks_three_ends": three})
+    engines = {}
+    counts_all = {}
+    for name, flags, spec, attend in SERVE_RUNS:
+        engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                           flags=RuntimeFlags(**flags))
+        engines[name] = engine
+        got, stats, counts, wall = serve(torch, engine, requests, blocks,
+                                         speculate_k=spec)
+        want = expected_serve_launches(cfg, stats, attend)
+        emit({"phase": "serve", "run": name, "flags": flags,
+              "speculate_k": spec, "num_blocks": blocks,
+              "seconds": wall, "launches": counts,
+              "expected_launches": want,
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "spec_drafted", "spec_accepted",
+                  "preemptions", "replayed_tokens", "shared_block_hits",
+                  "prefill_tokens_saved", "completed")}})
+        check(counts == want, f"serve {name}: launch counts {counts} != "
+                              f"{want}")
+        check(stats["preemptions"] > 0, f"serve {name}: no preemption")
+        check(stats["completed"] == len(requests)
+              and sorted(got) == list(range(len(requests))),
+              f"serve {name}: not every request completed")
+        for i, toks in got.items():
+            check(toks.shape == (SERVE_NEW,)
+                  and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+                  f"serve {name}: request {i}'s tokens")
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        if name == "paged_kernel":
+            del engines[name], engine
+
+    # ---- the layout check: paged and slot, no sharing, no pressure -----
+    engine = engines["default"]
+    paged, _, _, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
+                           prefix_sharing=False)
+    slot, stats, _, _ = serve(torch, engine, requests, 0, paged=False)
+    equal = [bool(np.array_equal(paged[i], slot[i]))
+             for i in range(len(requests))]
+    emit({"phase": "serve_layouts", "requests": len(requests),
+          "bitwise_equal": sum(equal), "preemptions": stats["preemptions"]})
+    check(all(equal), "paged and slot backends' tokens are not bitwise "
+                      "equal")
+
+    # ---- the paged decode tick, with K2 and with K4 --------------------
+    for name in ("split_k", "default"):
+        tick = time_paged_tick(torch, engines.pop(name), requests)
+        emit({"phase": "serve_tick", "run": name, **tick})
+    emit({"phase": "serve_replay", "dtype": cfg.dtype,
+          **replay_agreement(engine, requests)})
+
+    # ---- exactness in f32 against per-request greedy -------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    w32 = {k: v.float() for k, v in engine.model.named_parameters()}
+    del engine
+    e32 = LLMEngine(cfg32, w32, max_len=SERVE_MAX_LEN)
+    emit({"phase": "serve_replay", "dtype": "float32",
+          **replay_agreement(e32, requests)})
+    got, stats, _, _ = serve(torch, e32, requests, blocks)
+    exact = compare_with_greedy(torch, e32, requests, got)
+    emit({"phase": "serve_f32_exact", "preemptions": stats["preemptions"],
+          "replayed_tokens": stats["replayed_tokens"],
+          "spec_steps": stats["spec_steps"], **exact})
+    check(exact["rows_compared"] > 0, "f32 exactness: no row compared")
+    check(exact["mismatches"] == 0, "f32 exactness: a served token differs "
+                                    "from the greedy reference's")
+    del e32, w32
+    return counts_all
+
+
+def replay_agreement(engine, requests, new=24, cuts=(1, 6, 12, 18, 23)):
+    """How often a prefill re-derives the token a decode step emitted,
+    as a replay after a mid-decode preemption must: four requests are
+    decoded greedily by ``generate``, then each prompt ++ its first
+    ``n`` tokens is prefilled and its next token compared with token
+    ``n``.  A reading, not a check: it is why the serve workload keeps
+    streamed tokens out of preemption."""
+    import numpy as np
+    agree = []
+    for p in requests[:4]:
+        gen = engine.generate(p[None], new)[0]
+        for n in cuts:
+            tok, _ = engine.prefill(np.concatenate([p, gen[:n]])[None])
+            agree.append(int(tok[0]) == int(gen[n]))
+    return {"agree": sum(agree), "cuts": len(agree)}
+
+
+def compare_with_greedy(torch, engine, requests, got):
+    """Each request alone through ``engine.model``: prefill, then greedy
+    decode steps, keeping the logits.  A served token must equal the
+    reference's while the reference's top-2 gap is at least TOP2_GAP; a
+    row is compared up to its first near-tie."""
+    V = engine.cfg.vocab_size
+    dev = engine.device
+    rows = tokens = mismatches = 0
+    near_ties = []
+    for i, prompt in enumerate(requests):
+        x = torch.as_tensor(prompt, device=dev).long()[None]
+        logits, cache = engine.model.prefill(x, SERVE_MAX_LEN,
+                                             flags=engine.flags)
+        n = 0
+        for j in range(SERVE_NEW):
+            top2 = torch.topk(logits[0, :V].float(), 2).values
+            gap = float(top2[0] - top2[1])
+            tok = int(torch.argmax(logits[0, :V]))
+            if gap < TOP2_GAP:
+                near_ties.append([i, j, gap])
+                break
+            n += 1
+            if tok != int(got[i][j]):
+                mismatches += 1
+                break
+            pos = torch.full((1,), prompt.size + j, dtype=torch.int32,
+                             device=dev)
+            logits, cache = engine.model.decode_step(
+                torch.tensor([[tok]], device=dev), cache, pos,
+                flags=engine.flags)
+        rows += n > 0
+        tokens += n
+    return {"rows": len(requests), "rows_compared": rows,
+            "tokens_compared": tokens, "mismatches": mismatches,
+            "near_ties": near_ties, "top2_gap": TOP2_GAP}
+
+
+def time_paged_tick(torch, engine, requests, ticks=20, profiled=5):
+    """Wall time of one Scheduler decode tick (4 active slots, paged
+    arena, default flags, no speculation) and the device's share of it
+    from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import PagedBackend, Scheduler
+    backend = PagedBackend(engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
+                           block_size=SERVE_BLOCK)
+    sched = Scheduler(backend, max_new_tokens=4 + ticks + profiled,
+                      chunk_size=SERVE_CHUNK)
+    for i, p in enumerate(requests[:SERVE_SLOTS]):
+        sched.submit({"tokens": p, "id": i})
+    while sched.ingesting or sched.waiting:
+        sched.admit()
+    check(sched.active == SERVE_SLOTS, "tick timing: slots not all active")
+    keys = [int(p) for p in sched.positions]
+    for _ in range(3):
+        sched.step()
+    times = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        sched.step()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            sched.step()
+        torch.cuda.synchronize()
+    per = device_ms_by_kernel(prof, profiled)
+    device_ms = sum(per.values())
+    check(device_ms > 0, "the profiler recorded no device time")
+    ours = {k: sum(v for name, v in per.items() if k in name)
+            for k in ("rmsnorm_kernel", "fused_decode_kernel",
+                      "splitk_partial_kernel", "splitk_combine_kernel")}
+    return {"slots": SERVE_SLOTS, "ticks": ticks,
+            "keys_at_first_tick": keys,
+            "ms_per_tick_median": ms, "ms_per_tick_min": min(times) * 1e3,
+            "tokens_per_s": SERVE_SLOTS / (ms / 1e3),
+            "device_ms_per_tick": device_ms,
+            "device_busy_share": device_ms / ms,
+            "port_kernels_ms_per_tick": ours}
 
 
 def compare_first_tick(torch, engine, plain, ref32, toks, cfg):
@@ -572,18 +1063,104 @@ def phase_times(torch):
         "library_note": "no single PyTorch call rotates, scatters into a "
                         "paged arena and attends",
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": L}
+
+    # K4 and K5: the serve phase's paged decode tick (4 rows, bs 16,
+    # rows at the served lengths, S' = 1), then qwen3_32b's attention
+    # shape with 4 rows of 4096 keys
+    for shape, keys in ((("minicpm_2b", H, H, hd), (300, 520, 700, 930)),
+                        (("qwen3_32b", 64, 8, 128), (4096,) * 4)):
+        for name, r in time_paged_kernels(torch, g, shape, keys).items():
+            if shape[0] == "minicpm_2b":
+                rows[name] = r
+            else:
+                emit({"phase": "times", "kernel": name, **r})
     for name, r in rows.items():
         emit({"phase": "times", "kernel": name, **r})
     return rows
 
 
+def time_paged_kernels(torch, g, shape, keys):
+    """K4 (beside K2 on the same inputs) and K5 on a paged arena of
+    ``shape`` = (name, H, KV, hd), block size 16, one row per entry of
+    ``keys`` (keys seen by the row's query, window included), S' = 1.
+    K5's library call is SDPA over K/V gathered beforehand; the gather's
+    time stands beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (
+        fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    name, H, KV, hd = shape
+    bs, B = 16, len(keys)
+    T_len = -(-max(keys) // bs) * bs
+    P = T_len // bs
+    tbl, pos, NB = paged_layout(torch, dev, g, keys, 1, bs, P)
+    tbl, pos = tbl[:B].contiguous(), pos[:B].contiguous()
+
+    def rand(*shp):
+        return torch.randn(*shp, device=dev, generator=g).to(bf)
+
+    kp, vp = rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)
+    q, kn, vn = rand(B, 1, H, hd), rand(B, 1, KV, hd), rand(B, 1, KV, hd)
+    freqs = ref.rope_freqs(hd, 10_000.0, dev)
+    n_keys = sum(keys)
+    io = 2 * (q.numel() * 2 + kn.numel() * 2) + tbl.numel() * 4 + B * 4
+    kv_bytes = 2 * n_keys * KV * hd * 2
+    flops = 4 * hd * H * n_keys
+    b4 = bound(kv_bytes + io, flops, BF16_FLOPS)
+    args = (q, kn, vn, kp, vp, tbl, pos, freqs)
+    k2 = measure(torch, lambda: fused_flash_decode_cuda(*args), None, None)
+    out = {"fused_flash_decode_splitk": {
+        "shape": [B, 1, H, hd], "arch": name, "keys": list(keys),
+        "block_size": bs,
+        **measure(torch, lambda: fused_flash_decode_splitk_cuda(*args),
+                  lambda: ref.fused_flash_decode_ref(*args), None),
+        "k2_ms": k2["ms"],
+        "library_note": "no single PyTorch call rotates, scatters into a "
+                        "paged arena and attends",
+        "bound_ms": b4[0], "bound_by": b4[1]}}
+
+    q5 = rand(B, H, hd)
+    b5 = bound(kv_bytes + 2 * q5.numel() * 2 + tbl.numel() * 4 + B * 4,
+               flops, BF16_FLOPS)
+    idx = torch.arange(T_len, device=dev)
+    mask = (idx[None, :] <= pos[:, None].long())[:, None, None, :]
+
+    def gather():
+        return (kp[tbl.long()].reshape(B, T_len, KV, hd).transpose(1, 2),
+                vp[tbl.long()].reshape(B, T_len, KV, hd).transpose(1, 2))
+
+    kg, vg = gather()
+    qs = q5[:, :, None, :]
+    gather_ms = cuda_ms(torch, gather)[0]
+    out["paged_attention"] = {
+        "shape": [B, H, hd], "arch": name, "keys": list(keys),
+        "block_size": bs,
+        **measure(torch, lambda: paged_attention_cuda(q5, kp, vp, tbl, pos),
+                  lambda: ref.paged_attention_ref(q5, kp, vp, tbl, pos),
+                  lambda: F.scaled_dot_product_attention(
+                      qs, kg, vg, attn_mask=mask, enable_gqa=KV != H)),
+        "library_note": "SDPA over K/V gathered beforehand; the gather's "
+                        "time is gather_ms",
+        "gather_ms": gather_ms,
+        "bound_ms": b5[0], "bound_by": b5[1]}
+    return out
+
+
 SOURCES = {
-    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+    "rmsnorm":("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:88"),
     "fused_flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                            "src/repro/kernels/flash_decode.py:225"),
+    "fused_flash_decode_splitk": (
+        "src/repro_torch/kernels/csrc/flash_decode_splitk.cu",
+        "src/repro/kernels/flash_decode.py:166"),
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:78"),
 }
 
 
@@ -591,13 +1168,17 @@ def main() -> int:
     torch = setup()
     smi = phase_build(torch)
     errs = phase_kernels(torch)
+    phase_gemm_width(torch)
     counts, e2e = phase_main_path(torch)
+    serve_counts = phase_serve(torch)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
+        launches = counts[name] + serve_counts[name]
+        check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": errs[name], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

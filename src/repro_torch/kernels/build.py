@@ -32,7 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
-                            "fused_flash_decode": 0}
+                            "fused_flash_decode": 0,
+                            "fused_flash_decode_splitk": 0,
+                            "paged_attention": 0}
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +51,17 @@ SIGNATURES = {
     # B, Sq, H, KV, hd, bs, P, dtype, stream
     "repro_fused_flash_decode": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _V],
+    # the same, then part (f32 scratch), out, B, Sq, H, KV, hd, bs, P,
+    # NS (splits), dtype, stream
+    "repro_fused_flash_decode_splitk": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
+                                        _V, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _V],
+    # keys per split of the split-K kernel
+    "repro_splitk_span": [],
+    # q, k_pages, v_pages, tables, positions, out, B, H, KV, hd, bs, P,
+    # dtype, stream
+    "repro_paged_attention": [_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
+                              _I, _I, _V],
 }
 
 #: dtype codes shared with csrc/common.cuh

@@ -1,12 +1,18 @@
-"""K2 — fused flash decode: the CUDA kernel's wrapper and its plain
-version.
+"""K2 and K4 — fused flash decode: the CUDA kernels' wrappers and their
+plain version.
 
-Replaces the JAX package's
-``kernels/flash_decode.py:fused_flash_decode_kernel`` (the gathered
-variant, ``split_k=False``); the kernel is ``csrc/flash_decode.cu``:
-RoPE on q and the new K, the window scattered into the arenas **in
-place**, and per-query-masked GQA attention streamed over the row's
-pages, one CTA per (row, kv head).
+K2 replaces the JAX package's
+``kernels/flash_decode.py:fused_flash_decode_kernel`` with
+``split_k=False`` (the gathered variant); its kernel is
+``csrc/flash_decode.cu``: RoPE on q and the new K, the window scattered
+into the arenas **in place**, and per-query-masked GQA attention
+streamed over the row's pages, one CTA per (row, kv head).
+
+K4 replaces the same function with ``split_k=True``; its kernel is
+``csrc/flash_decode_splitk.cu``: the same contract with the row's keys
+split across CTAs in spans of fixed absolute key positions, the
+partials combined in ascending split order by a second launch.  Both
+compute :func:`fused_flash_decode_ref`'s function.
 """
 from __future__ import annotations
 
@@ -15,18 +21,14 @@ import torch
 from . import build
 from .ref import fused_flash_decode_ref, rope_freqs
 
-__all__ = ["fused_flash_decode_cuda", "fused_flash_decode_ref",
-           "rope_freqs"]
+__all__ = ["fused_flash_decode_cuda", "fused_flash_decode_splitk_cuda",
+           "fused_flash_decode_ref", "rope_freqs"]
 
 
-def fused_flash_decode_cuda(q: torch.Tensor, k_new: torch.Tensor,
-                            v_new: torch.Tensor, k_pages: torch.Tensor,
-                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                            positions: torch.Tensor, freqs: torch.Tensor
-                            ) -> torch.Tensor:
-    """The contract of :func:`fused_flash_decode_ref`, on the card.
-    ``k_pages``/``v_pages`` are updated in place; returns the attention
-    output [B, S', H, hd]."""
+def _check(q, k_new, v_new, k_pages, v_pages, block_tables, positions,
+           freqs):
+    """The operand checks of both kernels; returns (B, Sq, H, hd, bs, KV,
+    P)."""
     build.check_operand("q", q)
     for name, t in (("k_new", k_new), ("v_new", v_new),
                     ("k_pages", k_pages), ("v_pages", v_pages)):
@@ -52,6 +54,19 @@ def fused_flash_decode_cuda(q: torch.Tensor, k_new: torch.Tensor,
     if H % KV or hd % 8:
         raise ValueError(f"fused flash decode: needs heads % kv_heads == 0 "
                          f"and head_dim % 8 == 0 (H={H}, KV={KV}, hd={hd})")
+    return B, Sq, H, hd, bs, KV, P
+
+
+def fused_flash_decode_cuda(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_tables: torch.Tensor,
+                            positions: torch.Tensor, freqs: torch.Tensor
+                            ) -> torch.Tensor:
+    """K2: the contract of :func:`fused_flash_decode_ref`, on the card.
+    ``k_pages``/``v_pages`` are updated in place; returns the attention
+    output [B, S', H, hd]."""
+    B, Sq, H, hd, bs, KV, P = _check(q, k_new, v_new, k_pages, v_pages,
+                                     block_tables, positions, freqs)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -62,4 +77,34 @@ def fused_flash_decode_cuda(q: torch.Tensor, k_new: torch.Tensor,
         build.DTYPE_CODE[q.dtype], build.stream_handle(q))
     build.check(err, "fused_flash_decode")
     build.launches["fused_flash_decode"] += 1
+    return out
+
+
+def fused_flash_decode_splitk_cuda(q: torch.Tensor, k_new: torch.Tensor,
+                                   v_new: torch.Tensor,
+                                   k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   positions: torch.Tensor,
+                                   freqs: torch.Tensor) -> torch.Tensor:
+    """K4: K2's contract with split-K partials.  Allocates the f32
+    partials, ``[B, KV, splits, S' * H / KV, hd + 2]`` with one split
+    per span of the kernel's fixed key count; two launches, one call."""
+    B, Sq, H, hd, bs, KV, P = _check(q, k_new, v_new, k_pages, v_pages,
+                                     block_tables, positions, freqs)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = build.lib()
+    span = lib.repro_splitk_span()
+    NS = -(-(P * bs) // span)
+    part = torch.empty(B * KV * NS * Sq * (H // KV) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
+    err = lib.repro_fused_flash_decode_splitk(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(), positions.data_ptr(),
+        freqs.data_ptr(), part.data_ptr(), out.data_ptr(), B, Sq, H, KV, hd,
+        bs, P, NS, build.DTYPE_CODE[q.dtype], build.stream_handle(q))
+    build.check(err, "fused_flash_decode_splitk")
+    build.launches["fused_flash_decode_splitk"] += 1
     return out

@@ -12,10 +12,13 @@ import torch
 
 from .build import launches
 from .flash_attention import flash_attention_cuda, flash_attention_ref
-from .flash_decode import fused_flash_decode_cuda, fused_flash_decode_ref
+from .flash_decode import (fused_flash_decode_cuda, fused_flash_decode_ref,
+                           fused_flash_decode_splitk_cuda)
+from .paged_attention import paged_attention_cuda, paged_attention_ref
 from .rmsnorm import rmsnorm_cuda, rmsnorm_ref
 
-__all__ = ["launches", "rmsnorm", "flash_attention", "fused_flash_decode"]
+__all__ = ["launches", "rmsnorm", "flash_attention", "fused_flash_decode",
+           "paged_attention"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
@@ -36,12 +39,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def fused_flash_decode(q, k_new, v_new, k_pages, v_pages, block_tables,
-                       positions, freqs) -> torch.Tensor:
+                       positions, freqs, *, split_k: bool = False
+                       ) -> torch.Tensor:
     """One-call fused decode/verify attention: RoPE + tail-block scatter
     (in place into ``k_pages``/``v_pages``) + per-query-masked attention
-    over the arena.  Returns the attention output."""
+    over the arena.  ``split_k`` picks K4 over K2 on the card; both
+    compute the same function, so the CPU runs one plain version.
+    Returns the attention output."""
     if q.is_cuda:
-        return fused_flash_decode_cuda(q, k_new, v_new, k_pages, v_pages,
-                                       block_tables, positions, freqs)
+        kernel = fused_flash_decode_splitk_cuda if split_k \
+            else fused_flash_decode_cuda
+        return kernel(q, k_new, v_new, k_pages, v_pages, block_tables,
+                      positions, freqs)
     return fused_flash_decode_ref(q, k_new, v_new, k_pages, v_pages,
                                   block_tables, positions, freqs)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables,
+                    positions) -> torch.Tensor:
+    """Single-query paged decode attention through block tables (K5):
+    q [B, H, hd] rotated, the new token already in the arena."""
+    if q.is_cuda:
+        return paged_attention_cuda(q, k_pages, v_pages, block_tables,
+                                    positions)
+    return paged_attention_ref(q, k_pages, v_pages, block_tables, positions)

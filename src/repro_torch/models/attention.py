@@ -1,22 +1,29 @@
-"""GQA attention with RoPE and optional qk-norm (qwen3), over a contiguous
-slot KV cache.  Plain functions on tensors in the JAX package's layouts:
-``wq`` is [d, H, hd], caches are [B, max_len, KV, hd].
+"""GQA attention with RoPE and optional qk-norm (qwen3), over a KV cache
+in one of two layouts: contiguous slot rows ``[B, max_len, KV, hd]`` or
+a paged block-pool arena ``[num_blocks, block_size, KV, hd]`` reached
+through block tables (block 0 is the trash block).  Plain functions on
+tensors in the JAX package's layouts: ``wq`` is [d, H, hd].
 
-Prefill runs the flash-attention op, decode and verify windows the fused
-flash-decode op; with a kernel flag turned off the op's plain version
-runs instead, on any device.
+Prefill and the extend suffix run the flash-attention op (K3), decode
+and verify windows the fused flash-decode op (K2, or K4 with
+``fused_split_k``); the paged layout's single-query arm runs the
+paged-attention op (K5, ``use_paged_kernel``).  With a kernel flag
+turned off the plain version runs instead, on any device.  Caches are
+written in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import flash_attention_ref, fused_flash_decode_ref
+from ..kernels.ref import (flash_attention_ref, fused_flash_decode_ref,
+                           gathered_attention, upcast)
 from . import paging
 from .config import ArchConfig
-from .layers import apply_rope, rms_norm
+from .layers import apply_rope, linear, rms_norm
 from .params import ParamSpec, Template
 
 
@@ -39,16 +46,24 @@ def kv_cache_shape(cfg: ArchConfig, batch: int,
     return (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
 
 
+def paged_kv_cache_shape(cfg: ArchConfig, num_blocks: int,
+                         block_size: int) -> Tuple[int, ...]:
+    """The paged arena (the JAX ``abstract_paged_kv_cache``): the slot
+    axis is replaced by a pool of fixed-size token blocks shared by all
+    sequences (block 0 = trash)."""
+    return (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` as one matmul: [B,S,d] @ [d, h*k]."""
+    """``einsum("bsd,dhk->bshk")`` as one product: [B,S,d] @ [d, h*k]."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    return linear(x, w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd")`` as one matmul."""
+    """``einsum("bshk,hkd->bsd")`` as one product."""
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+    return linear(out.reshape(*out.shape[:-2], h * k), wo.reshape(h * k, d))
 
 
 def _qkv(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -102,7 +117,83 @@ def fused_slot_decode(params, cfg: ArchConfig, x: torch.Tensor,
     page = paging.fused_page_size(S)
     k_arena = cache["k"].view(B * (S // page), page, KV, hd)
     v_arena = cache["v"].view(B * (S // page), page, KV, hd)
-    attend = ops.fused_flash_decode if paging.use_fused_decode(cfg, flags) \
-        else fused_flash_decode_ref
-    out = attend(q, k, v, k_arena, v_arena, tables, pos, freqs)
+    out = _fused_call(cfg, flags)(q, k, v, k_arena, v_arena, tables, pos,
+                                  freqs)
     return _out_proj(out, params["wo"])
+
+
+def _fused_call(cfg: ArchConfig, flags):
+    """The fused decode op of ``flags``: K2, K4 (``fused_split_k``), or
+    their plain version when ``use_fused_decode`` is off."""
+    if not paging.use_fused_decode(cfg, flags):
+        return fused_flash_decode_ref
+    return functools.partial(ops.fused_flash_decode,
+                             split_k=flags.fused_split_k)
+
+
+def paged_decode(params, cfg: ArchConfig, x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                 tables: torch.Tensor, freqs: torch.Tensor,
+                 flags) -> torch.Tensor:
+    """Decode one (or, speculatively, S') token(s) against a paged arena
+    ``[NB, bs, KV, hd]``, written **in place**; the three arms of the
+    JAX ``_paged_decode``:
+
+    * fused (``use_fused_decode``): q/k/v un-rotated into one fused
+      flash-decode call (K2, or K4 with ``fused_split_k``) that rotates
+      at ``pos .. pos + S' - 1``, scatters the window into each row's
+      tail block(s) and attends query ``s`` over ``idx <= pos + s``;
+    * paged kernel (``use_paged_kernel``, S' = 1): the rotated token is
+      scattered into its tail block, then K5 reads the row through its
+      table;
+    * gather: scatter, then the pages gathered back into position order
+      (exactly the contiguous row) and the plain attention.
+
+    Rows whose table entry is the trash block 0 (inactive slots, window
+    positions past the row's pages) write there harmlessly; their
+    output is unspecified.  Returns the attention block's output."""
+    S_q = x.shape[1]
+    if paging.use_fused_decode(cfg, flags):
+        q, k, v = _qkv(params, cfg, x, None, rope=False)
+        out = _fused_call(cfg, flags)(q, k, v, cache["k"], cache["v"], tables,
+                                      pos, freqs)
+        return _out_proj(out, params["wo"])
+    pos_s = pos.long()[:, None] + torch.arange(S_q, device=x.device)
+    q, k, v = _qkv(params, cfg, x, pos_s)
+    bs = cache["k"].shape[1]
+    blk, off = paging.tail_refs(tables, pos_s, bs)
+    paging.scatter_token(cache["k"], blk, off, k)
+    paging.scatter_token(cache["v"], blk, off, v)
+    if S_q == 1 and flags.use_paged_kernel:
+        out = ops.paged_attention(q[:, 0], cache["k"], cache["v"], tables,
+                                  pos)[:, None]
+    else:
+        k_seq = paging.gather_pages(cache["k"], tables)
+        v_seq = paging.gather_pages(cache["v"], tables)
+        out = gathered_attention(q, upcast(k_seq), upcast(v_seq),
+                                 pos_s).to(q.dtype)
+    return _out_proj(out, params["wo"])
+
+
+def prefill_extend_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
+                              positions: torch.Tensor,
+                              prefix_kv: Dict[str, torch.Tensor],
+                              prefix_len: int, flags):
+    """Prefill only the prompt *suffix*, attending over cached prefix K/V.
+
+    x: [B, S'] suffix hidden states at positions ``prefix_len ..
+    prefix_len + S' - 1``; prefix_kv: k/v of positions ``0 ..
+    prefix_len - 1`` gathered from the cache.  The suffix queries attend
+    over prefix ++ suffix through the flash op at ``q_offset =
+    prefix_len`` (K3), or its plain version when ``use_flash`` is off;
+    both partition the keys at absolute multiples of 128, so the suffix
+    rows — and the first generated token — are bitwise equal to a cold
+    prefill of the whole prompt.  Returns (the attention block's output,
+    the suffix's rotated K and its V, [B, S', KV, hd])."""
+    q, k, v = _qkv(params, cfg, x, positions)
+    k_full = torch.cat([prefix_kv["k"].to(k.dtype), k], dim=1)
+    v_full = torch.cat([prefix_kv["v"].to(v.dtype), v], dim=1)
+    attend = ops.flash_attention if flags.use_flash else flash_attention_ref
+    out = attend(q, k_full, v_full, causal=True, window=cfg.sliding_window,
+                 q_offset=prefix_len)
+    return _out_proj(out, params["wo"]), {"k": k, "v": v}

@@ -1,14 +1,40 @@
-"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.  Plain functions
-on tensors, in the JAX package's layouts."""
+"""Shared layers: the one matrix product, RMSNorm, RoPE, SwiGLU MLP,
+embeddings.  Plain functions on tensors, in the JAX package's layouts."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..kernels.ref import rmsnorm_ref, rotate, upcast
+from ..kernels.ref import rmsnorm_ref, rotate, two_rows, upcast
 from ..kernels.ref import rope_freqs as rope_frequencies
 from .params import ParamSpec, Template
+
+
+# ---------------------------------------------------------------------------
+# the matrix product
+# ---------------------------------------------------------------------------
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x [..., K] and a 2-D weight w [K, N]: every matrix
+    product of the model goes through here, so the width rule lives in
+    one place.
+
+    Serving holds a row's tokens bitwise equal whether it decodes alone
+    (``generate``, one row) or in a continuous batch (one row per slot),
+    so a row's product must not depend on how many rows it travels with.
+    On the CPU, rows of a product of two or more rows do not, but a
+    single row takes another path and rounds differently: a single row
+    is multiplied as two (a copy) and the first kept.  On the card the
+    product runs as it is (``chip_smoke.py`` phase ``gemm_width`` reads
+    cuBLAS's behaviour; ROADMAP Hazard 4)."""
+    K, N = w.shape
+    rows = x.reshape(-1, K)
+    if rows.shape[0] == 1 and x.device.type == "cpu":
+        y = (two_rows(rows, 0) @ w)[:1]
+    else:
+        y = rows @ w
+    return y.view(*x.shape[:-1], N)
 
 
 # ---------------------------------------------------------------------------
@@ -52,10 +78,10 @@ def mlp_template(d: int, d_ff: int) -> Template:
 
 
 def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
+    g = linear(x, params["w_gate"])
+    u = linear(x, params["w_up"])
     h = F.silu(upcast(g)).to(x.dtype) * u
-    return h @ params["w_down"]
+    return linear(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -75,4 +101,4 @@ def lm_head_template(d: int, vocab: int) -> Template:
 
 
 def lm_head_apply(params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"]
+    return linear(x, params["w"])

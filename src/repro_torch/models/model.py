@@ -1,5 +1,6 @@
 """Model facade: one ``nn.Module`` per architecture holding its weights,
-with prefill / decode and the cache shapes.
+with prefill / prefix-extend / decode and the cache shapes of both
+layouts.
 
 The weights are registered under the JAX param-tree paths, so
 ``state_dict()`` keys read ``blocks.l0.mixer.wq`` and the stacked
@@ -89,14 +90,31 @@ class Model(nn.Module):
                           flags, groups=self.groups)
 
     @torch.no_grad()
+    def prefill_extend(self, tokens: torch.Tensor, cache, prefix_ref,
+                       prefix_len: int, max_cache_len: int,
+                       flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS):
+        return tf.prefill_extend(self.params, self.cfg, tokens, cache,
+                                 prefix_ref, prefix_len, max_cache_len,
+                                 flags, groups=self.groups)
+
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache, cache_pos,
                     flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,
-                    all_logits: bool = False):
+                    all_logits: bool = False, block_tables=None):
         return tf.decode_step(self.params, self.cfg, tokens, cache,
                               cache_pos, flags, all_logits=all_logits,
-                              groups=self.groups)
+                              groups=self.groups, block_tables=block_tables)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
 
     def new_cache(self, batch: int, max_len: int):
         """Zeroed cache of the JAX ``abstract_cache`` shapes."""
-        device = next(self.parameters()).device
-        return tf.new_cache(self.cfg, batch, max_len, device)
+        return tf.new_cache(self.cfg, batch, max_len, self.device)
+
+    def new_paged_cache(self, num_blocks: int, block_size: int):
+        """Zeroed block-pool arena of the JAX ``abstract_paged_cache``
+        shapes (block 0 is the trash block)."""
+        return tf.new_paged_cache(self.cfg, num_blocks, block_size,
+                                  self.device)

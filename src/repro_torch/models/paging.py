@@ -1,10 +1,88 @@
-"""The block-table seam: how a contiguous slot cache is presented to the
-fused flash-decode kernel as a position-ordered arena.  (The paged
-layout's gather/scatter paths come with the paged backend, ROADMAP
-Queue 1 item 3.)"""
+"""The block-table seam for paged KV caches (the JAX ``models/paging``).
+
+Every place the model layer touches K/V through a block table funnels
+through this module: the tail-block scatter of a decode step, the page
+gather that reconstructs a sequence in position order, the prefix
+gather of chunked/prefix-extend prefill, and the view of a contiguous
+slot cache as a position-ordered arena for the fused decode kernels.
+A gather in position order IS the contiguous row, which keeps the paged
+paths bitwise equal to the slot ones.
+
+``PagedPrefix`` / ``SlotPrefix`` name the two cache layouts a
+prefix-extend prefill can read its prefix from: a block-pool arena
+reached through a block table, or a contiguous slot row.
+"""
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Tuple, Union
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPrefix:
+    """Prefix K/V lives in a paged arena, reached via ``block_tables``
+    ([B, P] int32) with pages of ``block_size`` tokens."""
+    block_tables: torch.Tensor
+    block_size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPrefix:
+    """Prefix K/V lives in contiguous slot rows ``slots`` ([B] int) of a
+    ``[num_slots, max_len, ...]`` cache."""
+    slots: torch.Tensor
+
+
+PrefixRef = Union[PagedPrefix, SlotPrefix]
+
+
+def tail_refs(block_tables: torch.Tensor, pos: torch.Tensor,
+              block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(block ids, in-block offsets) of each row's write position(s).
+
+    ``pos`` is [B] (one write per row — plain decode) or [B, S']
+    (speculative verify: S' consecutive write positions per row).  Rows
+    whose table entry is the trash block 0 (inactive slots, padding)
+    resolve to block 0 — writes there are harmless and block 0 is never
+    read unmasked."""
+    pos = pos.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if pos.ndim == 2:
+        rows = rows[:, None]
+    return block_tables.long()[rows, pos // block_size], pos % block_size
+
+
+def scatter_token(leaf: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
+                  new: torch.Tensor) -> torch.Tensor:
+    """Write new cache entries into their tail blocks, **in place**.
+    ``blk``/``off`` are [B] with ``new`` [B, ...] (one token per row), or
+    [B, S'] with ``new`` [B, S', ...] (a speculative verify window).
+    Several inactive rows may all write block 0: ``index_put_`` with
+    repeated indices leaves the order undefined on CUDA, which is
+    harmless only because block 0 is never read unmasked."""
+    leaf[blk, off] = new.to(leaf.dtype)
+    return leaf
+
+
+def gather_pages(leaf: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """Reassemble each row's sequence in position order: [B, P*bs, ...].
+
+    This reconstructs exactly the contiguous cache row (pages are
+    gathered in table order and the table is position-ordered), which
+    is the bit-identity argument for paged decode."""
+    B, P = block_tables.shape
+    bs = leaf.shape[1]
+    return leaf[block_tables.long()].reshape((B, P * bs) + leaf.shape[2:])
+
+
+def valid_mask(total_len: int, pos: torch.Tensor) -> torch.Tensor:
+    """[B, T] mask of cache positions at or before each row's write
+    position (position ``pos`` itself was just written this step)."""
+    return torch.arange(total_len, device=pos.device)[None, :] \
+        <= pos.long()[:, None]
 
 
 def use_fused_decode(cfg, flags) -> bool:
@@ -33,3 +111,20 @@ def slot_arena_tables(batch: int, max_len: int, page: int,
     P = max_len // page
     return (torch.arange(batch, dtype=torch.int32, device=device)[:, None] * P
             + torch.arange(P, dtype=torch.int32, device=device)[None, :])
+
+
+def gather_prefix_kv(mixer_cache: Dict[str, torch.Tensor], ref: PrefixRef,
+                     prefix_len: int) -> Dict[str, torch.Tensor]:
+    """Gather positions ``[0, prefix_len)`` of each row's cached K/V.
+
+    The one place prefix-extend prefill dispatches on cache layout:
+    paged gathers ``prefix_len // block_size`` whole pages through the
+    table; slot slices the head of the contiguous row."""
+    if isinstance(ref, SlotPrefix):
+        return {k: a[ref.slots.long(), :prefix_len]
+                for k, a in mixer_cache.items()}
+    n_pages = prefix_len // ref.block_size
+    ptbl = ref.block_tables[:, :n_pages].long()
+    B = ref.block_tables.shape[0]
+    return {k: a[ptbl].reshape((B, prefix_len) + a.shape[2:])
+            for k, a in mixer_cache.items()}

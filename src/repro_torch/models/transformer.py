@@ -1,24 +1,25 @@
 """Model composition for dense attention decoders: the layer, the stacked
 layer groups (a Python loop over the ``[R, ...]`` leaves takes the place
-of ``lax.scan``), the logits, and the two serving entry points,
-``prefill`` and ``decode_step``.
+of ``lax.scan``), the logits, and the serving entry points ``prefill``,
+``prefill_extend`` and ``decode_step``.
 
 Caches are nested dicts with the JAX package's keys and shapes
-(``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``)
-and are updated **in place**: ``decode_step`` returns the cache it was
-given, written at each row's window positions.
+(``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``
+for slot rows, ``[R, num_blocks, block_size, KV, hd]`` leaves for the
+paged arena) and are updated **in place**: ``decode_step`` returns the
+cache it was given, written at each row's window positions.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from . import attention as attn
 from . import paging
 from .config import ArchConfig
-from .layers import (embed_apply, embed_template, lm_head_apply,
+from .layers import (embed_apply, embed_template, linear, lm_head_apply,
                      lm_head_template, mlp_apply, mlp_template,
                      rms_norm, rmsnorm_template)
 from .params import DTYPES, Template, stack_template, tree_map
@@ -27,14 +28,21 @@ from ..kernels.ref import rope_freqs
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeFlags:
-    """The kernel flags of the JAX package's ``RuntimeFlags``, on by
-    default: the serving path is the kernel path on every device (on the
-    CPU the ops run their plain versions).  A flag turned off runs that
-    op's plain version on any device.  The JAX flags of later slices
-    (paged kernel, split-K, sharding) come with their ports."""
-    use_flash: bool = True           # flash-attention op for prefill
+    """The kernel flags of the JAX package's ``RuntimeFlags``.  The first
+    three are on by default: the serving path is the kernel path on
+    every device (on the CPU the ops run their plain versions), and a
+    flag turned off runs that op's plain version on any device.  The two
+    paged-decode variants are off by default, as in JAX.  (The JAX
+    sharding flags come with the sharded serving port.)"""
+    use_flash: bool = True           # flash-attention op for prefill/extend
     fused_rmsnorm: bool = True       # fused RMSNorm op for the layer norms
     use_fused_decode: bool = True    # fused flash-decode op for decode/verify
+    # paged single-query decode through the paged-attention op (K5)
+    # instead of the page gather; used when use_fused_decode is off
+    use_paged_kernel: bool = False
+    # the fused decode op's split-K variant (K4): the row's keys split
+    # across CTAs in fixed spans of absolute key positions
+    fused_split_k: bool = False
 
 
 DEFAULT_FLAGS = RuntimeFlags()
@@ -53,7 +61,7 @@ def check_supported(cfg: ArchConfig) -> None:
     elif cfg.is_encoder_decoder or cfg.frontend:
         why = "encoder-decoder and modality stubs: ROADMAP Queue 1 item 9"
     elif cfg.sliding_window:
-        why = "sliding-window attention: ROADMAP Queue 1 item 3"
+        why = "sliding-window attention: ROADMAP Queue 1 item 3b"
     elif cfg.mtp_depth:
         why = "multi-token prediction: ROADMAP Queue 1 item 8"
     if why is not None:
@@ -99,19 +107,40 @@ def model_template(cfg: ArchConfig) -> Template:
     return t
 
 
-def cache_shapes(cfg: ArchConfig, batch: int, max_len: int):
-    """Shapes of the cache ``prefill`` returns (the JAX
-    ``abstract_cache``): ``[R, batch, max_len, KV, hd]`` per k/v leaf."""
+def _cache_tree(cfg: ArchConfig, shape):
     _, pattern, R = group_structure(cfg)
-    shape = (R,) + attn.kv_cache_shape(cfg, batch, max_len)
+    shape = (R,) + shape
     return {"blocks": {f"l{j}": {"mixer": {"k": shape, "v": shape}}
                        for j in range(len(pattern))}}
 
 
-def new_cache(cfg: ArchConfig, batch: int, max_len: int, device):
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int):
+    """Shapes of the cache ``prefill`` returns (the JAX
+    ``abstract_cache``): ``[R, batch, max_len, KV, hd]`` per k/v leaf."""
+    return _cache_tree(cfg, attn.kv_cache_shape(cfg, batch, max_len))
+
+
+def paged_cache_shapes(cfg: ArchConfig, num_blocks: int, block_size: int):
+    """Shapes of the paged arena (the JAX ``abstract_paged_cache``): the
+    tree of :func:`cache_shapes` with ``[R, num_blocks, block_size, KV,
+    hd]`` leaves."""
+    return _cache_tree(cfg, attn.paged_kv_cache_shape(cfg, num_blocks,
+                                                      block_size))
+
+
+def _zeros(cfg: ArchConfig, shapes, device):
     dt = DTYPES[cfg.dtype]
-    return tree_map(lambda s: torch.zeros(s, dtype=dt, device=device),
-                    cache_shapes(cfg, batch, max_len))
+    return tree_map(lambda s: torch.zeros(s, dtype=dt, device=device), shapes)
+
+
+def new_cache(cfg: ArchConfig, batch: int, max_len: int, device):
+    return _zeros(cfg, cache_shapes(cfg, batch, max_len), device)
+
+
+def new_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
+                    device):
+    return _zeros(cfg, paged_cache_shapes(cfg, num_blocks, block_size),
+                  device)
 
 
 def unstack_groups(blocks, R: int) -> List[Dict[str, Any]]:
@@ -123,30 +152,21 @@ def unstack_groups(blocks, R: int) -> List[Dict[str, Any]]:
 # layer
 # ---------------------------------------------------------------------------
 
-def layer_apply(params, cfg: ArchConfig, x: torch.Tensor,
-                positions: Optional[torch.Tensor], cache, flags: RuntimeFlags,
-                decode: Optional[Dict[str, torch.Tensor]] = None
+def layer_apply(params, cfg: ArchConfig, x: torch.Tensor, flags: RuntimeFlags,
+                mixer: Callable[[Any, torch.Tensor], torch.Tensor]
                 ) -> torch.Tensor:
-    """One pre-norm attention + SwiGLU block.  Prefill (``decode`` None)
-    writes the prompt's K/V into ``cache``; decode (``decode`` holds the
-    window ``pos``, arena ``tables`` and rope ``freqs``) runs the fused
-    decode op, which writes the window into ``cache``."""
+    """One pre-norm attention + SwiGLU block; ``mixer(mixer_params, h)``
+    is the attention of the entry point (prefill, extend, slot or paged
+    decode), which writes its cache in place."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
-    if decode is None:
-        y = attn.prefill_into_cache(params["mixer"], cfg, h, positions,
-                                    cache["mixer"], flags)
-    else:
-        y = attn.fused_slot_decode(params["mixer"], cfg, h, cache["mixer"],
-                                   decode["pos"], decode["tables"],
-                                   decode["freqs"], flags)
-    x = x + y
+    x = x + mixer(params["mixer"], h)
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
     return x + mlp_apply(params["ffn"], h2)
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["embedding"].t()
+        logits = linear(x, params["embed"]["embedding"].t())
     else:
         logits = lm_head_apply(params["lm_head"], x)
     if cfg.padded_vocab != cfg.vocab_size:
@@ -155,16 +175,27 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _run_groups(params, cfg, x, positions, cache, flags, groups, decode=None):
+def _run_groups(params, cfg, x, cache_blocks, flags, groups, mixer):
+    """Every layer in order.  ``cache_blocks`` is a tree with ``[R, ...]``
+    leaves (``cache["blocks"]``, or a dict of such trees); layer ``lj``
+    of group ``r`` runs ``mixer(mixer_params, h, group_cache, "lj")``
+    with ``group_cache`` the tree's ``r``-th slice."""
     _, pattern, R = group_structure(cfg)
     groups = groups if groups is not None \
         else unstack_groups(params["blocks"], R)
-    cache_groups = unstack_groups(cache["blocks"], R)
+    cache_groups = unstack_groups(cache_blocks, R)
     for r in range(R):
         for j in range(len(pattern)):
-            x = layer_apply(groups[r][f"l{j}"], cfg, x, positions,
-                            cache_groups[r][f"l{j}"], flags, decode)
+            name = f"l{j}"
+            x = layer_apply(
+                groups[r][name], cfg, x, flags,
+                lambda mp, h, c=cache_groups[r], n=name: mixer(mp, h, c, n))
     return x
+
+
+def _last_logits(params, cfg, x, flags):
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
+    return _logits(params, cfg, x[:, -1:])[:, 0]
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -177,28 +208,84 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     cache = new_cache(cfg, B, max_cache_len, x.device)
-    x = _run_groups(params, cfg, x, positions, cache, flags, groups)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
-    return _logits(params, cfg, x[:, -1:])[:, 0], cache
+
+    def mixer(mp, h, c, name):
+        return attn.prefill_into_cache(mp, cfg, h, positions, c[name]["mixer"],
+                                       flags)
+
+    x = _run_groups(params, cfg, x, cache["blocks"], flags, groups, mixer)
+    return _last_logits(params, cfg, x, flags), cache
+
+
+def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
+                   prefix_ref: paging.PrefixRef, prefix_len: int,
+                   max_cache_len: int, flags: RuntimeFlags = DEFAULT_FLAGS,
+                   groups=None):
+    """Prefill a prompt *suffix* against already-cached prefix K/V.
+
+    tokens: [B, S'] — the prompt tokens from position ``prefix_len`` on;
+    ``prefix_ref`` names where the prefix lives (``paging.PagedPrefix``
+    — the arena through a block table, ``prefix_len`` a multiple of its
+    block size — or ``paging.SlotPrefix`` — contiguous slot rows).  One
+    entry point serves prefix-shared and chunked prefill on both
+    layouts.  Each layer attends over its gathered prefix K/V and emits
+    the suffix's K/V as cache rows ``[R, B, max_cache_len, KV, hd]``
+    (suffix at row positions ``0 .. S' - 1``, zero beyond); ``cache`` is
+    only read.  Returns (last-token logits [B, V], rows).  The suffix
+    rows are bitwise equal to a cold prefill of the whole prompt's."""
+    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
+    B, S_, _ = x.shape
+    positions = (prefix_len + torch.arange(S_, device=x.device)).expand(B, S_)
+    rows = new_cache(cfg, B, max_cache_len, x.device)
+
+    def mixer(mp, h, c, name):
+        pkv = paging.gather_prefix_kv(c["arena"][name]["mixer"], prefix_ref,
+                                      prefix_len)
+        y, kv = attn.prefill_extend_into_cache(mp, cfg, h, positions, pkv,
+                                               prefix_len, flags)
+        out = c["rows"][name]["mixer"]
+        out["k"][:, :S_] = kv["k"]
+        out["v"][:, :S_] = kv["v"]
+        return y
+
+    x = _run_groups(params, cfg, x,
+                    {"arena": cache["blocks"], "rows": rows["blocks"]},
+                    flags, groups, mixer)
+    return _last_logits(params, cfg, x, flags), rows
 
 
 def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                 cache_pos: torch.Tensor, flags: RuntimeFlags = DEFAULT_FLAGS,
-                all_logits: bool = False, groups=None):
+                all_logits: bool = False, groups=None,
+                block_tables: Optional[torch.Tensor] = None):
     """One decode step.  tokens: [B, S'] (S' = 1 for plain decode; S' > 1
     scores a speculative verify window); ``cache_pos`` is a [B] int32
     vector of per-row offsets (window token s of row b sits at
-    ``cache_pos[b] + s``).  Writes the window into ``cache`` in place and
-    returns (logits, cache): [B, V] at the first window position, or
-    [B, S', V] with ``all_logits=True``."""
+    ``cache_pos[b] + s``).  ``block_tables`` ([B, P] int32) switches to
+    the paged layout: ``cache`` holds block-pool arenas and each row's
+    K/V is reached through its table.  Writes the window into ``cache``
+    in place and returns (logits, cache): [B, V] at the first window
+    position, or [B, S', V] with ``all_logits=True``."""
     x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
     B = x.shape[0]
-    max_len = cache["blocks"]["l0"]["mixer"]["k"].shape[2]
-    decode = {"pos": cache_pos.to(torch.int32).contiguous(),
-              "tables": paging.slot_arena_tables(
-                  B, max_len, paging.fused_page_size(max_len), x.device),
-              "freqs": rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)}
-    x = _run_groups(params, cfg, x, None, cache, flags, groups, decode)
+    pos = cache_pos.to(torch.int32).contiguous()
+    freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)
+    if block_tables is not None:
+        tables = block_tables.to(torch.int32).contiguous()
+
+        def mixer(mp, h, c, name):
+            return attn.paged_decode(mp, cfg, h, c[name]["mixer"], pos,
+                                     tables, freqs, flags)
+    else:
+        max_len = cache["blocks"]["l0"]["mixer"]["k"].shape[2]
+        tables = paging.slot_arena_tables(
+            B, max_len, paging.fused_page_size(max_len), x.device)
+
+        def mixer(mp, h, c, name):
+            return attn.fused_slot_decode(mp, cfg, h, c[name]["mixer"], pos,
+                                          tables, freqs, flags)
+
+    x = _run_groups(params, cfg, x, cache["blocks"], flags, groups, mixer)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
     logits = _logits(params, cfg, x)
     return (logits if all_logits else logits[:, 0]), cache

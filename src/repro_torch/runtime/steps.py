@@ -1,14 +1,18 @@
 """Serving step factories, eager (no jit): prompt ingestion, lockstep
-decode, continuous-batching decode and speculative verify over slot
-rows, and the slot insert.
+decode, continuous-batching decode and speculative verify over slot rows
+or a paged arena, the row inserts of both layouts, and chunked /
+prefix-extend prefill.
 
 Caches are updated in place (see ``models.transformer``); each step
 still returns the cache so callers read like the JAX package's.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..models import paging
 from ..models.model import Model
 from ..models.params import flatten
 from ..models.transformer import DEFAULT_FLAGS, RuntimeFlags
@@ -35,6 +39,16 @@ def make_decode_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS):
     return decode_step
 
 
+def kernel_path(cfg, flags: RuntimeFlags) -> str:
+    """Which decode-attention implementation a serving step runs:
+    ``"fused"`` (the fused flash-decode op, K2 or K4) or ``"fallback"``
+    (K5 or the page gather on the paged layout, the plain fused version
+    on the slot layout).  The engine labels its ``engine.kernel_path``
+    counter with it, so a silent fall-off the fused path shows in
+    ``metrics_text()``."""
+    return "fused" if paging.use_fused_decode(cfg, flags) else "fallback"
+
+
 def _mask_tok(tok: torch.Tensor, active: torch.Tensor,
               pad_id: int) -> torch.Tensor:
     """Inactive slots emit ``pad_id``."""
@@ -49,14 +63,19 @@ def make_serve_decode_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS,
     is a [N] vector of per-slot cache offsets and ``active`` a [N] bool
     mask.  Inactive slots still flow through the step (every row op is
     row-independent, so they cannot perturb active rows, and a later
-    insert overwrites the whole row) but emit ``pad_id``."""
-    def slot_decode_step(tokens, cache, positions, active):
+    insert overwrites the whole row) but emit ``pad_id``.  A paged cache
+    passes ``block_tables`` ([N, P] int32; inactive rows all zero, so
+    their writes land in the trash block 0); the layout difference is
+    entirely inside the model's block-table seam."""
+    def serve_decode_step(tokens, cache, positions, active,
+                          block_tables=None):
         logits, cache = model.decode_step(tokens, cache, positions,
-                                          flags=flags)
+                                          flags=flags,
+                                          block_tables=block_tables)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return _mask_tok(tok, active, pad_id), cache
 
-    return slot_decode_step
+    return serve_decode_step
 
 
 def make_verify_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS,
@@ -64,14 +83,17 @@ def make_verify_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS,
     """Speculative verification: score a ``[N, 1+k]`` window per slot in
     one pass and return the greedy argmax at every window position.
     Window token ``s`` attends under ``idx <= pos + s``, exactly what
-    ``1+k`` successive one-token decode steps compute."""
-    def slot_verify_step(tokens, cache, positions, active):
+    ``1+k`` successive one-token decode steps compute.  Rejected tail
+    writes are rolled back by the scheduler/backend (``positions``
+    rewind + paged ``truncate``)."""
+    def verify_step(tokens, cache, positions, active, block_tables=None):
         logits, cache = model.decode_step(tokens, cache, positions,
-                                          flags=flags, all_logits=True)
+                                          flags=flags, all_logits=True,
+                                          block_tables=block_tables)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return _mask_tok(tok, active, pad_id), cache
 
-    return slot_verify_step
+    return verify_step
 
 
 def slot_batch_axis(path) -> int:
@@ -81,16 +103,102 @@ def slot_batch_axis(path) -> int:
     return 1 if (path and path[0] == "blocks") else 0
 
 
+def _leaves(cache, rows):
+    """(axis of the batch dim, cache leaf, rows leaf) for every leaf."""
+    src = flatten(rows)
+    for path, big in flatten(cache).items():
+        yield slot_batch_axis(path.split(".")), big, src[path]
+
+
 def make_slot_insert():
     """Build ``insert(cache, rows, row, slot)``: copy cache row ``row`` of
     a freshly prefilled batch into slot ``slot`` of the persistent slot
     cache, in place."""
     def insert(cache, rows, row: int, slot: int):
-        src = flatten(rows)
-        for path, big in flatten(cache).items():
-            ax = slot_batch_axis(path.split("."))
-            big.select(ax, slot).copy_(src[path].select(ax, row))
+        for ax, big, r in _leaves(cache, rows):
+            big.select(ax, slot).copy_(r.select(ax, row))
         return cache
 
     return insert
 
+
+def _paged_scatter_rows(block_size: int, arena, rows, row: int,
+                        page_ids: torch.Tensor):
+    """Scatter one prefilled cache row (``[B, S_cache, ...]``, ``S_cache``
+    a multiple of ``block_size``) into the paged arena, page by page, in
+    place.
+
+    ``page_ids`` is a [S_cache / block_size] vector: entry ``j`` is the
+    arena block receiving the row's ``j``-th page, or 0 (the trash
+    block) for pages that must not land anywhere: padding beyond the
+    prompt, and pages already present as shared prefix blocks (shared
+    blocks are immutable; redirecting their writes to the trash block
+    preserves that).  Every 0 entry writes block 0, so block 0 receives
+    duplicate writes whose order ``index_put_`` leaves undefined on
+    CUDA: harmless only because block 0 is never read unmasked."""
+    ids = page_ids.long()
+    for ax, big, r in _leaves(arena, rows):
+        r = r.select(ax, row)
+        if ax == 1:                     # scanned blocks: [R, S, ...]
+            pages = r.reshape((r.shape[0], -1, block_size) + r.shape[2:])
+            big[:, ids] = pages.to(big.dtype)
+        else:                           # head layers: [S, ...]
+            big[ids] = r.reshape((-1, block_size) + r.shape[1:]).to(big.dtype)
+    return arena
+
+
+def make_paged_insert(block_size: int):
+    """Build ``insert(arena, rows, row, page_ids)`` — see
+    :func:`_paged_scatter_rows`."""
+    return functools.partial(_paged_scatter_rows, block_size)
+
+
+def _slot_write_rows(cache, rows, slot: int, offset: int):
+    """Write batch-1 suffix rows (the suffix unpadded) into slot ``slot``
+    at sequence offset ``offset``, in place — the chunked-prefill insert
+    of the contiguous layout."""
+    for ax, big, r in _leaves(cache, rows):
+        r = r.select(ax, 0)
+        big.select(ax, slot).narrow(ax, offset, r.shape[ax]).copy_(r)
+    return cache
+
+
+def make_extend_step(model: Model, prefix_len: int,
+                     flags: RuntimeFlags = DEFAULT_FLAGS, *,
+                     block_size: int = 0, max_cache_len: int = 0):
+    """Chunked / prefix-shared prefill: compute only a prompt suffix
+    against the request's cached prefix, write the suffix K/V back into
+    its cache, and return the last position's next token (meaningful
+    only when the suffix ends the prompt).
+
+    ``block_size == 0`` builds the slot-layout step
+    ``(tokens [1,S'], cache, slot) -> (tok [1], cache)`` that reads the
+    prefix from, and writes the suffix into, contiguous slot row
+    ``slot``; otherwise the paged step ``(tokens [1,S'], cache,
+    table_row [P], page_ids [P]) -> (tok [1], cache)`` reads prefix
+    pages through ``table_row`` and scatters suffix pages to the
+    ``page_ids`` blocks (``prefix_len`` a multiple of ``block_size``)."""
+    if block_size:
+        if max_cache_len <= 0:
+            raise ValueError("paged extend step needs max_cache_len "
+                             "(rows must pad to whole pages)")
+
+        def paged_extend_step(tokens, cache, table_row, page_ids):
+            ref = paging.PagedPrefix(table_row[None], block_size)
+            logits, rows = model.prefill_extend(
+                tokens, cache, ref, prefix_len, max_cache_len, flags=flags)
+            cache = _paged_scatter_rows(block_size, cache, rows, 0, page_ids)
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+        return paged_extend_step
+
+    def slot_extend_step(tokens, cache, slot):
+        ref = paging.SlotPrefix(slot[None])
+        # max_cache_len == suffix length: rows come back unpadded, so the
+        # write touches exactly [slot, prefix_len:prefix_len+S')
+        logits, rows = model.prefill_extend(
+            tokens, cache, ref, prefix_len, tokens.shape[1], flags=flags)
+        cache = _slot_write_rows(cache, rows, int(slot), prefix_len)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return slot_extend_step

@@ -59,3 +59,51 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     for got, ref_arena in ((args[3], plain[3]), (args[4], plain[4])):
         torch.testing.assert_close(got[1:].float(), ref_arena[1:].float(),
                                    atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_kernels_match_plain(cuda_device, dtype):
+    """K4 (split-K fused decode) against its plain version and K2, K5
+    (paged attention) against its plain version, on a paged arena whose
+    rows span several 256-key splits; each row alone is bitwise equal to
+    its row of the batch."""
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dt)
+
+    B, Sq, H, KV, hd, bs, P = 3, 2, 8, 2, 64, 16, 40
+    pos = torch.tensor([0, 255, 600], dtype=torch.int32, device=cuda_device)
+    tables = (1 + torch.randperm(B * P, device=cuda_device, generator=g)
+              .view(B, P)).int()
+    q, kn, vn = rand(B, Sq, H, hd), rand(B, Sq, KV, hd), rand(B, Sq, KV, hd)
+    arena = [rand(1 + B * P, bs, KV, hd), rand(1 + B * P, bs, KV, hd)]
+    freqs = ref.rope_freqs(hd, 10_000.0, cuda_device)
+    a4, a2, ap = ([t.clone() for t in arena] for _ in range(3))
+    out4 = ops.fused_flash_decode(q, kn, vn, *a4, tables, pos, freqs,
+                                  split_k=True)
+    out2 = ops.fused_flash_decode(q, kn, vn, *a2, tables, pos, freqs)
+    want = ref.fused_flash_decode_ref(q, kn, vn, *ap, tables, pos, freqs)
+    for got in (out4, out2):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    for got, ref_arena in zip(a4, ap):
+        torch.testing.assert_close(got[1:].float(), ref_arena[1:].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    alone = ops.fused_flash_decode(
+        q[2:].contiguous(), kn[2:].contiguous(), vn[2:].contiguous(),
+        *[t.clone() for t in arena], tables[2:].contiguous(),
+        pos[2:].contiguous(), freqs, split_k=True)
+    assert torch.equal(alone, out4[2:])
+
+    q5 = rand(B, H, hd)
+    out5 = ops.paged_attention(q5, *arena, tables, pos)
+    torch.testing.assert_close(
+        out5.float(), ref.paged_attention_ref(q5, *arena, tables, pos).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    alone5 = ops.paged_attention(q5[1:2].contiguous(), *arena,
+                                 tables[1:2].contiguous(),
+                                 pos[1:2].contiguous())
+    assert torch.equal(alone5, out5[1:2])

@@ -27,6 +27,18 @@ from repro_torch.models.params import flatten, params_from_jax  # noqa: E402
 from repro_torch.serving import LLMEngine  # noqa: E402
 
 MAX_LEN = 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work: the suite runs
+    several pytest workers side by side, and each torch process's own
+    thread pool over every core slows the lot by an order of magnitude.
+    The port's files that reuse this module's helpers import it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 GAP = 1e-3
 JAX_KERNEL_FLAGS = JaxFlags(use_flash=True, fused_rmsnorm=True,
                             use_fused_decode=True)
@@ -264,12 +276,17 @@ def test_sliding_window_and_other_layouts_raise():
         LLMEngine(cfg, max_len=16, device="cpu")
     engine = LLMEngine(get_config("minicpm_2b").reduced(), max_len=16,
                        device="cpu")
-    paged = types.SimpleNamespace(kind="paged", num_slots=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        engine.new_cache(paged)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        engine.check_extend_support("slot")
-    engine.check_spec_support("slot")
+    for kind in ("state", "hybrid"):
+        layout = types.SimpleNamespace(kind=kind, num_slots=2)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 7"):
+            engine.new_cache(layout)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 7"):
+            engine.check_extend_support(kind)
+    for kind in ("slot", "paged"):
+        engine.check_extend_support(kind)
+        engine.check_spec_support(kind)
     assert engine.mesh is None and engine.cache_shards() == 1
     assert engine.mesh_desc == {"devices": 1, "axes": {}}
 

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     fused_flash_decode_cuda)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from test_torch_engine import one_torch_thread  # noqa: E402,F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
