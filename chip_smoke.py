@@ -5,7 +5,10 @@
 
 Builds the port's CUDA kernels (K1-K5) from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
-PyTorch version on the card, reads whether cuBLAS rows depend on the
+PyTorch version on the card in bf16 and f32 (K3 also at qwen3_32b's and
+stablelm_12b's head shapes, its suffixes bitwise equal to the full
+prefill's rows; K4 and K5 at minicpm_2b's and qwen3_32b's), reads
+whether cuBLAS rows depend on the
 row count, serves ``minicpm_2b`` at full width and depth (40 layers,
 d_model 2304, bf16, random weights from a seed) through
 ``repro_torch.serving.LLMEngine`` — ``generate``, then ``new_cache`` /
@@ -14,7 +17,8 @@ and through the ``Scheduler`` on a paged arena (chunked prefill, prefix
 sharing, speculative verify, preemption) once per decode kernel, checks
 the launch counters against the schedule and the outputs (slot and
 paged layouts bitwise equal; an f32 run against per-request greedy),
-and times each kernel.  Every phase and check prints a JSON line; any
+and times each kernel (K3 also at the serve workload's prefill chunk
+and qwen3_32b's full prefill, K4 and K5 also at qwen3_32b's shape).  Every phase and check prints a JSON line; any
 failure raises and exits non-zero.  The last lines are the card's name
 and power limit, the kernel summary, and ``{"ok": true, "device":
 {...}}``.
@@ -176,6 +180,8 @@ def phase_kernels(torch):
                                      v[2:3].contiguous())
         check(torch.equal(alone, full[2:3]), "flash_attention: row 2 alone "
               "is not bitwise equal to row 2 of the batch")
+        for shape in PREFILL_SHAPES:
+            check_flash_shape(torch, dev, g, dtype, shape, record)
         # K2: 4 rows, max_len 512, page 8, windows of 1 and 4
         B, KV, hd, page = 4, 36, 64, 8
         P = MAX_LEN // page
@@ -225,6 +231,45 @@ def phase_kernels(torch):
             check_paged_kernels(torch, dev, g, dtype, shape, record)
     torch.cuda.synchronize()
     return errs
+
+
+#: (name, H, KV, hd) of the prefill shapes K3 is held at beside
+#: minicpm_2b's: qwen3_32b's (GQA, head_dim 128) and stablelm_12b's
+#: (head_dim 160, the widest the kernel takes)
+PREFILL_SHAPES = (("qwen3_32b", 64, 8, 128), ("stablelm_12b", 32, 8, 160))
+PREFILL_ROWS = 768
+#: suffix offsets: the serve workload's chunk boundaries and one inside
+#: a 128-key block
+PREFILL_OFFSETS = (50, 256, 512)
+
+
+def check_flash_shape(torch, dev, g, dtype, shape, record):
+    """K3 at ``shape`` = (name, H, KV, hd): a causal prefill of
+    PREFILL_ROWS rows against its plain version, and its suffixes at
+    PREFILL_OFFSETS against theirs and bitwise against the full rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    name, H, KV, hd = shape
+    dt = getattr(torch, dtype)
+    tol = TOL[dtype]
+    S = PREFILL_ROWS
+
+    def rand(*shp):
+        return torch.randn(*shp, device=dev, generator=g).to(dt)
+
+    q, k, v = rand(1, S, H, hd), rand(1, S, KV, hd), rand(1, S, KV, hd)
+    full = flash_attention_cuda(q, k, v)
+    case = f"{name} [1,{S},{H},{hd}] kv {KV} causal"
+    record("flash_attention", dtype, case, full,
+           ref.flash_attention_ref(q, k, v), tol)
+    for off in PREFILL_OFFSETS:
+        suf = flash_attention_cuda(q[:, off:].contiguous(), k, v,
+                                   q_offset=off)
+        record("flash_attention", dtype, f"{case} q_offset={off}", suf,
+               ref.flash_attention_ref(q[:, off:], k, v, q_offset=off), tol)
+        check(torch.equal(suf, full[:, off:]),
+              f"flash_attention {name}: suffix at q_offset={off} is not "
+              f"bitwise equal to the full prefill's rows")
 
 
 #: (name, H, KV, hd) of the attention shapes K4 and K5 are held at:
@@ -1039,6 +1084,11 @@ def phase_times(torch):
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 0,
         "launches_per_prefill": L}
 
+    # K3 at the serve workload's chunk (256 rows at q_offset 512 over
+    # 768 keys) and at qwen3_32b's full prefill of 1024 rows
+    for r in time_flash_shapes(torch, g):
+        emit({"phase": "times", "kernel": "flash_attention", **r})
+
     # K2 at the decode tick's shape: 4 slots, max_len 512, S' = 1, rows
     # at the serving run's lengths (32..50 tokens)
     B, page = 4, 8
@@ -1076,6 +1126,58 @@ def phase_times(torch):
                 emit({"phase": "times", "kernel": name, **r})
     for name, r in rows.items():
         emit({"phase": "times", "kernel": name, **r})
+    return rows
+
+
+#: (name, B, S, H, KV, hd, q_offset) of K3's further timed shapes: the
+#: serve workload's third chunk of a prompt (minicpm_2b), and qwen3_32b's
+#: full causal prefill
+FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
+                2 * SERVE_CHUNK),
+               ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0))
+
+
+def time_flash_shapes(torch, g):
+    """K3 at FLASH_TIMED beside its plain version and SDPA: with an
+    explicit boolean mask where q_offset > 0, ``is_causal`` otherwise.
+    The bound counts q, k, v read and the output written once, and 4 hd
+    operations per (query row, visible key, head)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    rows = []
+    for name, B, S, H, KV, hd, off in FLASH_TIMED:
+        T = off + S
+        q = torch.randn(B, S, H, hd, device=dev, generator=g).to(bf)
+        k, v = (torch.randn(B, T, KV, hd, device=dev, generator=g).to(bf)
+                for _ in range(2))
+        pairs = B * H * (S * (off + 1) + S * (S - 1) // 2)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if off:
+            idx = torch.arange(T, device=dev)
+            mask = idx[None, :] <= off + torch.arange(S, device=dev)[:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+        rows.append({
+            "case": name, "shape": [B, S, H, hd], "kv_heads": KV,
+            "keys": T, "q_offset": off,
+            **measure(torch, lambda: flash_attention_cuda(q, k, v,
+                                                          q_offset=off),
+                      lambda: ref.flash_attention_ref(q, k, v, q_offset=off),
+                      library),
+            "library_note": "SDPA, explicit boolean mask" if off
+                            else "SDPA, is_causal",
+            "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
 

@@ -58,10 +58,12 @@ SIGNATURES = {
                                         _I, _V],
     # keys per split of the split-K kernel
     "repro_splitk_span": [],
-    # q, k_pages, v_pages, tables, positions, out, B, H, KV, hd, bs, P,
-    # dtype, stream
-    "repro_paged_attention": [_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
-                              _I, _I, _V],
+    # q, k_pages, v_pages, tables, positions, part (f32 scratch, bf16
+    # only), out, B, H, KV, hd, bs, P, NS (splits), dtype, stream
+    "repro_paged_attention": [_V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _V],
+    # keys per split of the bf16 paged-attention kernel
+    "repro_paged_span": [],
 }
 
 #: dtype codes shared with csrc/common.cuh

@@ -1,6 +1,7 @@
 // The streaming loop shared by the decode-attention kernels: K2 fused
 // flash decode (flash_decode.cu), K4 its split-K variant
-// (flash_decode_splitk.cu) and K5 paged attention (paged_attention.cu).
+// (flash_decode_splitk.cu) and K5 paged attention's f32 body
+// (paged_attention.cu; K5's bf16 kernel runs on tensor cores instead).
 //
 // A decode CTA owns one (row b, kv head): the R = S' x G query rows of
 // the head group (row r = s * G + g is window query s of query head

@@ -3,9 +3,12 @@ plain version.
 
 Replaces the JAX package's
 ``kernels/flash_attention.py:flash_attention_kernel``; the kernel is
-``csrc/flash_attention.cu`` (one CTA per (b, h, 32-row q block), a loop
-over k blocks fixed at absolute multiples of 128, which keeps suffix
-rows of a ``q_offset`` call bitwise equal to the full prefill's).
+``csrc/flash_attention.cu``: a loop over k blocks fixed at absolute
+multiples of 128, which keeps suffix rows of a ``q_offset`` call
+bitwise equal to the full prefill's.  bf16 runs on tensor cores (one
+CTA per (b, h, 64-row q tile), K/V through a ``cp.async`` ring, one
+instantiation per head dim, a multiple of 16); f32 runs the exact-f32
+body of scalar FMAs (one CTA per 32-row q block).
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_ref", "MAX_HEAD_DIM"]
 
-#: widest head the kernel's shared-memory tiles hold (f32 staging)
+#: widest head the kernel's shared-memory tiles hold
 MAX_HEAD_DIM = 160
+#: the bf16 kernel's head dims are multiples of the mma's depth
+BF16_HEAD_DIM_STEP = 16
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,6 +44,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernel: head_dim {hd} > "
                          f"{MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16 and hd % BF16_HEAD_DIM_STEP:
+        raise ValueError(f"flash attention kernel: bf16 head_dim {hd} is "
+                         f"not a multiple of {BF16_HEAD_DIM_STEP}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

@@ -4,9 +4,13 @@ version.
 Replaces the JAX package's
 ``kernels/paged_attention.py:paged_attention_kernel``; the kernel is
 ``csrc/paged_attention.cu``: one rotated query per row attends the
-row's keys ``idx <= positions[b]`` through its block table, one CTA per
-(row, kv head) streaming the keys with an online softmax.  No RoPE and
-no scatter: the caller writes the new token first.
+row's keys ``idx <= positions[b]`` through its block table.  No RoPE and
+no scatter: the caller writes the new token first.  bf16 splits each
+row's keys into spans of fixed absolute positions across CTAs (grid
+(kv head, row, split)), copies K/V through a ``cp.async`` ring and
+multiplies on tensor cores, then folds the f32 partials in split order
+(two launches, one call); f32 runs the exact-f32 body, one CTA per
+(row, kv head) streaming the keys with an online softmax.
 """
 from __future__ import annotations
 
@@ -16,6 +20,10 @@ from . import build
 from .ref import paged_attention_ref
 
 __all__ = ["paged_attention_cuda", "paged_attention_ref"]
+
+#: head dims of the bf16 kernel: multiples of 16 (the mma's depth) up to
+#: this, one instantiation each
+MAX_BF16_HEAD_DIM = 160
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -44,13 +52,24 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if H % KV or hd % 8:
         raise ValueError(f"paged attention: needs heads % kv_heads == 0 and "
                          f"head_dim % 8 == 0 (H={H}, KV={KV}, hd={hd})")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (hd % 16 or hd > MAX_BF16_HEAD_DIM):
+        raise ValueError(f"paged attention kernel: bf16 head_dim {hd} is "
+                         f"not a multiple of 16 up to {MAX_BF16_HEAD_DIM}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    err = build.lib().repro_paged_attention(
+    lib = build.lib()
+    NS = -(-(P * bs) // lib.repro_paged_span())
+    # the bf16 kernel's f32 partials (m, l, acc) per (row, kv head,
+    # split, query head); the f32 kernel needs none
+    part = torch.empty(B * KV * NS * (H // KV) * (hd + 2) if bf16 else 0,
+                       dtype=torch.float32, device=q.device)
+    err = lib.repro_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H,
-        KV, hd, bs, P, build.DTYPE_CODE[q.dtype], build.stream_handle(q))
+        block_tables.data_ptr(), positions.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, H, KV, hd, bs, P, NS, build.DTYPE_CODE[q.dtype],
+        build.stream_handle(q))
     build.check(err, "paged_attention")
     build.launches["paged_attention"] += 1
     return out

@@ -107,3 +107,56 @@ def test_cuda_paged_kernels_match_plain(cuda_device, dtype):
                                  tables[1:2].contiguous(),
                                  pos[1:2].contiguous())
     assert torch.equal(alone5, out5[1:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_kernels_at_qwen3_shape(cuda_device, dtype):
+    """K3 and K5 at qwen3_32b's attention shape (64 heads, 8 kv heads,
+    head_dim 128) against their plain versions: in bf16 the tensor-core
+    kernels, in f32 the exact-f32 bodies.  K3's suffix at q_offset 256
+    (a serving chunk boundary) is bitwise equal to the full prefill's
+    rows; K5's rows alone are bitwise equal to their rows of the batch,
+    at up to 4096 keys and with one inactive all-zero row."""
+    dt = TDT[dtype]
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dt)
+
+    H, KV, hd = 64, 8, 128
+    q, k, v = rand(1, 512, H, hd), rand(1, 512, KV, hd), rand(1, 512, KV, hd)
+    full = ops.flash_attention(q, k, v)
+    torch.testing.assert_close(
+        full.float(), ref.flash_attention_ref(q, k, v).float(), atol=tol,
+        rtol=tol)
+    suffix = ops.flash_attention(q[:, 256:].contiguous(), k, v, q_offset=256)
+    assert torch.equal(suffix, full[:, 256:])
+
+    bs, P = 16, 4096 // 16
+    keys = (1, 300, 4096)
+    need = [-(-n // bs) for n in keys]
+    NB = 1 + sum(need)
+    perm = 1 + torch.randperm(NB - 1, device=cuda_device, generator=g)
+    tables = torch.zeros(len(keys) + 1, P, dtype=torch.int32,
+                         device=cuda_device)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[at:at + n].int()
+        at += n
+    pos = torch.tensor([n - 1 for n in keys] + [37], dtype=torch.int32,
+                       device=cuda_device)
+    arena = [rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)]
+    q5 = rand(len(keys) + 1, H, hd)
+    out = ops.paged_attention(q5, *arena, tables, pos)
+    want = ref.paged_attention_ref(q5, *arena, tables, pos)
+    active = slice(0, len(keys))
+    torch.testing.assert_close(out[active].float(), want[active].float(),
+                               atol=tol, rtol=tol)
+    assert bool(torch.isfinite(out).all())
+    for b in range(len(keys) + 1):
+        alone = ops.paged_attention(q5[b:b + 1].contiguous(), *arena,
+                                    tables[b:b + 1].contiguous(),
+                                    pos[b:b + 1].contiguous())
+        assert torch.equal(alone, out[b:b + 1])

@@ -23,7 +23,9 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
-    fused_flash_decode_cuda)
+    fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention_cuda)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from test_torch_engine import one_torch_thread  # noqa: E402,F401
 
@@ -200,4 +202,77 @@ def test_cuda_wrappers_refuse_misuse(which, misuse, match):
     before = dict(build.launches)
     with pytest.raises(ValueError, match=match):
         _wrapper_calls(x)[which]()
+    assert build.launches == before
+
+
+def _paged_wrapper_calls(x):
+    """K5 and K4's wrappers called with ``x`` as their query."""
+    B, H, hd = 1, 2, 64
+    arena = torch.zeros(3, 8, H, hd)
+    tables = torch.zeros(B, 3, dtype=torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32)
+    kn = torch.zeros(B, 4, H, hd)
+    return [
+        lambda: paged_attention_cuda(x[:, 0], arena, arena, tables, pos),
+        lambda: fused_flash_decode_splitk_cuda(
+            x, kn, kn, arena, arena, tables, pos, torch.zeros(hd // 2)),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("misuse,match", [
+    ("dtype", "dtype"), ("strided", "contiguous"), ("cpu", "CUDA tensor")])
+def test_paged_wrappers_refuse_misuse(which, misuse, match):
+    """K5 and K4 refuse a float16, a strided and a CPU operand before
+    any launch is counted."""
+    x = torch.zeros(1, 4, 2, 64)
+    if misuse == "dtype":
+        x = x.to(torch.float16)
+    elif misuse == "strided":
+        x = torch.zeros(1, 4, 2, 128)[..., ::2]
+    before = dict(build.launches)
+    with pytest.raises(ValueError, match=match):
+        _paged_wrapper_calls(x)[which]()
+    assert build.launches == before
+
+
+def test_flash_wrapper_checks_operands_before_head_dim():
+    """A CPU bf16 query of head_dim 72 (no bf16 kernel instance) is
+    refused for lying on the CPU: the operand checks come first."""
+    q = torch.zeros(1, 4, 2, 72, dtype=torch.bfloat16)
+    before = dict(build.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, q, q)
+    assert build.launches == before
+
+
+@pytest.mark.parametrize("kernel,hd", [
+    ("flash_attention", 72), ("paged_attention", 72),
+    ("paged_attention", 176)])
+def test_bf16_head_dims_outside_the_instances_refused(monkeypatch, kernel,
+                                                      hd):
+    """With the operand checks passed (stubbed here, as no CUDA tensor
+    exists on the CPU), a bf16 head_dim that no kernel instance covers
+    raises ValueError before the library is touched or a launch
+    counted; f32 at the same head_dim passes this check."""
+    monkeypatch.setattr(build, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(build, "lib", lambda: pytest.fail("reached the "
+                                                          "kernel library"))
+    before = dict(build.launches)
+    for dt in (torch.bfloat16, torch.float32):
+        if kernel == "flash_attention":
+            q = torch.zeros(1, 4, 2, hd, dtype=dt)
+            call = lambda: flash_attention_cuda(q, q, q)  # noqa: E731
+        else:
+            q = torch.zeros(1, 2, hd, dtype=dt)
+            arena = torch.zeros(3, 8, 2, hd, dtype=dt)
+            call = lambda: paged_attention_cuda(  # noqa: E731
+                q, arena, arena, torch.zeros(1, 3, dtype=torch.int32),
+                torch.zeros(1, dtype=torch.int32))
+        if dt == torch.bfloat16:
+            with pytest.raises(ValueError, match="multiple of 16"):
+                call()
+        else:
+            with pytest.raises(pytest.fail.Exception):
+                call()
     assert build.launches == before
