@@ -17,11 +17,12 @@ and through the ``Scheduler`` on a paged arena (chunked prefill, prefix
 sharing, speculative verify, preemption) once per decode kernel, checks
 the launch counters against the schedule and the outputs (slot and
 paged layouts bitwise equal; an f32 run against per-request greedy),
-and times each kernel (K3 also at the serve workload's prefill chunk
-and qwen3_32b's full prefill, K4 and K5 also at qwen3_32b's shape).  Every phase and check prints a JSON line; any
-failure raises and exits non-zero.  The last lines are the card's name
-and power limit, the kernel summary, and ``{"ok": true, "device":
-{...}}``.
+and times each kernel with CUDA events over calls queued back to back
+(K3 also at the serve workload's prefill chunk and qwen3_32b's full
+prefill, K4 and K5 also at qwen3_32b's shape).  Every phase and check
+prints a JSON line; any failure raises and exits non-zero.  The last
+lines are the card's name and power limit, the kernel summary, and
+``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository's ``src/`` beside it, and
 exits non-zero without either.
@@ -45,7 +46,7 @@ GEN_NEW = 8
 GROUPS = (14, 18)             # serving: two prefill groups of 2 rows
 TICKS = 16                    # serving decode ticks (slot 3 idle for half)
 VERIFY_WIDTH = 4
-REPS = 30                     # timed repetitions per kernel (median)
+REPS = 30                     # timed calls per kernel and method
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores
@@ -832,7 +833,6 @@ def time_paged_tick(torch, engine, requests, ticks=20, profiled=5):
     """Wall time of one Scheduler decode tick (4 active slots, paged
     arena, default flags, no speculation) and the device's share of it
     from the profiler."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import PagedBackend, Scheduler
     backend = PagedBackend(engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
                            block_size=SERVE_BLOCK)
@@ -852,24 +852,14 @@ def time_paged_tick(torch, engine, requests, ticks=20, profiled=5):
         sched.step()
         times.append(time.perf_counter() - t0)
     ms = statistics.median(times) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(profiled):
-            sched.step()
-        torch.cuda.synchronize()
-    per = device_ms_by_kernel(prof, profiled)
-    device_ms = sum(per.values())
-    check(device_ms > 0, "the profiler recorded no device time")
-    ours = {k: sum(v for name, v in per.items() if k in name)
-            for k in ("rmsnorm_kernel", "fused_decode_kernel",
-                      "splitk_partial_kernel", "splitk_combine_kernel")}
+    per = profiled_ms(torch, sched.step, profiled)
     return {"slots": SERVE_SLOTS, "ticks": ticks,
             "keys_at_first_tick": keys,
             "ms_per_tick_median": ms, "ms_per_tick_min": min(times) * 1e3,
             "tokens_per_s": SERVE_SLOTS / (ms / 1e3),
-            "device_ms_per_tick": device_ms,
-            "device_busy_share": device_ms / ms,
-            "port_kernels_ms_per_tick": ours}
+            **device_share(per, ms, (
+                "rmsnorm_kernel", "fused_decode_kernel",
+                "splitk_partial_kernel", "splitk_combine_kernel"))}
 
 
 def compare_first_tick(torch, engine, plain, ref32, toks, cfg):
@@ -960,27 +950,21 @@ def time_decode(torch, engine, backend, cache, last, pos, ticks=20):
     # device time per tick by kernel, from the profiler over 5 ticks;
     # the busy share sets it against the tick's wall time without the
     # profiler
-    from torch.profiler import ProfilerActivity, profile
-    n = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            last, cache = engine.decode(backend, cache, last, pos, active)
-            pos = pos + 1
-        torch.cuda.synchronize()
-    per = device_ms_by_kernel(prof, n)
-    device_ms = sum(per.values())
-    check(device_ms > 0, "the profiler recorded no device time")
+    state = [last, cache, pos]
+
+    def tick():
+        state[0], state[1] = engine.decode(backend, state[1], state[0],
+                                           state[2], active)
+        state[2] = state[2] + 1
+
+    per = profiled_ms(torch, tick, 5)
     top = [(name[:80], t) for name, t in
            sorted(per.items(), key=lambda kv: -kv[1])[:8]]
-    ours = {k: sum(v for name, v in per.items() if k in name)
-            for k in ("rmsnorm_kernel", "fused_decode_kernel")}
     return {"slots": 4, "ticks": ticks, "ms_per_tick_median": ms,
             "ms_per_tick_min": min(times) * 1e3,
             "tokens_per_s": 4 / (ms / 1e3),
-            "device_ms_per_tick": device_ms,
-            "device_busy_share": device_ms / ms,
-            "port_kernels_ms_per_tick": ours,
+            **device_share(per, ms, ("rmsnorm_kernel",
+                                     "fused_decode_kernel")),
             "top_kernels_ms_per_tick": top}
 
 
@@ -1000,21 +984,82 @@ def device_ms_by_kernel(prof, calls):
     return per
 
 
-def cuda_ms(torch, fn, reps=REPS):
-    """(device ms per call, host ms per call): the card's kernel time
-    over ``reps`` calls as the profiler records it, and the median wall
-    time of one synchronised call as the host sees it."""
+def profiled_ms(torch, fn, calls):
+    """{kernel name: device ms per call} of ``calls`` calls of ``fn``
+    from torch.profiler's device-side events; empty where the profiler
+    recorded none, which it does on some machines, so that nothing rests
+    on it but the per-kernel breakdowns that read it."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_ms_by_kernel(prof, calls)
+
+
+def device_share(per, tick_ms, ours):
+    """A tick's device time, busy share and the port's kernels' part of
+    it from the profiler's breakdown ``per``; None where it is empty."""
+    device_ms = sum(per.values()) if per else None
+    return {"device_ms_per_tick": device_ms,
+            "device_busy_share": device_ms / tick_ms if per else None,
+            "port_kernels_ms_per_tick": {
+                k: sum(v for name, v in per.items() if k in name)
+                for k in ours} if per else None,
+            "profiler": "device events" if per else
+                        "not measured: no device event recorded"}
+
+
+#: the sleep kernel's cycles per ms at the card's highest clock (H100
+#: SXM, 1.98 GHz), so that a sleep lasts at least the ms asked for
+SLEEP_CYCLES_PER_MS = 1_980_000
+
+
+def queued_ms(torch, fn, reps, host_ms):
+    """Device ms per call of ``fn``: CUDA events around calls queued
+    behind a sleep kernel, so that the card runs them back to back and
+    the host's time to launch them is not in the reading.  The sleep
+    lasts 4x the calls' host time; the start event, still pending once
+    the last call is queued, shows that the calls queued.  The card's
+    launch queue is finite, and a plain version of many small kernels
+    fills it in fewer than ``reps`` calls, so the calls go in batches,
+    halved until each batch queues.  Returns (ms, whether the calls
+    queued); where one call alone does not queue, the reading has the
+    host's gaps in it."""
+    n = reps
+    while True:
+        total, queued = 0.0, True
+        for i in range(0, reps, n):
+            k = min(n, reps - i)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda._sleep(int((4 * k * host_ms + 1.0)
+                                  * SLEEP_CYCLES_PER_MS))
+            start.record()
+            for _ in range(k):
+                fn()
+            end.record()
+            queued = queued and not start.query()
+            end.synchronize()
+            total += start.elapsed_time(end)
+            if not queued and n > 1:
+                break
+        if queued or n == 1:
+            return total / reps, queued
+        n = (n + 1) // 2
+
+
+def cuda_ms(torch, fn, reps=REPS):
+    """(device ms, host ms, profiler ms per call, queued): the card's
+    time per call over ``reps`` calls queued back to back (CUDA events,
+    ``queued_ms``, and whether they queued), the median wall time of one
+    synchronised call as the host sees it, and the sum of the calls'
+    kernel times as torch.profiler records them (None where it records
+    none)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_ms = sum(device_ms_by_kernel(prof, reps).values())
-    check(device_ms > 0, "the profiler recorded no device time")
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -1022,7 +1067,11 @@ def cuda_ms(torch, fn, reps=REPS):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    return device_ms, statistics.median(walls)
+    host_ms = statistics.median(walls)
+    device_ms, queued = queued_ms(torch, fn, reps, host_ms)
+    check(device_ms > 0, "CUDA events recorded no device time")
+    per = profiled_ms(torch, fn, reps)
+    return device_ms, host_ms, sum(per.values()) if per else None, queued
 
 
 def measure(torch, kernel, plain, library):
@@ -1030,8 +1079,10 @@ def measure(torch, kernel, plain, library):
     library call (``None``: there is none)."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        dev, wall = cuda_ms(torch, fn) if fn is not None else (None, None)
+        dev, wall, prof, queued = (cuda_ms(torch, fn) if fn is not None
+                                   else (None,) * 4)
         out[key + "ms"], out[key + "host_ms"] = dev, wall
+        out[key + "profiler_ms"], out[key + "queued"] = prof, queued
     return out
 
 

@@ -83,7 +83,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             valid = valid & (j <= i)
         if window:
             valid = valid & (j > i - window)
-        s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=ft, device=dev))
+        s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -199,14 +199,14 @@ def gathered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = upcast(two_rows(q, 1) if one else q)
     pos_s = two_rows(pos_s, 1) if one else pos_s
     Sp = qf.shape[1]
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=k.dtype,
-                                          device=dev))
+    # a host scalar: a tensor made on the card from a host value would
+    # wait for the card
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=k.dtype))
     qb = heads_major(qf.to(k.dtype).reshape(B, Sp, KV, G, hd))
     s = (torch.bmm(qb, keys_t(k)) * scale).view(B, KV, G, Sp, T)
     idx = torch.arange(T, device=dev)
     valid = idx[None, None, :] <= pos_s.long()[:, :, None]  # [B, S', T]
-    s = torch.where(valid[:, None, None], s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
+    s = torch.where(valid[:, None, None], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     o = torch.bmm(p.reshape(B * KV, G * Sp, T), values(v)).view(
