@@ -7,8 +7,9 @@ Builds the port's CUDA kernels (K1-K5) from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
 PyTorch version on the card in bf16 and f32 (K3 also at qwen3_32b's and
 stablelm_12b's head shapes, its suffixes bitwise equal to the full
-prefill's rows; K4 and K5 at minicpm_2b's and qwen3_32b's), reads
-whether cuBLAS rows depend on the
+prefill's rows; K2, K4 and K5 at minicpm_2b's, qwen3_32b's and
+stablelm_12b's, windows of 1 and 5 queries, each row alone bitwise equal
+to its row of the batch), reads whether cuBLAS rows depend on the
 row count, serves ``minicpm_2b`` at full width and depth (40 layers,
 d_model 2304, bf16, random weights from a seed) through
 ``repro_torch.serving.LLMEngine`` — ``generate``, then ``new_cache`` /
@@ -18,8 +19,10 @@ sharing, speculative verify, preemption) once per decode kernel, checks
 the launch counters against the schedule and the outputs (slot and
 paged layouts bitwise equal; an f32 run against per-request greedy),
 and times each kernel with CUDA events over calls queued back to back
-(K3 also at the serve workload's prefill chunk and qwen3_32b's full
-prefill, K4 and K5 also at qwen3_32b's shape).  Every phase and check
+(K1 also at prefill widths, K3 also at the serve workload's prefill
+chunk and qwen3_32b's full prefill, K2, K4 and K5 also on the paged
+arena at the serve tick's and qwen3_32b's shapes, K2 and K4 there at
+windows of 1 and 5).  Every phase and check
 prints a JSON line; any failure raises and exits non-zero.  The last
 lines are the card's name and power limit, the kernel summary, and
 ``{"ok": true, "device": {...}}``.
@@ -273,9 +276,12 @@ def check_flash_shape(torch, dev, g, dtype, shape, record):
               f"bitwise equal to the full prefill's rows")
 
 
-#: (name, H, KV, hd) of the attention shapes K4 and K5 are held at:
-#: minicpm_2b's (the served path) and qwen3_32b's (GQA, wide heads)
-DECODE_SHAPES = (("minicpm_2b", 36, 36, 64), ("qwen3_32b", 64, 8, 128))
+#: (name, H, KV, hd) of the attention shapes K2, K4 and K5 are held at:
+#: minicpm_2b's (the served path), qwen3_32b's (GQA, wide heads: a
+#: 5-query window is three 16-row tiles) and stablelm_12b's (head_dim
+#: 160, the widest bf16 instance)
+DECODE_SHAPES = (("minicpm_2b", 36, 36, 64), ("qwen3_32b", 64, 8, 128),
+                 ("stablelm_12b", 32, 8, 160))
 #: keys seen by the first window query of each active row, and the one
 #: inactive row (all-zero table) at a stale position
 ROW_KEYS = (1, 15, 16, 17, 300, 4095)
@@ -302,12 +308,12 @@ def paged_layout(torch, dev, g, row_keys, Sq, bs, P):
 
 
 def check_paged_kernels(torch, dev, g, dtype, shape, record):
-    """K4 against its plain version and against K2, K5 against its
-    plain version, at ``shape``; S' = 1 and 5; the rows of ROW_KEYS and
-    an inactive row.  Bitwise: each row alone equals its row of the
-    batch (K4, K5); K4 on the same rows as a slot arena (page 8) equals
-    K4 on the paged arena (bs 16); an inactive row writes nothing
-    outside block 0 and its output is finite."""
+    """K2 and K4 against their plain version and against each other, K5
+    against its plain version, at ``shape``; S' = 1 and 5; the rows of
+    ROW_KEYS and an inactive row.  Bitwise: each row alone equals its
+    row of the batch (K2, K4, K5); K4 on the same rows as a slot arena
+    (page 8) equals K4 on the paged arena (bs 16); an inactive row writes
+    nothing outside block 0 and K4's output is finite."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import (
         fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
@@ -341,29 +347,36 @@ def check_paged_kernels(torch, dev, g, dtype, shape, record):
         act = slice(0, B - 1)              # the active rows
         record("fused_flash_decode_splitk", dtype, case, out4[act],
                want[act], tol)
+        record("fused_flash_decode", dtype, case, out2[act], want[act],
+               tol)
         record("fused_flash_decode_splitk", dtype, case + " vs K2",
                out4[act], out2[act], tol)
         for i, label in ((0, "k arena"), (1, "v arena")):
             record("fused_flash_decode_splitk", dtype, f"{case} {label}",
                    a4[i][1:], ap[i][1:], tol)
+            record("fused_flash_decode", dtype, f"{case} {label}",
+                   a2[i][1:], ap[i][1:], tol)
         check(bool(torch.isfinite(out4).all()),
               f"K4 {case}: non-finite output")
         # each row alone; the inactive row's output is unspecified (it
         # reads block 0 while its window lands there), so it is held
         # to writing block 0 only
-        for b in range(B):
-            c = [kp.clone(), vp.clone()]
-            alone = fused_flash_decode_splitk_cuda(
-                sub(q, b), sub(kn, b), sub(vn, b), *c, sub(tbl, b),
-                sub(pos, b), freqs)
-            if b < B - 1:
-                check(torch.equal(alone, out4[b:b + 1]),
-                      f"K4 {case}: row {b} alone is not bitwise equal to "
-                      f"its row of the batch")
-            else:
-                check(torch.equal(c[0][1:], kp[1:])
-                      and torch.equal(c[1][1:], vp[1:]),
-                      f"K4 {case}: the inactive row wrote outside block 0")
+        for kernel, out, label in ((fused_flash_decode_splitk_cuda, out4,
+                                    "K4"),
+                                   (fused_flash_decode_cuda, out2, "K2")):
+            for b in range(B):
+                c = [kp.clone(), vp.clone()]
+                alone = kernel(sub(q, b), sub(kn, b), sub(vn, b), *c,
+                               sub(tbl, b), sub(pos, b), freqs)
+                if b < B - 1:
+                    check(torch.equal(alone, out[b:b + 1]),
+                          f"{label} {case}: row {b} alone is not bitwise "
+                          f"equal to its row of the batch")
+                else:
+                    check(torch.equal(c[0][1:], kp[1:])
+                          and torch.equal(c[1][1:], vp[1:]),
+                          f"{label} {case}: the inactive row wrote outside "
+                          f"block 0")
         # layout independence: the same rows as slot rows, page 8
         ks = kp[tbl.long()].reshape(B, T_len, KV, hd)
         vs = vp[tbl.long()].reshape(B, T_len, KV, hd)
@@ -858,8 +871,8 @@ def time_paged_tick(torch, engine, requests, ticks=20, profiled=5):
             "ms_per_tick_median": ms, "ms_per_tick_min": min(times) * 1e3,
             "tokens_per_s": SERVE_SLOTS / (ms / 1e3),
             **device_share(per, ms, (
-                "rmsnorm_kernel", "fused_decode_kernel",
-                "splitk_partial_kernel", "splitk_combine_kernel"))}
+                "rmsnorm_kernel", "fused_decode_mma_kernel",
+                "splitk_mma_kernel", "splitk_combine_kernel"))}
 
 
 def compare_first_tick(torch, engine, plain, ref32, toks, cfg):
@@ -964,7 +977,7 @@ def time_decode(torch, engine, backend, cache, last, pos, ticks=20):
             "ms_per_tick_min": min(times) * 1e3,
             "tokens_per_s": 4 / (ms / 1e3),
             **device_share(per, ms, ("rmsnorm_kernel",
-                                     "fused_decode_kernel")),
+                                     "fused_decode_mma_kernel")),
             "top_kernels_ms_per_tick": top}
 
 
@@ -1118,6 +1131,11 @@ def phase_times(torch):
                   (lambda: F.rms_norm(x, (d,), s, 1e-5))
                   if hasattr(F, "rms_norm") else None),
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 2 * L + 1}
+    # K1 where bytes count: the serve workload's prefill chunk, and
+    # qwen3_32b's prefill of 1024 rows at d_model 5120
+    for shape in RMSNORM_TIMED:
+        emit({"phase": "times", "kernel": "rmsnorm",
+              **time_rmsnorm(torch, g, shape)})
 
     # K3 at the serving prefill's shape: 2 rows of 18 tokens, causal
     B, S = 2, GROUPS[1]
@@ -1165,16 +1183,20 @@ def phase_times(torch):
                         "paged arena and attends",
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": L}
 
-    # K4 and K5: the serve phase's paged decode tick (4 rows, bs 16,
-    # rows at the served lengths, S' = 1), then qwen3_32b's attention
-    # shape with 4 rows of 4096 keys
+    # K2, K4 and K5 on a paged arena: the serve phase's decode tick (4
+    # rows, bs 16, rows at the served lengths), then qwen3_32b's
+    # attention shape with 4 rows of 4096 keys; S' = 1 and the verify
+    # window of 5 (K5 has no window)
     for shape, keys in ((("minicpm_2b", H, H, hd), (300, 520, 700, 930)),
                         (("qwen3_32b", 64, 8, 128), (4096,) * 4)):
-        for name, r in time_paged_kernels(torch, g, shape, keys).items():
-            if shape[0] == "minicpm_2b":
-                rows[name] = r
-            else:
-                emit({"phase": "times", "kernel": name, **r})
+        for Sq in (1, SERVE_SPEC + 1):
+            timed = time_paged_kernels(torch, g, shape, keys, Sq)
+            for name, r in timed.items():
+                if (shape[0] == "minicpm_2b" and Sq == 1
+                        and name != "fused_flash_decode"):
+                    rows[name] = r
+                else:
+                    emit({"phase": "times", "kernel": name, **r})
     for name, r in rows.items():
         emit({"phase": "times", "kernel": name, **r})
     return rows
@@ -1232,50 +1254,93 @@ def time_flash_shapes(torch, g):
     return rows
 
 
-def time_paged_kernels(torch, g, shape, keys):
-    """K4 (beside K2 on the same inputs) and K5 on a paged arena of
-    ``shape`` = (name, H, KV, hd), block size 16, one row per entry of
-    ``keys`` (keys seen by the row's query, window included), S' = 1.
-    K5's library call is SDPA over K/V gathered beforehand; the gather's
-    time stands beside it."""
+#: [rows, d] of K1's further timed shapes: the serve workload's prefill
+#: chunk at minicpm_2b's d_model, and qwen3_32b's prefill of 1024 rows
+RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120))
+
+
+def time_rmsnorm(torch, g, shape):
+    """K1 at ``shape`` = (rows, d) beside its plain version and
+    ``F.rms_norm``; the bound reads x and writes the output once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    rows, d = shape
+    x = torch.randn(rows, d, device="cuda", generator=g).to(torch.bfloat16)
+    s = torch.ones(d, device="cuda", dtype=torch.bfloat16)
+    b_ms, b_by = bound(2 * x.numel() * 2 + d * 2, 4 * x.numel(), F32_FLOPS)
+    return {"shape": [rows, d],
+            **measure(torch, lambda: rmsnorm_cuda(x, s),
+                      lambda: ref.rmsnorm_ref(x, s),
+                      (lambda: F.rms_norm(x, (d,), s, 1e-5))
+                      if hasattr(F, "rms_norm") else None),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def paged_decode_inputs(torch, g, shape, keys, Sq):
+    """K2/K4's bf16 operands on a paged arena of ``shape`` = (name, H,
+    KV, hd), block size 16, one row per entry of ``keys`` (keys seen by
+    the row's first window query, that query's own included), a window
+    of ``Sq`` queries; and the bound of the call.  The bound reads each
+    key and value of the row once (the window's are written once
+    instead) and q, the new K/V and the output once, and counts 4 hd
+    operations per (query, visible key, head): the same bytes at S' = 5,
+    about 5x the operations.  Returns (args, (bound ms, bound by),
+    (kv bytes, operations))."""
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    name, H, KV, hd = shape
+    bs, B = 16, len(keys)
+    T_len = -(-(max(keys) + Sq - 1) // bs) * bs
+    tbl, pos, NB = paged_layout(torch, dev, g, keys, Sq, bs, T_len // bs)
+    tbl, pos = tbl[:B].contiguous(), pos[:B].contiguous()
+
+    def rand(*shp):
+        return torch.randn(*shp, device=dev, generator=g).to(torch.bfloat16)
+
+    kp, vp = rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)
+    q, kn, vn = rand(B, Sq, H, hd), rand(B, Sq, KV, hd), rand(B, Sq, KV, hd)
+    freqs = ref.rope_freqs(hd, 10_000.0, dev)
+    io = 2 * (q.numel() * 2 + kn.numel() * 2) + tbl.numel() * 4 + B * 4
+    kv_bytes = 2 * sum(n + Sq - 1 for n in keys) * KV * hd * 2
+    flops = 4 * hd * H * sum(n + s for n in keys for s in range(Sq))
+    return ((q, kn, vn, kp, vp, tbl, pos, freqs),
+            bound(kv_bytes + io, flops, BF16_FLOPS), (kv_bytes, flops))
+
+
+def time_paged_kernels(torch, g, shape, keys, Sq):
+    """K2 and K4 (the same function on the same inputs) and, at S' = 1,
+    K5 at ``paged_decode_inputs``' shapes.  K5's library call is SDPA
+    over K/V gathered beforehand; the gather's time stands beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import (
         fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
-    dev = torch.device("cuda")
-    bf = torch.bfloat16
     name, H, KV, hd = shape
-    bs, B = 16, len(keys)
-    T_len = -(-max(keys) // bs) * bs
-    P = T_len // bs
-    tbl, pos, NB = paged_layout(torch, dev, g, keys, 1, bs, P)
-    tbl, pos = tbl[:B].contiguous(), pos[:B].contiguous()
-
-    def rand(*shp):
-        return torch.randn(*shp, device=dev, generator=g).to(bf)
-
-    kp, vp = rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)
-    q, kn, vn = rand(B, 1, H, hd), rand(B, 1, KV, hd), rand(B, 1, KV, hd)
-    freqs = ref.rope_freqs(hd, 10_000.0, dev)
-    n_keys = sum(keys)
-    io = 2 * (q.numel() * 2 + kn.numel() * 2) + tbl.numel() * 4 + B * 4
-    kv_bytes = 2 * n_keys * KV * hd * 2
-    flops = 4 * hd * H * n_keys
-    b4 = bound(kv_bytes + io, flops, BF16_FLOPS)
-    args = (q, kn, vn, kp, vp, tbl, pos, freqs)
+    args, b4, (kv_bytes, flops) = paged_decode_inputs(torch, g, shape, keys,
+                                                      Sq)
+    common = {"shape": list(args[0].shape), "arch": name, "kv_heads": KV,
+              "keys": list(keys), "block_size": args[3].shape[1],
+              "library_note": "no single PyTorch call rotates, scatters "
+                              "into a paged arena and attends",
+              "bound_ms": b4[0], "bound_by": b4[1]}
+    k4 = measure(torch, lambda: fused_flash_decode_splitk_cuda(*args),
+                 lambda: ref.fused_flash_decode_ref(*args), None)
     k2 = measure(torch, lambda: fused_flash_decode_cuda(*args), None, None)
-    out = {"fused_flash_decode_splitk": {
-        "shape": [B, 1, H, hd], "arch": name, "keys": list(keys),
-        "block_size": bs,
-        **measure(torch, lambda: fused_flash_decode_splitk_cuda(*args),
-                  lambda: ref.fused_flash_decode_ref(*args), None),
-        "k2_ms": k2["ms"],
-        "library_note": "no single PyTorch call rotates, scatters into a "
-                        "paged arena and attends",
-        "bound_ms": b4[0], "bound_by": b4[1]}}
+    # one plain version serves both kernels: they compute one function
+    for key in ("plain_ms", "plain_host_ms", "plain_profiler_ms",
+                "plain_queued"):
+        k2[key] = k4[key]
+    out = {"fused_flash_decode_splitk": {**common, **k4},
+           "fused_flash_decode": {**common, **k2}}
+    if Sq > 1:
+        return out
 
-    q5 = rand(B, H, hd)
+    _, _, _, kp, vp, tbl, pos, _ = args
+    B, T_len = tbl.shape[0], tbl.shape[1] * kp.shape[1]
+    dev = kp.device
+    q5 = torch.randn(B, H, hd, device=dev, generator=g).to(kp.dtype)
     b5 = bound(kv_bytes + 2 * q5.numel() * 2 + tbl.numel() * 4 + B * 4,
                flops, BF16_FLOPS)
     idx = torch.arange(T_len, device=dev)
@@ -1290,7 +1355,7 @@ def time_paged_kernels(torch, g, shape, keys):
     gather_ms = cuda_ms(torch, gather)[0]
     out["paged_attention"] = {
         "shape": [B, H, hd], "arch": name, "keys": list(keys),
-        "block_size": bs,
+        "block_size": kp.shape[1],
         **measure(torch, lambda: paged_attention_cuda(q5, kp, vp, tbl, pos),
                   lambda: ref.paged_attention_ref(q5, kp, vp, tbl, pos),
                   lambda: F.scaled_dot_product_attention(

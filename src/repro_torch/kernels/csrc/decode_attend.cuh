@@ -1,7 +1,8 @@
-// The streaming loop shared by the decode-attention kernels: K2 fused
-// flash decode (flash_decode.cu), K4 its split-K variant
-// (flash_decode_splitk.cu) and K5 paged attention's f32 body
-// (paged_attention.cu; K5's bf16 kernel runs on tensor cores instead).
+// The exact-f32 streaming loop of the decode-attention kernels: the f32
+// bodies of K2 fused flash decode (flash_decode.cu), K4 its split-K
+// variant (flash_decode_splitk.cu) and K5 paged attention
+// (paged_attention.cu).  Their bf16 bodies run on tensor cores instead
+// (decode_mma.cuh, paged_attention.cu), which would compute f32 as TF32.
 //
 // A decode CTA owns one (row b, kv head): the R = S' x G query rows of
 // the head group (row r = s * G + g is window query s of query head

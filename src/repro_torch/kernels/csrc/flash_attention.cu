@@ -488,18 +488,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int Tk, int H, int KV,
                         int hd, int q_offset, int causal, int window,
                         cudaStream_t st) {
-  if (hd % 16 != 0) return cudaErrorInvalidValue;
-  switch (hd / 16) {
-#define REPRO_FLASH_CASE(n)                                                 \
-    case n: return launch_mma<16 * n>(q, k, v, out, B, S, Tk, H, KV,        \
-                                      q_offset, causal, window, st);
-    REPRO_FLASH_CASE(1) REPRO_FLASH_CASE(2) REPRO_FLASH_CASE(3)
-    REPRO_FLASH_CASE(4) REPRO_FLASH_CASE(5) REPRO_FLASH_CASE(6)
-    REPRO_FLASH_CASE(7) REPRO_FLASH_CASE(8) REPRO_FLASH_CASE(9)
-    REPRO_FLASH_CASE(10)
-#undef REPRO_FLASH_CASE
-    default: return cudaErrorInvalidValue;
-  }
+  return repro::dispatch_head_dim(hd, [&](auto c) {
+    return launch_mma<decltype(c)::value>(q, k, v, out, B, S, Tk, H, KV,
+                                          q_offset, causal, window, st);
+  });
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 // Tensor-core and async-copy helpers of the bf16 attention kernels (K3
-// flash_attention.cu, K5 paged_attention.cu): 16-byte cp.async with
-// zero fill, ldmatrix, and mma.sync m16n8k16 with bf16 operands and f32
-// accumulation.
+// flash_attention.cu, K5 paged_attention.cu, and K2/K4 through
+// decode_mma.cuh): 16-byte cp.async with zero fill, ldmatrix, and
+// mma.sync m16n8k16 with bf16 operands and f32 accumulation.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gid + tig):
 //   A 16x16 row-major, 4 regs: (gid, 2tig..+1), (gid+8, 2tig..+1),
@@ -12,6 +12,8 @@
 // Two neighbouring C tiles of S = Q K^T are, packed to bf16, the A
 // fragment of P for the next product P V, so P never leaves registers.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -118,5 +120,25 @@ constexpr float kLog2e = 1.4426950408889634f;
 // (HD a multiple of 16).
 template <int HD>
 constexpr int padded_ld() { return HD + 8; }
+
+// f(std::integral_constant<int, HD>()) for the bf16 instance of head dim
+// hd: one instance for each multiple of 16 up to 160, the widest head of
+// the served configs; cudaErrorInvalidValue for any other hd.
+template <typename F>
+cudaError_t dispatch_head_dim(int hd, F f) {
+  switch (hd) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 144: return f(std::integral_constant<int, 144>());
+    case 160: return f(std::integral_constant<int, 160>());
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace repro

@@ -327,18 +327,10 @@ cudaError_t launch_bf16(const void* q, const void* kp, const void* vp,
                         const void* tables, const void* positions, void* part,
                         void* out, int B, int H, int KV, int hd, int bs,
                         int P, int NS, cudaStream_t st) {
-  if (hd % 16 != 0) return cudaErrorInvalidValue;
-  switch (hd / 16) {
-#define REPRO_PAGED_CASE(n)                                                 \
-    case n: return launch_mma<16 * n>(q, kp, vp, tables, positions, part,   \
-                                      out, B, H, KV, bs, P, NS, st);
-    REPRO_PAGED_CASE(1) REPRO_PAGED_CASE(2) REPRO_PAGED_CASE(3)
-    REPRO_PAGED_CASE(4) REPRO_PAGED_CASE(5) REPRO_PAGED_CASE(6)
-    REPRO_PAGED_CASE(7) REPRO_PAGED_CASE(8) REPRO_PAGED_CASE(9)
-    REPRO_PAGED_CASE(10)
-#undef REPRO_PAGED_CASE
-    default: return cudaErrorInvalidValue;
-  }
+  return repro::dispatch_head_dim(hd, [&](auto c) {
+    return launch_mma<decltype(c)::value>(q, kp, vp, tables, positions, part,
+                                          out, B, H, KV, bs, P, NS, st);
+  });
 }
 
 // ---------------------------------------------------------------------------

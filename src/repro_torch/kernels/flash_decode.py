@@ -5,20 +5,25 @@ K2 replaces the JAX package's
 ``kernels/flash_decode.py:fused_flash_decode_kernel`` with
 ``split_k=False`` (the gathered variant); its kernel is
 ``csrc/flash_decode.cu``: RoPE on q and the new K, the window scattered
-into the arenas **in place**, and per-query-masked GQA attention
-streamed over the row's pages, one CTA per (row, kv head).
+into the arenas **in place**, and per-query-masked GQA attention over
+the row's pages.  In bf16 it is one launch whose thread-block clusters
+spread a row's 256-key spans over several CTAs and combine them through
+distributed shared memory; in f32 one CTA per (row, kv head) streams
+the row in exact f32.
 
 K4 replaces the same function with ``split_k=True``; its kernel is
 ``csrc/flash_decode_splitk.cu``: the same contract with the row's keys
 split across CTAs in spans of fixed absolute key positions, the
-partials combined in ascending split order by a second launch.  Both
-compute :func:`fused_flash_decode_ref`'s function.
+partials combined in ascending split order by a second launch.  In
+bf16 both run one tensor-core span body (``csrc/decode_mma.cuh``).
+Both compute :func:`fused_flash_decode_ref`'s function.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+from .paged_attention import MAX_BF16_HEAD_DIM
 from .ref import fused_flash_decode_ref, rope_freqs
 
 __all__ = ["fused_flash_decode_cuda", "fused_flash_decode_splitk_cuda",
@@ -54,6 +59,9 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, positions,
     if H % KV or hd % 8:
         raise ValueError(f"fused flash decode: needs heads % kv_heads == 0 "
                          f"and head_dim % 8 == 0 (H={H}, KV={KV}, hd={hd})")
+    if q.dtype == torch.bfloat16 and (hd % 16 or hd > MAX_BF16_HEAD_DIM):
+        raise ValueError(f"fused flash decode kernel: bf16 head_dim {hd} is "
+                         f"not a multiple of 16 up to {MAX_BF16_HEAD_DIM}")
     return B, Sq, H, hd, bs, KV, P
 
 

@@ -160,3 +160,50 @@ def test_cuda_attention_kernels_at_qwen3_shape(cuda_device, dtype):
                                     tables[b:b + 1].contiguous(),
                                     pos[b:b + 1].contiguous())
         assert torch.equal(alone, out[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,hd", [(64, 8, 128), (32, 8, 160)],
+                         ids=["qwen3_32b", "stablelm_12b"])
+def test_cuda_fused_decode_verify_window(cuda_device, dtype, H, KV, hd):
+    """K2 and K4 over a verify window of 5 queries at qwen3_32b's GQA
+    shape (40 query rows a kv head: three 16-row tiles) and stablelm_12b's
+    head_dim 160, against their plain version (output and both arenas),
+    on a paged arena whose rows end inside, at and past 256-key span
+    boundaries; each row alone is bitwise equal to its row of the
+    batch."""
+    dt = TDT[dtype]
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dt)
+
+    Sq, bs, P = 5, 16, 64
+    pos = torch.tensor([0, 252, 700, 1000], dtype=torch.int32,
+                       device=cuda_device)
+    B = pos.numel()
+    tables = (1 + torch.randperm(B * P, device=cuda_device, generator=g)
+              .view(B, P)).int()
+    q, kn, vn = rand(B, Sq, H, hd), rand(B, Sq, KV, hd), rand(B, Sq, KV, hd)
+    arena = [rand(1 + B * P, bs, KV, hd), rand(1 + B * P, bs, KV, hd)]
+    freqs = ref.rope_freqs(hd, 10_000.0, cuda_device)
+    ap = [t.clone() for t in arena]
+    want = ref.fused_flash_decode_ref(q, kn, vn, *ap, tables, pos, freqs)
+    for split_k in (False, True):
+        a = [t.clone() for t in arena]
+        out = ops.fused_flash_decode(q, kn, vn, *a, tables, pos, freqs,
+                                     split_k=split_k)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        for got, ref_arena in zip(a, ap):
+            torch.testing.assert_close(got[1:].float(), ref_arena[1:].float(),
+                                       atol=tol, rtol=tol)
+        for b in range(B):
+            alone = ops.fused_flash_decode(
+                q[b:b + 1].contiguous(), kn[b:b + 1].contiguous(),
+                vn[b:b + 1].contiguous(), *[t.clone() for t in arena],
+                tables[b:b + 1].contiguous(), pos[b:b + 1].contiguous(),
+                freqs, split_k=split_k)
+            assert torch.equal(alone, out[b:b + 1])

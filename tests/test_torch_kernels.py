@@ -248,7 +248,9 @@ def test_flash_wrapper_checks_operands_before_head_dim():
 
 @pytest.mark.parametrize("kernel,hd", [
     ("flash_attention", 72), ("paged_attention", 72),
-    ("paged_attention", 176)])
+    ("paged_attention", 176), ("fused_flash_decode", 72),
+    ("fused_flash_decode", 176), ("fused_flash_decode_splitk", 72),
+    ("fused_flash_decode_splitk", 176)])
 def test_bf16_head_dims_outside_the_instances_refused(monkeypatch, kernel,
                                                       hd):
     """With the operand checks passed (stubbed here, as no CUDA tensor
@@ -263,6 +265,14 @@ def test_bf16_head_dims_outside_the_instances_refused(monkeypatch, kernel,
         if kernel == "flash_attention":
             q = torch.zeros(1, 4, 2, hd, dtype=dt)
             call = lambda: flash_attention_cuda(q, q, q)  # noqa: E731
+        elif kernel.startswith("fused_flash_decode"):
+            fn = (fused_flash_decode_splitk_cuda if kernel.endswith("splitk")
+                  else fused_flash_decode_cuda)
+            q = torch.zeros(1, 2, 2, hd, dtype=dt)
+            arena = torch.zeros(3, 8, 2, hd, dtype=dt)
+            call = lambda: fn(  # noqa: E731
+                q, q, q, arena, arena, torch.zeros(1, 3, dtype=torch.int32),
+                torch.zeros(1, dtype=torch.int32), torch.zeros(hd // 2))
         else:
             q = torch.zeros(1, 2, hd, dtype=dt)
             arena = torch.zeros(3, 8, 2, hd, dtype=dt)
