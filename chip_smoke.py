@@ -15,7 +15,11 @@ d_model 2304, bf16, random weights from a seed) through
 ``repro_torch.serving.LLMEngine`` — ``generate``, then ``new_cache`` /
 ``prefill`` / ``insert`` / ``decode`` / ``verify`` on a 4-slot cache —
 and through the ``Scheduler`` on a paged arena (chunked prefill, prefix
-sharing, speculative verify, preemption) once per decode kernel, checks
+sharing, speculative verify, preemption) once per decode kernel, then
+the same requests through ``GraphServer`` and ``AsyncFrontend`` (the
+graph runtime; tokens bitwise equal to the Scheduler's, TTFT, time per
+output token and tokens/s from the server's metrics) and a graph
+through the CUDA ``SyncPointCalculator``, checks
 the launch counters against the schedule and the outputs (slot and
 paged layouts bitwise equal; an f32 run against per-request greedy),
 and times each kernel with CUDA events over calls queued back to back
@@ -413,8 +417,9 @@ def check_paged_kernels(torch, dev, g, dtype, shape, record):
 def phase_gemm_width(torch):
     """For minicpm_2b's four GEMM shapes (K x N) in bf16 and f32: is row
     i of ``x[:M] @ W`` bitwise equal to row i of ``x[:16] @ W`` for M =
-    1, 2, 4, 8, 16?  (The logits GEMM multiplies by the tied embedding's
-    transpose, as the model does.)"""
+    1, 2, 4, 8, 16, and for the first 16 rows at M = 20 (4 slots' verify
+    windows of 5) and 32?  (The logits GEMM multiplies by the tied
+    embedding's transpose, as the model does.)"""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     shapes = {"qkvo": (2304, 2304), "gate_up": (2304, 5760),
@@ -423,15 +428,15 @@ def phase_gemm_width(torch):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for name, (K, N) in shapes.items():
-            x = torch.randn(16, K, device=dev, generator=g).to(dt)
+            x = torch.randn(32, K, device=dev, generator=g).to(dt)
             if name == "logits":
                 w = torch.randn(N, K, device=dev, generator=g).to(dt).t()
             else:
                 w = torch.randn(K, N, device=dev, generator=g).to(dt)
-            full = x @ w
+            full = x[:16] @ w
             row = {}
-            for M in (1, 2, 4, 8, 16):
-                part = x[:M] @ w
+            for M in (1, 2, 4, 8, 16, 20, 32):
+                part = (x[:M] @ w)[:16]
                 row[M] = {"equal": bool(torch.equal(part, full[:M])),
                           "max_abs_diff": float(
                               (part.float() - full[:M].float()).abs().max())}
@@ -704,7 +709,8 @@ def phase_serve(torch):
     the engine's flags, each held to the launches its schedule implies;
     the layout check (paged and slot backends, bitwise equal tokens);
     the exactness check in f32 against a per-request greedy reference;
-    and the paged decode tick's time."""
+    and the paged decode tick's time.  Returns the launch counts of the
+    three runs and the default run's tokens by request."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import RuntimeFlags
@@ -747,6 +753,8 @@ def phase_serve(torch):
                   f"serve {name}: request {i}'s tokens")
         for k, v in counts.items():
             counts_all[k] = counts_all.get(k, 0) + v
+        if name == "default":
+            default_tokens = got
         if name == "paged_kernel":
             del engines[name], engine
 
@@ -785,7 +793,7 @@ def phase_serve(torch):
     check(exact["mismatches"] == 0, "f32 exactness: a served token differs "
                                     "from the greedy reference's")
     del e32, w32
-    return counts_all
+    return counts_all, default_tokens
 
 
 def replay_agreement(engine, requests, new=24, cuts=(1, 6, 12, 18, 23)):
@@ -979,6 +987,190 @@ def time_decode(torch, engine, backend, cache, last, pos, ticks=20):
             **device_share(per, ms, ("rmsnorm_kernel",
                                      "fused_decode_mma_kernel")),
             "top_kernels_ms_per_tick": top}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c — the serve workload through GraphServer and AsyncFrontend
+# ---------------------------------------------------------------------------
+
+#: the device sleep ahead of the sync point's event, so that the event
+#: is still pending unless the sync point waits for it
+SYNC_SLEEP_MS = 50
+
+
+def phase_graph_serve(torch, want, smi):
+    """The serve workload through the graph: the 8 requests streamed by
+    ``AsyncFrontend`` from a ``GraphServer`` over a paged arena (the
+    serve phase's arena, chunk, slots and speculation), on the engine
+    built here and called from the graph's executor thread.  Every
+    request must finish with the tokens the Scheduler gave it in phase
+    serve's default run, bitwise; the launches must be those the
+    server's schedule implies; the arena must drain at close.  Prints
+    TTFT, time per output token, tokens/s and preemptions from the
+    server's metrics and request timelines, each beside the card's
+    name and power limit.  Then the device sync point.  Returns the
+    launch counts."""
+    import asyncio
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.serving import (AsyncFrontend, GraphServer, LLMEngine,
+                                     Policy, RequestTimeline)
+    cfg = get_config("minicpm_2b")
+    requests = serve_requests(cfg.vocab_size)
+    blocks, _, _ = pressure_blocks(requests)
+    engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    for name in build.launches:
+        build.launches[name] = 0
+    server = GraphServer(engine, backend="paged", num_slots=SERVE_SLOTS,
+                         block_size=SERVE_BLOCK, chunk_size=SERVE_CHUNK,
+                         speculate_k=SERVE_SPEC, num_blocks=blocks,
+                         max_new_tokens=SERVE_NEW)
+    handles = {}
+    try:
+        front = AsyncFrontend(server, policy=Policy(timeout_ms=600_000))
+
+        async def stream(i, prompt):
+            return [tok async for tok in front.stream(
+                prompt, request_id=i,
+                on_handle=lambda h: handles.__setitem__(h.id, h))]
+
+        async def run():
+            streams = asyncio.gather(
+                *(stream(i, p) for i, p in enumerate(requests)))
+            while not streams.done():
+                # a failed run (a replay's RuntimeError, say) closes the
+                # token stream without failing the requests' handles, so
+                # the run's own error is watched beside the streams
+                server.graph._check_error()
+                await asyncio.wait({streams}, timeout=0.05)
+            return streams.result()
+
+        t0 = time.perf_counter()
+        streams = asyncio.run(run())
+        wall = time.perf_counter() - t0
+        counts = dict(build.launches)
+        stats = server.stats()["scheduler"]
+        metrics = server.metrics()
+        records = RequestTimeline.from_tracer(server.graph.tracer).records()
+    finally:
+        server.close()
+    sched = server._engine_calc.sched
+    drained = (sorted(sched.free) == list(range(SERVE_SLOTS))
+               and sched.pool.blocks_in_use == 0
+               and sched.pool.reserved_blocks == 0 and len(sched.prefix) == 0)
+    want_launches = expected_serve_launches(cfg, stats, "fused_flash_decode")
+    equal = [bool(np.array_equal(np.asarray(s, np.int32), want[i]))
+             for i, s in enumerate(streams)]
+    reasons = {i: handles[i].finish_reason for i in handles}
+    emit({"phase": "graph_serve", "requests": len(requests),
+          "num_blocks": blocks, "seconds": wall, "launches": counts,
+          "expected_launches": want_launches,
+          "bitwise_equal_to_serve": sum(equal), "finish_reasons": reasons,
+          "arena_drained": drained,
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "extend_prefills", "decode_steps",
+              "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+              "replayed_tokens", "shared_block_hits", "completed")}})
+    check(stats["completed"] == len(requests)
+          and all(r == "length" for r in reasons.values())
+          and len(reasons) == len(requests),
+          "graph_serve: not every request finished")
+    check(all(equal), "graph_serve: a request's tokens differ from phase "
+                      "serve's default run")
+    check(counts == want_launches, f"graph_serve: launch counts {counts} "
+                                   f"!= {want_launches}")
+    check(drained, "graph_serve: the arena did not drain at close")
+
+    # ---- the readings: server metrics and request timelines ------------
+    def hist(name, q):
+        return metrics[name]["values"][0][q]
+    ttft = [r["ttft_ms"] for r in records]
+    tpot = [(r["finished_ms"] - r["first_token_ms"]) / (r["tokens"] - 1)
+            for r in records]
+    tokens = sum(r["tokens"] for r in records)
+    span_ms = max(r["finished_ms"] for r in records) - \
+        min(r["submitted_ms"] for r in records)
+    check(len(records) == len(requests)
+          and tokens == len(requests) * SERVE_NEW,
+          "graph_serve: the request timelines miss a request or a token")
+    readings = [
+        {"metric": "ttft_ms", "p50": float(np.percentile(ttft, 50)),
+         "p95": float(np.percentile(ttft, 95)), "histogram_p50": hist(
+             "serve.ttft_ms", "p50"), "histogram_p95": hist(
+             "serve.ttft_ms", "p95"), "requests": len(ttft)},
+        {"metric": "tpot_ms", "p50": float(np.percentile(tpot, 50)),
+         "itl_histogram_p50": hist("serve.itl_ms", "p50"),
+         "requests": len(tpot)},
+        {"metric": "tokens_per_s", "value": tokens / (span_ms / 1e3),
+         "tokens": tokens, "span_ms": span_ms},
+        {"metric": "preemptions", "value": stats["preemptions"],
+         "replayed_tokens": stats["replayed_tokens"]},
+    ]
+    for r in readings:
+        emit({"phase": "graph_serve_reading", **r, "nvidia_smi": smi})
+    check(all(np.isfinite(ttft)) and all(np.isfinite(tpot)),
+          "graph_serve: a non-finite reading")
+
+    check_sync_point(torch, engine)
+    return counts
+
+
+def check_sync_point(torch, engine):
+    """A graph ``InferenceCalculator -> SyncPointCalculator`` whose engine
+    calls ``engine.__call__`` (greedy tokens, on the host) and then the
+    model's prefill on the card, queued behind a device sleep, and
+    records an event after it.  The packet that leaves the sync point
+    must carry the same logits tensor, the event must have completed,
+    and the logits' argmax must be the first greedy token."""
+    import numpy as np
+    import repro_torch.calculators  # noqa: F401 (registers them)
+    from repro_torch.core import Graph, GraphBuilder
+    b = GraphBuilder()
+    infer = b.add_node("InferenceCalculator", name="infer",
+                       inputs={"IN": b.input("prompts")},
+                       side_inputs={"engine": b.side_input("engine")})
+    sync = b.add_node("SyncPointCalculator", name="sync",
+                      inputs={"IN": infer.out("OUT", name="results")})
+    b.output(sync.out("OUT", name="synced"))
+    made = []
+
+    def run(payload):
+        toks = engine(payload)
+        x = torch.as_tensor(payload["tokens"], device="cuda").long()
+        torch.cuda._sleep(int(SYNC_SLEEP_MS * SLEEP_CYCLES_PER_MS))
+        logits, _ = engine.model.prefill(x, SERVE_MAX_LEN,
+                                         flags=engine.flags)
+        event = torch.cuda.Event()
+        event.record()
+        made.append((logits, event))
+        return {"tokens": toks, "logits": logits}
+
+    graph = Graph(b.build(), side_packets={"engine": run})
+    poller = graph.add_output_stream_poller("synced")
+    graph.start_run()
+    prompt = serve_requests(engine.cfg.vocab_size)[0][None, :64]
+    graph.add_packet_to_input_stream(
+        "prompts", {"tokens": prompt, "max_new_tokens": 4}, 0)
+    graph.close_all_input_streams()
+    pkt = poller.next()
+    logits, event = made[0]
+    done = event.query()
+    graph.wait_until_done(timeout=120)
+    out = pkt.payload
+    first = int(torch.argmax(out["logits"][0]))
+    emit({"phase": "sync_point", "same_tensor": out["logits"] is logits,
+          "event_done_on_arrival": done, "device_sleep_ms": SYNC_SLEEP_MS,
+          "first_token": first, "greedy_tokens": out["tokens"][0].tolist()})
+    check(out["logits"] is logits and out["logits"].is_cuda,
+          "sync point: the packet does not carry the same CUDA tensor")
+    check(done, "sync point: the packet left before the work it waits for")
+    check(first == int(out["tokens"][0, 0]),
+          "sync point: the logits' argmax is not the first greedy token")
+    check(bool(torch.isfinite(out["logits"]).all()),
+          "sync point: non-finite logits")
+    check(isinstance(out["tokens"], np.ndarray),
+          "sync point: engine.__call__ did not return host tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -1388,12 +1580,13 @@ def main() -> int:
     errs = phase_kernels(torch)
     phase_gemm_width(torch)
     counts, e2e = phase_main_path(torch)
-    serve_counts = phase_serve(torch)
+    serve_counts, serve_tokens = phase_serve(torch)
+    graph_counts = phase_graph_serve(torch, serve_tokens, smi)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
-        launches = counts[name] + serve_counts[name]
+        launches = counts[name] + serve_counts[name] + graph_counts[name]
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

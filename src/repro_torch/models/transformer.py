@@ -61,7 +61,7 @@ def check_supported(cfg: ArchConfig) -> None:
     elif cfg.is_encoder_decoder or cfg.frontend:
         why = "encoder-decoder and modality stubs: ROADMAP Queue 1 item 9"
     elif cfg.sliding_window:
-        why = "sliding-window attention: ROADMAP Queue 1 item 3b"
+        why = "sliding-window attention: ROADMAP Queue 1 item 12"
     elif cfg.mtp_depth:
         why = "multi-token prediction: ROADMAP Queue 1 item 8"
     if why is not None:

@@ -6,35 +6,50 @@
   (``kvcache/``) — contiguous slot rows or a paged block-pool arena with
   ref-counted prefix sharing;
 * :class:`Scheduler` (``batching.py``) — continuous batching: priority
-  admission, chunked prefill, preemption, self-speculative decoding.
+  admission, chunked prefill, preemption, self-speculative decoding;
+* :class:`GraphServer` (``server.py``) — the whole thing wired as a
+  MediaPipe-style graph (``repro_torch.core``) with flow-limited
+  admission and streamed responses;
+* :class:`AsyncFrontend` (``frontend.py``) — the asyncio front door:
+  per-token async streaming, client disconnect → cancellation,
+  deadlines/TTFT targets, retry/timeout policy.
 
 Quickstart (on the CPU; drop ``device`` to run on the card)::
 
     from repro_torch.configs import get_config
-    from repro_torch.serving import LLMEngine, Scheduler, make_backend
+    from repro_torch.serving import GraphServer, LLMEngine
 
     engine = LLMEngine(get_config("minicpm_2b").reduced(), max_len=128,
                        device="cpu")
-    sched = Scheduler(make_backend(engine, paged=True, num_blocks=64),
-                      max_new_tokens=8, chunk_size=32, speculate_k=4)
-    sched.submit({"tokens": [1, 2, 3, 4], "id": "a"})
-    while sched.has_work():
-        for ev in sched.admit() + sched.step():
-            if ev.finished:
-                print(ev.request.id, ev.request.tokens)
+    with GraphServer(engine, num_slots=4, speculate_k=4) as server:
+        tokens = server.submit([1, 2, 3, 4]).result()
 
-The GraphServer, its calculators and the asyncio front door come with
-ROADMAP Queue 1 item 3b.
+The Scheduler alone, without the graph, is driven by ``sched.admit() +
+sched.step()`` until ``sched.has_work()`` is false.  The state and
+hybrid layouts raise until ROADMAP Queue 1 item 7 ports them.
 """
-from .batching import DeadlineExceeded, Request, Scheduler, TokenEvent
 from .engine import LLMEngine
+from .batching import DeadlineExceeded, Request, Scheduler, TokenEvent
+from .calculators import (BatcherCalculator, ContinuousBatchCalculator,
+                          UnbatchCalculator, LLMPrefillCalculator,
+                          LLMDecodeLoopCalculator)
+from .frontend import AsyncFrontend, Policy, RequestTimeout
 from .kvcache import (BlockPool, BlockPoolError, CacheBackend,
                       CachePressure, PagedBackend, PrefixIndex, SlotBackend,
                       make_backend)
-from .observe import NULL_OBSERVER, Observer
+from .observe import (FlightRecorder, NULL_OBSERVER, Observer,
+                      RequestTimeline, export_run)
+from .pipeline import build_continuous_serving_graph, build_serving_graph
+from .server import GraphServer, RequestHandle
 from .speculative import lookup_draft
 
-__all__ = ["LLMEngine", "Request", "Scheduler", "TokenEvent",
-           "DeadlineExceeded", "BlockPool", "BlockPoolError", "CacheBackend",
-           "CachePressure", "PagedBackend", "PrefixIndex", "SlotBackend",
-           "make_backend", "lookup_draft", "NULL_OBSERVER", "Observer"]
+__all__ = ["LLMEngine", "BatcherCalculator", "ContinuousBatchCalculator",
+           "UnbatchCalculator", "LLMPrefillCalculator",
+           "LLMDecodeLoopCalculator", "Request", "Scheduler", "TokenEvent",
+           "DeadlineExceeded", "AsyncFrontend", "Policy", "RequestTimeout",
+           "BlockPool", "BlockPoolError", "CacheBackend", "CachePressure",
+           "PagedBackend", "PrefixIndex", "SlotBackend", "make_backend",
+           "build_serving_graph", "build_continuous_serving_graph",
+           "GraphServer", "RequestHandle", "lookup_draft",
+           "FlightRecorder", "NULL_OBSERVER", "Observer",
+           "RequestTimeline", "export_run"]

@@ -207,3 +207,51 @@ def test_cuda_fused_decode_verify_window(cuda_device, dtype, H, KV, hd):
                 tables[b:b + 1].contiguous(), pos[b:b + 1].contiguous(),
                 freqs, split_k=split_k)
             assert torch.equal(alone, out[b:b + 1])
+
+
+@pytest.mark.cuda
+def test_cuda_sync_point_waits_for_the_card(cuda_device):
+    """The port's ``SyncPointCalculator`` on CUDA payloads: a graph
+    ``InferenceCalculator -> SyncPointCalculator`` whose engine queues a
+    device sleep and a product on the card, called from the graph's
+    executor thread.  The packet that leaves the sync point carries the
+    very same tensors (bare, and in a tuple, a list and a dict), and an
+    event recorded after the work has completed by then."""
+    import repro_torch.calculators  # noqa: F401 (registers them)
+    from repro_torch.core import Graph, GraphBuilder
+
+    b = GraphBuilder()
+    infer = b.add_node("InferenceCalculator", name="infer",
+                       inputs={"IN": b.input("in")},
+                       side_inputs={"engine": b.side_input("engine")})
+    sync = b.add_node("SyncPointCalculator", name="sync",
+                      inputs={"IN": infer.out("OUT", name="results")})
+    b.output(sync.out("OUT", name="synced"))
+    made = []
+    forms = (lambda y: y, lambda y: (y, 1), lambda y: [0, y],
+             lambda y: {"y": y, "n": "x"})
+
+    def engine(i):
+        x = torch.full((256, 256), 0.5, device=cuda_device)
+        torch.cuda._sleep(100_000_000)          # ~50 ms of device time
+        y = x @ x
+        event = torch.cuda.Event()
+        event.record()
+        made.append((y, event))
+        return forms[i](y)
+
+    graph = Graph(b.build(), side_packets={"engine": engine})
+    poller = graph.add_output_stream_poller("synced")
+    graph.start_run()
+    for i in range(len(forms)):
+        graph.add_packet_to_input_stream("in", i, i)
+    graph.close_all_input_streams()
+    for i in range(len(forms)):
+        payload = poller.next().payload
+        y, event = made[i]
+        assert event.query(), f"form {i}: the packet left before the work"
+        got = {0: lambda p: p, 1: lambda p: p[0], 2: lambda p: p[1],
+               3: lambda p: p["y"]}[i](payload)
+        assert got is y
+        assert torch.equal(y.cpu(), torch.full((256, 256), 64.0))
+    graph.wait_until_done(timeout=60)
