@@ -9,7 +9,8 @@ PyTorch version on the card in bf16 and f32 (K3 also at qwen3_32b's and
 stablelm_12b's head shapes, its suffixes bitwise equal to the full
 prefill's rows; K2, K4 and K5 at minicpm_2b's, qwen3_32b's and
 stablelm_12b's, windows of 1 and 5 queries, each row alone bitwise equal
-to its row of the batch), reads whether cuBLAS rows depend on the
+to its row of the batch; K2 and K4's 5-query window bitwise equal to
+five single-query calls), reads whether cuBLAS rows depend on the
 row count, serves ``minicpm_2b`` at full width and depth (40 layers,
 d_model 2304, bf16, random weights from a seed) through
 ``repro_torch.serving.LLMEngine`` — ``generate``, then ``new_cache`` /
@@ -19,7 +20,14 @@ sharing, speculative verify, preemption) once per decode kernel, then
 the same requests through ``GraphServer`` and ``AsyncFrontend`` (the
 graph runtime; tokens bitwise equal to the Scheduler's, TTFT, time per
 output token and tokens/s from the server's metrics) and a graph
-through the CUDA ``SyncPointCalculator``, checks
+through the CUDA ``SyncPointCalculator``, then with requests preempted
+after streaming tokens and replayed through the decode step (phase
+``serve_preempt_decode``: through the Scheduler with K2 and K4 and
+through ``GraphServer``, tokens bitwise those of the runs without
+preemption, the replayed rows' K/V bitwise what they held), then the
+captured decode and verify steps against eager ones (phase
+``captured``: every serving run's tokens bitwise, and the paged and
+slot ticks' times read in turns), checks
 the launch counters against the schedule and the outputs (slot and
 paged layouts bitwise equal; an f32 run against per-request greedy),
 and times each kernel with CUDA events over calls queued back to back
@@ -237,6 +245,8 @@ def phase_kernels(torch):
                       f"bitwise equal to row 2 of the batch")
         for shape in DECODE_SHAPES:
             check_paged_kernels(torch, dev, g, dtype, shape, record)
+    for shape in DECODE_SHAPES[:2]:
+        check_window_independence(torch, dev, g, shape)
     torch.cuda.synchronize()
     return errs
 
@@ -408,6 +418,52 @@ def check_paged_kernels(torch, dev, g, dtype, shape, record):
             check(torch.equal(alone, out5[b:b + 1]),
                   f"K5 {name}: row {b} alone is not bitwise equal to its "
                   f"row of the batch")
+
+
+def check_window_independence(torch, dev, g, shape):
+    """K2 and K4 in bf16 at ``shape`` = (name, H, KV, hd), the rows of
+    ROW_KEYS: query ``s`` of an S' = 5 window equals bitwise the S' = 1
+    call at ``pos + s`` over the same arena once the window's first
+    ``s`` tokens are written (five calls in turn), and the arena after
+    the five calls equals the window call's outside trash block 0.  The
+    replay of a preempted request through the verify step rests on
+    this: a streamed token re-derived in a window of another width."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (
+        fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
+    name, H, KV, hd = shape
+    bs, Sq = 16, SERVE_SPEC + 1
+    tbl, pos, NB = paged_layout(torch, dev, g, ROW_KEYS, Sq, bs, 4112 // bs)
+    B = tbl.shape[0]
+    act = slice(0, B - 1)                  # the inactive row left out
+    freqs = ref.rope_freqs(hd, 10_000.0, dev)
+
+    def rand(*shp):
+        return torch.randn(*shp, device=dev, generator=g).to(torch.bfloat16)
+
+    q, kn, vn = rand(B, Sq, H, hd), rand(B, Sq, KV, hd), rand(B, Sq, KV, hd)
+    kp, vp = rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)
+    for kernel, label in ((fused_flash_decode_cuda, "fused_flash_decode"),
+                          (fused_flash_decode_splitk_cuda,
+                           "fused_flash_decode_splitk")):
+        window = [kp.clone(), vp.clone()]
+        out = kernel(q, kn, vn, *window, tbl, pos, freqs)
+        single = [kp.clone(), vp.clone()]
+        queries = []
+        for s in range(Sq):
+            one = kernel(*(t[:, s:s + 1].contiguous() for t in (q, kn, vn)),
+                         *single, tbl, pos + s, freqs)
+            queries.append(torch.equal(one[act, 0], out[act, s]))
+        arena = all(torch.equal(a[1:], b[1:])
+                    for a, b in zip(single, window))
+        emit({"phase": "kernel_vs_plain", "kernel": label,
+              "dtype": "bfloat16",
+              "case": f"{name} window independence S'={Sq} vs {Sq} x S'=1",
+              "queries_bitwise": queries, "arena_bitwise": arena})
+        check(all(queries) and arena,
+              f"{label} {name}: an S'={Sq} window is not bitwise equal to "
+              f"{Sq} single-query calls (queries {queries}, arena "
+              f"{arena})")
 
 
 # ---------------------------------------------------------------------------
@@ -646,10 +702,13 @@ def always_draft(context, k):
 
 
 def serve(torch, engine, requests, num_blocks, *, paged=True,
-          prefix_sharing=True, speculate_k=SERVE_SPEC):
+          prefix_sharing=True, speculate_k=SERVE_SPEC, hook=None):
     """Serve ``requests`` through the port's ``Scheduler`` to completion,
-    with every launch counter at 0 before the first call.  Returns
-    ({id: tokens}, scheduler stats, launch counts, wall seconds)."""
+    with every launch counter at 0 before the first call; ``hook(sched)``
+    is called before the requests are submitted.  Returns ({id:
+    tokens}, scheduler stats with the wall seconds spent in ``admit``
+    (admission and prompt ingestion) and in ``step`` (decode and verify
+    ticks), launch counts, wall seconds)."""
     import numpy as np
     from repro_torch.kernels import build
     from repro_torch.serving import PagedBackend, Scheduler, SlotBackend
@@ -662,30 +721,40 @@ def serve(torch, engine, requests, num_blocks, *, paged=True,
     sched = Scheduler(backend, max_new_tokens=SERVE_NEW,
                       chunk_size=SERVE_CHUNK, speculate_k=speculate_k,
                       draft_fn=always_draft)
+    if hook is not None:
+        hook(sched)
     for i, p in enumerate(requests):
         sched.submit({"tokens": p, "id": i})
     for name in build.launches:
         build.launches[name] = 0
     t0 = time.perf_counter()
     got = {}
+    split = {"admit_seconds": 0.0, "step_seconds": 0.0}
     while sched.has_work():
-        for ev in sched.admit() + sched.step():
-            if ev.finished:
-                got[ev.request.id] = np.asarray(ev.request.tokens, np.int32)
+        for part, call in (("admit_seconds", sched.admit),
+                           ("step_seconds", sched.step)):
+            t1 = time.perf_counter()
+            events = call()
+            split[part] += time.perf_counter() - t1
+            for ev in events:
+                if ev.finished:
+                    got[ev.request.id] = np.asarray(ev.request.tokens,
+                                                    np.int32)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return got, dict(sched.stats), dict(build.launches), wall
+    return got, {**sched.stats, **split}, dict(build.launches), wall
 
 
 def expected_serve_launches(cfg, stats, attend: str):
     """Launches the schedule in ``stats`` implies: every forward pass
     runs 2 norms per layer and the final one; every prefill or extend
-    call one K3 per layer; every decode or verify tick one ``attend``
-    per layer."""
+    call one K3 per layer; every decode or verify tick, and every decode
+    or verify call of a replay, one ``attend`` per layer."""
     from repro_torch.kernels import build
     L = cfg.num_layers
-    pre, ticks = stats["prefill_calls"], stats["decode_steps"]
+    pre = stats["prefill_calls"]
+    ticks = stats["decode_steps"] + stats["replay_steps"]
     want = {name: 0 for name in build.launches}
     want.update({"rmsnorm": (2 * L + 1) * (pre + ticks),
                  "flash_attention": L * pre, attend: L * ticks})
@@ -710,7 +779,8 @@ def phase_serve(torch):
     the layout check (paged and slot backends, bitwise equal tokens);
     the exactness check in f32 against a per-request greedy reference;
     and the paged decode tick's time.  Returns the launch counts of the
-    three runs and the default run's tokens by request."""
+    three runs and the tokens by request of each run and of the slot
+    layout's."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import RuntimeFlags
@@ -725,6 +795,7 @@ def phase_serve(torch):
           "blocks_four_prompts": four, "blocks_three_ends": three})
     engines = {}
     counts_all = {}
+    tokens = {}
     for name, flags, spec, attend in SERVE_RUNS:
         engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
                            flags=RuntimeFlags(**flags))
@@ -740,7 +811,8 @@ def phase_serve(torch):
                   "prefill_calls", "extend_prefills", "decode_steps",
                   "spec_steps", "spec_drafted", "spec_accepted",
                   "preemptions", "replayed_tokens", "shared_block_hits",
-                  "prefill_tokens_saved", "completed")}})
+                  "prefill_tokens_saved", "completed", "admit_seconds",
+                  "step_seconds")}})
         check(counts == want, f"serve {name}: launch counts {counts} != "
                               f"{want}")
         check(stats["preemptions"] > 0, f"serve {name}: no preemption")
@@ -753,8 +825,7 @@ def phase_serve(torch):
                   f"serve {name}: request {i}'s tokens")
         for k, v in counts.items():
             counts_all[k] = counts_all.get(k, 0) + v
-        if name == "default":
-            default_tokens = got
+        tokens[name] = got
         if name == "paged_kernel":
             del engines[name], engine
 
@@ -763,6 +834,7 @@ def phase_serve(torch):
     paged, _, _, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
                            prefix_sharing=False)
     slot, stats, _, _ = serve(torch, engine, requests, 0, paged=False)
+    tokens["slot"] = slot
     equal = [bool(np.array_equal(paged[i], slot[i]))
              for i in range(len(requests))]
     emit({"phase": "serve_layouts", "requests": len(requests),
@@ -776,6 +848,8 @@ def phase_serve(torch):
         emit({"phase": "serve_tick", "run": name, **tick})
     emit({"phase": "serve_replay", "dtype": cfg.dtype,
           **replay_agreement(engine, requests)})
+    emit({"phase": "serve_replay_decode", "dtype": cfg.dtype,
+          **decode_replay_agreement(engine, requests)})
 
     # ---- exactness in f32 against per-request greedy -------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -793,7 +867,7 @@ def phase_serve(torch):
     check(exact["mismatches"] == 0, "f32 exactness: a served token differs "
                                     "from the greedy reference's")
     del e32, w32
-    return counts_all, default_tokens
+    return counts_all, tokens
 
 
 def replay_agreement(engine, requests, new=24, cuts=(1, 6, 12, 18, 23)):
@@ -811,6 +885,36 @@ def replay_agreement(engine, requests, new=24, cuts=(1, 6, 12, 18, 23)):
             tok, _ = engine.prefill(np.concatenate([p, gen[:n]])[None])
             agree.append(int(tok[0]) == int(gen[n]))
     return {"agree": sum(agree), "cuts": len(agree)}
+
+
+def decode_replay_agreement(engine, requests, new=24,
+                            cuts=(1, 6, 12, 18, 23)):
+    """``replay_agreement``'s reading for the replay through the decode
+    step: each prompt ++ its first ``n`` greedy tokens is ingested as a
+    preempted request's replay is (the prompt by prefill, the tokens by
+    decode steps over the 4 slots, each derived token checked), and the
+    token derived after them is compared with token ``n``."""
+    from repro_torch.serving import PagedBackend, Scheduler
+    from repro_torch.serving.batching import Request
+    be = PagedBackend(engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
+                      block_size=SERVE_BLOCK, prefix_sharing=False)
+    Scheduler(be)                          # binds the arena and stats
+    agree = []
+    for p in requests[:4]:
+        gen = engine.generate(p[None], new)[0]
+        for n in cuts:
+            req = Request(id=n, prompt=p, max_new_tokens=new,
+                          tokens=[int(t) for t in gen[:n + 1]])
+            req.slot = 0
+            be.acquire(req, req.seq)
+            try:
+                tok = be.ingest(req, req.seq, 0, len(req.seq))
+                agree.append(tok == int(gen[n]))
+            except RuntimeError:           # a streamed token not derived
+                agree.append(False)
+            be.release(req)
+    return {"agree": sum(agree), "cuts": len(agree),
+            "replay_steps": be.stats["replay_steps"]}
 
 
 def compare_with_greedy(torch, engine, requests, got):
@@ -998,6 +1102,61 @@ def time_decode(torch, engine, backend, cache, last, pos, ticks=20):
 SYNC_SLEEP_MS = 50
 
 
+def graph_run(torch, engine, requests, blocks, hook=None):
+    """The requests streamed by ``AsyncFrontend`` from a ``GraphServer``
+    over a paged arena of ``blocks`` blocks (the serve phase's chunk,
+    slots and speculation; prompt lookup drafts), on ``engine``, called
+    from the graph's executor thread, with every launch counter at 0
+    first; ``hook(sched)`` is called on the server's scheduler before
+    the first submit.  Returns the streams, launch counts, scheduler
+    stats, metrics, request timelines, wall seconds, whether the arena
+    drained at close, and the finish reasons."""
+    import asyncio
+    from repro_torch.kernels import build
+    from repro_torch.serving import (AsyncFrontend, GraphServer, Policy,
+                                     RequestTimeline)
+    for name in build.launches:
+        build.launches[name] = 0
+    server = GraphServer(engine, backend="paged", num_slots=SERVE_SLOTS,
+                         block_size=SERVE_BLOCK, chunk_size=SERVE_CHUNK,
+                         speculate_k=SERVE_SPEC, num_blocks=blocks,
+                         max_new_tokens=SERVE_NEW)
+    sched = server._engine_calc.sched
+    if hook is not None:
+        hook(sched)
+    handles = {}
+    try:
+        front = AsyncFrontend(server, policy=Policy(timeout_ms=600_000))
+
+        async def stream(i, prompt):
+            return [tok async for tok in front.stream(
+                prompt, request_id=i,
+                on_handle=lambda h: handles.__setitem__(h.id, h))]
+
+        async def run():
+            # a failed run fails the streams at once (the port's
+            # GraphServer._pump), so they alone are awaited
+            return await asyncio.gather(
+                *(stream(i, p) for i, p in enumerate(requests)))
+
+        t0 = time.perf_counter()
+        streams = asyncio.run(run())
+        wall = time.perf_counter() - t0
+        out = types.SimpleNamespace(
+            streams=streams, wall=wall, counts=dict(build.launches),
+            stats=server.stats()["scheduler"], metrics=server.metrics(),
+            records=RequestTimeline.from_tracer(
+                server.graph.tracer).records())
+    finally:
+        server.close()
+    out.drained = (sorted(sched.free) == list(range(SERVE_SLOTS))
+                   and sched.pool.blocks_in_use == 0
+                   and sched.pool.reserved_blocks == 0
+                   and len(sched.prefix) == 0)
+    out.reasons = {i: handles[i].finish_reason for i in handles}
+    return out
+
+
 def phase_graph_serve(torch, want, smi):
     """The serve workload through the graph: the 8 requests streamed by
     ``AsyncFrontend`` from a ``GraphServer`` over a paged arena (the
@@ -1009,78 +1168,40 @@ def phase_graph_serve(torch, want, smi):
     TTFT, time per output token, tokens/s and preemptions from the
     server's metrics and request timelines, each beside the card's
     name and power limit.  Then the device sync point.  Returns the
-    launch counts."""
-    import asyncio
+    launch counts and the tokens by request."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
-    from repro_torch.serving import (AsyncFrontend, GraphServer, LLMEngine,
-                                     Policy, RequestTimeline)
+    from repro_torch.serving import LLMEngine
     cfg = get_config("minicpm_2b")
     requests = serve_requests(cfg.vocab_size)
     blocks, _, _ = pressure_blocks(requests)
     engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
-    for name in build.launches:
-        build.launches[name] = 0
-    server = GraphServer(engine, backend="paged", num_slots=SERVE_SLOTS,
-                         block_size=SERVE_BLOCK, chunk_size=SERVE_CHUNK,
-                         speculate_k=SERVE_SPEC, num_blocks=blocks,
-                         max_new_tokens=SERVE_NEW)
-    handles = {}
-    try:
-        front = AsyncFrontend(server, policy=Policy(timeout_ms=600_000))
-
-        async def stream(i, prompt):
-            return [tok async for tok in front.stream(
-                prompt, request_id=i,
-                on_handle=lambda h: handles.__setitem__(h.id, h))]
-
-        async def run():
-            streams = asyncio.gather(
-                *(stream(i, p) for i, p in enumerate(requests)))
-            while not streams.done():
-                # a failed run (a replay's RuntimeError, say) closes the
-                # token stream without failing the requests' handles, so
-                # the run's own error is watched beside the streams
-                server.graph._check_error()
-                await asyncio.wait({streams}, timeout=0.05)
-            return streams.result()
-
-        t0 = time.perf_counter()
-        streams = asyncio.run(run())
-        wall = time.perf_counter() - t0
-        counts = dict(build.launches)
-        stats = server.stats()["scheduler"]
-        metrics = server.metrics()
-        records = RequestTimeline.from_tracer(server.graph.tracer).records()
-    finally:
-        server.close()
-    sched = server._engine_calc.sched
-    drained = (sorted(sched.free) == list(range(SERVE_SLOTS))
-               and sched.pool.blocks_in_use == 0
-               and sched.pool.reserved_blocks == 0 and len(sched.prefix) == 0)
+    run = graph_run(torch, engine, requests, blocks)
+    counts, stats, metrics, records = (run.counts, run.stats, run.metrics,
+                                       run.records)
     want_launches = expected_serve_launches(cfg, stats, "fused_flash_decode")
-    equal = [bool(np.array_equal(np.asarray(s, np.int32), want[i]))
-             for i, s in enumerate(streams)]
-    reasons = {i: handles[i].finish_reason for i in handles}
+    got = {i: np.asarray(s, np.int32) for i, s in enumerate(run.streams)}
+    equal = [bool(np.array_equal(got[i], want[i])) for i in got]
     emit({"phase": "graph_serve", "requests": len(requests),
-          "num_blocks": blocks, "seconds": wall, "launches": counts,
+          "num_blocks": blocks, "seconds": run.wall, "launches": counts,
           "expected_launches": want_launches,
-          "bitwise_equal_to_serve": sum(equal), "finish_reasons": reasons,
-          "arena_drained": drained,
+          "bitwise_equal_to_serve": sum(equal),
+          "finish_reasons": run.reasons, "arena_drained": run.drained,
+          "graphs_captured": graph_count(engine),
           "stats": {k: stats[k] for k in (
               "prefill_calls", "extend_prefills", "decode_steps",
               "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
-              "replayed_tokens", "shared_block_hits", "completed")}})
+              "replayed_tokens", "replay_steps", "shared_block_hits",
+              "completed")}})
     check(stats["completed"] == len(requests)
-          and all(r == "length" for r in reasons.values())
-          and len(reasons) == len(requests),
+          and all(r == "length" for r in run.reasons.values())
+          and len(run.reasons) == len(requests),
           "graph_serve: not every request finished")
     check(all(equal), "graph_serve: a request's tokens differ from phase "
                       "serve's default run")
     check(counts == want_launches, f"graph_serve: launch counts {counts} "
                                    f"!= {want_launches}")
-    check(drained, "graph_serve: the arena did not drain at close")
+    check(run.drained, "graph_serve: the arena did not drain at close")
 
     # ---- the readings: server metrics and request timelines ------------
     def hist(name, q):
@@ -1113,7 +1234,15 @@ def phase_graph_serve(torch, want, smi):
           "graph_serve: a non-finite reading")
 
     check_sync_point(torch, engine)
-    return counts
+    return counts, got
+
+
+def graph_count(engine):
+    """The engine's captured graphs and their shared pool's bytes."""
+    if engine.graphs is None:
+        return {"graphs": 0, "pool_bytes": 0}
+    return {"graphs": len(engine.graphs),
+            "pool_bytes": engine.graphs.pool_bytes()}
 
 
 def check_sync_point(torch, engine):
@@ -1171,6 +1300,298 @@ def check_sync_point(torch, engine):
           "sync point: non-finite logits")
     check(isinstance(out["tokens"], np.ndarray),
           "sync point: engine.__call__ did not return host tokens")
+
+
+# ---------------------------------------------------------------------------
+# phase 3d — preemption mid-decode, replayed through the decode step
+# ---------------------------------------------------------------------------
+
+#: forced preemptions per run, and the tokens each victim has streamed
+PREEMPTIONS = 6
+PREEMPT_AFTER = 8
+
+
+class ForcedPreemption:
+    """Preempts requests mid-decode and checks what their replays write.
+
+    ``install(sched)`` wraps the scheduler's ``step`` and its backend's
+    ``ingest``.  Before a decode tick it preempts one decoding request
+    that has streamed at least PREEMPT_AFTER tokens, has 4 more to go
+    and was not preempted yet, until PREEMPTIONS, after reading the
+    request's K/V at every position it holds through its block table.
+    When the request's replay completes (the ``ingest`` of its last
+    chunk returns) its K/V are read again through its new table and
+    compared bitwise.  Under a ``GraphServer`` this runs on the engine's
+    executor thread, inside the scheduler's own calls."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.streamed = []                 # each victim's streamed tokens
+        self.kv_equal = []                 # one per completed replay
+        self._held = {}                    # victim -> its K/V
+
+    def install(self, sched):
+        self.sched = sched
+        step, ingest = sched.step, sched.backend.ingest
+
+        def forced_step():
+            self._preempt()
+            return step()
+
+        def checked_ingest(req, seq, start, end):
+            tok = ingest(req, seq, start, end)
+            if end == len(seq) and req in self._held:
+                before = self._held.pop(req)
+                self.kv_equal.append(all(
+                    self.torch.equal(a, b)
+                    for a, b in zip(before, self._kv(req, len(seq)))))
+            return tok
+
+        sched.step = forced_step
+        sched.backend.ingest = checked_ingest
+
+    def _preempt(self):
+        sched = self.sched
+        if len(self.streamed) >= PREEMPTIONS:
+            return
+        for req in sched.slots:
+            if (req is not None and req not in sched.ingesting
+                    and req.preemptions == 0
+                    and PREEMPT_AFTER <= len(req.tokens)
+                    <= req.max_new_tokens - 4):
+                self._held[req] = self._kv(req, int(sched.positions[req.slot]))
+                self.streamed.append(len(req.tokens))
+                sched.preempt(req)
+                return
+
+    def _kv(self, req, n):
+        """Positions ``[0, n)`` of each K/V leaf of ``req``, every layer,
+        read through its block table."""
+        from repro_torch.models.params import flatten
+        be = self.sched.backend
+        pages = self.torch.as_tensor(
+            be.tables[req.slot][:-(-n // be.block_size)],
+            device=be.engine.device).long()
+        out = []
+        for leaf in flatten(be.cache).values():      # [R, NB, bs, KV, hd]
+            rows = leaf[:, pages].reshape(leaf.shape[0], -1, *leaf.shape[3:])
+            out.append(rows[:, :n].clone())
+        return out
+
+
+def check_forced(label, forced, stats, got, want, counts, want_launches):
+    """Print and hold one run with forced preemptions against the same
+    run without them: at least 4 preemptions of requests that had
+    streamed PREEMPT_AFTER tokens or more (and no other preemption),
+    streamed tokens replayed, each replayed row's K/V bitwise what it
+    held, every request's tokens bitwise equal, launches equal to the
+    schedule."""
+    import numpy as np
+    equal = sum(bool(np.array_equal(got[i], want[i])) for i in want)
+    emit({"phase": "serve_preempt_decode", "run": label,
+          "forced_preemptions": len(forced.streamed),
+          "victims_streamed_tokens": forced.streamed,
+          "replays_kv_bitwise": sum(forced.kv_equal),
+          "replays_checked": len(forced.kv_equal),
+          "bitwise_equal_to_unpreempted": equal, "requests": len(want),
+          "launches": counts, "expected_launches": want_launches,
+          "stats": {k: stats[k] for k in (
+              "preemptions", "replayed_tokens", "replay_steps",
+              "prefill_calls", "decode_steps", "spec_steps")}})
+    check(len(forced.streamed) >= 4
+          and min(forced.streamed) >= PREEMPT_AFTER,
+          f"{label}: fewer than 4 mid-decode preemptions")
+    check(stats["preemptions"] == len(forced.streamed),
+          f"{label}: a preemption that was not forced")
+    check(stats["replayed_tokens"] > 0 and stats["replay_steps"] > 0,
+          f"{label}: no streamed token replayed through the decode step")
+    check(len(forced.kv_equal) == len(forced.streamed)
+          and all(forced.kv_equal),
+          f"{label}: a replayed row's K/V differ from what it held")
+    check(equal == len(want), f"{label}: a request's tokens differ from "
+                              f"the run without preemption")
+    check(counts == want_launches, f"{label}: launch counts {counts} != "
+                                   f"{want_launches}")
+
+
+def phase_serve_preempt_decode(torch):
+    """Hazard 5 closed: bf16 minicpm_2b at full width and depth, the
+    serve workload on a roomy arena, PREEMPTIONS requests preempted after
+    streaming tokens (``ForcedPreemption``), each replayed through the
+    decode step: through the Scheduler with K2 (default flags) and with
+    K4 (``fused_split_k``), then through ``GraphServer`` and
+    ``AsyncFrontend`` (K2; prompt lookup alone drafts, so the ticks
+    decode one token and the replays verify windows of 5).  Each is held
+    to the same run without preemption (``check_forced``).  Returns the
+    launch counts of the runs with preemption and the tokens by request
+    of the Scheduler runs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = get_config("minicpm_2b")
+    requests = serve_requests(cfg.vocab_size)
+    counts_all, tokens = {}, {}
+    for name, flags, spec, attend in SERVE_RUNS[:2]:
+        engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                           flags=RuntimeFlags(**flags))
+        want, st0, _, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
+                                speculate_k=spec)
+        check(st0["preemptions"] == 0, f"{name}: the roomy arena preempted")
+        forced = ForcedPreemption(torch)
+        got, stats, counts, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
+                                      speculate_k=spec, hook=forced.install)
+        check_forced(name, forced, stats, got, want, counts,
+                     expected_serve_launches(cfg, stats, attend))
+        tokens[name] = got
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    # ---- through GraphServer and AsyncFrontend, on the K2 engine -------
+    engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    plain = graph_run(torch, engine, requests, ROOMY_BLOCKS)
+    check(plain.stats["preemptions"] == 0, "graph: the roomy arena "
+                                           "preempted")
+    forced = ForcedPreemption(torch)
+    run = graph_run(torch, engine, requests, ROOMY_BLOCKS,
+                    hook=forced.install)
+    check_forced("graph", forced, run.stats,
+                 {i: np.asarray(t, np.int32)
+                  for i, t in enumerate(run.streams)},
+                 {i: np.asarray(t, np.int32)
+                  for i, t in enumerate(plain.streams)},
+                 run.counts, expected_serve_launches(cfg, run.stats,
+                                                     "fused_flash_decode"))
+    check(run.drained and all(r == "length" for r in run.reasons.values()),
+          "graph: a request did not finish, or the arena did not drain")
+    for k, v in run.counts.items():
+        counts_all[k] = counts_all.get(k, 0) + v
+    return counts_all, tokens
+
+
+# ---------------------------------------------------------------------------
+# phase 3e — the decode and verify steps as CUDA graphs against eager
+# ---------------------------------------------------------------------------
+
+#: decode ticks read per engine and layout, in turns
+TICK_READS = 120
+
+
+def phase_captured(torch, captured, smi):
+    """``captured`` holds the tokens by request of runs made so far with
+    the engine's default, captured steps: the serve phase's three runs
+    (``default``, ``split_k``, ``paged_kernel``) and its slot-layout run
+    (``slot``), ``graph_serve``, and serve_preempt_decode's K2 run with
+    forced preemptions.  Each runs again here on an engine whose steps
+    run eagerly (``cuda_graphs`` off): tokens bitwise equal, launches
+    equal to the schedule.  Then the paged and the slot decode tick,
+    captured and eager, in turns (``interleaved_ticks``)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = get_config("minicpm_2b")
+    requests = serve_requests(cfg.vocab_size)
+    blocks, _, _ = pressure_blocks(requests)
+
+    def compare(label, got, stats, counts, attend):
+        want = expected_serve_launches(cfg, stats, attend)
+        equal = sum(bool(np.array_equal(np.asarray(got[i], np.int32),
+                                        captured[label][i]))
+                    for i in captured[label])
+        emit({"phase": "captured", "run": label, "steps": "eager",
+              "bitwise_equal_to_captured": equal,
+              "requests": len(captured[label]), "launches": counts,
+              "expected_launches": want,
+              **{k: stats[k] for k in ("admit_seconds", "step_seconds")
+                 if k in stats}})
+        check(equal == len(requests) == len(captured[label]),
+              f"captured {label}: eager tokens differ from captured")
+        check(counts == want, f"captured {label}: eager launch counts "
+                              f"{counts} != {want}")
+
+    eager = None
+    for name, flags, spec, attend in SERVE_RUNS:
+        engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                           flags=RuntimeFlags(cuda_graphs=False, **flags))
+        check(engine.graphs is None, "an engine with cuda_graphs off "
+                                     "captures")
+        got, stats, counts, _ = serve(torch, engine, requests, blocks,
+                                      speculate_k=spec)
+        compare(name, got, stats, counts, attend)
+        if name == "default":
+            eager = engine
+    got, stats, counts, _ = serve(torch, eager, requests, 0, paged=False)
+    compare("slot", got, stats, counts, "fused_flash_decode")
+    run = graph_run(torch, eager, requests, blocks)
+    compare("graph_serve", dict(enumerate(run.streams)), run.stats,
+            run.counts, "fused_flash_decode")
+    forced = ForcedPreemption(torch)
+    got, stats, counts, _ = serve(torch, eager, requests, ROOMY_BLOCKS,
+                                  hook=forced.install)
+    check(len(forced.streamed) >= 4 and all(forced.kv_equal),
+          "captured: the eager run's forced preemptions")
+    compare("serve_preempt_decode", got, stats, counts,
+            "fused_flash_decode")
+
+    # ---- tick times: captured and eager on the same weights, in turns --
+    steps = {"captured": LLMEngine(cfg, dict(eager.model.named_parameters()),
+                                   max_len=SERVE_MAX_LEN),
+             "eager": eager}
+    for kind in ("paged", "slot"):
+        for name, r in interleaved_ticks(torch, steps, requests,
+                                         kind).items():
+            emit({"phase": "captured_tick", "layout": kind, "steps": name,
+                  **r, "nvidia_smi": smi})
+    emit({"phase": "captured_graphs", **graph_count(steps["captured"])})
+
+
+def interleaved_ticks(torch, engines, requests, kind, ticks=TICK_READS,
+                      profiled=5):
+    """Scheduler decode ticks (4 active slots, no speculation, the first
+    four serve requests) on ``kind``'s layout, one for each engine in
+    turns: 3 of warm-up, then ``ticks`` read.  Per engine: the tick's
+    median, p10, p90 and min wall ms (each tick ends in the token copy
+    to the host), tokens/s, and the device's busy share (the profiler's
+    kernel sum over ``profiled`` more ticks, over the median)."""
+    import numpy as np
+    from repro_torch.serving import PagedBackend, Scheduler, SlotBackend
+    scheds = {}
+    for name, engine in engines.items():
+        if kind == "paged":
+            be = PagedBackend(engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
+                              block_size=SERVE_BLOCK)
+        else:
+            be = SlotBackend(engine, SERVE_SLOTS)
+        sched = Scheduler(be, max_new_tokens=4 + 3 + ticks + profiled,
+                          chunk_size=SERVE_CHUNK)
+        for i, p in enumerate(requests[:SERVE_SLOTS]):
+            sched.submit({"tokens": p, "id": i})
+        while sched.ingesting or sched.waiting:
+            sched.admit()
+        check(sched.active == SERVE_SLOTS, "tick timing: slots not all "
+                                           "active")
+        scheds[name] = sched
+    times = {name: [] for name in scheds}
+    for i in range(3 + ticks):
+        for name, sched in scheds.items():
+            t0 = time.perf_counter()
+            sched.step()
+            if i >= 3:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for name, sched in scheds.items():
+        ms = times[name]
+        med = statistics.median(ms)
+        per = profiled_ms(torch, sched.step, profiled)
+        out[name] = {"ticks": len(ms), "ms_median": med,
+                     "ms_p10": float(np.percentile(ms, 10)),
+                     "ms_p90": float(np.percentile(ms, 90)),
+                     "ms_min": min(ms), "tokens_per_s": SERVE_SLOTS / (
+                         med / 1e3),
+                     **device_share(per, med, (
+                         "rmsnorm_kernel", "fused_decode_mma_kernel"))}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1581,12 +2002,18 @@ def main() -> int:
     phase_gemm_width(torch)
     counts, e2e = phase_main_path(torch)
     serve_counts, serve_tokens = phase_serve(torch)
-    graph_counts = phase_graph_serve(torch, serve_tokens, smi)
+    graph_counts, graph_tokens = phase_graph_serve(
+        torch, serve_tokens["default"], smi)
+    preempt_counts, preempt_tokens = phase_serve_preempt_decode(torch)
+    phase_captured(torch, {**serve_tokens, "graph_serve": graph_tokens,
+                           "serve_preempt_decode": preempt_tokens["default"]},
+                   smi)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
-        launches = counts[name] + serve_counts[name] + graph_counts[name]
+        launches = (counts[name] + serve_counts[name] + graph_counts[name]
+                    + preempt_counts[name])
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

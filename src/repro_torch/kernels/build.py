@@ -9,10 +9,14 @@ edited source gets a fresh build and an unchanged one is reused.
 
 ``launches`` holds one plain integer per kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
-its path went through the kernels.
+its path went through the kernels.  A CUDA graph's capture runs the
+wrappers without launching anything, and its replays launch without
+running them: the capture counts apart (:func:`counted_apart`) and each
+replay adds what it recorded (:func:`add_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +25,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -35,6 +39,28 @@ launches: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "fused_flash_decode": 0,
                             "fused_flash_decode_splitk": 0,
                             "paged_attention": 0}
+
+
+@contextlib.contextmanager
+def counted_apart() -> Iterator[Dict[str, int]]:
+    """Count the launches made inside apart: yields a dict that holds
+    them (by kernel name) on exit, and leaves ``launches`` as it was."""
+    before = dict(launches)
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        for name, n in launches.items():
+            if n != before[name]:
+                made[name] = n - before[name]
+        launches.update(before)
+
+
+def add_launches(made: Dict[str, int]) -> None:
+    """Count ``made`` (kernel name -> launches) as launched."""
+    for name, n in made.items():
+        launches[name] += n
+
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int

@@ -33,7 +33,9 @@ class RuntimeFlags:
     every device (on the CPU the ops run their plain versions), and a
     flag turned off runs that op's plain version on any device.  The two
     paged-decode variants are off by default, as in JAX.  (The JAX
-    sharding flags come with the sharded serving port.)"""
+    sharding flags come with the sharded serving port.)  ``cuda_graphs``
+    is the port's own: the counterpart of the JAX engine's ``jax.jit``
+    of its steps."""
     use_flash: bool = True           # flash-attention op for prefill/extend
     fused_rmsnorm: bool = True       # fused RMSNorm op for the layer norms
     use_fused_decode: bool = True    # fused flash-decode op for decode/verify
@@ -43,6 +45,10 @@ class RuntimeFlags:
     # the fused decode op's split-K variant (K4): the row's keys split
     # across CTAs in fixed spans of absolute key positions
     fused_split_k: bool = False
+    # on the card, the engine's decode and verify steps run as captured
+    # CUDA graphs (``runtime/graphs.py``); off runs them eagerly, one
+    # host launch per op, for an A/B comparison.  No effect on the CPU
+    cuda_graphs: bool = True
 
 
 DEFAULT_FLAGS = RuntimeFlags()

@@ -1,10 +1,14 @@
-"""Serving step factories, eager (no jit): prompt ingestion, lockstep
-decode, continuous-batching decode and speculative verify over slot rows
-or a paged arena, the row inserts of both layouts, and chunked /
+"""Serving step factories: prompt ingestion, lockstep decode,
+continuous-batching decode and speculative verify over slot rows or a
+paged arena, the row inserts of both layouts, and chunked /
 prefix-extend prefill.
 
-Caches are updated in place (see ``models.transformer``); each step
-still returns the cache so callers read like the JAX package's.
+The steps run eagerly.  Decode and verify take every input as a tensor
+of a fixed shape and make no host round trip, so the engine can capture
+them as CUDA graphs (``runtime/graphs.py``); prefill, extend and the
+inserts change shape with every prompt or chunk and stay eager.  Caches
+are updated in place (see ``models.transformer``); each step still
+returns the cache so callers read like the JAX package's.
 """
 from __future__ import annotations
 
@@ -28,12 +32,12 @@ def make_prefill_step(model: Model, max_cache_len: int,
 
 
 def make_decode_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS):
-    """Lockstep decode: every row at the same offset ``cache_pos``."""
-    def decode_step(tokens, cache, cache_pos: int):
-        B = tokens.shape[0]
-        pos = torch.full((B,), cache_pos, dtype=torch.int32,
-                         device=tokens.device)
-        logits, cache = model.decode_step(tokens, cache, pos, flags=flags)
+    """Lockstep decode: ``positions`` is a [B] int32 vector holding every
+    row's common offset (a tensor, so that a captured step reads it from
+    its input buffer)."""
+    def decode_step(tokens, cache, positions):
+        logits, cache = model.decode_step(tokens, cache, positions,
+                                          flags=flags)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
 
     return decode_step

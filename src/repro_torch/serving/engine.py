@@ -14,8 +14,12 @@ The same surface as the JAX package's ``serving.LLMEngine``:
   item 7 ports them.
 
 Caches live on the engine's device and are updated in place; each call
-still returns the cache, as the JAX engine does.  ``metrics`` counts
-decode/verify steps by kernel path with their wall time.
+still returns the cache, as the JAX engine does.  On the card the decode
+and verify steps (the serving API's and ``generate``'s lockstep decode)
+run as captured CUDA graphs, one per key, as the JAX engine jits each
+step once per shape (``runtime/graphs.py``; ``RuntimeFlags.cuda_graphs``
+turns it off); prefill, extend and insert run eagerly.  ``metrics``
+counts decode/verify steps by kernel path with their wall time.
 """
 from __future__ import annotations
 
@@ -29,8 +33,10 @@ from ..core import tracer as trace_mod
 from ..core.metrics import MetricsRegistry, NullRegistry
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
+from ..models.params import flatten
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
                                   check_supported)
+from ..runtime.graphs import StepGraphs, cache_key
 from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
                              make_paged_insert, make_prefill_step,
                              make_serve_decode_step, make_slot_insert,
@@ -62,6 +68,14 @@ class LLMEngine:
         self._slot_insert = make_slot_insert()
         # per-(step, layout) kernel-path metric handles
         self._kernel_obs: Dict[Tuple, Tuple] = {}
+        #: the captured decode/verify steps (None: the steps run eagerly,
+        #: on the CPU or with ``flags.cuda_graphs`` off)
+        self.graphs: Optional[StepGraphs] = \
+            StepGraphs(self.device) \
+            if self.device.type == "cuda" and flags.cuda_graphs else None
+        # generate's lockstep cache, one per batch width: the captured
+        # lockstep decode writes the cache it was captured on
+        self._lockstep: Dict[int, Dict] = {}
 
     def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.long,
@@ -71,9 +85,48 @@ class LLMEngine:
         return torch.as_tensor(np.asarray(a), dtype=torch.int32,
                                device=self.device)
 
-    def _active(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=torch.bool,
-                               device=self.device)
+    @staticmethod
+    def _host(a, dtype) -> torch.Tensor:
+        """A host array as a CPU tensor of ``dtype`` (a numpy dtype)."""
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+
+    def _step(self, key: Tuple, step, cache, args) -> torch.Tensor:
+        """``step(args[0], cache, *args[1:])``'s tokens: through the
+        captured graph of ``key`` and the cache's addresses where the
+        engine captures, else eagerly.  ``args`` are tensors on any
+        device; the cache is written in place."""
+        if self.graphs is None:
+            tokens, *rest = (a.to(self.device) for a in args)
+            return step(tokens, cache, *rest)[0]
+        return self.graphs.run(
+            key + (cache_key(cache),),
+            lambda tokens, *rest: step(tokens, cache, *rest)[0], args)
+
+    def _serve_step(self, name: str, step, backend, cache, tokens,
+                    positions, active, block_tables) -> torch.Tensor:
+        """A serving decode or verify step over all ``N`` slots, keyed
+        like the JAX engine's jit cache: (step, layout, block size, N,
+        table width P, window width W)."""
+        args = [self._host(tokens, np.int64), self._host(positions, np.int32),
+                self._host(active, np.bool_)]
+        if backend.kind == "paged":
+            args.append(self._host(block_tables, np.int32))
+        N, W = args[0].shape
+        P = args[3].shape[1] if len(args) > 3 else 0
+        key = (name, backend.kind, getattr(backend, "block_size", 0), N, P,
+               W)
+        return self._step(key, step, cache, args)
+
+    def _lockstep_cache(self, B: int, rows):
+        """The lockstep cache of batch width ``B``, holding ``rows`` (a
+        fresh prefill's cache): the first such cache is kept, later ones
+        are copied into it."""
+        cache = self._lockstep.setdefault(B, rows)
+        if cache is not rows:
+            src = flatten(rows)
+            for path, leaf in flatten(cache).items():
+                leaf.copy_(src[path])
+        return cache
 
     @staticmethod
     def _layout(backend) -> str:
@@ -113,12 +166,17 @@ class LLMEngine:
                  eos_id: Optional[int] = None) -> np.ndarray:
         """Greedy-decode a batch. tokens: [B, S] int -> [B, max_new]."""
         tokens = self._tokens(tokens)
-        S = tokens.shape[1]
+        B, S = tokens.shape
         next_tok, cache = self._prefill(tokens)
+        if self.graphs is not None:
+            cache = self._lockstep_cache(B, cache)
         out = [next_tok]
         cur = next_tok[:, None]
         for i in range(max_new_tokens - 1):
-            cur, cache = self._decode(cur.long(), cache, S + i)
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            # a copy: a replay leaves its tokens in the graph's output
+            cur = self._step(("generate", "slot", 0, B, 0, 1), self._decode,
+                             cache, (cur.long(), pos)).clone()
             out.append(cur[:, 0])
             if eos_id is not None and bool((cur == eos_id).all()):
                 break
@@ -203,9 +261,6 @@ class LLMEngine:
                 cache, rows, int(row), self._ints(dst))
         return self._slot_insert(cache, rows, int(row), int(dst))
 
-    def _tables(self, backend, block_tables):
-        return self._ints(block_tables) if backend.kind == "paged" else None
-
     def decode(self, backend, cache, last_tokens: np.ndarray,
                positions: np.ndarray, active: np.ndarray,
                block_tables: Optional[np.ndarray] = None
@@ -216,10 +271,9 @@ class LLMEngine:
         ([N] next tokens, cache); inactive slots yield the pad token."""
         self._check_layout(backend.kind)
         t0 = time.perf_counter()
-        tok, cache = self._serve_decode(
-            self._tokens(last_tokens)[:, None], cache,
-            self._ints(positions), self._active(active),
-            self._tables(backend, block_tables))
+        tok = self._serve_step("decode", self._serve_decode, backend, cache,
+                               np.asarray(last_tokens)[:, None], positions,
+                               active, block_tables)
         out = tok[:, 0].cpu().numpy()
         self._observe_kernel("decode", backend, t0)
         return out, cache
@@ -235,9 +289,8 @@ class LLMEngine:
         keep (unbacked pages trash-route their writes)."""
         self._check_layout(backend.kind)
         t0 = time.perf_counter()
-        guess, cache = self._verify(
-            self._tokens(tokens), cache, self._ints(positions),
-            self._active(active), self._tables(backend, block_tables))
+        guess = self._serve_step("verify", self._verify, backend, cache,
+                                 tokens, positions, active, block_tables)
         out = guess.cpu().numpy()
         self._observe_kernel("verify", backend, t0)
         return out, cache

@@ -29,15 +29,24 @@ that replaces PR 3's worst-case block reservation.  PR 3's semantics
 are preserved behind ``admission="reserve"`` for A/B comparison: a
 request is admitted only once its worst-case page demand is reserved,
 so pressure can never arise mid-flight.
+
+A preempted request is recomputed on readmission: the scheduler ingests
+``prompt ++ tokens[:-1]`` again.  The backend recomputes the prompt
+through prefill and extend in its original chunks, and feeds the
+streamed tokens through the serve decode (or verify) step, which is
+the arithmetic the decode ticks that made them ran.  A replay through
+prefill alone rounds differently from decode on the card in bf16 and
+need not re-derive a streamed token (ROADMAP Hazard 5).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from .allocator import BlockPool
-from .prefix import ROOT, PrefixIndex
+from .prefix import ROOT, PrefixIndex, chain_key
 
 
 def max_request_tokens(max_len: int, num_blocks: int = 0,
@@ -89,7 +98,8 @@ class CacheBackend:
         self.cache = self.engine.new_cache(self)
 
     def _stat_seed(self) -> Dict[str, Any]:
-        return {}
+        # forward passes of the decode or verify step made by replays
+        return {"replay_steps": 0}
 
     # -- capacity / admission -------------------------------------------
     def max_request_tokens(self) -> int:
@@ -166,6 +176,73 @@ class CacheBackend:
         generated token), else None.  May raise :class:`CachePressure`
         before mutating any state."""
         raise NotImplementedError
+
+    def _prompt_end(self, req, start: int, end: int) -> int:
+        """Where chunk ``[start, end)`` of ``req``'s sequence leaves its
+        prompt: positions below run through prefill or extend, positions
+        at and above (a readmitted request's streamed tokens) through
+        :meth:`_replay`."""
+        return min(max(start, int(req.prompt.size)), end)
+
+    def _replay(self, req, seq: np.ndarray, start: int, end: int,
+                tok: Optional[int]) -> int:
+        """Recompute positions ``[start, end)`` of a readmitted ``req``,
+        its streamed tokens (none where ``start == end``: then only
+        ``tok`` is checked), through the serve decode step, or through
+        verify windows of ``1 + speculate_k`` where the request
+        speculates: the calls of a real tick, over all slots with only
+        ``req``'s row active, which write its K/V with the arithmetic of
+        the ticks that made them.  ``tok`` is the token derived for
+        position ``start`` (None when derived by an earlier call).  Each
+        derived token must be the streamed one it stands for; returns
+        the token derived after position ``end - 1``."""
+        N, row = self.num_slots, req.slot
+        p = start
+        while p < end:
+            self._check_derived(req, seq, p, tok)
+            n = min(1 + req.speculate_k, self.engine.max_len - p)
+            window = np.zeros((N, n), np.int32)
+            window[row, :min(n, len(seq) - p)] = seq[p:p + n]
+            positions = np.full(N, self._stray_position(), np.int32)
+            positions[row] = p
+            active = np.zeros(N, bool)
+            active[row] = True
+            if req.speculate_k > 0:
+                guess = self._step(self.engine.verify, window, positions,
+                                   active, row)[row]
+            else:
+                guess = self._step(self.engine.decode, window[:, 0],
+                                   positions, active, row)[row:row + 1]
+            self.stats["replay_steps"] += 1
+            m = min(n, end - p)          # the window's positions in range
+            for s in range(m - 1):
+                self._check_derived(req, seq, p + s + 1, int(guess[s]))
+            tok = int(guess[m - 1])
+            p += m
+        self._check_derived(req, seq, end, tok)
+        return tok
+
+    @staticmethod
+    def _check_derived(req, seq, p: int, tok: Optional[int]) -> None:
+        """``tok``, derived for position ``p``, must be the token streamed
+        there if ``p`` holds one (past the prompt; the last streamed
+        token, past ``seq``, is the scheduler's to check)."""
+        if tok is not None and req.prompt.size <= p < len(seq) \
+                and tok != int(seq[p]):
+            raise RuntimeError(
+                f"request {req.id!r}: replay after preemption derived "
+                f"token {tok} at position {p} where {int(seq[p])} was "
+                f"streamed — determinism contract broken")
+
+    def _stray_position(self) -> int:
+        """The write position of a replay call's inactive rows."""
+        return 0
+
+    def _step(self, call, tokens, positions, active, row) -> np.ndarray:
+        """One engine decode or verify call of a replay, ``row`` the
+        replayed slot; returns the tokens."""
+        out, self.cache = call(self, self.cache, tokens, positions, active)
+        return out
 
     # -- decode ----------------------------------------------------------
     def grow(self, req, pos: int) -> bool:
@@ -251,19 +328,29 @@ class SlotBackend(CacheBackend):
         return first
 
     def ingest(self, req, seq, start, end) -> Optional[int]:
-        if start == 0:
-            first, rows = self.engine.prefill(seq[None, :end])
-            self.cache = self.engine.insert(self, self.cache, rows, 0,
-                                            req.slot)
+        cut = self._prompt_end(req, start, end)
+        tok = None
+        if start < cut:
+            if start == 0:
+                first, rows = self.engine.prefill(seq[None, :cut])
+                self.cache = self.engine.insert(self, self.cache, rows, 0,
+                                                req.slot)
+            else:
+                first, self.cache = self.engine.extend(
+                    self, self.cache, seq[start:cut], start, req.slot)
+                self.stats["extend_prefills"] += 1
             tok = int(first[0])
-        else:
-            first, self.cache = self.engine.extend(
-                self, self.cache, seq[start:end], start, req.slot)
-            tok = int(first[0])
-            self.stats["extend_prefills"] += 1
-        self.stats["prefill_calls"] += 1
-        self.stats["prefill_tokens"] += int(end - start)
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += int(cut - start)
+        tok = self._replay(req, seq, cut, end, tok)
         return tok if end == len(seq) else None
+
+    def _stray_position(self) -> int:
+        """The last position of a row: no row ever reads K/V there that
+        it did not write itself in the same step (a request's K/V ends
+        at ``max_len - 2``; a window writes before it reads), and
+        window positions past the row are not written."""
+        return self.engine.max_len - 1
 
     def decode(self, last_tokens, positions, active) -> np.ndarray:
         next_tok, self.cache = self.engine.decode(
@@ -318,9 +405,13 @@ class PagedBackend(CacheBackend):
         self.pages_per_seq = engine.max_len // self.block_size
         self.tables = np.zeros((self.num_slots, self.pages_per_seq),
                                np.int32)
+        # each request's prefix hits (blocks) at its first admission
+        self._first_hits: "weakref.WeakKeyDictionary[Any, int]" = \
+            weakref.WeakKeyDictionary()
 
     def _stat_seed(self):
         return {
+            **super()._stat_seed(),
             "prefill_tokens_saved": 0,    # covered by shared prefix blocks
             "shared_block_hits": 0,
             "admission_blocked_on_blocks": 0, "blocks_peak": 0,
@@ -341,15 +432,31 @@ class PagedBackend(CacheBackend):
         return -(-(req.prompt.size + req.max_new_tokens)
                  // self.block_size)
 
-    def _match(self, seq):
+    def _match(self, seq, req=None, chunk=None):
         if self.prefix is None:
             return [], ROOT
-        return self.prefix.match(seq, self.block_size,
-                                 max_blocks=(len(seq) - 1)
-                                 // self.block_size)
+        hits, parent = self.prefix.match(seq, self.block_size,
+                                         max_blocks=(len(seq) - 1)
+                                         // self.block_size)
+        first = self._first_hits.get(req) if req is not None else None
+        if first is not None and len(hits) != first:
+            # a readmission: take the most hits that put its chunk
+            # boundaries where its first admission's were, so that its
+            # prompt is recomputed in the same pieces (on the card a
+            # row's bits may depend on the rows it is computed with)
+            step = -(-chunk // self.block_size) if chunk else 0
+            n = max((h for h in range(len(hits) + 1)
+                     if h == first or (step and (h - first) % step == 0)),
+                    default=len(hits))
+            hits = hits[:n]
+            parent = ROOT
+            for i in range(n):
+                parent = chain_key(parent, seq[i * self.block_size:
+                                               (i + 1) * self.block_size])
+        return hits, parent
 
     def can_admit(self, req, seq, chunk) -> bool:
-        hits, parent = self._match(seq)
+        hits, parent = self._match(seq, req, chunk)
         # stash for acquire(): nothing can change the trie between the
         # admission check and the acquire that immediately follows it
         self._admit_match = (req, hits, parent)
@@ -379,7 +486,8 @@ class PagedBackend(CacheBackend):
             _, hits, parent = stash
             self._admit_match = None
         else:
-            hits, parent = self._match(seq)
+            hits, parent = self._match(seq, req)
+        self._first_hits.setdefault(req, len(hits))
         for b in hits:
             self.pool.ref_inc(b)
         self.tables[req.slot] = 0
@@ -453,19 +561,28 @@ class PagedBackend(CacheBackend):
         self.tables[req.slot, req.n_pages:req.n_pages + new_pages] = owned
         req.blocks += owned
         req.n_pages += new_pages
-        page_ids = np.zeros(self.pages_per_seq, np.int32)
-        page_ids[:new_pages] = owned
-        if start == 0:
-            first, rows = self.engine.prefill(seq[None, :end])
-            self.cache = self.engine.insert(self, self.cache, rows, 0,
-                                            self._insert_ref(req, page_ids))
-        else:
-            first, self.cache = self.engine.extend(
-                self, self.cache, seq[start:end], start,
-                self._extend_ref(req, page_ids))
-            self.stats["extend_prefills"] += 1
-        self.stats["prefill_calls"] += 1
-        self.stats["prefill_tokens"] += int(end - start)
+        cut = self._prompt_end(req, start, end)
+        tok = None
+        if start < cut:
+            # the prompt's pages of this chunk; a replay's window writes
+            # land in its pages through the block table
+            page_ids = np.zeros(self.pages_per_seq, np.int32)
+            n_ids = -(-cut // bs) - (start // bs)
+            page_ids[:n_ids] = req.blocks[start // bs:start // bs + n_ids]
+            if start == 0:
+                first, rows = self.engine.prefill(seq[None, :cut])
+                self.cache = self.engine.insert(
+                    self, self.cache, rows, 0,
+                    self._insert_ref(req, page_ids))
+            else:
+                first, self.cache = self.engine.extend(
+                    self, self.cache, seq[start:cut], start,
+                    self._extend_ref(req, page_ids))
+                self.stats["extend_prefills"] += 1
+            tok = int(first[0])
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += int(cut - start)
+        tok = self._replay(req, seq, cut, end, tok)
         if self.prefix is not None:
             # newly-written FULL blocks become shareable (immutable from
             # here on: later writes always land at positions >= end)
@@ -475,7 +592,15 @@ class PagedBackend(CacheBackend):
                     req.blocks[i])
                 req.registered = i + 1
         self._trace_pool()
-        return int(first[0]) if end == len(seq) else None
+        return tok if end == len(seq) else None
+
+    def _step(self, call, tokens, positions, active, row) -> np.ndarray:
+        # the other rows' windows land in trash block 0
+        tables = np.zeros_like(self.tables)
+        tables[row] = self.tables[row]
+        out, self.cache = call(self, self.cache, tokens, positions, active,
+                               block_tables=tables)
+        return out
 
     # -- decode ----------------------------------------------------------
     def grow(self, req, pos: int) -> bool:

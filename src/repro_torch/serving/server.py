@@ -503,6 +503,10 @@ class GraphServer:
             while True:
                 pkt = poller.next(timeout=None)
                 if pkt is None:          # stream closed and drained
+                    # a failed run closes every poller too: raise its
+                    # error, so the requests in flight fail with it
+                    # instead of waiting for their timeout
+                    self.graph._check_error()
                     return
                 dispatch(pkt.payload)
         except BaseException as e:       # graph error: fail fast

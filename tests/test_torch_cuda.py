@@ -7,6 +7,10 @@ module imports no JAX, so it also runs on a machine without it
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
+import dataclasses
+import types
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -255,3 +259,137 @@ def test_cuda_sync_point_waits_for_the_card(cuda_device):
         assert got is y
         assert torch.equal(y.cpu(), torch.full((256, 256), 64.0))
     graph.wait_until_done(timeout=60)
+
+
+# ---------------------------------------------------------------------------
+# decode and verify as captured CUDA graphs (runtime/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _captured_and_eager(dtype, **flags):
+    """A reduced minicpm_2b engine on the card that captures its steps,
+    and one on the same weights that runs them eagerly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = dataclasses.replace(get_config("minicpm_2b").reduced(),
+                              num_layers=2, d_model=128, vocab_size=512,
+                              dtype=dtype)
+    cap = LLMEngine(cfg, max_len=128, seed=3, flags=RuntimeFlags(**flags))
+    eager = LLMEngine(cfg, dict(cap.model.named_parameters()), max_len=128,
+                      flags=RuntimeFlags(cuda_graphs=False, **flags))
+    assert cap.graphs is not None and eager.graphs is None
+    return cap, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_k", [False, True])
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_cuda_captured_steps_equal_eager(cuda_device, kind, split_k):
+    """Serve decode and verify windows through their captured graphs give
+    the eager steps' tokens and leave the same cache, bitwise, on the
+    first call of a key (run eagerly, then captured) and on replays."""
+    cap, eager = _captured_and_eager("bfloat16", fused_split_k=split_k)
+    be = types.SimpleNamespace(kind=kind, num_slots=4, block_size=16,
+                               num_blocks=1 + 4 * 128 // 16)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    caches = [e.new_cache(be) for e in (cap, eager)]
+    for a, b in zip(*(list(_leaves(c)) for c in caches)):
+        a.copy_(torch.randn(a.shape, device=cuda_device, generator=g))
+        b.copy_(a)
+    rng = np.random.RandomState(4)
+    tables = None
+    if kind == "paged":
+        P = 128 // 16
+        tables = (1 + np.arange(4 * P).reshape(4, P)).astype(np.int32)
+        tables[3] = 0                      # an inactive slot
+    active = np.array([True, True, True, False])
+    for call, width in (("decode", 1), ("verify", 3), ("decode", 1),
+                        ("verify", 3), ("verify", 3)):
+        pos = rng.randint(0, 120, 4).astype(np.int32)
+        toks = rng.randint(0, 512, (4, width)).astype(np.int32)
+        outs = []
+        for e, c in zip((cap, eager), caches):
+            fn = getattr(e, call)
+            arg = toks[:, 0] if call == "decode" else toks
+            out, _ = fn(be, c, arg, pos, active, block_tables=tables)
+            outs.append(out)
+        np.testing.assert_array_equal(outs[0], outs[1], err_msg=call)
+        for a, b in zip(*(list(_leaves(c)) for c in caches)):
+            assert torch.equal(a, b), call
+    assert len(cap.graphs) == 2
+
+
+def _leaves(tree):
+    """The tensors of a nested dict, in a fixed order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+@pytest.mark.cuda
+def test_cuda_replay_counts_its_launches(cuda_device):
+    """A captured step counts the launches of the work it does: the
+    first call once (its eager run; the capture launches nothing), each
+    replay again; the same counts as the eager engine's."""
+    from repro_torch.kernels import build
+    cap, eager = _captured_and_eager("bfloat16")
+    be = types.SimpleNamespace(kind="slot", num_slots=4)
+    pos = np.array([3, 9, 20, 40], np.int32)
+    toks = np.array([1, 2, 3, 4], np.int32)
+    active = np.ones(4, bool)
+    counts = {}
+    for name, e in (("captured", cap), ("eager", eager)):
+        cache = e.new_cache(be)
+        per = []
+        for _ in range(3):
+            for k in build.launches:
+                build.launches[k] = 0
+            e.decode(be, cache, toks, pos, active)
+            per.append(dict(build.launches))
+        counts[name] = per
+    L = cap.cfg.num_layers
+    one = {k: 0 for k in build.launches}
+    one.update({"rmsnorm": 2 * L + 1, "fused_flash_decode": L})
+    assert counts["captured"] == counts["eager"] == [one] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [0, 3])
+def test_cuda_preempted_replay_captured_equals_eager(cuda_device, spec):
+    """The Scheduler on a paged arena, a request preempted after it
+    streamed tokens: its replay through the decode step gives the run's
+    tokens without preemption, and the captured and eager engines give
+    the same tokens and the same launches, bitwise."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import PagedBackend, Scheduler
+    cap, eager = _captured_and_eager("bfloat16")
+    prompts = [np.random.RandomState(i).randint(0, 512, n).astype(np.int32)
+               for i, n in enumerate((21, 34, 9))]
+    runs = {}
+    for name, e in (("captured", cap), ("eager", eager)):
+        for preempt in (False, True):
+            sched = Scheduler(PagedBackend(e, 2, num_blocks=33,
+                                           block_size=16),
+                              max_new_tokens=16, chunk_size=16,
+                              speculate_k=spec)
+            reqs = [sched.submit({"tokens": p, "id": i})
+                    for i, p in enumerate(prompts)]
+            for k in build.launches:
+                build.launches[k] = 0
+            while sched.has_work():
+                sched.admit()
+                sched.step()
+                if preempt and reqs[0].preemptions == 0 \
+                        and len(reqs[0].tokens) >= 8:
+                    sched.preempt(reqs[0])
+            runs[name, preempt] = ([list(r.tokens) for r in reqs],
+                                   dict(build.launches),
+                                   sched.stats["replay_steps"])
+    for name in ("captured", "eager"):
+        assert runs[name, True][0] == runs[name, False][0]
+        assert runs[name, True][2] > 0
+    assert runs["captured", True] == runs["eager", True]
+    assert runs["captured", False] == runs["eager", False]

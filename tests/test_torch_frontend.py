@@ -19,6 +19,7 @@ package's server).
 """
 import asyncio
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -602,6 +603,51 @@ class TestAsyncFrontend:
 
             asyncio.run(main())
             assert srv.stats()["scheduler"]["submitted"] == 0
+
+    def test_failed_run_fails_streams_at_once(self, engine, monkeypatch):
+        """A run that fails mid-decode (the engine raises on its third
+        decode tick) fails every pending handle and every
+        ``AsyncFrontend`` stream with the run's error within seconds,
+        not on the policy's timeout (ROADMAP Hazard 6, repaired in the
+        port's ``GraphServer._pump``)."""
+        real, ticks = engine.decode, []
+
+        def decode(*args, **kw):
+            ticks.append(1)
+            if len(ticks) == 3:
+                raise RuntimeError("engine failed mid-run")
+            return real(*args, **kw)
+
+        monkeypatch.setattr(engine, "decode", decode)
+        prompts = make_prompts(np.random.RandomState(28), [6, 9, 7])
+        srv = GraphServer(engine, num_slots=2, max_new_tokens=8)
+        front = AsyncFrontend(srv, policy=Policy(timeout_ms=300_000))
+        handles = []
+
+        async def one(p):
+            return [t async for t in front.stream(
+                p, on_handle=handles.append)]
+
+        async def main():
+            return await asyncio.gather(*[one(p) for p in prompts],
+                                        return_exceptions=True)
+
+        t0 = time.monotonic()
+        outs = asyncio.run(main())
+        waited = time.monotonic() - t0
+        try:
+            assert waited < 30, f"streams ended after {waited:.1f} s"
+            assert len(handles) == len(prompts)
+            for out in outs:
+                assert isinstance(out, RuntimeError), out
+                assert "engine failed mid-run" in repr(out.__cause__)
+            for h in handles:
+                with pytest.raises(RuntimeError) as err:
+                    h.result(timeout=1)
+                assert "engine failed mid-run" in repr(err.value.__cause__)
+        finally:
+            with pytest.raises(GraphError, match="engine failed mid-run"):
+                srv.close()
 
     def test_bad_policy_rejected(self):
         with pytest.raises(ValueError):

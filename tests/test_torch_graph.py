@@ -558,13 +558,29 @@ COPIES = ([f"core/{m}.py" for m in CORE]
                                          "pipeline", "server", "frontend",
                                          "batching", "speculative")]
           + ["serving/kvcache/allocator.py", "serving/kvcache/prefix.py"])
-#: the definitions a copy may change or add, by file
-NAMED = {"calculators/basic.py": {"SyncPointCalculator", "_cuda_devices"}}
+#: the definitions a copy may change or add, by file: top-level ones by
+#: name, methods as ``Class.method``
+NAMED = {"calculators/basic.py": {"SyncPointCalculator", "_cuda_devices"},
+         "serving/server.py": {"GraphServer._pump"}}
+
+
+def _named_nodes(tree, named):
+    """The definitions of ``tree`` that ``named`` names, with the names:
+    top-level ones, and the methods of top-level classes."""
+    for node in tree.body:
+        name = getattr(node, "name", None)
+        if name in named:
+            yield name, node
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                qual = f"{name}.{getattr(sub, 'name', None)}"
+                if qual in named:
+                    yield qual, sub
 
 
 def _free_lines(tree, named):
     """Line numbers a copy may change: docstrings, import statements and
-    the named top-level definitions (decorators included)."""
+    the named definitions (decorators included)."""
     free = set()
     for node in ast.walk(tree):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
@@ -576,11 +592,9 @@ def _free_lines(tree, named):
                     isinstance(doc.value, ast.Constant) and \
                     isinstance(doc.value.value, str):
                 free.update(range(doc.lineno, doc.end_lineno + 1))
-    for node in tree.body:
-        if getattr(node, "name", None) in named:
-            first = min([node.lineno] + [d.lineno for d in
-                                         node.decorator_list])
-            free.update(range(first, node.end_lineno + 1))
+    for _, node in _named_nodes(tree, named):
+        first = min([node.lineno] + [d.lineno for d in node.decorator_list])
+        free.update(range(first, node.end_lineno + 1))
     return free
 
 
@@ -602,38 +616,80 @@ def _code(text, named):
             return node
 
     tree = Strip().visit(ast.parse(text))
-    tree.body = [n for n in tree.body if getattr(n, "name", None)
-                 not in named]
+    drop = {id(node) for _, node in _named_nodes(tree, named)}
+    tree.body = [n for n in tree.body if id(n) not in drop]
+    for cls in tree.body:
+        if isinstance(cls, ast.ClassDef):
+            cls.body = [n for n in cls.body if id(n) not in drop] \
+                or [ast.Pass()]
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("rel", COPIES)
-def test_copy_differs_only_in_imports_and_named_changes(rel):
-    ref_text = re.sub(r"\brepro\.", "repro_torch.",
-                      (REF / rel).read_text())
-    port_text = (PORT / rel).read_text()
-    named = NAMED.get(rel, set())
+def _copy_faults(rel, ref_text, port_text, named):
+    """Where ``port_text`` differs from ``ref_text`` outside imports,
+    docstrings and the ``named`` definitions, or lacks one of those."""
     ref_tree = ast.parse(ref_text)
     port_tree = ast.parse(port_text)
     ref_free = _free_lines(ref_tree, named)
     port_free = _free_lines(port_tree, named)
-    assert _code(port_text, named) == _code(ref_text, named), \
-        f"{rel}: code differs from src/repro/{rel}"
+    faults = []
+    if _code(port_text, named) != _code(ref_text, named):
+        faults.append(f"{rel}: code differs from src/repro/{rel}")
     ref_lines, port_lines = ref_text.splitlines(), port_text.splitlines()
     matcher = difflib.SequenceMatcher(None, ref_lines, port_lines,
                                       autojunk=False)
     for op, i1, i2, j1, j2 in matcher.get_opcodes():
         if op == "equal":
             continue
-        for i in range(i1, i2):
-            assert i + 1 in ref_free or not ref_lines[i].strip(), \
-                f"{rel}: reference line {i + 1} changed: {ref_lines[i]!r}"
-        for j in range(j1, j2):
-            assert j + 1 in port_free or not port_lines[j].strip(), \
-                f"{rel}: line {j + 1} changed: {port_lines[j]!r}"
-    for name in named:
-        assert any(getattr(n, "name", None) == name
-                   for n in port_tree.body), f"{rel}: {name} missing"
+        faults += [f"{rel}: reference line {i + 1} changed: "
+                   f"{ref_lines[i]!r}" for i in range(i1, i2)
+                   if i + 1 not in ref_free and ref_lines[i].strip()]
+        faults += [f"{rel}: line {j + 1} changed: {port_lines[j]!r}"
+                   for j in range(j1, j2)
+                   if j + 1 not in port_free and port_lines[j].strip()]
+    found = {name for name, _ in _named_nodes(port_tree, named)}
+    faults += [f"{rel}: {name} missing" for name in sorted(named - found)]
+    return faults
+
+
+def _texts(rel):
+    """(the reference's text with ``repro.`` read as ``repro_torch.``,
+    the port's text) of copied module ``rel``."""
+    return (re.sub(r"\brepro\.", "repro_torch.", (REF / rel).read_text()),
+            (PORT / rel).read_text())
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_differs_only_in_imports_and_named_changes(rel):
+    faults = _copy_faults(rel, *_texts(rel), NAMED.get(rel, set()))
+    assert not faults, "\n".join(faults)
+
+
+def test_copy_check_frees_a_named_method_only():
+    """``GraphServer._pump`` is a named change of the server's copy: a
+    change inside it passes, a change to any other method of the class
+    or to a named method that is gone is still caught."""
+    rel = "serving/server.py"
+    named = NAMED[rel]
+    ref_text, port_text = _texts(rel)
+    inside = port_text.replace(
+        "                dispatch(pkt.payload)",
+        "                dispatch(pkt.payload)\n                pass")
+    assert inside != port_text
+    assert not _copy_faults(rel, ref_text, inside, named)
+    for old, new in (
+            ('self._handles.pop(payload["id"], None)',
+             'self._handles.pop(payload["id"])'),      # _dispatch_token
+            ("h._on_error(err)", "h._on_error(err) or None"),
+            ("self._pump(self._token_poller, self._dispatch_token)",
+             "return self._pump(self._token_poller, "
+             "self._dispatch_token)")):
+        changed = port_text.replace(old, new)
+        assert changed != port_text, old
+        assert _copy_faults(rel, ref_text, changed, named), old
+    gone = port_text.replace("def _pump(self", "def _pump_renamed(self")
+    assert any("_pump missing" in f
+               for f in _copy_faults(rel, ref_text, gone, named))
 
 
 def test_sync_point_imports_no_jax_and_catches_nothing():

@@ -317,6 +317,177 @@ def test_cancel_keeps_survivors_exact(engine, kind, point):
 
 
 # ---------------------------------------------------------------------------
+# replay after a mid-decode preemption: through the decode step
+# ---------------------------------------------------------------------------
+
+def _runner_up(fn):
+    """``fn`` with each row's top logit pushed below the others, so that
+    its greedy token is the runner-up."""
+    def wrapped(*args, **kw):
+        logits, cache = fn(*args, **kw)
+        logits = logits.clone()
+        logits.scatter_(-1, logits.argmax(-1, keepdim=True), float("-inf"))
+        return logits, cache
+
+    return wrapped
+
+
+@pytest.fixture(scope="module")
+def skewed(engine):
+    """The engine's weights behind a prefill and an extend that derive
+    their token otherwise than decode does (the runner-up): a stand-in
+    for the card, where in bf16 prefill rounds the last hidden row
+    otherwise than a decode step and need not give its token.  Its
+    ``generate`` takes the first token from prefill and the rest from
+    decode steps, as serving does."""
+    eng = LLMEngine(small_cfg(), dict(engine.model.named_parameters()),
+                    max_len=64, device="cpu")
+    eng.model.prefill = _runner_up(eng.model.prefill)
+    eng.model.prefill_extend = _runner_up(eng.model.prefill_extend)
+    return eng
+
+
+def _preempt_mid_decode(sched, req, tokens):
+    """Drive ``sched`` until ``req`` has streamed ``tokens`` tokens, then
+    preempt it."""
+    while len(req.tokens) < tokens:
+        sched.admit()
+        sched.step()
+    sched.preempt(req)
+
+
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_prefill_replay_of_decode_tokens_raises(skewed, kind):
+    """The reference's replay (``prompt ++ tokens[:-1]`` through prefill)
+    cannot re-derive a token that a decode step made where the two round
+    differently: the scheduler's determinism check raises."""
+    prompts = make_prompts(np.random.RandomState(40), [9, 13])
+    be = backend(skewed, kind, 2)
+    # every position through prefill and extend, the streamed tokens too
+    be._prompt_end = lambda req, start, end: end
+    sched = Scheduler(be, max_new_tokens=10, chunk_size=8)
+    r0 = sched.submit({"tokens": prompts[0], "id": 0})
+    sched.submit({"tokens": prompts[1], "id": 1})
+    _preempt_mid_decode(sched, r0, 4)
+    with pytest.raises(RuntimeError, match="re-derived token .* already "
+                                           "streamed"):
+        drain(sched)
+
+
+@pytest.mark.parametrize("spec", [0, 3])
+@pytest.mark.parametrize("chunk", [None, 8])
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_decode_replay_gives_generate_tokens(skewed, kind, chunk, spec):
+    """The same preemptions replayed through the decode step (verify
+    windows of 1 + k where the request speculates): every request ends
+    with ``generate``'s tokens, the replay made decode steps, and the
+    streamed tokens are counted as replayed."""
+    prompts = make_prompts(np.random.RandomState(41), [9, 13, 6])
+    draft = oracle_draft_fn(skewed, prompts, 12, 2,
+                            np.random.RandomState(5)) if spec else None
+    sched = Scheduler(backend(skewed, kind, 2), max_new_tokens=12,
+                      chunk_size=chunk, speculate_k=spec, draft_fn=draft)
+    reqs = [sched.submit({"tokens": p, "id": i})
+            for i, p in enumerate(prompts)]
+    _preempt_mid_decode(sched, reqs[0], 4)
+    streamed = len(reqs[0].tokens)
+    got = {}
+    while reqs[1].slot < 0 or len(reqs[1].tokens) < 6:
+        for ev in sched.admit() + sched.step():
+            if ev.finished:
+                got[ev.request.id] = np.asarray(ev.request.tokens, np.int32)
+    if not reqs[1].finished:
+        sched.preempt(reqs[1])
+    got = drain(sched, got)
+    assert_generate(skewed, prompts, 12, got)
+    assert reqs[0].preemptions == 1
+    assert sched.stats["replayed_tokens"] >= streamed
+    assert sched.stats["replay_steps"] > 0
+    assert_baseline(sched)
+
+
+def _row_kv(sched, req, n):
+    """Positions ``[0, n)`` of ``req``'s K/V, every layer, read through
+    its slot row or its block table."""
+    be = sched.backend
+    out = []
+    for leaf in (be.cache["blocks"]["l0"]["mixer"][k] for k in "kv"):
+        if be.kind == "paged":
+            pages = torch.as_tensor(be.tables[req.slot]).long()
+            row = leaf[:, pages].reshape(leaf.shape[0], -1,
+                                         *leaf.shape[3:])
+        else:
+            row = leaf[:, req.slot]
+        out.append(row[:, :n].clone())
+    return out
+
+
+@pytest.mark.parametrize("spec", [0, 3])
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_replay_restores_kv_bitwise(engine, kind, spec):
+    """After the replay of a request preempted mid-decode, its K/V at
+    every position it held equal bitwise what it held before, read
+    through its (new) slot row or block table."""
+    prompts = make_prompts(np.random.RandomState(42), [11, 7])
+    draft = oracle_draft_fn(engine, prompts, 12, 2,
+                            np.random.RandomState(6)) if spec else None
+    sched = Scheduler(backend(engine, kind, 2), max_new_tokens=12,
+                      chunk_size=8, speculate_k=spec, draft_fn=draft)
+    r0 = sched.submit({"tokens": prompts[0], "id": 0})
+    sched.submit({"tokens": prompts[1], "id": 1})
+    while len(r0.tokens) < 5:
+        sched.admit()
+        sched.step()
+    held = int(sched.positions[r0.slot])
+    before = _row_kv(sched, r0, held)
+    sched.preempt(r0)
+    while r0.slot < 0 or r0 in sched.ingesting:
+        sched.admit()
+    assert int(sched.positions[r0.slot]) == held
+    for a, b in zip(before, _row_kv(sched, r0, held)):
+        assert torch.equal(a, b)
+    assert_generate(engine, prompts, 12, drain(sched))
+    assert_baseline(sched)
+
+
+def test_replay_keeps_prefix_chunk_boundaries(engine):
+    """A request that computed its prompt itself is preempted while
+    another request still holds three of its prompt blocks.  Its replay
+    shares only as many of them as keep its chunk boundaries where they
+    were (two, with chunks of two blocks), so that its prompt is
+    recomputed in the same pieces."""
+    rng = np.random.RandomState(43)
+    a = rng.randint(0, 512, size=20).astype(np.int32)
+    b = np.concatenate([a[:12], rng.randint(0, 512, size=6)
+                        .astype(np.int32)])
+    be = backend(engine, "paged", 2, num_blocks=33, block_size=4)
+    calls = []
+    real = be.ingest
+
+    def ingest(req, seq, start, end):
+        calls.append((req.id, start, end))
+        return real(req, seq, start, end)
+
+    be.ingest = ingest
+    sched = Scheduler(be, max_new_tokens=8, chunk_size=8)
+    ra = sched.submit({"tokens": a, "id": "a"})
+    while ra in sched.ingesting or ra.slot < 0:
+        sched.admit()
+    sched.submit({"tokens": b, "id": "b"})
+    sched.admit()
+    assert sched.stats["shared_block_hits"] == 3
+    _preempt_mid_decode(sched, ra, 4)
+    first = [(s, min(e, a.size)) for rid, s, e in calls if rid == "a"]
+    del calls[:]
+    got = drain(sched)
+    again = [(s, min(e, a.size)) for rid, s, e in calls
+             if rid == "a" and s < a.size]
+    assert again == [c for c in first if c[0] >= 8] and again[0][0] == 8
+    assert_generate(engine, [a, b], 8, {0: got["a"], 1: got["b"]})
+    assert_baseline(sched)
+
+
+# ---------------------------------------------------------------------------
 # what the engine refuses
 # ---------------------------------------------------------------------------
 
