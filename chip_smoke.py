@@ -27,14 +27,25 @@ through ``GraphServer``, tokens bitwise those of the runs without
 preemption, the replayed rows' K/V bitwise what they held), then the
 captured decode and verify steps against eager ones (phase
 ``captured``: every serving run's tokens bitwise, and the paged and
-slot ticks' times read in turns), checks
-the launch counters against the schedule and the outputs (slot and
-paged layouts bitwise equal; an f32 run against per-request greedy),
-and times each kernel with CUDA events over calls queued back to back
-(K1 also at prefill widths, K3 also at the serve workload's prefill
-chunk and qwen3_32b's full prefill, K2, K4 and K5 also on the paged
-arena at the serve tick's and qwen3_32b's shapes, K2 and K4 there at
-windows of 1 and 5).  Every phase and check
+slot ticks' times read in turns), then ``granite_moe_3b_a800m`` at full
+width and depth (32 layers, 40 experts top-8 padded to 48, bf16): one
+MoE FFN layer on the card against the CPU (``moe_layer_vs_cpu``), the
+engine's main path against the plain path (``moe_main_path``), the serve
+workload through the Scheduler captured against eager with its capacity
+drops counted (``moe_serve``), slot against paged (``moe_serve_layouts``),
+preempted requests replayed through the decode step
+(``moe_preempt_decode``), the port's launcher in both front doors
+(``moe_graph_serve``) and the captured decode tick against its bound
+(``moe_tick``); checks the launch counters against the schedule and the
+outputs (slot and paged layouts bitwise equal; an f32 run against
+per-request greedy), and times each kernel with CUDA events over calls
+queued back to back (K1 also at prefill widths, K3 also at the serve
+workload's prefill chunk and qwen3_32b's full prefill, K2, K4 and K5
+also on the paged arena at the serve tick's, qwen3_32b's and
+granite_moe_3b_a800m's shapes, K2 and K4 there at windows of 1 and 5).
+Kernels are also held at granite_moe_3b_a800m's head shape (24 heads
+over 8 KV heads), and ``gemm_width`` reads its router and expert
+products.  Every phase and check
 prints a JSON line; any failure raises and exits non-zero.  The last
 lines are the card's name and power limit, the kernel summary, and
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +55,7 @@ exits non-zero without either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -245,6 +257,11 @@ def phase_kernels(torch):
                       f"bitwise equal to row 2 of the batch")
         for shape in DECODE_SHAPES:
             check_paged_kernels(torch, dev, g, dtype, shape, record)
+        # granite_moe_3b_a800m's G = 3: K3's suffixes of a 512-row
+        # prefill, K2 and K4's windows against single queries
+        check_flash_shape(torch, dev, g, dtype, GRANITE, record,
+                          rows=512, offsets=(50, 256))
+        check_window_independence(torch, dev, g, GRANITE, dtype)
     for shape in DECODE_SHAPES[:2]:
         check_window_independence(torch, dev, g, shape)
     torch.cuda.synchronize()
@@ -261,16 +278,17 @@ PREFILL_ROWS = 768
 PREFILL_OFFSETS = (50, 256, 512)
 
 
-def check_flash_shape(torch, dev, g, dtype, shape, record):
-    """K3 at ``shape`` = (name, H, KV, hd): a causal prefill of
-    PREFILL_ROWS rows against its plain version, and its suffixes at
-    PREFILL_OFFSETS against theirs and bitwise against the full rows."""
+def check_flash_shape(torch, dev, g, dtype, shape, record,
+                      rows=PREFILL_ROWS, offsets=PREFILL_OFFSETS):
+    """K3 at ``shape`` = (name, H, KV, hd): a causal prefill of ``rows``
+    rows against its plain version, and its suffixes at ``offsets``
+    against theirs and bitwise against the full rows."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     name, H, KV, hd = shape
     dt = getattr(torch, dtype)
     tol = TOL[dtype]
-    S = PREFILL_ROWS
+    S = rows
 
     def rand(*shp):
         return torch.randn(*shp, device=dev, generator=g).to(dt)
@@ -280,7 +298,7 @@ def check_flash_shape(torch, dev, g, dtype, shape, record):
     case = f"{name} [1,{S},{H},{hd}] kv {KV} causal"
     record("flash_attention", dtype, case, full,
            ref.flash_attention_ref(q, k, v), tol)
-    for off in PREFILL_OFFSETS:
+    for off in offsets:
         suf = flash_attention_cuda(q[:, off:].contiguous(), k, v,
                                    q_offset=off)
         record("flash_attention", dtype, f"{case} q_offset={off}", suf,
@@ -295,7 +313,10 @@ def check_flash_shape(torch, dev, g, dtype, shape, record):
 #: 5-query window is three 16-row tiles) and stablelm_12b's (head_dim
 #: 160, the widest bf16 instance)
 DECODE_SHAPES = (("minicpm_2b", 36, 36, 64), ("qwen3_32b", 64, 8, 128),
-                 ("stablelm_12b", 32, 8, 160))
+                 ("stablelm_12b", 32, 8, 160),
+                 ("granite_moe_3b_a800m", 24, 8, 64))
+#: granite_moe_3b_a800m's attention shape: 3 query heads per kv head
+GRANITE = DECODE_SHAPES[3]
 #: keys seen by the first window query of each active row, and the one
 #: inactive row (all-zero table) at a stale position
 ROW_KEYS = (1, 15, 16, 17, 300, 4095)
@@ -420,8 +441,8 @@ def check_paged_kernels(torch, dev, g, dtype, shape, record):
                   f"row of the batch")
 
 
-def check_window_independence(torch, dev, g, shape):
-    """K2 and K4 in bf16 at ``shape`` = (name, H, KV, hd), the rows of
+def check_window_independence(torch, dev, g, shape, dtype="bfloat16"):
+    """K2 and K4 in ``dtype`` at ``shape`` = (name, H, KV, hd), the rows of
     ROW_KEYS: query ``s`` of an S' = 5 window equals bitwise the S' = 1
     call at ``pos + s`` over the same arena once the window's first
     ``s`` tokens are written (five calls in turn), and the arena after
@@ -439,7 +460,8 @@ def check_window_independence(torch, dev, g, shape):
     freqs = ref.rope_freqs(hd, 10_000.0, dev)
 
     def rand(*shp):
-        return torch.randn(*shp, device=dev, generator=g).to(torch.bfloat16)
+        return torch.randn(*shp, device=dev, generator=g).to(
+            getattr(torch, dtype))
 
     q, kn, vn = rand(B, Sq, H, hd), rand(B, Sq, KV, hd), rand(B, Sq, KV, hd)
     kp, vp = rand(NB, bs, KV, hd), rand(NB, bs, KV, hd)
@@ -457,7 +479,7 @@ def check_window_independence(torch, dev, g, shape):
         arena = all(torch.equal(a[1:], b[1:])
                     for a, b in zip(single, window))
         emit({"phase": "kernel_vs_plain", "kernel": label,
-              "dtype": "bfloat16",
+              "dtype": dtype,
               "case": f"{name} window independence S'={Sq} vs {Sq} x S'=1",
               "queries_bitwise": queries, "arena_bitwise": arena})
         check(all(queries) and arena,
@@ -471,11 +493,13 @@ def check_window_independence(torch, dev, g, shape):
 # ---------------------------------------------------------------------------
 
 def phase_gemm_width(torch):
-    """For minicpm_2b's four GEMM shapes (K x N) in bf16 and f32: is row
-    i of ``x[:M] @ W`` bitwise equal to row i of ``x[:16] @ W`` for M =
-    1, 2, 4, 8, 16, and for the first 16 rows at M = 20 (4 slots' verify
-    windows of 5) and 32?  (The logits GEMM multiplies by the tied
-    embedding's transpose, as the model does.)"""
+    """For minicpm_2b's four GEMM shapes (K x N) in bf16 and f32, and
+    granite_moe_3b_a800m's f32 router: is row i of ``x[:M] @ W`` bitwise
+    equal to row i of ``x[:16] @ W`` for M = 1, 2, 4, 8, 16, and for the
+    first 16 rows at M = 20 (4 slots' verify windows of 5) and 32?  (The
+    logits GEMM multiplies by the tied embedding's transpose, as the
+    model does.)  For granite's bf16 expert product, the same for the
+    rows of each expert at capacities C = 8, 16 and 72.  A reading."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     shapes = {"qkvo": (2304, 2304), "gate_up": (2304, 5760),
@@ -499,6 +523,35 @@ def phase_gemm_width(torch):
             out[f"{name} {dtype}"] = row
             emit({"phase": "gemm_width", "gemm": name, "K": K, "N": N,
                   "dtype": dtype, "rows_equal_to_width_16": row})
+    # granite_moe_3b_a800m: the router's f32 product, which picks each
+    # token's experts, and the experts' bf16 batched product at the
+    # capacities of a 4-slot decode tick (8), 16 and a 256-row chunk (72)
+    K, N = 1536, 48
+    x = torch.randn(32, K, device=dev, generator=g)
+    w = torch.randn(K, N, device=dev, generator=g)
+    full = x[:16] @ w
+    row = {}
+    for M in (1, 2, 4, 8, 16, 20, 32):
+        part = (x[:M] @ w)[:16]
+        row[M] = {"equal": bool(torch.equal(part, full[:M])),
+                  "max_abs_diff": float((part - full[:M]).abs().max())}
+    out["router float32"] = row
+    emit({"phase": "gemm_width", "gemm": "router", "K": K, "N": N,
+          "dtype": "float32", "rows_equal_to_width_16": row})
+    E, ff = 48, 512
+    xb = torch.randn(E, 72, K, device=dev, generator=g).to(torch.bfloat16)
+    wb = torch.randn(E, K, ff, device=dev, generator=g).to(torch.bfloat16)
+    full = torch.bmm(xb[:, :16], wb)
+    row = {}
+    for C in (8, 16, 72):
+        n = min(C, 16)
+        part = torch.bmm(xb[:, :C], wb)[:, :n]
+        row[C] = {"equal": bool(torch.equal(part, full[:, :n])),
+                  "max_abs_diff": float(
+                      (part.float() - full[:, :n].float()).abs().max())}
+    out["experts bfloat16"] = row
+    emit({"phase": "gemm_width", "gemm": "experts", "batch": E, "K": K,
+          "N": ff, "dtype": "bfloat16", "rows_equal_to_capacity_16": row})
     torch.cuda.synchronize()
     return out
 
@@ -517,29 +570,22 @@ def top2_agree(want_tok, got_tok, logits, tol):
     return bool((want[sure] == got[sure]).all()), int(sure.sum())
 
 
-def phase_main_path(torch):
+def drive_engine_path(torch, engine, cfg, rng):
+    """The engine's main path with every launch counter at 0 first:
+    ``generate`` on GEN_PROMPT prompts for GEN_NEW tokens, then two
+    prefill groups inserted into a 4-slot slot cache, TICKS decode ticks
+    (slot 3 idle for the first half) and one verify window.  Checks the
+    tokens' range and the outputs' shapes; returns the launch counts and
+    the schedule's, the tokens and the cache."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models.transformer import RuntimeFlags
-    from repro_torch.serving import LLMEngine
-    cfg = get_config("minicpm_2b")
     L = cfg.num_layers
-    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.padded_vocab)
-          == (40, 2304, 36, 122880), "minicpm_2b is not at full width")
-    t0 = time.perf_counter()
-    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(SEED)
     prompt = rng.randint(0, cfg.vocab_size, GEN_PROMPT).astype(np.int32)
     groups = [rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
               for S in GROUPS]
     drafts = rng.randint(0, cfg.vocab_size,
                          (4, VERIFY_WIDTH - 1)).astype(np.int32)
     backend = types.SimpleNamespace(kind="slot", num_slots=4)
-
-    # ---- the main path, with every launch counter at 0 -------------------
     for name in build.launches:
         build.launches[name] = 0
     t0 = time.perf_counter()
@@ -563,29 +609,52 @@ def phase_main_path(torch):
     guess, cache = engine.verify(backend, cache, window, pos,
                                  np.ones(4, bool))
     torch.cuda.synchronize()
-    path_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     counts = dict(build.launches)
-
     prefills = 1 + len(GROUPS)
     ticks = (GEN_NEW - 1) + TICKS
     expected = {name: 0 for name in build.launches}
     expected.update({"rmsnorm": (2 * L + 1) * (prefills + ticks + 1),
                      "flash_attention": L * prefills,
                      "fused_flash_decode": L * (ticks + 1)})
+    for arr in [gen, guess] + emitted:
+        arr = np.asarray(arr)
+        check(((arr >= 0) & (arr < cfg.vocab_size)).all(),
+              f"{cfg.name}: a token outside the vocab")
+    check(gen.shape == (2, GEN_NEW) and guess.shape == (4, VERIFY_WIDTH),
+          f"{cfg.name}: output shapes")
+    return types.SimpleNamespace(
+        counts=counts, expected=expected, gen=gen, guess=guess,
+        groups=groups, backend=backend, cache=cache, last=last, pos=pos,
+        seconds=seconds)
+
+
+def phase_main_path(torch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = get_config("minicpm_2b")
+    L = cfg.num_layers
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.padded_vocab)
+          == (40, 2304, 36, 122880), "minicpm_2b is not at full width")
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    run = drive_engine_path(torch, engine, cfg, rng)
+    counts, groups = run.counts, run.groups
     emit({"phase": "main_path", "arch": cfg.name, "layers": L,
           "d_model": cfg.d_model, "heads": cfg.num_heads,
           "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
           "dtype": cfg.dtype, "init_seconds": init_s,
-          "path_seconds": path_s, "launches": counts,
-          "expected_launches": expected, "generate": gen.tolist(),
-          "verify": guess.tolist()})
-    check(counts == expected, f"launch counts {counts} != {expected}")
-    for arr in [gen, guess] + emitted:
-        arr = np.asarray(arr)
-        check(((arr >= 0) & (arr < cfg.vocab_size)).all(),
-              "a token outside the vocab")
-    check(gen.shape == (2, GEN_NEW) and guess.shape == (4, VERIFY_WIDTH),
-          "output shapes")
+          "path_seconds": run.seconds, "launches": counts,
+          "expected_launches": run.expected, "generate": run.gen.tolist(),
+          "verify": run.guess.tolist()})
+    check(counts == run.expected, f"launch counts {counts} != "
+                                  f"{run.expected}")
+    backend, cache, last, pos = run.backend, run.cache, run.last, run.pos
 
     # ---- against the plain path on the same weights ----------------------
     # bf16 kernel and plain paths, and the plain path in f32 on the same
@@ -1379,7 +1448,8 @@ class ForcedPreemption:
         return out
 
 
-def check_forced(label, forced, stats, got, want, counts, want_launches):
+def check_forced(label, forced, stats, got, want, counts, want_launches,
+                 phase="serve_preempt_decode"):
     """Print and hold one run with forced preemptions against the same
     run without them: at least 4 preemptions of requests that had
     streamed PREEMPT_AFTER tokens or more (and no other preemption),
@@ -1388,7 +1458,7 @@ def check_forced(label, forced, stats, got, want, counts, want_launches):
     schedule."""
     import numpy as np
     equal = sum(bool(np.array_equal(got[i], want[i])) for i in want)
-    emit({"phase": "serve_preempt_decode", "run": label,
+    emit({"phase": phase, "run": label,
           "forced_preemptions": len(forced.streamed),
           "victims_streamed_tokens": forced.streamed,
           "replays_kv_bitwise": sum(forced.kv_equal),
@@ -1592,6 +1662,596 @@ def interleaved_ticks(torch, engines, requests, kind, ticks=TICK_READS,
                      **device_share(per, med, (
                          "rmsnorm_kernel", "fused_decode_mma_kernel"))}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5 — granite_moe_3b_a800m: the MoE FFN at full width and depth
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite_moe_3b_a800m"
+#: moe_layer_vs_cpu: tokens of the layer's call, the gap between a
+#: token's 8th and 9th probability below which its choice may flip
+#: between devices, and the outputs' limit relative to their scale
+MOE_TOKENS = 256
+MOE_GAP = 1e-5
+MOE_TOL = 1e-4
+#: depths at which moe_main_vs_plain holds the kernel path against the
+#: plain path: random expert weights at the reference's scale make each
+#: MoE output ~100x its input, and a layer roughly doubles a relative
+#: error (f32 on an H100: 6.4e-6 at 1 layer, 3.1e-5 at 2, 1.0e-4 at 4,
+#: 1.1e-3 at 8), so 32 layers turn f32 rounding into O(1) logits.  f32
+#: is held at F32_MODEL_TOL up to MOE_F32_DEPTH layers and read beyond
+MOE_DEPTHS = (1, 2, 4, 8, 16, 32)
+MOE_F32_DEPTH = 4
+
+
+def moe_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.num_experts, cfg.num_experts_per_tok, cfg.d_ff,
+           cfg.padded_vocab)
+          == (32, 1536, 24, 8, 64, 40, 8, 512, 51200),
+          f"{MOE_ARCH} is not at full width")
+    return cfg
+
+
+def free_card(torch):
+    """Return the card's memory held by engines that went out of scope."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+class RouteRecorder:
+    """While installed (``with RouteRecorder(keep) as rec``), records the
+    expert choices [N, k] of every ``moe.route`` call over N tokens that
+    ``keep(N)`` selects, in call order, as copies on the device; nothing
+    waits on the card.  A captured step's replays run no Python, so only
+    eager calls are recorded."""
+
+    def __init__(self, keep=lambda n: True):
+        self.keep = keep
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        route = self._route = moe.route
+
+        def recorded(params, cfg, xf):
+            out = route(params, cfg, xf)
+            if self.keep(xf.shape[0]):
+                self.calls.append(out[1].clone())
+            return out
+
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def kept(torch, idx, E_pad, C):
+    """[N, k] bool: which (token, choice) pairs of one call keep a
+    capacity row (the others are dropped)."""
+    from repro_torch.models import moe
+    order, _, keep = moe.dispatch_plan(idx, E_pad, C)
+    return torch.zeros_like(keep).scatter_(0, order, keep).view(idx.shape)
+
+
+def phase_moe_layer_vs_cpu(torch):
+    """One full-width MoE FFN layer of granite in f32 (random weights
+    from the seed, MOE_TOKENS tokens) on the card and on the CPU, at the
+    configuration's capacity factor and at 0.1.  Expert choices must be
+    equal except on near ties (a token's 8th-to-9th probability gap
+    below MOE_GAP, counted); on the rows whose choices and kept pairs
+    are equal the outputs are within MOE_TOL of the output's scale and
+    the rows that every expert dropped are exactly zero on both."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(moe_config(), dtype="float32")
+    E_pad = moe.padded_experts(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_params(moe.moe_template(cfg), gen, "float32", "cpu")
+    x = torch.randn(1, MOE_TOKENS, cfg.d_model, generator=gen)
+    dev = {k: v.cuda() for k, v in params.items()}
+    logits = x[0] @ params["router"]
+    logits[:, cfg.num_experts:] = -1e30
+    top = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+    k = cfg.num_experts_per_tok
+    near = (top[:, k - 1] - top[:, k]) < MOE_GAP
+    for cf in (cfg.capacity_factor, 0.1):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        C = moe.capacity(c, MOE_TOKENS)
+        res = {}
+        for name, p, xx in (("cpu", params, x), ("cuda", dev, x.cuda())):
+            out, aux = moe.moe_apply(p, c, xx)
+            _, idx, _ = moe.route(p, c, xx[0])
+            res[name] = (out[0].cpu(), idx.cpu(),
+                         kept(torch, idx, E_pad, C).cpu(), float(aux))
+        (oc, ic, kc, ac), (og, ig, kg, ag) = res["cpu"], res["cuda"]
+        same_idx = (ic == ig).all(-1)
+        rows = same_idx & (kc == kg).all(-1)
+        scale = float(oc.abs().max())
+        err = float((og[rows] - oc[rows]).abs().max()) if rows.any() \
+            else 0.0
+        zero_c, zero_g = oc.abs().amax(-1) == 0, og.abs().amax(-1) == 0
+        r = {"phase": "moe_layer_vs_cpu", "tokens": MOE_TOKENS,
+             "capacity_factor": cf, "capacity": C,
+             "idx_rows_differ": int((~same_idx).sum()),
+             "near_ties": int(near.sum()),
+             "differing_rows_all_near_ties": bool(
+                 (~same_idx <= near).all()),
+             "rows_compared": int(rows.sum()), "max_abs_err": err,
+             "output_scale": scale, "tol_rel": MOE_TOL,
+             "dropped_pairs_cpu": moe.count_dropped(ic, E_pad, C),
+             "dropped_pairs_cuda": moe.count_dropped(ig, E_pad, C),
+             "zero_rows_cpu": int(zero_c.sum()),
+             "zero_rows_cuda": int(zero_g.sum()),
+             "aux_cpu": ac, "aux_cuda": ag}
+        emit(r)
+        check(r["differing_rows_all_near_ties"],
+              f"moe_layer_vs_cpu: an expert choice differs off a near tie "
+              f"(capacity factor {cf})")
+        check(rows.float().mean() > 0.9,
+              "moe_layer_vs_cpu: fewer than 90% of the rows compared")
+        check(err <= MOE_TOL * scale, f"moe_layer_vs_cpu: outputs differ "
+                                      f"by {err} at scale {scale}")
+        check(torch.equal(zero_c[rows], zero_g[rows]),
+              "moe_layer_vs_cpu: the dropped rows differ")
+        if cf < 1:
+            check(bool(zero_c.any()), "moe_layer_vs_cpu: no row dropped "
+                                      "at capacity factor 0.1")
+
+
+def routing_rows(torch, kernel_calls, plain_calls, B, E_pad, cfg):
+    """Per batch row: did every layer route each of its tokens to the
+    same set of experts, keeping as many of them, on both paths?  The
+    calls run over [B * S] tokens each, row-major.  Returns ([B] bool,
+    the routing decisions (token, layer) whose sets differ)."""
+    from repro_torch.models import moe
+    check(len(kernel_calls) == len(plain_calls),
+          "routing: the two paths made different MoE calls")
+    same = torch.ones(B, dtype=torch.bool)
+    differ = 0
+    for a, b in zip(kernel_calls, plain_calls):
+        C = moe.capacity(cfg, a.shape[0])
+        # a token's choices as a set: their rank order moves no output
+        chosen = (a.sort(-1).values == b.sort(-1).values).all(-1)
+        tok = chosen & (kept(torch, a, E_pad, C).sum(-1)
+                        == kept(torch, b, E_pad, C).sum(-1))
+        differ += int((~chosen).sum())
+        same &= tok.view(B, -1).all(-1).cpu()
+    return same, differ
+
+
+def compare_moe_first_tick(torch, engine, plain, toks, limit, relative,
+                           exact=None):
+    """Prefill ``toks`` and run one decode tick on the kernel path
+    (``engine``), the plain path (``plain``) and, where given, the plain
+    path in f64 (``exact``, a reading of each path's distance from it),
+    recording each MoE call's expert choices; the decisions whose expert
+    sets differ from the kernel path's are counted.  On the rows routed
+    alike at every layer on every path, the logits must be within
+    ``limit`` (of the plain logits' scale where ``relative``) and the
+    greedy tokens equal wherever the plain top-2 gap exceeds it;
+    ``limit`` None: readings only."""
+    from repro_torch.models import moe
+    cfg = engine.cfg
+    x = torch.as_tensor(toks, device=engine.device).long()
+    B, S = x.shape
+    V, L = cfg.vocab_size, cfg.num_layers
+    E_pad = moe.padded_experts(cfg)
+    nxt = None
+    out, calls = {}, {}
+    paths = {"kernel": engine, "plain": plain}
+    if exact is not None:
+        paths["exact"] = exact
+    for name, e in paths.items():
+        with RouteRecorder() as rec:
+            l0, c = e.model.prefill(x, MAX_LEN, flags=e.flags)
+            if nxt is None:
+                nxt = torch.argmax(l0, -1)[:, None]
+            p = torch.full((B,), S, dtype=torch.int32, device=e.device)
+            l1, _ = e.model.decode_step(nxt, c, p, flags=e.flags)
+        out[name] = (l0[:, :V].double(), l1[:, :V].double())
+        calls[name] = rec.calls
+    alike = [torch.ones(B, dtype=torch.bool)] * 2
+    differ = {}
+    for name in paths:
+        if name == "kernel":
+            continue
+        pre, d_pre = routing_rows(torch, calls["kernel"][:L],
+                                  calls[name][:L], B, E_pad, cfg)
+        tick, d_tick = routing_rows(torch, calls["kernel"][L:],
+                                    calls[name][L:], B, E_pad, cfg)
+        alike = [alike[0] & pre, alike[1] & pre & tick]
+        differ[name] = {"prefill": d_pre, "tick1": d_tick}
+    res, ok = {}, True
+    for i, step in enumerate(("prefill", "tick1")):
+        k, p = out["kernel"][i], out["plain"][i]
+        rows = alike[i].to(k.device)
+        scale = float(p.abs().max())
+        finite = bool(torch.isfinite(k).all() and torch.isfinite(p).all())
+
+        def err(a, b):
+            return float((a[rows] - b[rows]).abs().max()) if rows.any() \
+                else None
+
+        r = {"rows_routed_alike": int(rows.sum()), "rows": B,
+             "logit_scale": scale, "finite": finite,
+             "kernel_vs_plain": err(k, p),
+             "all_rows_kernel_vs_plain": float((k - p).abs().max())}
+        if exact is not None:
+            r.update(kernel_vs_f64=err(k, out["exact"][i]),
+                     plain_vs_f64=err(p, out["exact"][i]))
+        ok = ok and finite
+        if limit is not None:
+            lim = limit * scale if relative else limit
+            agree, compared = top2_agree(torch.argmax(p[rows], -1),
+                                         torch.argmax(k[rows], -1), p[rows],
+                                         lim)
+            r.update(limit=lim, tokens_agree=agree, tokens_compared=compared)
+            ok = ok and agree and (r["kernel_vs_plain"] is None
+                                   or r["kernel_vs_plain"] <= lim)
+        res[step] = r
+    return {"ok": ok, "routing_sets_differ_from_kernel": differ,
+            "routing_decisions": {"prefill": L * B * S, "tick1": L * B},
+            **res}
+
+
+def phase_moe_main_path(torch):
+    """granite at full width and depth in bf16 (random weights from the
+    seed) through the engine's main path (``drive_engine_path``),
+    launches held to the schedule; then the kernel path against the
+    plain path on the first tick (``compare_moe_first_tick``) on the
+    first 1, 2, 4, ... 32 layers of the same weights, each on the rows
+    routed alike at every layer: in bf16 at main_vs_plain's limit, in f32
+    (upcast; an f64 plain run beside them as a reading) at F32_MODEL_TOL
+    up to MOE_F32_DEPTH layers.  Random layers amplify one ulp, and a
+    near tie flipped by it, into O(1) logits, so the depths show where
+    the paths part.  At 1 and 2 layers in f32 at least half the rows
+    must route alike.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = moe_config()
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    run = drive_engine_path(torch, engine, cfg, np.random.RandomState(SEED))
+    emit({"phase": "moe_main_path", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "experts": cfg.num_experts, "padded_experts":
+          moe.padded_experts(cfg), "top_k": cfg.num_experts_per_tok,
+          "dtype": cfg.dtype, "init_seconds": init_s,
+          "path_seconds": run.seconds, "launches": run.counts,
+          "expected_launches": run.expected, "generate": run.gen.tolist(),
+          "verify": run.guess.tolist(),
+          "graphs_captured": graph_count(engine)})
+    check(run.counts == run.expected, f"moe_main_path: launch counts "
+                                      f"{run.counts} != {run.expected}")
+
+    # the kernel path against the plain path at growing depth: the first
+    # `depth` layers of the same weights, in bf16 and in f32 (upcast)
+    bf = dict(engine.model.named_parameters())
+    del engine, run.cache
+    free_card(torch)
+    toks32 = np.random.RandomState(SEED + 4).randint(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    plain_flags = RuntimeFlags(use_flash=False, fused_rmsnorm=False,
+                               use_fused_decode=False)
+    for dtype in ("bfloat16", "float32"):
+        weights = bf if dtype == "bfloat16" else \
+            {k: v.float() for k, v in bf.items()}
+        w64 = None if dtype == "bfloat16" else \
+            {k: v.double() for k, v in bf.items()}
+        for depth in MOE_DEPTHS:
+            cfg_d = dataclasses.replace(cfg, num_layers=depth, dtype=dtype)
+
+            def cut(w):
+                return {k: v[:depth] if k.startswith("blocks.") else v
+                        for k, v in w.items()}
+
+            exact = None if w64 is None else LLMEngine(
+                dataclasses.replace(cfg_d, dtype="float64"), cut(w64),
+                max_len=MAX_LEN, flags=plain_flags)
+            if w64 is None:
+                toks, limit, relative = run.groups[0], 0.1, True
+            else:
+                toks, relative = toks32, False
+                limit = F32_MODEL_TOL if depth <= MOE_F32_DEPTH else None
+            cmp = compare_moe_first_tick(
+                torch, LLMEngine(cfg_d, cut(weights), max_len=MAX_LEN),
+                LLMEngine(cfg_d, cut(weights), max_len=MAX_LEN,
+                          flags=plain_flags), toks, limit, relative, exact)
+            emit({"phase": "moe_main_vs_plain", "dtype": dtype,
+                  "depth": depth, **cmp})
+            check(cmp["ok"], f"moe_main_vs_plain {dtype} depth {depth}: "
+                             f"logits or tokens disagree with the plain path")
+            if w64 is not None and depth <= 2:
+                check(2 * cmp["tick1"]["rows_routed_alike"] >= len(toks32),
+                      f"moe_main_vs_plain f32 depth {depth}: fewer than "
+                      f"half the rows routed alike")
+        del weights, w64
+        free_card(torch)
+    return run.counts
+
+
+def moe_drops(calls, cfg, N):
+    """Dropped (token, expert) pairs summed over the layers of the first
+    forward pass among ``calls`` whose calls carry N tokens."""
+    from repro_torch.models import moe
+    hits = [c for c in calls if c.shape[0] == N][:cfg.num_layers]
+    check(len(hits) == cfg.num_layers, f"no forward pass of {N} tokens "
+                                       f"recorded")
+    C = moe.capacity(cfg, N)
+    E_pad = moe.padded_experts(cfg)
+    per = [moe.count_dropped(c, E_pad, C) for c in hits]
+    return {"tokens": N, "capacity": C, "dropped_pairs": sum(per),
+            "layers_with_drops": sum(n > 0 for n in per),
+            "pairs": N * cfg.num_experts_per_tok * cfg.num_layers}
+
+
+def phase_moe_serve(torch):
+    """The serve workload at granite's vocab through the Scheduler on a
+    PagedBackend (the pressure arena, chunk 256, 4 slots, speculate 4),
+    on an engine that captures its steps and on one that runs them
+    eagerly, on the same weights: tokens bitwise equal (the same schedule,
+    so the same tokens share every call) and launches equal to the
+    schedule.  The eager run records the routing of the first 256-row
+    chunk and of the first verify tick (4 slots x 5), whose dropped
+    pairs are counted.  Returns (the captured engine, launch counts)."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = moe_config()
+    requests = serve_requests(cfg.vocab_size)
+    blocks, _, _ = pressure_blocks(requests)
+    cap = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    eager = LLMEngine(cfg, dict(cap.model.named_parameters()),
+                      max_len=SERVE_MAX_LEN,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    verify_n = SERVE_SLOTS * (SERVE_SPEC + 1)
+    runs, counts_all = {}, {}
+    for name, e in (("eager", eager), ("captured", cap)):
+        # the eager run records its routing; a recorder would add its
+        # copies to the captured graphs
+        with RouteRecorder(lambda n: n in (SERVE_CHUNK, verify_n)) \
+                if name == "eager" else contextlib.nullcontext() as rec:
+            got, stats, counts, wall = serve(torch, e, requests, blocks)
+            want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+            emit({"phase": "moe_serve", "steps": name, "num_blocks": blocks,
+                  "seconds": wall, "launches": counts,
+                  "expected_launches": want,
+                  "graphs_captured": graph_count(e),
+                  "stats": {k: stats[k] for k in (
+                      "prefill_calls", "extend_prefills", "decode_steps",
+                      "spec_steps", "spec_drafted", "spec_accepted",
+                      "preemptions", "replayed_tokens", "completed",
+                      "admit_seconds", "step_seconds")}})
+            check(counts == want, f"moe_serve {name}: launch counts "
+                                  f"{counts} != {want}")
+            check(stats["completed"] == len(requests)
+                  and all(got[i].shape == (SERVE_NEW,) for i in got),
+                  f"moe_serve {name}: not every request completed")
+        runs[name] = got
+        if name == "eager":
+            calls = rec.calls
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+    equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
+                for i in runs["eager"])
+    drops = {"first_chunk": moe_drops(calls, cfg, SERVE_CHUNK),
+             "first_verify_tick": moe_drops(calls, cfg, verify_n)}
+    emit({"phase": "moe_serve_compare", "requests": len(requests),
+          "captured_bitwise_equal_to_eager": equal, "drops": drops})
+    check(equal == len(requests), "moe_serve: captured tokens differ from "
+                                  "eager")
+    del eager
+    return cap, counts_all
+
+
+def phase_moe_serve_layouts(torch, engine):
+    """The same requests with no speculation (a verify tick of 20 tokens
+    can drop, depending on every row of the tick, Hazard 7; a decode
+    tick of 4 cannot) on a roomy arena, no prefix sharing, on a
+    PagedBackend and on a SlotBackend with the same chunks: tokens
+    bitwise equal, launches equal to the schedule.  Returns the paged
+    run's tokens and the launch counts."""
+    import numpy as np
+    cfg = engine.cfg
+    requests = serve_requests(cfg.vocab_size)
+    runs, counts_all = {}, {}
+    for kind in ("paged", "slot"):
+        got, stats, counts, wall = serve(
+            torch, engine, requests, ROOMY_BLOCKS, paged=kind == "paged",
+            prefix_sharing=False, speculate_k=0)
+        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        check(counts == want, f"moe_serve_layouts {kind}: launch counts "
+                              f"{counts} != {want}")
+        check(stats["completed"] == len(requests) and stats["preemptions"]
+              == 0, f"moe_serve_layouts {kind}: a request did not complete "
+                    f"or was preempted")
+        runs[kind] = got
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+    equal = sum(bool(np.array_equal(runs["paged"][i], runs["slot"][i]))
+                for i in runs["paged"])
+    emit({"phase": "moe_serve_layouts", "requests": len(requests),
+          "speculate_k": 0, "bitwise_equal": equal,
+          "launches": counts_all})
+    check(equal == len(requests), "moe_serve_layouts: paged and slot "
+                                  "tokens are not bitwise equal")
+    return runs["paged"], counts_all
+
+
+def phase_moe_preempt_decode(torch, engine, want):
+    """moe_serve_layouts' paged run again with PREEMPTIONS requests
+    preempted after streaming tokens, each replayed through the decode
+    step (a tick of 4 tokens, which no capacity can drop): tokens bitwise
+    the run's without preemption (``want``), replayed K/V bitwise, launches
+    equal to the schedule (``check_forced``).  Returns the launches."""
+    cfg = engine.cfg
+    requests = serve_requests(cfg.vocab_size)
+    forced = ForcedPreemption(torch)
+    got, stats, counts, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
+                                  prefix_sharing=False, speculate_k=0,
+                                  hook=forced.install)
+    check_forced("paged", forced, stats, got, want, counts,
+                 expected_serve_launches(cfg, stats, "fused_flash_decode"),
+                 phase="moe_preempt_decode")
+    check(len(forced.streamed) == PREEMPTIONS,
+          f"moe_preempt_decode: {len(forced.streamed)} preemptions, not "
+          f"{PREEMPTIONS}")
+    return counts
+
+
+#: the launcher's runs: its own flags, once with the threaded clients and
+#: once through the asyncio front door
+LAUNCHER_ARGS = ["--arch", MOE_ARCH, "--no-reduced", "--paged",
+                 "--requests", "16", "--clients", "4",
+                 "--max-new-tokens", "32"]
+
+
+def phase_moe_graph_serve(torch, smi):
+    """granite served by the port's launcher (``repro_torch.launch.serve.
+    main``, in this process, on the card), once per front door: each must
+    return 0 (every request answered) with launches equal to the server's
+    schedule.  Prints the launcher's own summary lines, and TTFT, time per
+    output token and tokens/s from the server's metrics and request
+    timelines, beside the card's name and power limit.  Returns the
+    launch counts."""
+    import contextlib
+    import io
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import RequestTimeline
+    cfg = moe_config()
+    read = []
+
+    class ReadAtClose(launcher.GraphServer):
+        """The launcher's server, read before it closes."""
+
+        def close(self, *a, **kw):
+            if not read or read[-1][0] is not self:
+                read.append((self, self.stats()["scheduler"],
+                             RequestTimeline.from_tracer(
+                                 self.graph.tracer).records()))
+            return super().close(*a, **kw)
+
+    counts_all = {}
+    server_cls = launcher.GraphServer
+    launcher.GraphServer = ReadAtClose
+    try:
+        for mode in ("threads", "async"):
+            for name in build.launches:
+                build.launches[name] = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = launcher.main(LAUNCHER_ARGS + ["--frontend", mode])
+            wall = time.perf_counter() - t0
+            free_card(torch)
+            counts = dict(build.launches)
+            _, stats, records = read[-1]
+            want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+            emit({"phase": "moe_graph_serve", "frontend": mode, "rc": rc,
+                  "argv": LAUNCHER_ARGS + ["--frontend", mode],
+                  "seconds": wall, "launcher_lines":
+                  buf.getvalue().splitlines(), "launches": counts,
+                  "expected_launches": want, "stats": {
+                      k: stats[k] for k in (
+                          "prefill_calls", "decode_steps", "completed",
+                          "preemptions", "replay_steps")}})
+            check(rc == 0, f"moe_graph_serve {mode}: the launcher returned "
+                           f"{rc}")
+            check(counts == want, f"moe_graph_serve {mode}: launch counts "
+                                  f"{counts} != {want}")
+            ttft = [r["ttft_ms"] for r in records]
+            tpot = [(r["finished_ms"] - r["first_token_ms"])
+                    / (r["tokens"] - 1) for r in records if r["tokens"] > 1]
+            tokens = sum(r["tokens"] for r in records)
+            span_ms = max(r["finished_ms"] for r in records) - \
+                min(r["submitted_ms"] for r in records)
+            check(len(records) == 16 and all(np.isfinite(ttft))
+                  and all(np.isfinite(tpot)),
+                  f"moe_graph_serve {mode}: the timelines miss a request")
+            emit({"phase": "moe_graph_serve_reading", "frontend": mode,
+                  "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                  "ttft_ms_p95": float(np.percentile(ttft, 95)),
+                  "tpot_ms_p50": float(np.percentile(tpot, 50)),
+                  "tokens_per_s": tokens / (span_ms / 1e3),
+                  "tokens": tokens, "span_ms": span_ms, "nvidia_smi": smi})
+            for k, v in counts.items():
+                counts_all[k] = counts_all.get(k, 0) + v
+    finally:
+        launcher.GraphServer = server_cls
+    return counts_all
+
+
+def phase_moe_tick(torch, engine, smi):
+    """The captured paged decode tick at 4 slots (the first four serve
+    requests, 3 ticks of warm-up, TICK_READS read): median, p10-p90 and
+    the profiler's device share (``interleaved_ticks``); the captured
+    decode graph's device time by CUDA events over queued replays; one
+    eager MoE layer at the tick's 4 tokens timed the same way; the MoE
+    FFN's share of the device time from the profiler's kernel sums (one
+    layer's, times the layers, over the graph's; the events of an eager
+    layer also hold the gaps between its ~25 small kernels, which the
+    graph closes up).  The bound reads every weight once
+    (all padded experts: the gather dispatch multiplies them all) and
+    the rows' K/V once."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import DTYPES
+    cfg = engine.cfg
+    requests = serve_requests(cfg.vocab_size)
+    r = interleaved_ticks(torch, {"captured": engine}, requests,
+                          "paged")["captured"]
+    graph = [cs for key, cs in engine.graphs.steps.items()
+             if key[:2] == ("decode", "paged") and key[3] == SERVE_SLOTS]
+    check(len(graph) >= 1, "moe_tick: no captured paged decode graph")
+    graph_ms = cuda_ms(torch, graph[-1].graph.replay)[0]
+    x = torch.randn(SERVE_SLOTS, 1, cfg.d_model, device=engine.device).to(
+        DTYPES[cfg.dtype])
+    layer = engine.model.groups[0]["l0"]["ffn"]
+    moe_ms = cuda_ms(torch, lambda: moe.moe_apply(layer, cfg, x))[0]
+
+    def kernels(fn, calls=10):
+        """The profiler's kernel time of ``fn`` (None where it recorded
+        none) and its ten costliest kernels, ms per call."""
+        per = profiled_ms(torch, fn, calls)
+        return (sum(per.values()) if per else None,
+                [(name[:80], t) for name, t in
+                 sorted(per.items(), key=lambda kv: -kv[1])[:10]])
+
+    tick_prof, tick_top = kernels(graph[-1].graph.replay)
+    moe_prof, moe_top = kernels(lambda: moe.moe_apply(layer, cfg, x))
+    weights = sum(p.numel() * p.element_size()
+                  for p in engine.model.parameters())
+    # the rows' keys at the middle of the ticks read
+    keys = sum(p.size + 3 + TICK_READS // 2
+               for p in requests[:SERVE_SLOTS])
+    kv = 2 * keys * cfg.num_kv_heads * cfg.head_dim * 2 * cfg.num_layers
+    bound_ms = (weights + kv) / HBM_BPS * 1e3
+    emit({"phase": "moe_tick", **r, "graph_device_ms": graph_ms,
+          "graph_busy_share": graph_ms / r["ms_median"],
+          "moe_layer_ms": moe_ms,
+          "moe_ms_per_tick": moe_ms * cfg.num_layers,
+          "graph_profiler_ms": tick_prof,
+          "moe_layer_profiler_ms": moe_prof,
+          "moe_share_of_device_time": (moe_prof * cfg.num_layers / tick_prof
+                                       if tick_prof and moe_prof else None),
+          "bound_ms": bound_ms, "bound_bytes": weights + kv,
+          "bound_by": "bytes", "median_over_bound": r["ms_median"] / bound_ms,
+          "top_kernels_ms_per_tick": tick_top,
+          "top_kernels_ms_per_moe_layer": moe_top,
+          "nvidia_smi": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -1801,7 +2461,8 @@ def phase_times(torch):
     # attention shape with 4 rows of 4096 keys; S' = 1 and the verify
     # window of 5 (K5 has no window)
     for shape, keys in ((("minicpm_2b", H, H, hd), (300, 520, 700, 930)),
-                        (("qwen3_32b", 64, 8, 128), (4096,) * 4)):
+                        (("qwen3_32b", 64, 8, 128), (4096,) * 4),
+                        (GRANITE, (300, 520, 700, 930))):
         for Sq in (1, SERVE_SPEC + 1):
             timed = time_paged_kernels(torch, g, shape, keys, Sq)
             for name, r in timed.items():
@@ -1816,11 +2477,13 @@ def phase_times(torch):
 
 
 #: (name, B, S, H, KV, hd, q_offset) of K3's further timed shapes: the
-#: serve workload's third chunk of a prompt (minicpm_2b), and qwen3_32b's
-#: full causal prefill
+#: serve workload's third chunk of a prompt (minicpm_2b, and
+#: granite_moe_3b_a800m's G = 3), and qwen3_32b's full causal prefill
 FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                 2 * SERVE_CHUNK),
-               ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0))
+               ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0),
+               ("serve chunk granite_moe_3b_a800m", 1, SERVE_CHUNK, 24, 8,
+                64, 2 * SERVE_CHUNK))
 
 
 def time_flash_shapes(torch, g):
@@ -1868,8 +2531,9 @@ def time_flash_shapes(torch, g):
 
 
 #: [rows, d] of K1's further timed shapes: the serve workload's prefill
-#: chunk at minicpm_2b's d_model, and qwen3_32b's prefill of 1024 rows
-RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120))
+#: chunk at minicpm_2b's d_model, qwen3_32b's prefill of 1024 rows, and
+#: granite_moe_3b_a800m's decode tick
+RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120), (4, 1536))
 
 
 def time_rmsnorm(torch, g, shape):
@@ -2008,12 +2672,26 @@ def main() -> int:
     phase_captured(torch, {**serve_tokens, "graph_serve": graph_tokens,
                            "serve_preempt_decode": preempt_tokens["default"]},
                    smi)
+    # granite_moe_3b_a800m, with the minicpm_2b engines freed
+    free_card(torch)
+    phase_moe_layer_vs_cpu(torch)
+    moe_counts = [phase_moe_main_path(torch)]
+    free_card(torch)
+    engine, c = phase_moe_serve(torch)
+    moe_counts.append(c)
+    paged_tokens, c = phase_moe_serve_layouts(torch, engine)
+    moe_counts += [c, phase_moe_preempt_decode(torch, engine, paged_tokens),
+                   phase_moe_graph_serve(torch, smi)]
+    phase_moe_tick(torch, engine, smi)
+    del engine
+    free_card(torch)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
         launches = (counts[name] + serve_counts[name] + graph_counts[name]
-                    + preempt_counts[name])
+                    + preempt_counts[name]
+                    + sum(c.get(name, 0) for c in moe_counts))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

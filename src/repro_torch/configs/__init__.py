@@ -1,7 +1,8 @@
 """Architecture configs of the port (``--arch <id>``).
 
-The dense GQA/MHA decoders are ported; every other assigned
-architecture raises, naming the ROADMAP item that will port it.
+The dense GQA/MHA decoders and the MoE decoder (granite_moe_3b_a800m)
+are ported; every other assigned architecture raises, naming the
+ROADMAP item that will port it.
 ``get_config(name)`` resolves an id; ``ALL_ARCHS`` lists the ten
 assigned ids.
 """
@@ -26,9 +27,8 @@ ALL_ARCHS = [
 
 #: where each architecture that is not ported yet will be ported
 NOT_YET_PORTED = {
-    "granite_moe_3b_a800m": "ROADMAP Queue 1 item 6 (MoE FFN)",
     "xlstm_1_3b": "ROADMAP Queue 1 item 7 (recurrent stacks)",
-    "jamba_1_5_large_398b": "ROADMAP Queue 1 items 6-7 (MoE, hybrid)",
+    "jamba_1_5_large_398b": "ROADMAP Queue 1 item 7 (hybrid stacks)",
     "deepseek_v3_671b": "ROADMAP Queue 1 item 8 (MLA)",
     "seamless_m4t_large_v2": "ROADMAP Queue 1 item 9 (encoder-decoder)",
     "phi_3_vision_4_2b": "ROADMAP Queue 1 item 9 (modality stubs)",

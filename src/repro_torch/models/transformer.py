@@ -1,7 +1,7 @@
-"""Model composition for dense attention decoders: the layer, the stacked
-layer groups (a Python loop over the ``[R, ...]`` leaves takes the place
-of ``lax.scan``), the logits, and the serving entry points ``prefill``,
-``prefill_extend`` and ``decode_step``.
+"""Model composition for attention decoders with dense or MoE FFNs: the
+layer, the stacked layer groups (a Python loop over the ``[R, ...]``
+leaves takes the place of ``lax.scan``), the logits, and the serving
+entry points ``prefill``, ``prefill_extend`` and ``decode_step``.
 
 Caches are nested dicts with the JAX package's keys and shapes
 (``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``
@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import paging
 from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
@@ -49,6 +50,10 @@ class RuntimeFlags:
     # CUDA graphs (``runtime/graphs.py``); off runs them eagerly, one
     # host launch per op, for an A/B comparison.  No effect on the CPU
     cuda_graphs: bool = True
+    # MoE implementation: "gather" (the global sort-based dispatch,
+    # ``models/moe.py``); "ep" (expert parallelism over a mesh) is refused
+    # until ROADMAP Queue 1 item 11
+    moe_impl: str = "gather"
 
 
 DEFAULT_FLAGS = RuntimeFlags()
@@ -58,9 +63,7 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this slice of the port does not run,
     naming the ROADMAP item that will port them.  Nothing falls back."""
     why = None
-    if cfg.num_experts:
-        why = "MoE FFNs: ROADMAP Queue 1 item 6"
-    elif set(cfg.layer_kinds()) != {"attn"}:
+    if set(cfg.layer_kinds()) != {"attn"}:
         why = "recurrent/hybrid stacks: ROADMAP Queue 1 item 7"
     elif cfg.use_mla:
         why = "MLA: ROADMAP Queue 1 item 8"
@@ -70,6 +73,10 @@ def check_supported(cfg: ArchConfig) -> None:
         why = "sliding-window attention: ROADMAP Queue 1 item 12"
     elif cfg.mtp_depth:
         why = "multi-token prediction: ROADMAP Queue 1 item 8"
+    elif cfg.num_experts and cfg.first_k_dense:
+        # the unrolled dense head of group_structure is not built
+        why = "dense head layers before MoE (first_k_dense): ROADMAP " \
+              "Queue 1 item 8"
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: not yet ported to repro_torch ({why})")
@@ -92,12 +99,13 @@ def group_structure(cfg: ArchConfig):
     return head, rest[:P], (len(rest) // P if rest else 0)
 
 
-def layer_template(cfg: ArchConfig) -> Template:
+def layer_template(cfg: ArchConfig, ffn_kind: str) -> Template:
     d = cfg.d_model
     return {"norm1": rmsnorm_template(d),
             "mixer": attn.attention_template(cfg),
             "norm2": rmsnorm_template(d),
-            "ffn": mlp_template(d, cfg.d_ff)}
+            "ffn": moe_mod.moe_template(cfg) if ffn_kind == "moe"
+            else mlp_template(d, cfg.d_ff)}
 
 
 def model_template(cfg: ArchConfig) -> Template:
@@ -109,7 +117,8 @@ def model_template(cfg: ArchConfig) -> Template:
         t["lm_head"] = lm_head_template(d, V)
     _, pattern, R = group_structure(cfg)
     t["blocks"] = stack_template(
-        {f"l{j}": layer_template(cfg) for j in range(len(pattern))}, R)
+        {f"l{j}": layer_template(cfg, ffn)
+         for j, (_, ffn) in enumerate(pattern)}, R)
     return t
 
 
@@ -158,15 +167,19 @@ def unstack_groups(blocks, R: int) -> List[Dict[str, Any]]:
 # layer
 # ---------------------------------------------------------------------------
 
-def layer_apply(params, cfg: ArchConfig, x: torch.Tensor, flags: RuntimeFlags,
+def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
+                flags: RuntimeFlags,
                 mixer: Callable[[Any, torch.Tensor], torch.Tensor]
                 ) -> torch.Tensor:
-    """One pre-norm attention + SwiGLU block; ``mixer(mixer_params, h)``
-    is the attention of the entry point (prefill, extend, slot or paged
-    decode), which writes its cache in place."""
+    """One pre-norm attention + SwiGLU or MoE block; ``mixer(mixer_params,
+    h)`` is the attention of the entry point (prefill, extend, slot or
+    paged decode), which writes its cache in place.  A MoE layer's
+    load-balance loss is dropped: serving has no use for it."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
     x = x + mixer(params["mixer"], h)
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
+    if ffn_kind == "moe":
+        return x + moe_mod.moe_apply(params["ffn"], cfg, h2, flags)[0]
     return x + mlp_apply(params["ffn"], h2)
 
 
@@ -191,10 +204,10 @@ def _run_groups(params, cfg, x, cache_blocks, flags, groups, mixer):
         else unstack_groups(params["blocks"], R)
     cache_groups = unstack_groups(cache_blocks, R)
     for r in range(R):
-        for j in range(len(pattern)):
+        for j, (_, ffn) in enumerate(pattern):
             name = f"l{j}"
             x = layer_apply(
-                groups[r][name], cfg, x, flags,
+                groups[r][name], cfg, ffn, x, flags,
                 lambda mp, h, c=cache_groups[r], n=name: mixer(mp, h, c, n))
     return x
 

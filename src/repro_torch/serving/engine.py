@@ -34,6 +34,7 @@ from ..core.metrics import MetricsRegistry, NullRegistry
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
 from ..models.params import flatten
+from ..models.moe import check_moe_impl
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
                                   check_supported)
 from ..runtime.graphs import StepGraphs, cache_key
@@ -53,6 +54,7 @@ class LLMEngine:
         """``params``: a flat ``state_dict`` (e.g. ``params_from_jax``);
         ``None`` draws random weights from ``seed``."""
         check_supported(cfg)
+        check_moe_impl(flags)
         self.cfg = cfg
         self.max_len = max_len
         self.flags = flags

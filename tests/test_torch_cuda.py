@@ -265,13 +265,13 @@ def test_cuda_sync_point_waits_for_the_card(cuda_device):
 # decode and verify as captured CUDA graphs (runtime/graphs.py)
 # ---------------------------------------------------------------------------
 
-def _captured_and_eager(dtype, **flags):
-    """A reduced minicpm_2b engine on the card that captures its steps,
+def _captured_and_eager(dtype, arch="minicpm_2b", **flags):
+    """A reduced ``arch`` engine on the card that captures its steps,
     and one on the same weights that runs them eagerly."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
-    cfg = dataclasses.replace(get_config("minicpm_2b").reduced(),
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               num_layers=2, d_model=128, vocab_size=512,
                               dtype=dtype)
     cap = LLMEngine(cfg, max_len=128, seed=3, flags=RuntimeFlags(**flags))
@@ -289,6 +289,12 @@ def test_cuda_captured_steps_equal_eager(cuda_device, kind, split_k):
     the eager steps' tokens and leave the same cache, bitwise, on the
     first call of a key (run eagerly, then captured) and on replays."""
     cap, eager = _captured_and_eager("bfloat16", fused_split_k=split_k)
+    _check_captured(cuda_device, cap, eager, kind)
+
+
+def _check_captured(cuda_device, cap, eager, kind):
+    """Decode and verify calls through ``cap`` (captured) and ``eager``
+    on equal caches: equal tokens and caches after every call."""
     be = types.SimpleNamespace(kind=kind, num_slots=4, block_size=16,
                                num_blocks=1 + 4 * 128 // 16)
     g = torch.Generator(device=cuda_device).manual_seed(4)
@@ -393,3 +399,42 @@ def test_cuda_preempted_replay_captured_equals_eager(cuda_device, spec):
         assert runs[name, True][2] > 0
     assert runs["captured", True] == runs["eager", True]
     assert runs["captured", False] == runs["eager", False]
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN on the card (models/moe.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_matches_cpu(cuda_device):
+    """One reduced granite MoE layer in f32 on the card and on the CPU:
+    the same routing and outputs within 1e-4 of their scale, a token's
+    choices in the order of the CPU's (ties to the lower index)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    cfg = get_config("granite_moe_3b_a800m").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(moe.moe_template(cfg), gen, "float32", "cpu")
+    x = torch.randn(1, 64, cfg.d_model, generator=gen)
+    out, aux = moe.moe_apply(params, cfg, x)
+    dev = {k: v.to(cuda_device) for k, v in params.items()}
+    out_d, aux_d = moe.moe_apply(dev, cfg, x.to(cuda_device))
+    _, idx, _ = moe.route(params, cfg, x[0])
+    _, idx_d, _ = moe.route(dev, cfg, x[0].to(cuda_device))
+    assert torch.equal(idx_d.cpu(), idx)
+    assert (out_d.cpu() - out).abs().max() <= 1e-4 * out.abs().max()
+    assert abs(float(aux_d) - float(aux)) <= 1e-6
+    zero = dict(dev, router=torch.zeros_like(dev["router"]))
+    _, tied, _ = moe.route(zero, cfg, x[0].to(cuda_device))
+    assert (tied.cpu() == torch.arange(cfg.num_experts_per_tok)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_cuda_moe_captured_steps_equal_eager(cuda_device, kind):
+    """The MoE layer inside the captured decode and verify steps of
+    reduced granite: captured and eager give the same tokens and caches,
+    bitwise."""
+    cap, eager = _captured_and_eager("bfloat16", "granite_moe_3b_a800m")
+    _check_captured(cuda_device, cap, eager, kind)

@@ -557,11 +557,14 @@ COPIES = ([f"core/{m}.py" for m in CORE]
           + [f"serving/{m}.py" for m in ("observe", "calculators",
                                          "pipeline", "server", "frontend",
                                          "batching", "speculative")]
-          + ["serving/kvcache/allocator.py", "serving/kvcache/prefix.py"])
+          + ["serving/kvcache/allocator.py", "serving/kvcache/prefix.py",
+             "launch/serve.py"])
 #: the definitions a copy may change or add, by file: top-level ones by
 #: name, methods as ``Class.method``
 NAMED = {"calculators/basic.py": {"SyncPointCalculator", "_cuda_devices"},
-         "serving/server.py": {"GraphServer._pump"}}
+         "serving/server.py": {"GraphServer._pump"},
+         # --reduced can be turned off, and --device picks the engine's
+         "launch/serve.py": {"main"}}
 
 
 def _named_nodes(tree, named):
