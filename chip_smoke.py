@@ -36,13 +36,28 @@ drops counted (``moe_serve``), slot against paged (``moe_serve_layouts``),
 preempted requests replayed through the decode step
 (``moe_preempt_decode``), the port's launcher in both front doors
 (``moe_graph_serve``) and the captured decode tick against its bound
-(``moe_tick``); checks the launch counters against the schedule and the
-outputs (slot and paged layouts bitwise equal; an f32 run against
-per-request greedy), and times each kernel with CUDA events over calls
-queued back to back (K1 also at prefill widths, K3 also at the serve
+(``moe_tick``), then the recurrent and hybrid stacks: the width rule at
+the xLSTM and Mamba products and one full-width mLSTM, sLSTM and Mamba
+layer's rows against their batch, chunks and stacks (``recurrent_rows``),
+``xlstm_1_3b`` at full width and depth (48 layers, 42 mLSTM + 6 sLSTM,
+d_model 2048) through the engine on the state layout
+(``xlstm_main_path``), through the Scheduler on a ``StateBackend``
+captured against eager, with forced preemptions replayed through the
+masked decode and through verify windows with the rewind, in f32
+against per-request greedy, and its decode and verify ticks against
+their bounds (``xlstm_serve``), through the launcher
+(``xlstm_graph_serve``), and ``jamba_1_5_large_398b``'s first two
+layers at full width on a ``HybridBackend`` (``hybrid_serve``: K1-K4,
+captured against eager, hybrid against state, pressure and forced
+preemptions, the tick against its bound); checks the launch counters
+against the schedule and the outputs (slot and paged layouts bitwise
+equal; an f32 run against per-request greedy), and times each kernel
+with CUDA events over calls queued back to back (K1 also at prefill
+widths and the recurrent stacks' widths, K3 also at the serve
 workload's prefill chunk and qwen3_32b's full prefill, K2, K4 and K5
-also on the paged arena at the serve tick's, qwen3_32b's and
-granite_moe_3b_a800m's shapes, K2 and K4 there at windows of 1 and 5).
+also on the paged arena at the serve tick's, qwen3_32b's,
+granite_moe_3b_a800m's and jamba's shapes, K2 and K4 there at windows
+of 1 and 5), and the recurrent updates against their bounds.
 Kernels are also held at granite_moe_3b_a800m's head shape (24 heads
 over 8 KV heads), and ``gemm_width`` reads its router and expert
 products.  Every phase and check
@@ -93,7 +108,13 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 F32_MODEL_TOL = 1e-3
 
 
+#: the run's start, for each phase line's elapsed seconds
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -175,12 +196,13 @@ def phase_kernels(torch):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         tol = TOL[dtype]
-        # K1: the prefill and decode rows of minicpm_2b, d = 2304
-        for rows in (2 * GROUPS[1], 4):
-            x = rand((rows, 2304), dt)
-            s = (1 + rand((2304,), torch.float32, 0.1)).to(dt)
+        # K1: the prefill and decode rows of minicpm_2b (d = 2304), and
+        # those of xlstm_1_3b (2048) and jamba_1_5_large_398b (8192)
+        for rows, d in ((2 * GROUPS[1], 2304), (4, 2304)) + RMSNORM_ROWS:
+            x = rand((rows, d), dt)
+            s = (1 + rand((d,), torch.float32, 0.1)).to(dt)
             out = rmsnorm_cuda(x, s)
-            record("rmsnorm", dtype, f"[{rows},2304]", out,
+            record("rmsnorm", dtype, f"[{rows},{d}]", out,
                    ref.rmsnorm_ref(x, s), tol)
             alone = rmsnorm_cuda(x[2:3].contiguous(), s)
             check(torch.equal(alone, out[2:3]), "rmsnorm: row 2 alone is "
@@ -267,6 +289,10 @@ def phase_kernels(torch):
     torch.cuda.synchronize()
     return errs
 
+
+#: K1's rows at the recurrent and hybrid stacks' widths: a decode tick's
+#: 4 rows and a prefill chunk's 256
+RMSNORM_ROWS = ((4, 2048), (256, 2048), (4, 8192), (256, 8192))
 
 #: (name, H, KV, hd) of the prefill shapes K3 is held at beside
 #: minicpm_2b's: qwen3_32b's (GQA, head_dim 128) and stablelm_12b's
@@ -570,22 +596,34 @@ def top2_agree(want_tok, got_tok, logits, tol):
     return bool((want[sure] == got[sure]).all()), int(sure.sum())
 
 
-def drive_engine_path(torch, engine, cfg, rng):
+def schedule(cfg):
+    """(RMSNorm launches per forward pass, attention layers): a norm
+    before each mixer, one before each FFN, and the final one."""
+    from repro_torch.models import transformer as tf
+    kinds = list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+    norms = 1 + sum(1 + ("ffn" in tf.layer_template(cfg, k, f))
+                    for k, f in kinds)
+    return norms, sum(k == "attn" for k, _ in kinds)
+
+
+def drive_engine_path(torch, engine, cfg, rng, kind="slot"):
     """The engine's main path with every launch counter at 0 first:
     ``generate`` on GEN_PROMPT prompts for GEN_NEW tokens, then two
-    prefill groups inserted into a 4-slot slot cache, TICKS decode ticks
-    (slot 3 idle for the first half) and one verify window.  Checks the
+    prefill groups inserted into a 4-slot cache of layout ``kind`` (slot
+    or state), TICKS decode ticks (slot 3 idle for the first half) and
+    one verify window (the state layout's: ``verify_window``, then the
+    rewind of row 0 to the window's third position).  Checks the
     tokens' range and the outputs' shapes; returns the launch counts and
     the schedule's, the tokens and the cache."""
     import numpy as np
     from repro_torch.kernels import build
-    L = cfg.num_layers
+    norms, attn = schedule(cfg)
     prompt = rng.randint(0, cfg.vocab_size, GEN_PROMPT).astype(np.int32)
     groups = [rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
               for S in GROUPS]
     drafts = rng.randint(0, cfg.vocab_size,
                          (4, VERIFY_WIDTH - 1)).astype(np.int32)
-    backend = types.SimpleNamespace(kind="slot", num_slots=4)
+    backend = types.SimpleNamespace(kind=kind, num_slots=4)
     for name in build.launches:
         build.launches[name] = 0
     t0 = time.perf_counter()
@@ -606,17 +644,22 @@ def drive_engine_path(torch, engine, cfg, rng):
         last = np.where(active, tok, last)
         pos = pos + active
     window = np.concatenate([last[:, None], drafts], axis=1)
-    guess, cache = engine.verify(backend, cache, window, pos,
-                                 np.ones(4, bool))
+    if kind == "state":
+        guess, cache, stacks = engine.verify_window(backend, cache, window,
+                                                    pos, np.ones(4, bool))
+        cache = engine.state_rewind(cache, stacks, 0, 2)
+    else:
+        guess, cache = engine.verify(backend, cache, window, pos,
+                                     np.ones(4, bool))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(build.launches)
     prefills = 1 + len(GROUPS)
     ticks = (GEN_NEW - 1) + TICKS
     expected = {name: 0 for name in build.launches}
-    expected.update({"rmsnorm": (2 * L + 1) * (prefills + ticks + 1),
-                     "flash_attention": L * prefills,
-                     "fused_flash_decode": L * (ticks + 1)})
+    expected.update({"rmsnorm": norms * (prefills + ticks + 1),
+                     "flash_attention": attn * prefills,
+                     "fused_flash_decode": attn * (ticks + 1)})
     for arr in [gen, guess] + emitted:
         arr = np.asarray(arr)
         check(((arr >= 0) & (arr < cfg.vocab_size)).all(),
@@ -732,7 +775,7 @@ def serve_requests(vocab: int):
     return out
 
 
-def pressure_blocks(requests):
+def pressure_blocks(requests, shared=True):
     """The arena under pressure: (num_blocks, the fewest blocks four
     prompts take, the most three requests take at their end).
 
@@ -746,9 +789,11 @@ def pressure_blocks(requests):
     while at most three slots decode) and no four prompts fit together
     (so four slots never decode at once, and pressure only arises while
     the youngest request still ingests its prompt).  Blocks are counted
-    beside the shared prefix's 16, held once."""
+    beside the shared prefix's 16, held once, or with ``shared`` False
+    (no prefix sharing, as on the hybrid layout) each request's own."""
     import itertools
-    bs, shared = SERVE_BLOCK, SERVE_PREFIX // SERVE_BLOCK
+    bs = SERVE_BLOCK
+    shared = SERVE_PREFIX // SERVE_BLOCK if shared else 0
     prompt = [-(-p.size // bs) - shared for p in requests]
     end = [-(-(p.size + SERVE_NEW + SERVE_SPEC + 1) // bs) - shared
            for p in requests]
@@ -771,24 +816,29 @@ def always_draft(context, k):
 
 
 def serve(torch, engine, requests, num_blocks, *, paged=True,
-          prefix_sharing=True, speculate_k=SERVE_SPEC, hook=None):
+          prefix_sharing=True, speculate_k=SERVE_SPEC, hook=None,
+          backend=None, max_new=SERVE_NEW, chunk=SERVE_CHUNK):
     """Serve ``requests`` through the port's ``Scheduler`` to completion,
     with every launch counter at 0 before the first call; ``hook(sched)``
-    is called before the requests are submitted.  Returns ({id:
-    tokens}, scheduler stats with the wall seconds spent in ``admit``
-    (admission and prompt ingestion) and in ``step`` (decode and verify
-    ticks), launch counts, wall seconds)."""
+    is called before the requests are submitted.  The backend is a
+    PagedBackend of ``num_blocks`` blocks, a SlotBackend (``paged``
+    False), or ``backend(engine)``.  Returns ({id: tokens}, scheduler
+    stats with the wall seconds spent in ``admit`` (admission and prompt
+    ingestion) and in ``step`` (decode and verify ticks), launch counts,
+    wall seconds)."""
     import numpy as np
     from repro_torch.kernels import build
     from repro_torch.serving import PagedBackend, Scheduler, SlotBackend
-    if paged:
+    if backend is not None:
+        backend = backend(engine)
+    elif paged:
         backend = PagedBackend(engine, SERVE_SLOTS, num_blocks=num_blocks,
                                block_size=SERVE_BLOCK,
                                prefix_sharing=prefix_sharing)
     else:
         backend = SlotBackend(engine, SERVE_SLOTS)
-    sched = Scheduler(backend, max_new_tokens=SERVE_NEW,
-                      chunk_size=SERVE_CHUNK, speculate_k=speculate_k,
+    sched = Scheduler(backend, max_new_tokens=max_new,
+                      chunk_size=chunk, speculate_k=speculate_k,
                       draft_fn=always_draft)
     if hook is not None:
         hook(sched)
@@ -817,16 +867,16 @@ def serve(torch, engine, requests, num_blocks, *, paged=True,
 
 def expected_serve_launches(cfg, stats, attend: str):
     """Launches the schedule in ``stats`` implies: every forward pass
-    runs 2 norms per layer and the final one; every prefill or extend
-    call one K3 per layer; every decode or verify tick, and every decode
-    or verify call of a replay, one ``attend`` per layer."""
+    runs ``schedule(cfg)``'s norms; every prefill or extend call one K3
+    per attention layer; every decode or verify tick, and every decode
+    or verify call of a replay, one ``attend`` per attention layer."""
     from repro_torch.kernels import build
-    L = cfg.num_layers
+    norms, attn = schedule(cfg)
     pre = stats["prefill_calls"]
     ticks = stats["decode_steps"] + stats["replay_steps"]
     want = {name: 0 for name in build.launches}
-    want.update({"rmsnorm": (2 * L + 1) * (pre + ticks),
-                 "flash_attention": L * pre, attend: L * ticks})
+    want.update({"rmsnorm": norms * (pre + ticks),
+                 "flash_attention": attn * pre, attend: attn * ticks})
     return want
 
 
@@ -986,7 +1036,8 @@ def decode_replay_agreement(engine, requests, new=24,
             "replay_steps": be.stats["replay_steps"]}
 
 
-def compare_with_greedy(torch, engine, requests, got):
+def compare_with_greedy(torch, engine, requests, got, max_len=SERVE_MAX_LEN,
+                        new=SERVE_NEW):
     """Each request alone through ``engine.model``: prefill, then greedy
     decode steps, keeping the logits.  A served token must equal the
     reference's while the reference's top-2 gap is at least TOP2_GAP; a
@@ -997,10 +1048,9 @@ def compare_with_greedy(torch, engine, requests, got):
     near_ties = []
     for i, prompt in enumerate(requests):
         x = torch.as_tensor(prompt, device=dev).long()[None]
-        logits, cache = engine.model.prefill(x, SERVE_MAX_LEN,
-                                             flags=engine.flags)
+        logits, cache = engine.model.prefill(x, max_len, flags=engine.flags)
         n = 0
-        for j in range(SERVE_NEW):
+        for j in range(new):
             top2 = torch.topk(logits[0, :V].float(), 2).values
             gap = float(top2[0] - top2[1])
             tok = int(torch.argmax(logits[0, :V]))
@@ -1435,16 +1485,24 @@ class ForcedPreemption:
 
     def _kv(self, req, n):
         """Positions ``[0, n)`` of each K/V leaf of ``req``, every layer,
-        read through its block table."""
+        read through its block table on a paged arena (or its slot row on
+        the state layout), and its row of each recurrent state slab."""
         from repro_torch.models.params import flatten
         be = self.sched.backend
-        pages = self.torch.as_tensor(
-            be.tables[req.slot][:-(-n // be.block_size)],
-            device=be.engine.device).long()
+        model = be.engine.model
         out = []
-        for leaf in flatten(be.cache).values():      # [R, NB, bs, KV, hd]
-            rows = leaf[:, pages].reshape(leaf.shape[0], -1, *leaf.shape[3:])
-            out.append(rows[:, :n].clone())
+        for path, leaf in flatten(be.cache).items():
+            if model.layer_kind_of_path(path) != "attn":
+                out.append(leaf[:, req.slot].clone())     # [R, ...] state
+            elif be.kind in ("paged", "hybrid"):          # [R, NB, bs, ...]
+                pages = self.torch.as_tensor(
+                    be.tables[req.slot][:-(-n // be.block_size)],
+                    device=be.engine.device).long()
+                rows = leaf[:, pages].reshape(leaf.shape[0], -1,
+                                              *leaf.shape[3:])
+                out.append(rows[:, :n].clone())
+            else:                                         # [R, N, T, ...]
+                out.append(leaf[:, req.slot, :n].clone())
         return out
 
 
@@ -2119,21 +2177,28 @@ LAUNCHER_ARGS = ["--arch", MOE_ARCH, "--no-reduced", "--paged",
 
 
 def phase_moe_graph_serve(torch, smi):
-    """granite served by the port's launcher (``repro_torch.launch.serve.
-    main``, in this process, on the card), once per front door: each must
-    return 0 (every request answered) with launches equal to the server's
-    schedule.  Prints the launcher's own summary lines, and TTFT, time per
-    output token and tokens/s from the server's metrics and request
-    timelines, beside the card's name and power limit.  Returns the
-    launch counts."""
+    """granite served by the port's launcher (``launcher_serve``).
+    Returns the launch counts."""
+    return launcher_serve(torch, smi, LAUNCHER_ARGS, moe_config(),
+                          "fused_flash_decode", "moe_graph_serve")
+
+
+def launcher_serve(torch, smi, argv, cfg, attend, phase):
+    """The port's launcher (``repro_torch.launch.serve.main``, in this
+    process, on the card) with ``argv``, once per front door: each must
+    return 0 (every request answered) with launches equal to the
+    server's schedule (``attend`` the decode attention kernel).  Prints
+    the launcher's own summary lines, and TTFT, time per output token
+    and tokens/s from the server's metrics and request timelines, beside
+    the card's name and power limit.  Returns the launch counts."""
     import contextlib
     import io
     import numpy as np
     from repro_torch.kernels import build
     from repro_torch.launch import serve as launcher
     from repro_torch.serving import RequestTimeline
-    cfg = moe_config()
     read = []
+    n_req = int(argv[argv.index("--requests") + 1])
 
     class ReadAtClose(launcher.GraphServer):
         """The launcher's server, read before it closes."""
@@ -2155,23 +2220,22 @@ def phase_moe_graph_serve(torch, smi):
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                rc = launcher.main(LAUNCHER_ARGS + ["--frontend", mode])
+                rc = launcher.main(argv + ["--frontend", mode])
             wall = time.perf_counter() - t0
             free_card(torch)
             counts = dict(build.launches)
             _, stats, records = read[-1]
-            want = expected_serve_launches(cfg, stats, "fused_flash_decode")
-            emit({"phase": "moe_graph_serve", "frontend": mode, "rc": rc,
-                  "argv": LAUNCHER_ARGS + ["--frontend", mode],
+            want = expected_serve_launches(cfg, stats, attend)
+            emit({"phase": phase, "frontend": mode, "rc": rc,
+                  "argv": argv + ["--frontend", mode],
                   "seconds": wall, "launcher_lines":
                   buf.getvalue().splitlines(), "launches": counts,
                   "expected_launches": want, "stats": {
                       k: stats[k] for k in (
                           "prefill_calls", "decode_steps", "completed",
                           "preemptions", "replay_steps")}})
-            check(rc == 0, f"moe_graph_serve {mode}: the launcher returned "
-                           f"{rc}")
-            check(counts == want, f"moe_graph_serve {mode}: launch counts "
+            check(rc == 0, f"{phase} {mode}: the launcher returned {rc}")
+            check(counts == want, f"{phase} {mode}: launch counts "
                                   f"{counts} != {want}")
             ttft = [r["ttft_ms"] for r in records]
             tpot = [(r["finished_ms"] - r["first_token_ms"])
@@ -2179,10 +2243,10 @@ def phase_moe_graph_serve(torch, smi):
             tokens = sum(r["tokens"] for r in records)
             span_ms = max(r["finished_ms"] for r in records) - \
                 min(r["submitted_ms"] for r in records)
-            check(len(records) == 16 and all(np.isfinite(ttft))
+            check(len(records) == n_req and all(np.isfinite(ttft))
                   and all(np.isfinite(tpot)),
-                  f"moe_graph_serve {mode}: the timelines miss a request")
-            emit({"phase": "moe_graph_serve_reading", "frontend": mode,
+                  f"{phase} {mode}: the timelines miss a request")
+            emit({"phase": phase + "_reading", "frontend": mode,
                   "ttft_ms_p50": float(np.percentile(ttft, 50)),
                   "ttft_ms_p95": float(np.percentile(ttft, 95)),
                   "tpot_ms_p50": float(np.percentile(tpot, 50)),
@@ -2252,6 +2316,737 @@ def phase_moe_tick(torch, engine, smi):
           "top_kernels_ms_per_tick": tick_top,
           "top_kernels_ms_per_moe_layer": moe_top,
           "nvidia_smi": smi})
+
+
+# ---------------------------------------------------------------------------
+# phase 6 — the recurrent and hybrid stacks: xlstm_1_3b, and jamba's first
+# two layers
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm_1_3b"
+JAMBA_ARCH = "jamba_1_5_large_398b"
+#: jamba is cut to its first two layers (attention + dense FFN, Mamba +
+#: MoE FFN), which hold every kind of layer it has
+JAMBA_DEPTH = 2
+#: the xlstm serve workload: 8 requests of 48-96 tokens, 24 new tokens
+#: each, 4 slots, chunks of 32, speculation of 4 with state stacks capped
+#: at 8 positions
+STATE_MAX_LEN = 256
+STATE_CHUNK = 32
+STATE_NEW = 24
+STATE_PROMPT = (48, 96)
+STATE_SPEC_WINDOW = 8
+#: recurrent_rows: tokens fed to each layer, in chunks of ROWS_CHUNK (the
+#: widest row count at which bf16 products were measured row-invariant)
+ROWS_TOKENS = 64
+ROWS_CHUNK = 32
+#: where these phases put their own tensors
+DEVICE = "cuda"
+
+
+def xlstm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(XLSTM_ARCH)
+    kinds = cfg.layer_kinds()
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, kinds.count("mlstm"),
+           kinds.count("slstm"), cfg.padded_vocab)
+          == (48, 2048, 4, 42, 6, 51200), f"{XLSTM_ARCH} is not at full "
+                                          f"width and depth")
+    return cfg
+
+
+def jamba_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA_ARCH)
+    check((cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.num_experts, cfg.num_experts_per_tok, cfg.d_inner,
+           cfg.ssm_state_dim, cfg.padded_vocab)
+          == (8192, 64, 8, 128, 24576, 16, 2, 16384, 16, 65536),
+          f"{JAMBA_ARCH} is not at full width")
+    cfg = dataclasses.replace(cfg, num_layers=JAMBA_DEPTH)
+    check(list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+          == [("attn", "dense"), ("mamba", "moe")],
+          f"{JAMBA_ARCH}'s first two layers")
+    return cfg
+
+
+def tick_weight_bytes(engine, rows):
+    """The weight bytes a tick of ``rows`` tokens reads: every parameter
+    once, but of an untied embedding table only the rows it looks up (a
+    tied one is the LM head as well, read whole)."""
+    total = 0
+    for name, p in engine.model.named_parameters():
+        if name == "embed.embedding" and not engine.cfg.tie_embeddings:
+            total += rows * p.shape[-1] * p.element_size()
+        else:
+            total += p.numel() * p.element_size()
+    return total
+
+
+def tree_bytes(tree, keep=lambda path: True):
+    from repro_torch.models.params import flatten
+    return sum(a.numel() * a.element_size()
+               for path, a in flatten(tree).items() if keep(path))
+
+
+# ---- recurrent_rows --------------------------------------------------------
+
+def mixer_layer(torch, kind, dtype):
+    """(cfg, params, window) of one full-width layer's mixer of ``kind``
+    (mlstm and slstm from xlstm_1_3b, mamba from jamba), random weights
+    from the seed."""
+    from repro_torch.models import mamba, xlstm
+    from repro_torch.models.params import init_params
+    cfg = jamba_config() if kind == "mamba" else xlstm_config()
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    template, window, zero = {
+        "mlstm": (xlstm.mlstm_template, xlstm.mlstm_window,
+                  xlstm.mlstm_cache),
+        "slstm": (xlstm.slstm_template, xlstm.slstm_window,
+                  xlstm.slstm_cache),
+        "mamba": (mamba.mamba_template, mamba.mamba_window,
+                  mamba.mamba_cache)}[kind]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(template(cfg), gen, dtype, DEVICE)
+    return cfg, params, window, zero
+
+
+def check_mixer_rows(torch, kind, dtype):
+    """One layer of ``kind`` at 4 rows: its live state is that of 16
+    random tokens from the zero state.  (1) Each row alone equals its row
+    of the batch, bitwise, at a decode call and at a 5-token window with
+    stacks.  (2) Row 0 fed ROWS_TOKENS tokens as chunks of ROWS_CHUNK
+    (with stacks) and as one decode call per token: the outputs, the
+    final states and every stack entry against the state after the
+    decode call at its position, bitwise.  (3) A decode call committed
+    under a mask of rows 0 and 2 leaves rows 1 and 3 as they were,
+    bitwise.  Read beside them: a ROWS_TOKENS-token window against the
+    chunks (its products have more rows than were measured).  Returns
+    the readings."""
+    from repro_torch.models.params import DTYPES
+    from repro_torch.models.transformer import commit_state
+    cfg, p, win, zero = mixer_layer(torch, kind, dtype)
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    x = torch.randn(4, ROWS_TOKENS, cfg.d_model, device=DEVICE,
+                    generator=gen).to(dt)
+    x0 = torch.randn(4, 16, cfg.d_model, device=DEVICE, generator=gen).to(dt)
+    _, live = win(p, cfg, x0, zero(cfg, 4, DEVICE))
+
+    def clone(st, rows=slice(None)):
+        return {k: v[rows].clone() for k, v in st.items()}
+
+    def stacks(B, L):
+        return {k: torch.zeros((B, L) + v.shape[1:], dtype=v.dtype,
+                               device=DEVICE) for k, v in live.items()}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    out = {}
+    for L in (1, VERIFY_WIDTH + 1):
+        stk = stacks(4, L) if L > 1 else None
+        y, fin = win(p, cfg, x[:, :L], clone(live), stk)
+        ok = True
+        for b in range(4):
+            s1 = stacks(1, L) if L > 1 else None
+            y1, f1 = win(p, cfg, x[b:b + 1, :L], clone(live, slice(b, b + 1)),
+                         s1)
+            ok = ok and torch.equal(y1, y[b:b + 1]) and same(
+                f1, clone(fin, slice(b, b + 1))) and (
+                s1 is None or same(s1, clone(stk, slice(b, b + 1))))
+        out[f"rows_alone_L{L}"] = ok
+
+    # row 0: chunks with stacks, then decode calls against them
+    one = clone(live, slice(0, 1))
+    ys, st, chunk_stacks = [], clone(one), []
+    for a in range(0, ROWS_TOKENS, ROWS_CHUNK):
+        stk = stacks(1, ROWS_CHUNK)
+        y, st = win(p, cfg, x[:1, a:a + ROWS_CHUNK], st, stk)
+        ys.append(y)
+        chunk_stacks.append(stk)
+    y_chunks, st_chunks = torch.cat(ys, 1), st
+    st, stack_equal, y_equal = clone(one), 0, True
+    for t in range(ROWS_TOKENS):
+        y, st = win(p, cfg, x[:1, t:t + 1], st)
+        y_equal = y_equal and torch.equal(y, y_chunks[:, t:t + 1])
+        entry = {k: v[:, t % ROWS_CHUNK]
+                 for k, v in chunk_stacks[t // ROWS_CHUNK].items()}
+        stack_equal += same(st, entry)
+    out["chunks_final_equal_decode_calls"] = same(st, st_chunks)
+    out["chunks_y_equal_decode_calls"] = y_equal
+    out["stack_entries_equal_decode_states"] = stack_equal
+    y_whole, st_whole = win(p, cfg, x[:1], clone(one))
+    out["window64_equal_chunks"] = bool(torch.equal(y_whole, y_chunks)
+                                        and same(st_whole, st_chunks))
+
+    # masked commit
+    state = clone(live)
+    _, new = win(p, cfg, x[:, :1], state)
+    mask = torch.tensor([True, False, True, False], device=DEVICE)
+    commit_state(state, new, mask)
+    out["masked_rows_untouched"] = same(clone(state, slice(1, None, 2)),
+                                        clone(live, slice(1, None, 2)))
+    out["unmasked_rows_committed"] = same(clone(state, slice(0, None, 2)),
+                                          clone(new, slice(0, None, 2)))
+    return out
+
+
+#: (name, K, N, dtypes) of the recurrent stacks' products
+RECURRENT_GEMMS = (("mlstm up_proj", 2048, 8192, ("bfloat16",)),
+                   ("mlstm head", 1024, 1024, ("bfloat16",)),
+                   ("mlstm gate", 4096, 4, ("bfloat16",)),
+                   ("mlstm down_proj", 4096, 2048, ("bfloat16",)),
+                   ("slstm w_x", 2048, 8192, ("bfloat16",)),
+                   ("slstm rec", 512, 2048, ("float32",)),
+                   ("mamba in_proj", 8192, 32768, ("bfloat16",)),
+                   ("mamba x_proj", 16384, 544, ("bfloat16",)),
+                   ("mamba dt_proj", 512, 16384, ("bfloat16",)),
+                   ("mamba out_proj", 16384, 8192, ("bfloat16",)))
+#: row counts of a decode tick (1, 4), a verify tick (5, 20), a chunk (32)
+#: and a whole prompt (64, 96)
+RECURRENT_WIDTHS = (1, 4, 5, 20, 32, 64, 96)
+
+
+def recurrent_gemm_widths(torch):
+    """For each product of RECURRENT_GEMMS: are the first rows of
+    ``x[:M] @ W`` bitwise those of ``x[:4] @ W`` (read: cuBLAS picks its
+    kernel by M), and the first rows of ``layers.linear(x[:M], W,
+    blocked=True)``, the mixers' products, those at 4 rows (held: the
+    width rule)?"""
+    from repro_torch.models.layers import linear
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    for name, K, N, dtypes in RECURRENT_GEMMS:
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            x = torch.randn(max(RECURRENT_WIDTHS), K, device=DEVICE,
+                            generator=g).to(dt)
+            w = torch.randn(K, N, device=DEVICE, generator=g).to(dt)
+            raw, ruled = {}, {}
+            for M in RECURRENT_WIDTHS:
+                n = min(M, 4)
+                raw[M] = bool(torch.equal((x[:M] @ w)[:n], (x[:4] @ w)[:n]))
+                ruled[M] = bool(torch.equal(
+                    linear(x[:M], w, blocked=True)[:n],
+                    linear(x[:4], w, blocked=True)[:n]))
+            emit({"phase": "gemm_width", "gemm": name, "K": K, "N": N,
+                  "dtype": dtype, "raw_rows_equal_to_width_4": raw,
+                  "linear_rows_equal_to_width_4": ruled})
+            check(all(ruled.values()), f"gemm_width {name} {dtype}: "
+                                       f"linear's rows depend on M")
+
+
+def phase_recurrent_rows(torch):
+    """The width rule at the recurrent stacks' products
+    (``recurrent_gemm_widths``), then ``check_mixer_rows`` for one
+    full-width mLSTM, sLSTM and Mamba layer, in bf16 (held bitwise) and
+    f32 (read)."""
+    recurrent_gemm_widths(torch)
+    for dtype in ("bfloat16", "float32"):
+        for kind in ("mlstm", "slstm", "mamba"):
+            r = check_mixer_rows(torch, kind, dtype)
+            held = dtype == "bfloat16"
+            emit({"phase": "recurrent_rows", "kind": kind, "dtype": dtype,
+                  "held": held, "tokens": ROWS_TOKENS, "chunk": ROWS_CHUNK,
+                  **r})
+            if held:
+                bad = [k for k, v in r.items() if k != "window64_equal_chunks"
+                       and v is not True and v != ROWS_TOKENS]
+                check(not bad, f"recurrent_rows {kind} {dtype}: {bad}")
+            free_card(torch)
+
+
+# ---- xlstm_main_path -------------------------------------------------------
+
+def phase_xlstm_main_path(torch):
+    """xlstm_1_3b at full width and depth in bf16 (random weights from
+    the seed) through the engine's main path on the state layout
+    (``drive_engine_path``): K1's launches held to the schedule; then the
+    first tick against the plain path (the kernel path differs from it
+    in K1 alone), as ``compare_first_tick`` holds minicpm_2b's; then the
+    4-slot decode tick.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = xlstm_config()
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    run = drive_engine_path(torch, engine, cfg, rng, kind="state")
+    emit({"phase": "xlstm_main_path", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "params": sum(p.numel() for p in engine.model.parameters()),
+          "dtype": cfg.dtype, "init_seconds": init_s,
+          "path_seconds": run.seconds, "launches": run.counts,
+          "expected_launches": run.expected, "generate": run.gen.tolist(),
+          "verify": run.guess.tolist(),
+          "graphs_captured": graph_count(engine)})
+    check(run.counts == run.expected, f"xlstm_main_path: launch counts "
+                                      f"{run.counts} != {run.expected}")
+    plain_flags = RuntimeFlags(fused_rmsnorm=False)
+    plain = LLMEngine(cfg, dict(engine.model.named_parameters()),
+                      max_len=MAX_LEN, flags=plain_flags)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    w32 = {k: v.float() for k, v in engine.model.named_parameters()}
+    p32 = LLMEngine(cfg32, w32, max_len=MAX_LEN, flags=plain_flags)
+    cmp = compare_first_tick(torch, engine, plain, p32, run.groups[0], cfg)
+    emit({"phase": "xlstm_main_vs_plain", **cmp})
+    check(cmp["ok"], "xlstm: first-tick logits disagree with the plain path")
+    del plain, p32, w32
+    e2e = time_decode(torch, engine, run.backend, run.cache, run.last,
+                      run.pos)
+    emit({"phase": "xlstm_e2e_decode", **e2e})
+    return run.counts
+
+
+# ---- xlstm_serve -----------------------------------------------------------
+
+def state_requests(vocab: int):
+    """The xlstm serve workload's prompts: SERVE_REQUESTS random prompts
+    of STATE_PROMPT tokens, from the seed."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 5)
+    lo, hi = STATE_PROMPT
+    return [rng.randint(0, vocab, int(n)).astype(np.int32)
+            for n in rng.randint(lo, hi + 1, SERVE_REQUESTS)]
+
+
+def state_backend():
+    from repro_torch.serving import StateBackend
+    return lambda e: StateBackend(e, SERVE_SLOTS,
+                                  spec_window=STATE_SPEC_WINDOW)
+
+
+def serve_state(torch, engine, requests, spec, hook=None):
+    return serve(torch, engine, requests, 0, speculate_k=spec, hook=hook,
+                 backend=state_backend(), max_new=STATE_NEW,
+                 chunk=STATE_CHUNK)
+
+
+def phase_xlstm_serve(torch, smi):
+    """The xlstm serve workload through the Scheduler on a StateBackend
+    at full width and depth (bf16): captured steps against eager ones on
+    the same weights (tokens bitwise, launches equal to the schedule,
+    slabs back to 0); PREEMPTIONS requests preempted after streaming
+    tokens (``ForcedPreemption``), once with speculation off (replayed
+    through the masked decode) and once on (verify windows and the
+    rewind of the row), each against the same run without preemption:
+    tokens and slab rows bitwise; in f32, the served tokens against
+    per-request greedy under the top-2 gap rule; then the decode and the
+    verify tick against their bounds (``state_ticks``).  Returns the
+    launch counts."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = xlstm_config()
+    requests = state_requests(cfg.vocab_size)
+    emit({"phase": "xlstm_serve_workload", "prompt_lengths":
+          [int(p.size) for p in requests], "max_len": STATE_MAX_LEN,
+          "chunk": STATE_CHUNK, "new_tokens": STATE_NEW,
+          "speculate_k": SERVE_SPEC, "spec_window": STATE_SPEC_WINDOW})
+    cap = LLMEngine(cfg, max_len=STATE_MAX_LEN, seed=SEED)
+    eager = LLMEngine(cfg, dict(cap.model.named_parameters()),
+                      max_len=STATE_MAX_LEN,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    runs, counts_all = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    for name, e in (("eager", eager), ("captured", cap)):
+        got, stats, counts, wall = serve_state(torch, e, requests, SERVE_SPEC)
+        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        emit({"phase": "xlstm_serve", "steps": name, "seconds": wall,
+              "launches": counts, "expected_launches": want,
+              "graphs_captured": graph_count(e),
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "spec_drafted", "spec_accepted",
+                  "completed", "state_slabs_peak", "state_slabs_in_use",
+                  "admit_seconds", "step_seconds")}})
+        check(counts == want, f"xlstm_serve {name}: launch counts {counts} "
+                              f"!= {want}")
+        check(stats["completed"] == len(requests)
+              and all(got[i].shape == (STATE_NEW,) for i in got),
+              f"xlstm_serve {name}: not every request completed")
+        check(stats["state_slabs_in_use"] == 0,
+              f"xlstm_serve {name}: slabs held after the run")
+        runs[name] = got
+        add(counts)
+    equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
+                for i in runs["eager"])
+    emit({"phase": "xlstm_serve_compare", "requests": len(requests),
+          "captured_bitwise_equal_to_eager": equal})
+    check(equal == len(requests), "xlstm_serve: captured tokens differ "
+                                  "from eager")
+    del eager
+    free_card(torch)
+
+    # ---- forced preemptions: decode replay, then verify replay ----------
+    for spec in (0, SERVE_SPEC):
+        want = runs["captured"] if spec else \
+            serve_state(torch, cap, requests, 0)[0]
+        forced = ForcedPreemption(torch)
+        got, stats, counts, _ = serve_state(torch, cap, requests, spec,
+                                            hook=forced.install)
+        check_forced(f"speculate_k={spec}", forced, stats, got, want, counts,
+                     expected_serve_launches(cfg, stats,
+                                             "fused_flash_decode"),
+                     phase="xlstm_preempt")
+        check(stats["state_slabs_in_use"] == 0,
+              "xlstm_preempt: slabs held after the run")
+        add(counts)
+
+    # ---- the ticks against their bounds ---------------------------------
+    for spec in (0, SERVE_SPEC):
+        emit({"phase": "xlstm_tick", **state_ticks(torch, cap, requests,
+                                                   spec), "nvidia_smi": smi})
+
+    # ---- exactness in f32 against per-request greedy --------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    w32 = {k: v.float() for k, v in cap.model.named_parameters()}
+    del cap
+    free_card(torch)
+    e32 = LLMEngine(cfg32, w32, max_len=STATE_MAX_LEN)
+    got, stats, _, _ = serve_state(torch, e32, requests, SERVE_SPEC)
+    exact = compare_with_greedy(torch, e32, requests, got,
+                                max_len=STATE_MAX_LEN, new=STATE_NEW)
+    emit({"phase": "xlstm_serve_f32_exact",
+          "spec_steps": stats["spec_steps"], **exact})
+    check(exact["rows_compared"] > 0, "xlstm f32 exactness: no row compared")
+    check(exact["mismatches"] == 0, "xlstm f32 exactness: a served token "
+                                    "differs from the greedy reference's")
+    del e32, w32
+    return counts_all
+
+
+def state_ticks(torch, engine, requests, spec, ticks=20, profiled=5):
+    """The captured tick of the StateBackend at 4 active slots (the first
+    four xlstm requests): decode (``spec`` 0) or a verify window of
+    1 + ``spec`` with the stacks and a rewind per row.  3 ticks of
+    warm-up, ``ticks`` read: median, p10 and p90 wall ms; the captured
+    graph's device ms by CUDA events over queued replays and its busy
+    share; the profiler's kernel sum; one ``state_rewind``'s device ms;
+    the graphs' pool bytes and the stacks' bytes.  The bound reads every
+    weight once (of the untied embedding only the window's rows:
+    ``tick_weight_bytes``) and each row's state once and writes it
+    once; a verify tick also writes the stacks (the state after each
+    window position)."""
+    import numpy as np
+    from repro_torch.serving import Scheduler
+    be = state_backend()(engine)
+    longest = max(p.size for p in requests[:SERVE_SLOTS])
+    sched = Scheduler(be, max_new_tokens=STATE_MAX_LEN - longest - 1,
+                      chunk_size=STATE_CHUNK, speculate_k=spec,
+                      draft_fn=always_draft)
+    for i, p in enumerate(requests[:SERVE_SLOTS]):
+        sched.submit({"tokens": p, "id": i})
+    while sched.ingesting or sched.waiting:
+        sched.admit()
+    check(sched.active == SERVE_SLOTS, "state tick: slots not all active")
+    for _ in range(3):
+        sched.step()
+    times = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        sched.step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per = profiled_ms(torch, sched.step, profiled)
+    check(sched.active == SERVE_SLOTS, "state tick: a request finished")
+    graph_ms = captured_ms(torch, engine,
+                           "verify_stacks" if spec else "decode", "state")
+    med = statistics.median(times)
+    model = engine.model
+    slabs = tree_bytes(be.cache,
+                       lambda path: model.layer_kind_of_path(path) != "attn")
+    weights = tick_weight_bytes(engine, SERVE_SLOTS * (spec + 1))
+    out = {"speculate_k": spec, "slots": SERVE_SLOTS, "ticks": ticks,
+           "ms_median": med, "ms_p10": float(np.percentile(times, 10)),
+           "ms_p90": float(np.percentile(times, 90)), "ms_min": min(times),
+           "graph_device_ms": graph_ms, "graph_busy_share": graph_ms / med,
+           **device_share(per, med, ("rmsnorm_kernel",)),
+           "weight_bytes": weights, "slab_bytes": slabs,
+           "graphs_captured": graph_count(engine)}
+    bytes_ = weights + 2 * slabs
+    if spec:
+        stack_bytes = tree_bytes(engine._stacks["state", SERVE_SLOTS])
+        view = engine._stack_views("state", be.cache, SERVE_SLOTS, spec + 1)
+        rewind_ms = cuda_ms(torch, lambda: engine.state_rewind(
+            be.cache, view, 0, 2))[0]
+        bytes_ += tree_bytes(view)
+        out.update(stack_bytes=stack_bytes, rewind_ms=rewind_ms,
+                   rewind_ms_per_tick=SERVE_SLOTS * rewind_ms)
+    out.update(bound_ms=bytes_ / HBM_BPS * 1e3, bound_bytes=bytes_,
+               bound_by="bytes",
+               median_over_bound=med / (bytes_ / HBM_BPS * 1e3))
+    return out
+
+
+def captured_ms(torch, engine, step, kind):
+    """Device ms of one replay of the engine's newest captured ``step``
+    graph on layout ``kind`` at SERVE_SLOTS slots, by CUDA events over
+    queued replays."""
+    graphs = [cs for key, cs in engine.graphs.steps.items()
+              if key[:2] == (step, kind) and key[3] == SERVE_SLOTS]
+    check(len(graphs) >= 1, f"no captured {step} graph on {kind}")
+    # a verify graph holds ~10^4 kernels: few replays keep the profiler's
+    # pass over them short
+    return cuda_ms(torch, graphs[-1].graph.replay, reps=5)[0]
+
+
+def phase_xlstm_graph_serve(torch, smi):
+    """xlstm_1_3b at full width served by the port's launcher on the
+    state layout (``launcher_serve``).  Returns the launch counts."""
+    argv = ["--arch", XLSTM_ARCH, "--no-reduced", "--backend", "state",
+            "--requests", "16", "--clients", "4", "--max-new-tokens", "32"]
+    return launcher_serve(torch, smi, argv, xlstm_config(),
+                          "fused_flash_decode", "xlstm_graph_serve")
+
+
+# ---- hybrid_serve ----------------------------------------------------------
+
+def hybrid_backend(blocks):
+    from repro_torch.serving import HybridBackend
+    return lambda e: HybridBackend(e, SERVE_SLOTS, num_blocks=blocks,
+                                   block_size=SERVE_BLOCK,
+                                   spec_window=STATE_SPEC_WINDOW)
+
+
+class SlabWatch:
+    """Wraps a scheduler's ``admit`` and ``step``: after each, the slabs
+    held must be the occupied slots' and the pool's invariants hold; at
+    the end slabs and blocks are back to 0 (``done``)."""
+
+    def __init__(self):
+        self.calls = self.faults = 0
+
+    def install(self, sched):
+        self.sched = sched
+        for name in ("admit", "step"):
+            call = getattr(sched, name)
+
+            def watched(call=call):
+                out = call()
+                self.calls += 1
+                held = sum(r is not None for r in sched.slots)
+                self.faults += sched.backend.slabs_in_use != held
+                sched.pool.check_invariants()
+                return out
+
+            setattr(sched, name, watched)
+
+    def done(self):
+        return (self.faults == 0 and self.sched.backend.slabs_in_use == 0
+                and self.sched.pool.blocks_in_use == 0)
+
+
+def phase_hybrid_serve(torch, smi):
+    """jamba's first two layers at full width (bf16, random weights from
+    the seed) on the serve workload through the Scheduler on a
+    HybridBackend: on the pressure arena (sized as ``pressure_blocks``
+    without prefix sharing) with speculation, captured against eager
+    (tokens bitwise; launches of K1, K2 and K3 equal to the schedule;
+    pressure preemptions, with slabs and blocks freed together at every
+    tick and both back to 0), then with K4 (``fused_split_k``); on a
+    roomy arena without speculation against a StateBackend, whose
+    attention keeps slot rows (tokens bitwise), and with PREEMPTIONS
+    requests preempted after streaming tokens (``check_forced``: tokens,
+    K/V and slab rows bitwise); then the captured decode tick against
+    its bound (``tick_weight_bytes``, the rows' K/V and their state).
+    Returns the launch counts."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine, StateBackend
+    cfg = jamba_config()
+    requests = serve_requests(cfg.vocab_size)
+    blocks, four, three = pressure_blocks(requests, shared=False)
+    emit({"phase": "hybrid_workload", "arch": cfg.name,
+          "layers": cfg.num_layers, "prompt_lengths":
+          [int(p.size) for p in requests], "num_blocks": blocks,
+          "blocks_four_prompts": four, "blocks_three_ends": three})
+    t0 = time.perf_counter()
+    cap = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = dict(cap.model.named_parameters())
+    counts_all, runs = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    engines = (("eager", LLMEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                   flags=RuntimeFlags(cuda_graphs=False)),
+                "fused_flash_decode"),
+               ("captured", cap, "fused_flash_decode"),
+               ("split_k", LLMEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                     flags=RuntimeFlags(fused_split_k=True)),
+                "fused_flash_decode_splitk"))
+    for name, e, attend in engines:
+        watch = SlabWatch()
+        got, stats, counts, wall = serve(torch, e, requests, 0,
+                                         backend=hybrid_backend(blocks),
+                                         hook=watch.install)
+        want = expected_serve_launches(cfg, stats, attend)
+        emit({"phase": "hybrid_serve", "steps": name, "seconds": wall,
+              "init_seconds": init_s, "params": sum(
+                  p.numel() for p in params.values()),
+              "launches": counts, "expected_launches": want,
+              "graphs_captured": graph_count(e),
+              "slab_watch": {"calls": watch.calls, "faults": watch.faults},
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "spec_drafted", "spec_accepted",
+                  "preemptions", "replayed_tokens", "replay_steps",
+                  "completed", "state_slabs_peak", "blocks_peak",
+                  "admit_seconds", "step_seconds")}})
+        check(counts == want, f"hybrid_serve {name}: launch counts {counts} "
+                              f"!= {want}")
+        check(stats["completed"] == len(requests)
+              and all(got[i].shape == (SERVE_NEW,) for i in got),
+              f"hybrid_serve {name}: not every request completed")
+        check(stats["preemptions"] > 0, f"hybrid_serve {name}: no "
+                                        f"preemption")
+        check(watch.done(), f"hybrid_serve {name}: slabs and blocks were "
+                            f"not freed together")
+        runs[name] = got
+        add(counts)
+    del engines
+    free_card(torch)
+    equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
+                for i in runs["eager"])
+    emit({"phase": "hybrid_serve_compare", "requests": len(requests),
+          "captured_bitwise_equal_to_eager": equal})
+    check(equal == len(requests), "hybrid_serve: captured tokens differ "
+                                  "from eager")
+
+    # ---- the layout check: hybrid against state (slot-row attention) ----
+    layouts = {}
+    for kind, make in (("hybrid", hybrid_backend(ROOMY_BLOCKS)),
+                       ("state", lambda e: StateBackend(e, SERVE_SLOTS))):
+        got, stats, counts, _ = serve(torch, cap, requests, 0, backend=make,
+                                      speculate_k=0)
+        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        check(counts == want, f"hybrid_serve_layouts {kind}: launch counts "
+                              f"{counts} != {want}")
+        check(stats["completed"] == len(requests)
+              and stats["preemptions"] == 0,
+              f"hybrid_serve_layouts {kind}: a request did not complete or "
+              f"was preempted")
+        layouts[kind] = got
+        add(counts)
+    equal = sum(bool(np.array_equal(layouts["hybrid"][i], layouts["state"][i]))
+                for i in layouts["hybrid"])
+    emit({"phase": "hybrid_serve_layouts", "requests": len(requests),
+          "speculate_k": 0, "bitwise_equal": equal})
+    check(equal == len(requests), "hybrid_serve_layouts: hybrid and state "
+                                  "tokens are not bitwise equal")
+
+    # ---- forced preemptions mid-decode, replayed through the decode step -
+    forced = ForcedPreemption(torch)
+    got, stats, counts, _ = serve(torch, cap, requests, 0,
+                                  backend=hybrid_backend(ROOMY_BLOCKS),
+                                  speculate_k=0, hook=forced.install)
+    check_forced("hybrid", forced, stats, got, layouts["hybrid"], counts,
+                 expected_serve_launches(cfg, stats, "fused_flash_decode"),
+                 phase="hybrid_preempt_decode")
+    add(counts)
+
+    # ---- the decode tick against its bound -------------------------------
+    r = layout_ticks(torch, cap, requests, hybrid_backend(ROOMY_BLOCKS))
+    keys = sum(p.size + 3 + r["ticks"] // 2
+               for p in requests[:SERVE_SLOTS])
+    kv = 2 * keys * cfg.num_kv_heads * cfg.head_dim * 2
+    weights = tick_weight_bytes(cap, SERVE_SLOTS)
+    bytes_ = weights + kv + 2 * r["slab_bytes"]
+    emit({"phase": "hybrid_tick", **r, "weight_bytes": weights,
+          "bound_bytes": bytes_, "bound_ms": bytes_ / HBM_BPS * 1e3,
+          "bound_by": "bytes",
+          "median_over_bound": r["ms_median"] / (bytes_ / HBM_BPS * 1e3),
+          "nvidia_smi": smi})
+    return counts_all
+
+
+def layout_ticks(torch, engine, requests, make, ticks=40, profiled=5):
+    """The captured decode tick at 4 active slots (the first four
+    requests, no speculation) on ``make(engine)``'s layout: 3 of warm-up,
+    ``ticks`` read; median, p10, p90 wall ms, the captured graph's device
+    ms by CUDA events and its busy share, the profiler's share, and the
+    recurrent slabs' bytes."""
+    import numpy as np
+    from repro_torch.serving import Scheduler
+    be = make(engine)
+    sched = Scheduler(be, max_new_tokens=4 + 3 + ticks + profiled,
+                      chunk_size=SERVE_CHUNK)
+    for i, p in enumerate(requests[:SERVE_SLOTS]):
+        sched.submit({"tokens": p, "id": i})
+    while sched.ingesting or sched.waiting:
+        sched.admit()
+    check(sched.active == SERVE_SLOTS, "tick timing: slots not all active")
+    for _ in range(3):
+        sched.step()
+    times = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        sched.step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per = profiled_ms(torch, sched.step, profiled)
+    graph_ms = captured_ms(torch, engine, "decode", be.kind)
+    med = statistics.median(times)
+    model = engine.model
+    return {"layout": be.kind, "slots": SERVE_SLOTS, "ticks": ticks,
+            "ms_median": med, "ms_p10": float(np.percentile(times, 10)),
+            "ms_p90": float(np.percentile(times, 90)), "ms_min": min(times),
+            "tokens_per_s": SERVE_SLOTS / (med / 1e3),
+            "graph_device_ms": graph_ms, "graph_busy_share": graph_ms / med,
+            **device_share(per, med, ("rmsnorm_kernel",
+                                      "fused_decode_mma_kernel")),
+            "slab_bytes": tree_bytes(
+                be.cache, lambda path: model.layer_kind_of_path(path)
+                != "attn"),
+            "graphs_captured": graph_count(engine)}
+
+
+def time_recurrent_updates(torch):
+    """One mLSTM decode update and one 5-token window with stacks at 4
+    slots, and one Mamba decode update at 4 slots, at full width in bf16:
+    device ms by CUDA events over queued calls against the bytes bound
+    (the layer's weights read once, the rows' state read once and written
+    once; the window writes the stacks instead of the state).  No
+    library call computes these."""
+    from repro_torch.models.params import DTYPES
+    rows = []
+    for kind, L in (("mlstm", 1), ("mlstm", VERIFY_WIDTH + 1),
+                    ("mamba", 1)):
+        cfg, p, win, zero = mixer_layer(torch, kind, "bfloat16")
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+        x = torch.randn(SERVE_SLOTS, L, cfg.d_model, device=DEVICE,
+                        generator=gen).to(DTYPES[cfg.dtype])
+        _, live = win(p, cfg, torch.randn(
+            SERVE_SLOTS, 16, cfg.d_model, device=DEVICE,
+            generator=gen).to(DTYPES[cfg.dtype]), zero(cfg, SERVE_SLOTS,
+                                                       DEVICE))
+        stk = {k: torch.zeros((SERVE_SLOTS, L) + v.shape[1:], dtype=v.dtype,
+                              device=DEVICE) for k, v in live.items()} \
+            if L > 1 else None
+        weights = sum(v.numel() * v.element_size() for v in p.values())
+        state = sum(v.numel() * v.element_size() for v in live.values())
+        bytes_ = weights + state + (L * state if L > 1 else state)
+        ms, host_ms, prof_ms, queued = cuda_ms(
+            torch, lambda: win(p, cfg, x, live, stk))
+        rows.append({"op": f"{kind} {'window' if L > 1 else 'decode'} "
+                     f"update", "slots": SERVE_SLOTS, "tokens": L,
+                     "ms": ms, "host_ms": host_ms, "profiler_ms": prof_ms,
+                     "queued": queued, "weight_bytes": weights,
+                     "state_bytes": state,
+                     "bound_ms": bytes_ / HBM_BPS * 1e3, "bound_by": "bytes",
+                     "library_ms": None})
+        del p, live, stk
+        free_card(torch)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2406,7 +3201,7 @@ def phase_times(torch):
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 2 * L + 1}
     # K1 where bytes count: the serve workload's prefill chunk, and
     # qwen3_32b's prefill of 1024 rows at d_model 5120
-    for shape in RMSNORM_TIMED:
+    for shape in RMSNORM_TIMED + RMSNORM_ROWS:
         emit({"phase": "times", "kernel": "rmsnorm",
               **time_rmsnorm(torch, g, shape)})
 
@@ -2458,11 +3253,14 @@ def phase_times(torch):
 
     # K2, K4 and K5 on a paged arena: the serve phase's decode tick (4
     # rows, bs 16, rows at the served lengths), then qwen3_32b's
-    # attention shape with 4 rows of 4096 keys; S' = 1 and the verify
-    # window of 5 (K5 has no window)
+    # attention shape with 4 rows of 4096 keys, granite's and jamba's
+    # at the served lengths; S' = 1 and the verify window of 5 (K5 has
+    # no window)
     for shape, keys in ((("minicpm_2b", H, H, hd), (300, 520, 700, 930)),
                         (("qwen3_32b", 64, 8, 128), (4096,) * 4),
-                        (GRANITE, (300, 520, 700, 930))):
+                        (GRANITE, (300, 520, 700, 930)),
+                        (("jamba_1_5_large_398b", 64, 8, 128),
+                         (300, 520, 700, 930))):
         for Sq in (1, SERVE_SPEC + 1):
             timed = time_paged_kernels(torch, g, shape, keys, Sq)
             for name, r in timed.items():
@@ -2473,17 +3271,22 @@ def phase_times(torch):
                     emit({"phase": "times", "kernel": name, **r})
     for name, r in rows.items():
         emit({"phase": "times", "kernel": name, **r})
+    for r in time_recurrent_updates(torch):
+        emit({"phase": "times", "kernel": None, **r})
     return rows
 
 
 #: (name, B, S, H, KV, hd, q_offset) of K3's further timed shapes: the
 #: serve workload's third chunk of a prompt (minicpm_2b, and
-#: granite_moe_3b_a800m's G = 3), and qwen3_32b's full causal prefill
+#: granite_moe_3b_a800m's G = 3 and jamba's G = 8 with head_dim 128),
+#: and qwen3_32b's full causal prefill
 FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                 2 * SERVE_CHUNK),
                ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0),
                ("serve chunk granite_moe_3b_a800m", 1, SERVE_CHUNK, 24, 8,
-                64, 2 * SERVE_CHUNK))
+                64, 2 * SERVE_CHUNK),
+               ("serve chunk jamba_1_5_large_398b", 1, SERVE_CHUNK, 64, 8,
+                128, 2 * SERVE_CHUNK))
 
 
 def time_flash_shapes(torch, g):
@@ -2685,13 +3488,23 @@ def main() -> int:
     phase_moe_tick(torch, engine, smi)
     del engine
     free_card(torch)
+    # the recurrent and hybrid stacks: xlstm_1_3b, jamba's first two layers
+    phase_recurrent_rows(torch)
+    rec_counts = [phase_xlstm_main_path(torch)]
+    free_card(torch)
+    rec_counts.append(phase_xlstm_serve(torch, smi))
+    free_card(torch)
+    rec_counts.append(phase_xlstm_graph_serve(torch, smi))
+    free_card(torch)
+    rec_counts.append(phase_hybrid_serve(torch, smi))
+    free_card(torch)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
         launches = (counts[name] + serve_counts[name] + graph_counts[name]
                     + preempt_counts[name]
-                    + sum(c.get(name, 0) for c in moe_counts))
+                    + sum(c.get(name, 0) for c in moe_counts + rec_counts))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

@@ -2,6 +2,9 @@
 embeddings.  Plain functions on tensors, in the JAX package's layouts."""
 from __future__ import annotations
 
+import contextlib
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -15,26 +18,109 @@ from .params import ParamSpec, Template
 # the matrix product
 # ---------------------------------------------------------------------------
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+#: on the card a blocked product runs in blocks of this many rows
+ROW_BLOCK = 32
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           blocked: bool = False) -> torch.Tensor:
     """``x @ w`` for x [..., K] and a 2-D weight w [K, N]: every matrix
     product of the model goes through here, so the width rule lives in
     one place.
 
     Serving holds a row's tokens bitwise equal whether it decodes alone
     (``generate``, one row) or in a continuous batch (one row per slot),
-    so a row's product must not depend on how many rows it travels with.
-    On the CPU, rows of a product of two or more rows do not, but a
-    single row takes another path and rounds differently: a single row
-    is multiplied as two (a copy) and the first kept.  On the card the
-    product runs as it is (``chip_smoke.py`` phase ``gemm_width`` reads
-    cuBLAS's behaviour; ROADMAP Hazard 4)."""
+    so a row's product must not depend on how many rows it travels with
+    (ROADMAP Hazard 4).  On the CPU, rows of a product of two or more
+    rows do not, but a single row takes another path and rounds
+    differently: a single row is multiplied as two (a copy) and the
+    first kept.  On the card cuBLAS picks its kernel by the row count:
+    for the attention and FFN products bf16 rows at 1-32 rows agree
+    (``chip_smoke.py`` phase ``gemm_width``), but not those of mLSTM's
+    gate product (N = 4) from 20 rows, nor f32 ones.  ``blocked`` (the
+    recurrent mixers' products, whose rows feed a state that must come
+    out bitwise alike for any batch, chunk or verify width) runs the
+    rows on the card in blocks of ROW_BLOCK, the last padded with
+    zeros: every such product has one shape, whose rows do not depend
+    on each other or on their place in the block."""
     K, N = w.shape
     rows = x.reshape(-1, K)
-    if rows.shape[0] == 1 and x.device.type == "cpu":
-        y = (two_rows(rows, 0) @ w)[:1]
-    else:
+    M = rows.shape[0]
+    if rows.device.type == "cpu":
+        y = (two_rows(rows, 0) @ w)[:1] if M == 1 else rows @ w
+    elif not blocked:
         y = rows @ w
+    else:
+        pad = -M % ROW_BLOCK
+        if pad:
+            rows = F.pad(rows, (0, 0, 0, pad))
+        if M + pad == ROW_BLOCK:
+            y = rows @ w
+        else:
+            y = rows.new_empty((M + pad, N))
+            for i in range(0, M + pad, ROW_BLOCK):
+                torch.mm(rows[i:i + ROW_BLOCK], w,
+                         out=y[i:i + ROW_BLOCK])
+        y = y[:M]
     return y.view(*x.shape[:-1], N)
+
+
+def each_row(fn: Callable, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of the ``xs`` one row at a time (each ``x``
+    sliced to ``[1, ...]`` along dim 0), concatenated: for a reduction or
+    a batched product of per-row state, whose kernel on the card may
+    choose its order by the batch's shape.  Each call sees the shapes of
+    a batch of one, whatever the batch, so a row's bits are the same
+    alone and in any batch."""
+    if xs[0].shape[0] == 1:
+        return fn(*xs)
+    return torch.cat([fn(*(x[b:b + 1] for x in xs))
+                      for b in range(xs[0].shape[0])])
+
+
+def pointwise(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``, with each element's bits
+    independent of the tensor's size.  The CPU kernels of exp, log and
+    the like run whole vector registers, then the tensor's last few
+    elements one at a time, which rounds them differently; a tensor of
+    short rows ([B, H] gates) would then round a row by the number of
+    rows beside it.  On the CPU each row of the last axis is padded to a
+    multiple of 32 elements (two registers of the widest lane count),
+    so every element takes the vector path at the same lane; on the
+    card every element runs the same code, and ``fn`` runs as it is."""
+    n = x.shape[-1]
+    if x.device.type != "cpu" or n % 32 == 0:
+        return fn(x)
+    return fn(F.pad(x, (0, -n % 32)))[..., :n]
+
+
+@contextlib.contextmanager
+def no_tf32(device: torch.device):
+    """f32 products on the card in true f32 for the block, whatever the
+    caller set: TF32 is turned off, through the API the caller's
+    setting came by (torch refuses a mix of its two), and restored
+    after.  Touches nothing when TF32 is already off."""
+    m = torch.backends.cuda.matmul
+    prec = getattr(m, "fp32_precision", None) if device.type == "cuda" \
+        else "ieee"
+    if prec is None:                    # a torch without the newer API
+        name, prev, off, on = "allow_tf32", True, False, m.allow_tf32
+    else:
+        name, prev, off = "fp32_precision", prec, "ieee"
+        on = prec == "tf32" or (prec == "none" and getattr(
+            torch.backends, "fp32_precision", "ieee") == "tf32")
+    if on:
+        setattr(m, name, off)
+    try:
+        yield
+    finally:
+        if on:
+            setattr(m, name, prev)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 # ---------------------------------------------------------------------------

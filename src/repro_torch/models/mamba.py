@@ -1,0 +1,136 @@
+"""Mamba selective-SSM block (Jamba's sequence mixer, arXiv:2403.19887),
+the serving half: the JAX package's ``models/mamba``.
+
+Every serving entry point runs one per-token update: the window's input
+projection, causal conv and SSM inputs come from one product each, then
+the state advances one token at a time (the JAX ``_mamba_seq``), so the
+state after position t is bitwise the same whether the tokens came as
+one prompt, as chunks, or as t + 1 decode calls: the products run
+``blocked`` (``layers.linear``), and the readout over the state
+dimension goes one row at a time (``layers.each_row``), so that a row's
+bits do not depend on its batch.  ``mamba_apply``, the chunked
+``associative_scan`` of training, waits for ROADMAP Queue 1 item 10.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ArchConfig
+from .layers import each_row, linear, softplus
+from .params import DTYPES, ParamSpec, Template
+
+State = Dict[str, torch.Tensor]
+
+
+def mamba_template(cfg: ArchConfig) -> Template:
+    d, di = cfg.d_model, cfg.d_inner
+    ds, dtr, wc = cfg.ssm_state_dim, cfg.ssm_dt_rank, cfg.ssm_conv_width
+    return {
+        "in_proj": ParamSpec((d, 2 * di)),
+        "conv_w": ParamSpec((wc, di), init="scaled", scale=0.1),
+        "conv_b": ParamSpec((di,), init="zeros"),
+        "x_proj": ParamSpec((di, dtr + 2 * ds)),
+        "dt_proj": ParamSpec((dtr, di)),
+        "dt_bias": ParamSpec((di,), init="zeros"),
+        "A_log": ParamSpec((di, ds), init="alog"),
+        "D": ParamSpec((di,), init="ones"),
+        "out_proj": ParamSpec((di, d)),
+    }
+
+
+def mamba_cache(cfg: ArchConfig, batch: int, device) -> State:
+    """The zero state (``device="meta"``: its shapes and dtypes): the
+    conv tail in the model dtype, ``h`` in f32."""
+    di = cfg.d_inner
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, di),
+                            dtype=DTYPES[cfg.dtype], device=device),
+        "h": torch.zeros((batch, di, cfg.ssm_state_dim),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def _causal_conv(params, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along S after the tail ``prev``.
+    x: [B, S, di]."""
+    wc = params["conv_w"].shape[0]
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)
+    # windowed sum: out[t] = sum_j w[j] * xp[t+j]
+    out = sum(xp[:, j:j + x.shape[1], :] * params["conv_w"][j]
+              for j in range(wc))
+    return out + params["conv_b"]
+
+
+def _ssm_inputs(params, cfg: ArchConfig, xc: torch.Tensor):
+    """xc: [B, L, di] (post conv + silu).  Returns (dt [B, L, di] f32,
+    B [B, L, ds], C [B, L, ds] f32, A [di, ds] f32): the JAX
+    ``_ssm_params`` before the per-token ``a`` and ``b``."""
+    dtr, ds = cfg.ssm_dt_rank, cfg.ssm_state_dim
+    proj = linear(xc, params["x_proj"], blocked=True)
+    dt_raw, Bmat, Cmat = proj.split([dtr, ds, ds], dim=-1)
+    dt = softplus(linear(dt_raw, params["dt_proj"], blocked=True).float()
+                  + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    return dt, Bmat, Cmat.float(), A
+
+
+def _mamba_step(state: State, dt_t, B_t, C_t, xc_t, xin_t, A):
+    """One token on every row: ``h = a * h + b`` and its readout, with
+    ``a``/``b`` of the JAX ``_ssm_params`` at this position (dt, B, C
+    and xc in f32).  Returns (y [B, di] f32, new state)."""
+    a = torch.exp(dt_t[..., None] * A)                       # [B, di, ds]
+    b = dt_t[..., None] * B_t[:, None, :] * xc_t[..., None]
+    h = a * state["h"] + b
+    y = each_row(lambda hh, cc: (hh * cc[:, None, :]).sum(-1), h, C_t)
+    conv0 = state["conv"]
+    conv = torch.cat([conv0[:, 1:], xin_t[:, None].to(conv0.dtype)], dim=1)
+    return y, {"conv": conv, "h": h}
+
+
+def _mamba_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
+               stack: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+    """Advance the state over x [B, L, d] one token at a time (the JAX
+    ``_mamba_seq``).  Returns (y [B, L, d], final state)."""
+    di = cfg.d_inner
+    xz = linear(x, params["in_proj"], blocked=True)
+    x_in, z = xz.split(di, dim=-1)
+    xc = F.silu(_causal_conv(params, x_in, state["conv"]).float()
+                ).to(x.dtype)
+    dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc)
+    # elementwise, so converted for the whole window with the same bits
+    Bf, xcf = Bm.float(), xc.float()
+    ys = []
+    for t in range(x.shape[1]):
+        y_t, state = _mamba_step(state, dt[:, t], Bf[:, t], Cm[:, t],
+                                 xcf[:, t], x_in[:, t], A)
+        ys.append(y_t)
+        if stack is not None:
+            for k, a in state.items():
+                stack[k][:, t].copy_(a)
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    y = y + params["D"].to(x.dtype) * xc
+    y = y * F.silu(z.float()).to(x.dtype)
+    return linear(y, params["out_proj"], blocked=True), state
+
+
+def mamba_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
+                 stack: Optional[State] = None):
+    """Multi-token continuation from a live state (chunked-prefill
+    ingest windows and speculative verify windows).  x: [B, L, d]."""
+    return _mamba_seq(params, cfg, x, cache, stack)
+
+
+def mamba_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
+                             initial_state: Optional[State] = None):
+    """The prompt's output and its final state for decode."""
+    if initial_state is None:
+        initial_state = mamba_cache(cfg, x.shape[0], x.device)
+    return _mamba_seq(params, cfg, x, initial_state)
+
+
+def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
+    """One-token step.  x: [B, 1, d]."""
+    return _mamba_seq(params, cfg, x, cache)

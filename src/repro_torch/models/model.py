@@ -1,6 +1,5 @@
 """Model facade: one ``nn.Module`` per architecture holding its weights,
-with prefill / prefix-extend / decode and the cache shapes of both
-layouts.
+with prefill / prefix-extend / decode and the caches of every layout.
 
 The weights are registered under the JAX param-tree paths, so
 ``state_dict()`` keys read ``blocks.l0.mixer.wq`` and the stacked
@@ -92,25 +91,33 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill_extend(self, tokens: torch.Tensor, cache, prefix_ref,
                        prefix_len: int, max_cache_len: int,
-                       flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS):
+                       flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,
+                       slots=None):
         return tf.prefill_extend(self.params, self.cfg, tokens, cache,
                                  prefix_ref, prefix_len, max_cache_len,
-                                 flags, groups=self.groups)
+                                 flags, groups=self.groups, slots=slots)
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache, cache_pos,
                     flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,
-                    all_logits: bool = False, block_tables=None):
+                    all_logits: bool = False, block_tables=None,
+                    state_mask=None, want_state_stacks: bool = False,
+                    stacks=None):
         return tf.decode_step(self.params, self.cfg, tokens, cache,
                               cache_pos, flags, all_logits=all_logits,
-                              groups=self.groups, block_tables=block_tables)
+                              groups=self.groups, block_tables=block_tables,
+                              state_mask=state_mask,
+                              want_state_stacks=want_state_stacks,
+                              stacks=stacks)
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
     def new_cache(self, batch: int, max_len: int):
-        """Zeroed cache of the JAX ``abstract_cache`` shapes."""
+        """Zeroed cache of the JAX ``abstract_cache`` shapes: the slot
+        layout's, and the state layout's (a recurrent layer's slot cache
+        already is its O(1) state slab)."""
         return tf.new_cache(self.cfg, batch, max_len, self.device)
 
     def new_paged_cache(self, num_blocks: int, block_size: int):
@@ -118,3 +125,17 @@ class Model(nn.Module):
         shapes (block 0 is the trash block)."""
         return tf.new_paged_cache(self.cfg, num_blocks, block_size,
                                   self.device)
+
+    def new_hybrid_cache(self, num_slots: int, num_blocks: int,
+                         block_size: int):
+        """Zeroed hybrid layout (the JAX ``abstract_hybrid_cache``):
+        paged attention arenas and ``num_slots``-row state slabs."""
+        return tf.new_hybrid_cache(self.cfg, num_slots, num_blocks,
+                                   block_size, self.device)
+
+    def new_state_stacks(self, cache, width: int):
+        """Zeroed verify-window stack buffers for ``cache``."""
+        return tf.new_state_stacks(self.cfg, cache, width)
+
+    def layer_kind_of_path(self, path) -> str:
+        return tf.layer_kind_of_path(self.cfg, path)

@@ -21,14 +21,13 @@ a mesh in JAX) is not ported (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import linear, mlp_apply, mlp_template
+from .layers import linear, mlp_apply, mlp_template, no_tf32
 from .params import ParamSpec, Template
 from ..kernels.ref import upcast
 
@@ -70,30 +69,6 @@ def capacity(cfg: ArchConfig, num_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-@contextlib.contextmanager
-def _no_tf32(device: torch.device):
-    """f32 products on the card in true f32 for the block, whatever the
-    caller set: TF32 is turned off, through the API the caller's
-    setting came by (torch refuses a mix of its two), and restored
-    after.  Touches nothing when TF32 is already off."""
-    m = torch.backends.cuda.matmul
-    prec = getattr(m, "fp32_precision", None) if device.type == "cuda" \
-        else "ieee"
-    if prec is None:                    # a torch without the newer API
-        name, prev, off, on = "allow_tf32", True, False, m.allow_tf32
-    else:
-        name, prev, off = "fp32_precision", prec, "ieee"
-        on = prec == "tf32" or (prec == "none" and getattr(
-            torch.backends, "fp32_precision", "ieee") == "tf32")
-    if on:
-        setattr(m, name, off)
-    try:
-        yield
-    finally:
-        if on:
-            setattr(m, name, prev)
-
-
 def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k``: the k largest along the last axis, ties to the
     lower index (a stable descending sort; ``torch.topk`` promises no
@@ -107,7 +82,7 @@ def route(params, cfg: ArchConfig, xf: torch.Tensor
     """Router on [N, d] tokens -> (gates [N, k], expert_idx [N, k] int64,
     aux)."""
     E_real = cfg.num_experts
-    with _no_tf32(xf.device):
+    with no_tf32(xf.device):
         logits = linear(upcast(xf), upcast(params["router"]))
     E_pad = logits.shape[-1]
     if E_pad != E_real:  # mask pad experts

@@ -25,7 +25,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"      # normal | ones | scaled
+    init: str = "normal"      # normal | zeros | ones | scaled | alog
     scale: float = 1.0
 
 
@@ -72,8 +72,21 @@ def stack_template(template: Template, n: int) -> Template:
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
                device) -> torch.Tensor:
+    """The JAX package's init rules; an init it does not know raises."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "alog":
+        # Mamba's A_log: log(1 .. d_state) along the last axis, rounded
+        # to f32 from f64 (so the same bits on every device)
+        d_state = spec.shape[-1]
+        a = torch.log(torch.arange(1, d_state + 1, dtype=torch.float64,
+                                   device=device))
+        return a.expand(spec.shape).to(dtype).contiguous()
+    if spec.init not in ("normal", "scaled"):
+        raise ValueError(f"unknown init {spec.init!r} for a leaf of shape "
+                         f"{spec.shape}")
     # the JAX rule: fan_in is the leading dim of a >=2-d leaf
     fan_in = spec.shape[0] if len(spec.shape) >= 2 \
         else max(spec.shape[-1], 1)

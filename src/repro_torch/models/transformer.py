@@ -1,13 +1,17 @@
-"""Model composition for attention decoders with dense or MoE FFNs: the
-layer, the stacked layer groups (a Python loop over the ``[R, ...]``
-leaves takes the place of ``lax.scan``), the logits, and the serving
-entry points ``prefill``, ``prefill_extend`` and ``decode_step``.
+"""Model composition: the layer (attention, Mamba, mLSTM or sLSTM mixer
+x dense or MoE FFN), the stacked layer groups (a Python loop over the
+``[R, ...]`` leaves takes the place of ``lax.scan``), the logits, and
+the serving entry points ``prefill``, ``prefill_extend`` and
+``decode_step``.
 
 Caches are nested dicts with the JAX package's keys and shapes
 (``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``
 for slot rows, ``[R, num_blocks, block_size, KV, hd]`` leaves for the
-paged arena) and are updated **in place**: ``decode_step`` returns the
-cache it was given, written at each row's window positions.
+paged arena, ``[R, B, ...]`` recurrent state slabs such as mLSTM's
+``C`` ``[R, B, H, hd, hd]``) and are updated **in place**:
+``decode_step`` returns the cache it was given, written at each row's
+window positions.  The hybrid layout pages attention layers and keeps
+recurrent layers in slabs of ``num_slots`` rows.
 """
 from __future__ import annotations
 
@@ -17,13 +21,16 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from . import attention as attn
+from . import mamba as mam
 from . import moe as moe_mod
 from . import paging
+from . import xlstm as xl
 from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
                      lm_head_template, mlp_apply, mlp_template,
                      rms_norm, rmsnorm_template)
-from .params import DTYPES, Template, stack_template, tree_map
+from .params import (DTYPES, Template, flatten, stack_template, tree_map,
+                     unflatten)
 from ..kernels.ref import rope_freqs
 
 
@@ -61,11 +68,12 @@ DEFAULT_FLAGS = RuntimeFlags()
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this slice of the port does not run,
-    naming the ROADMAP item that will port them.  Nothing falls back."""
+    naming the ROADMAP item that will port them.  Nothing falls back.
+    (Sequence-parallel mLSTM and expert-parallel MoE come with the
+    sharded serving port, item 11: the port has no sharding flags, and
+    ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.)"""
     why = None
-    if set(cfg.layer_kinds()) != {"attn"}:
-        why = "recurrent/hybrid stacks: ROADMAP Queue 1 item 7"
-    elif cfg.use_mla:
+    if cfg.use_mla:
         why = "MLA: ROADMAP Queue 1 item 8"
     elif cfg.is_encoder_decoder or cfg.frontend:
         why = "encoder-decoder and modality stubs: ROADMAP Queue 1 item 9"
@@ -82,9 +90,41 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: not yet ported to repro_torch ({why})")
 
 
+def check_paged_support(cfg: ArchConfig) -> None:
+    """The paged KV cache pages attention K/V; recurrent mixers keep
+    O(1) state, which the state and hybrid layouts hold."""
+    bad = sorted({k for k in cfg.layer_kinds() if k != "attn"})
+    if bad:
+        raise ValueError(f"paged KV cache: recurrent layer kinds {bad} "
+                         f"have O(1) state, not a growing KV cache; use "
+                         f"the state or hybrid layout")
+
+
 # ---------------------------------------------------------------------------
 # structure
 # ---------------------------------------------------------------------------
+
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+
+_MIXER_TEMPLATES = {"attn": attn.attention_template,
+                    "mamba": mam.mamba_template,
+                    "mlstm": xl.mlstm_template,
+                    "slstm": xl.slstm_template}
+
+#: the window of each recurrent kind: ``(params, cfg, x, state,
+#: stack=None) -> (y, final state)``
+_WINDOWS = {"mamba": mam.mamba_window,
+            "mlstm": xl.mlstm_window,
+            "slstm": xl.slstm_window}
+
+_PREFILLS = {"mamba": mam.mamba_prefill_into_cache,
+             "mlstm": xl.mlstm_prefill_into_cache,
+             "slstm": xl.slstm_prefill_into_cache}
+
+_STATE_CACHES = {"mamba": mam.mamba_cache,
+                 "mlstm": xl.mlstm_cache,
+                 "slstm": xl.slstm_cache}
+
 
 def group_structure(cfg: ArchConfig):
     """Split layers into (unrolled head, repeating pattern, repeat count)."""
@@ -99,13 +139,19 @@ def group_structure(cfg: ArchConfig):
     return head, rest[:P], (len(rest) // P if rest else 0)
 
 
-def layer_template(cfg: ArchConfig, ffn_kind: str) -> Template:
+def layer_template(cfg: ArchConfig, kind: str, ffn_kind: str) -> Template:
     d = cfg.d_model
-    return {"norm1": rmsnorm_template(d),
-            "mixer": attn.attention_template(cfg),
-            "norm2": rmsnorm_template(d),
-            "ffn": moe_mod.moe_template(cfg) if ffn_kind == "moe"
-            else mlp_template(d, cfg.d_ff)}
+    if kind not in _MIXER_TEMPLATES:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    t: Template = {"norm1": rmsnorm_template(d),
+                   "mixer": _MIXER_TEMPLATES[kind](cfg)}
+    dff = cfg.dense_d_ff if ffn_kind == "dense" else cfg.d_ff
+    # xLSTM blocks carry integral up/down projections: no separate FFN
+    if dff and not (kind in ("mlstm", "slstm") and cfg.d_ff == 0):
+        t["norm2"] = rmsnorm_template(d)
+        t["ffn"] = moe_mod.moe_template(cfg) if ffn_kind == "moe" \
+            else mlp_template(d, dff)
+    return t
 
 
 def model_template(cfg: ArchConfig) -> Template:
@@ -117,45 +163,103 @@ def model_template(cfg: ArchConfig) -> Template:
         t["lm_head"] = lm_head_template(d, V)
     _, pattern, R = group_structure(cfg)
     t["blocks"] = stack_template(
-        {f"l{j}": layer_template(cfg, ffn)
-         for j, (_, ffn) in enumerate(pattern)}, R)
+        {f"l{j}": layer_template(cfg, kind, ffn)
+         for j, (kind, ffn) in enumerate(pattern)}, R)
     return t
 
 
-def _cache_tree(cfg: ArchConfig, shape):
+# ---------------------------------------------------------------------------
+# caches: abstract trees of "meta" tensors (the JAX ShapeDtypeStructs),
+# materialised by _zeros
+# ---------------------------------------------------------------------------
+
+def _kv(cfg: ArchConfig, shape) -> Dict[str, torch.Tensor]:
+    a = torch.empty(shape, dtype=DTYPES[cfg.dtype], device="meta")
+    return {"k": a, "v": a}
+
+
+def _stacked(cfg: ArchConfig, layer: Callable[[str], Dict]):
+    """The cache tree of the layer pattern, each layer's mixer cache
+    ``layer(kind)`` given a leading ``[R]`` axis."""
     _, pattern, R = group_structure(cfg)
-    shape = (R,) + shape
-    return {"blocks": {f"l{j}": {"mixer": {"k": shape, "v": shape}}
-                       for j in range(len(pattern))}}
+    return {"blocks": {
+        f"l{j}": {"mixer": tree_map(lambda a: a.new_empty((R,) + a.shape),
+                                    layer(kind))}
+        for j, (kind, _) in enumerate(pattern)}}
 
 
-def cache_shapes(cfg: ArchConfig, batch: int, max_len: int):
-    """Shapes of the cache ``prefill`` returns (the JAX
-    ``abstract_cache``): ``[R, batch, max_len, KV, hd]`` per k/v leaf."""
-    return _cache_tree(cfg, attn.kv_cache_shape(cfg, batch, max_len))
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int):
+    """The cache ``prefill`` returns, and the slot and state layouts'
+    cache: ``[R, batch, max_len, KV, hd]`` per attention k/v leaf, and
+    the ``[R, batch, ...]`` state of each recurrent layer (f32, Mamba's
+    conv tail in the model dtype)."""
+    return _stacked(cfg, lambda kind: _kv(cfg, attn.kv_cache_shape(
+        cfg, batch, max_len)) if kind == "attn"
+        else _STATE_CACHES[kind](cfg, batch, "meta"))
 
 
-def paged_cache_shapes(cfg: ArchConfig, num_blocks: int, block_size: int):
-    """Shapes of the paged arena (the JAX ``abstract_paged_cache``): the
-    tree of :func:`cache_shapes` with ``[R, num_blocks, block_size, KV,
-    hd]`` leaves."""
-    return _cache_tree(cfg, attn.paged_kv_cache_shape(cfg, num_blocks,
-                                                      block_size))
+def abstract_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int):
+    """The paged arena: ``[R, num_blocks, block_size, KV, hd]`` leaves."""
+    check_paged_support(cfg)
+    return _stacked(cfg, lambda kind: _kv(cfg, attn.paged_kv_cache_shape(
+        cfg, num_blocks, block_size)))
 
 
-def _zeros(cfg: ArchConfig, shapes, device):
-    dt = DTYPES[cfg.dtype]
-    return tree_map(lambda s: torch.zeros(s, dtype=dt, device=device), shapes)
+def abstract_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
+                          block_size: int):
+    """The hybrid layout: attention K/V in a ``[num_blocks, block_size,
+    ...]`` block-pool arena per layer (reached through block tables,
+    exactly the paged layout), recurrent mixers in ``[num_slots, ...]``
+    state slabs (slot i of every slab belongs to the request in
+    scheduler slot i)."""
+    return _stacked(cfg, lambda kind: _kv(cfg, attn.paged_kv_cache_shape(
+        cfg, num_blocks, block_size)) if kind == "attn"
+        else _STATE_CACHES[kind](cfg, num_slots, "meta"))
+
+
+def _zeros(tree, device):
+    return tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                          device=device), tree)
 
 
 def new_cache(cfg: ArchConfig, batch: int, max_len: int, device):
-    return _zeros(cfg, cache_shapes(cfg, batch, max_len), device)
+    return _zeros(abstract_cache(cfg, batch, max_len), device)
 
 
 def new_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
                     device):
-    return _zeros(cfg, paged_cache_shapes(cfg, num_blocks, block_size),
-                  device)
+    return _zeros(abstract_paged_cache(cfg, num_blocks, block_size), device)
+
+
+def new_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
+                     block_size: int, device):
+    return _zeros(abstract_hybrid_cache(cfg, num_slots, num_blocks,
+                                        block_size), device)
+
+
+def layer_kind_of_path(cfg: ArchConfig, path) -> str:
+    """The layer kind of a cache leaf's path (dotted, as ``flatten``
+    gives it, or split): the one dispatch point mixed-layout cache
+    writers use to tell a paged attention arena from a state slab."""
+    parts = path.split(".") if isinstance(path, str) else list(path)
+    if parts[0] != "blocks":
+        raise KeyError(f"not a layer cache path: {path}")
+    _, pattern, _ = group_structure(cfg)
+    return pattern[int(parts[1][1:])][0]
+
+
+def new_state_stacks(cfg: ArchConfig, cache, width: int):
+    """Buffers for a verify window's state stacks, mirroring ``cache``:
+    each recurrent leaf ``[R, N, ...]`` grown to ``[R, N, width, ...]``
+    (the state after every window position), every other leaf a
+    zero-size ``[R, 0]`` placeholder."""
+    def leaf(path, a):
+        if layer_kind_of_path(cfg, path) == "attn":
+            return a.new_zeros((a.shape[0], 0))
+        return a.new_zeros(a.shape[:2] + (width,) + a.shape[2:])
+
+    return unflatten({path: leaf(path, a)
+                      for path, a in flatten(cache).items()})
 
 
 def unstack_groups(blocks, R: int) -> List[Dict[str, Any]]:
@@ -171,12 +275,15 @@ def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
                 flags: RuntimeFlags,
                 mixer: Callable[[Any, torch.Tensor], torch.Tensor]
                 ) -> torch.Tensor:
-    """One pre-norm attention + SwiGLU or MoE block; ``mixer(mixer_params,
-    h)`` is the attention of the entry point (prefill, extend, slot or
-    paged decode), which writes its cache in place.  A MoE layer's
-    load-balance loss is dropped: serving has no use for it."""
+    """One pre-norm block: the mixer, then (where the layer has one) a
+    SwiGLU or MoE FFN.  ``mixer(mixer_params, h)`` is the mixer of the
+    entry point (prefill, extend, slot, paged or hybrid decode), which
+    writes its cache in place.  A MoE layer's load-balance loss is
+    dropped: serving has no use for it."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
     x = x + mixer(params["mixer"], h)
+    if "ffn" not in params:
+        return x
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
     if ffn_kind == "moe":
         return x + moe_mod.moe_apply(params["ffn"], cfg, h2, flags)[0]
@@ -197,24 +304,40 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def _run_groups(params, cfg, x, cache_blocks, flags, groups, mixer):
     """Every layer in order.  ``cache_blocks`` is a tree with ``[R, ...]``
     leaves (``cache["blocks"]``, or a dict of such trees); layer ``lj``
-    of group ``r`` runs ``mixer(mixer_params, h, group_cache, "lj")``
-    with ``group_cache`` the tree's ``r``-th slice."""
+    of kind ``kind`` in group ``r`` runs ``mixer(kind, mixer_params, h,
+    group_cache, "lj")`` with ``group_cache`` the tree's ``r``-th
+    slice."""
     _, pattern, R = group_structure(cfg)
     groups = groups if groups is not None \
         else unstack_groups(params["blocks"], R)
     cache_groups = unstack_groups(cache_blocks, R)
     for r in range(R):
-        for j, (_, ffn) in enumerate(pattern):
+        for j, (kind, ffn) in enumerate(pattern):
             name = f"l{j}"
             x = layer_apply(
                 groups[r][name], cfg, ffn, x, flags,
-                lambda mp, h, c=cache_groups[r], n=name: mixer(mp, h, c, n))
+                lambda mp, h, c=cache_groups[r], n=name, k=kind:
+                    mixer(k, mp, h, c, n))
     return x
 
 
 def _last_logits(params, cfg, x, flags):
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
     return _logits(params, cfg, x[:, -1:])[:, 0]
+
+
+def commit_state(dst: Dict[str, torch.Tensor],
+                 src: Dict[str, torch.Tensor],
+                 rows: Optional[torch.Tensor] = None) -> None:
+    """Write a recurrent state into cache leaves, in place; with ``rows``
+    ([B] bool) only those rows, the others keep their old state
+    bitwise (the JAX ``commit_state``'s ``state_mask``)."""
+    for k, a in dst.items():
+        new = src[k]
+        if rows is not None:
+            m = rows.reshape((-1,) + (1,) * (new.ndim - 1))
+            new = torch.where(m, new, a.to(new.dtype))
+        a.copy_(new)
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -228,9 +351,13 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device).expand(B, S)
     cache = new_cache(cfg, B, max_cache_len, x.device)
 
-    def mixer(mp, h, c, name):
-        return attn.prefill_into_cache(mp, cfg, h, positions, c[name]["mixer"],
-                                       flags)
+    def mixer(kind, mp, h, c, name):
+        if kind == "attn":
+            return attn.prefill_into_cache(mp, cfg, h, positions,
+                                           c[name]["mixer"], flags)
+        y, state = _PREFILLS[kind](mp, cfg, h)
+        commit_state(c[name]["mixer"], state)
+        return y
 
     x = _run_groups(params, cfg, x, cache["blocks"], flags, groups, mixer)
     return _last_logits(params, cfg, x, flags), cache
@@ -239,32 +366,44 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
 def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                    prefix_ref: paging.PrefixRef, prefix_len: int,
                    max_cache_len: int, flags: RuntimeFlags = DEFAULT_FLAGS,
-                   groups=None):
-    """Prefill a prompt *suffix* against already-cached prefix K/V.
+                   groups=None, slots: Optional[torch.Tensor] = None):
+    """Prefill a prompt *suffix* against the request's cached prefix.
 
     tokens: [B, S'] — the prompt tokens from position ``prefix_len`` on;
-    ``prefix_ref`` names where the prefix lives (``paging.PagedPrefix``
-    — the arena through a block table, ``prefix_len`` a multiple of its
-    block size — or ``paging.SlotPrefix`` — contiguous slot rows).  One
-    entry point serves prefix-shared and chunked prefill on both
-    layouts.  Each layer attends over its gathered prefix K/V and emits
-    the suffix's K/V as cache rows ``[R, B, max_cache_len, KV, hd]``
-    (suffix at row positions ``0 .. S' - 1``, zero beyond); ``cache`` is
-    only read.  Returns (last-token logits [B, V], rows).  The suffix
-    rows are bitwise equal to a cold prefill of the whole prompt's."""
+    ``prefix_ref`` names where the prefix K/V lives (``paging.
+    PagedPrefix`` — the arena through a block table, ``prefix_len`` a
+    multiple of its block size — or ``paging.SlotPrefix`` — contiguous
+    slot rows).  One entry point serves prefix-shared and chunked
+    prefill on every layout.  Attention layers attend over their
+    gathered prefix K/V and emit the suffix's K/V as cache rows ``[R, B,
+    max_cache_len, KV, hd]`` (suffix at row positions ``0 .. S' - 1``,
+    zero beyond); recurrent layers instead *continue the sequential
+    state scan* from their slab rows at ``slots`` ([B] int, required for
+    such stacks) and emit the state after the last suffix token as
+    ``[R, B, ...]`` rows.  ``cache`` is only read.  Returns (last-token
+    logits [B, V], rows).  The suffix's outputs are bitwise those of a
+    cold prefill of the whole prompt (row-independent attention,
+    chunk-invariant state scans)."""
     x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
     B, S_, _ = x.shape
     positions = (prefix_len + torch.arange(S_, device=x.device)).expand(B, S_)
     rows = new_cache(cfg, B, max_cache_len, x.device)
 
-    def mixer(mp, h, c, name):
-        pkv = paging.gather_prefix_kv(c["arena"][name]["mixer"], prefix_ref,
-                                      prefix_len)
-        y, kv = attn.prefill_extend_into_cache(mp, cfg, h, positions, pkv,
-                                               prefix_len, flags)
+    def mixer(kind, mp, h, c, name):
         out = c["rows"][name]["mixer"]
-        out["k"][:, :S_] = kv["k"]
-        out["v"][:, :S_] = kv["v"]
+        if kind == "attn":
+            pkv = paging.gather_prefix_kv(c["arena"][name]["mixer"],
+                                          prefix_ref, prefix_len)
+            y, kv = attn.prefill_extend_into_cache(mp, cfg, h, positions,
+                                                   pkv, prefix_len, flags)
+            out["k"][:, :S_] = kv["k"]
+            out["v"][:, :S_] = kv["v"]
+            return y
+        # recurrent: resume the state scan from the slab rows
+        init = {k: a[slots.long()]
+                for k, a in c["arena"][name]["mixer"].items()}
+        y, state = _WINDOWS[kind](mp, cfg, h, init)
+        commit_state(out, state)
         return y
 
     x = _run_groups(params, cfg, x,
@@ -273,38 +412,80 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     return _last_logits(params, cfg, x, flags), rows
 
 
+def _slot_max_len(cfg: ArchConfig, cache) -> int:
+    """The row length of a slot cache's attention layers (0 when the
+    stack has none)."""
+    for j, (kind, _) in enumerate(group_structure(cfg)[1]):
+        if kind == "attn":
+            return cache["blocks"][f"l{j}"]["mixer"]["k"].shape[2]
+    return 0
+
+
 def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                 cache_pos: torch.Tensor, flags: RuntimeFlags = DEFAULT_FLAGS,
                 all_logits: bool = False, groups=None,
-                block_tables: Optional[torch.Tensor] = None):
+                block_tables: Optional[torch.Tensor] = None,
+                state_mask: Optional[torch.Tensor] = None,
+                want_state_stacks: bool = False, stacks=None):
     """One decode step.  tokens: [B, S'] (S' = 1 for plain decode; S' > 1
     scores a speculative verify window); ``cache_pos`` is a [B] int32
     vector of per-row offsets (window token s of row b sits at
-    ``cache_pos[b] + s``).  ``block_tables`` ([B, P] int32) switches to
-    the paged layout: ``cache`` holds block-pool arenas and each row's
-    K/V is reached through its table.  Writes the window into ``cache``
-    in place and returns (logits, cache): [B, V] at the first window
-    position, or [B, S', V] with ``all_logits=True``."""
+    ``cache_pos[b] + s``).  ``block_tables`` ([B, P] int32) switches the
+    attention layers to the paged layout (paged or hybrid): ``cache``
+    holds block-pool arenas and each row's K/V is reached through its
+    table.  Writes the window into ``cache`` in place and returns
+    (logits, cache): [B, V] at the first window position, or [B, S', V]
+    with ``all_logits=True``.
+
+    Recurrent layers overwrite their whole state on every step.
+    ``state_mask`` ([B] bool) commits only its rows' new state; the
+    others keep theirs bitwise (a batched decode tick must not touch
+    the ingest-frontier state of rows mid chunked prefill).  With
+    ``want_state_stacks`` no state is committed: the state after every
+    window position goes to ``stacks`` (buffers of
+    :func:`new_state_stacks`, written in place; made here when not
+    given), and the return becomes (logits, cache, stacks) — the
+    speculative verify's rewind commits the accepted prefix's entry."""
     x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
-    B = x.shape[0]
+    B, S_q = x.shape[0], x.shape[1]
     pos = cache_pos.to(torch.int32).contiguous()
     freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)
+    if want_state_stacks and stacks is None:
+        stacks = new_state_stacks(cfg, cache, S_q)
     if block_tables is not None:
         tables = block_tables.to(torch.int32).contiguous()
 
-        def mixer(mp, h, c, name):
-            return attn.paged_decode(mp, cfg, h, c[name]["mixer"], pos,
-                                     tables, freqs, flags)
+        def attend(mp, h, c):
+            return attn.paged_decode(mp, cfg, h, c, pos, tables, freqs,
+                                     flags)
     else:
-        max_len = cache["blocks"]["l0"]["mixer"]["k"].shape[2]
+        max_len = _slot_max_len(cfg, cache)
         tables = paging.slot_arena_tables(
-            B, max_len, paging.fused_page_size(max_len), x.device)
+            B, max_len, paging.fused_page_size(max_len), x.device) \
+            if max_len else None
 
-        def mixer(mp, h, c, name):
-            return attn.fused_slot_decode(mp, cfg, h, c[name]["mixer"], pos,
-                                          tables, freqs, flags)
+        def attend(mp, h, c):
+            return attn.fused_slot_decode(mp, cfg, h, c, pos, tables, freqs,
+                                          flags)
 
-    x = _run_groups(params, cfg, x, cache["blocks"], flags, groups, mixer)
+    def mixer(kind, mp, h, c, name):
+        live = c["cache"][name]["mixer"]
+        if kind == "attn":
+            return attend(mp, h, live)
+        if want_state_stacks:
+            return _WINDOWS[kind](mp, cfg, h, live,
+                                  c["stacks"][name]["mixer"])[0]
+        y, state = _WINDOWS[kind](mp, cfg, h, live)
+        commit_state(live, state, state_mask)
+        return y
+
+    blocks = {"cache": cache["blocks"]}
+    if want_state_stacks:
+        blocks["stacks"] = stacks["blocks"]
+    x = _run_groups(params, cfg, x, blocks, flags, groups, mixer)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
     logits = _logits(params, cfg, x)
-    return (logits if all_logits else logits[:, 0]), cache
+    logits = logits if all_logits else logits[:, 0]
+    if want_state_stacks:
+        return logits, cache, stacks
+    return logits, cache

@@ -1,0 +1,259 @@
+"""xLSTM blocks (arXiv:2405.04517), the serving half: mLSTM (matrix
+memory) and sLSTM (scalar memory), the JAX package's ``models/xlstm``.
+
+Every serving entry point runs one per-token update: the gates and
+q/k/v of a window come from one product each, then the state advances
+one token at a time, so the state after position t is bitwise the same
+whether the tokens came as one prompt, as chunks, or as t + 1 decode
+calls (given products whose rows do not depend on the row count,
+ROADMAP Hazard 4): the weight products run ``blocked`` (``layers.
+linear``), in blocks of a fixed row count on the card.  The state's
+own products are f32 and run without TF32: the sLSTM recurrence
+through ``linear`` too, and the mLSTM readouts, whose matrix is each
+row's own state, one row at a time (``layers.each_row``), so that a
+row's bits do not depend on the batch it rides in.
+
+Window functions take the live state and return ``(y, final state)``;
+``stack``, where given, is a dict of buffers ``[B, L, ...]`` per state
+leaf that receives the state after every position (the speculative
+verify's stacks).  Gate accumulations are stabilised in log space with
+a running max ``m`` as in the paper (eqs. 15-19).
+
+The chunkwise-parallel training path (``_mlstm_chunk``,
+``_mlstm_forward``, ``_slstm_forward``) waits for ROADMAP Queue 1 item
+10, the sequence-parallel ``mlstm_apply_sp`` for item 11.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ArchConfig
+from .layers import each_row, linear, no_tf32, pointwise, softplus
+from .params import ParamSpec, Template
+
+State = Dict[str, torch.Tensor]
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshd,hde->bshe")``: a block-diagonal product, one head
+    at a time through ``linear``."""
+    return torch.stack([linear(x[..., i, :], w[i], blocked=True)
+                        for i in range(w.shape[0])], dim=-2)
+
+
+def _inv_sqrt(n: int) -> float:
+    """``1 / sqrt(n)`` rounded as the JAX package computes it, in f32."""
+    return (1.0 / torch.tensor(float(n)).sqrt()).item()
+
+
+def _write_stack(stack: Optional[State], t: int, state: State) -> None:
+    if stack is not None:
+        for k, a in state.items():
+            stack[k][:, t].copy_(a)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def mlstm_template(cfg: ArchConfig) -> Template:
+    d = cfg.d_model
+    di = 2 * d
+    H = cfg.num_heads
+    hd = di // H
+    return {
+        "up_proj": ParamSpec((d, 2 * di)),
+        # block-diagonal (head-wise) q/k/v, as in the paper's
+        # LinearHeadwiseExpand — di^2/H params each, not di^2
+        "wq": ParamSpec((H, hd, hd)),
+        "wk": ParamSpec((H, hd, hd)),
+        "wv": ParamSpec((H, hd, hd)),
+        "w_igate": ParamSpec((di, H), init="scaled", scale=0.01),
+        "b_igate": ParamSpec((H,), init="zeros"),
+        "w_fgate": ParamSpec((di, H), init="scaled", scale=0.01),
+        "b_fgate": ParamSpec((H,), init="ones"),
+        "down_proj": ParamSpec((di, d)),
+    }
+
+
+def _mlstm_qkv_gates(params, cfg: ArchConfig, x: torch.Tensor):
+    di = 2 * cfg.d_model
+    H = cfg.num_heads
+    up = linear(x, params["up_proj"], blocked=True)
+    xm, z = up.split(di, dim=-1)
+    B, S, _ = xm.shape
+    xh = xm.reshape(B, S, H, di // H)
+    q = _heads(xh, params["wq"])
+    k = _heads(xh, params["wk"])
+    v = _heads(xh, params["wv"])
+    li = (linear(xm, params["w_igate"], blocked=True)
+          + params["b_igate"]).float()
+    f_raw = (linear(xm, params["w_fgate"], blocked=True)
+             + params["b_fgate"]).float()
+    lf = -pointwise(softplus, -f_raw)                        # log sigmoid(f)
+    return q, k, v, li, lf, z
+
+
+def mlstm_cache(cfg: ArchConfig, batch: int, device) -> State:
+    """The zero state (``device="meta"``: its shapes and dtypes)."""
+    H = cfg.num_heads
+    hd = 2 * cfg.d_model // H
+    f32 = torch.float32
+    return {"C": torch.zeros((batch, H, hd, hd), dtype=f32, device=device),
+            "n": torch.zeros((batch, H, hd), dtype=f32, device=device),
+            "m": torch.zeros((batch, H), dtype=f32, device=device)}
+
+
+def _readout(q: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhd,bhde->bhe")`` for one row: a product batched over
+    its heads."""
+    return torch.matmul(q[..., None, :], C)[..., 0, :]
+
+
+def _mlstm_step(state: State, qs, kf, vf, li0, lf0):
+    """One token of the mLSTM recurrence on every row: the JAX
+    ``mlstm_decode`` update.  qs (q scaled by 1/sqrt(hd)), kf, vf [B, H,
+    hd] f32, li0/lf0 [B, H]; returns (h [B, H, hd] f32, new state)."""
+    C0, n0, m0 = state["C"], state["n"], state["m"]
+    decay = lf0 + m0
+    m = torch.maximum(decay, li0)
+    fw = pointwise(torch.exp, decay - m)[..., None]
+    iw = pointwise(torch.exp, li0 - m)[..., None]
+    C = fw[..., None] * C0 + (iw * kf)[..., :, None] * vf[..., None, :]
+    n = fw * n0 + iw * kf
+    num = each_row(_readout, qs, C)
+    den = each_row(lambda a, b: (a * b).sum(-1), qs, n)
+    h = num / torch.maximum(den.abs(), pointwise(torch.exp, -m))[..., None]
+    return h, {"C": C, "n": n, "m": m}
+
+
+def _mlstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
+               stack: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+    """Advance (C, n, m) over x [B, L, d] one token at a time.  Returns
+    (y [B, L, d], final state)."""
+    B, S, d = x.shape
+    di = 2 * d
+    q, k, v, li, lf, z = _mlstm_qkv_gates(params, cfg, x)
+    # elementwise, so converted for the whole window with the same bits
+    qs = q.float() * _inv_sqrt(di // cfg.num_heads)
+    kf, vf = k.float(), v.float()
+    hs = []
+    with no_tf32(x.device):
+        for t in range(S):
+            h_t, state = _mlstm_step(state, qs[:, t], kf[:, t], vf[:, t],
+                                     li[:, t], lf[:, t])
+            hs.append(h_t)
+            _write_stack(stack, t, state)
+    h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
+    h = h * F.silu(z.float()).to(x.dtype)
+    return linear(h, params["down_proj"], blocked=True), state
+
+
+def mlstm_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
+                 stack: Optional[State] = None):
+    """Multi-token continuation from a live state (ingest and verify
+    windows).  x: [B, L, d]."""
+    return _mlstm_seq(params, cfg, x, cache, stack)
+
+
+def mlstm_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
+                             initial_state: Optional[State] = None):
+    if initial_state is None:
+        initial_state = mlstm_cache(cfg, x.shape[0], x.device)
+    return _mlstm_seq(params, cfg, x, initial_state)
+
+
+def mlstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
+    """One token.  x: [B, 1, d]."""
+    return _mlstm_seq(params, cfg, x, cache)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_template(cfg: ArchConfig) -> Template:
+    d = cfg.d_model
+    H = cfg.slstm_num_heads
+    hd = d // H
+    return {
+        # input weights for i, f, z, o gates
+        "w_x": ParamSpec((d, 4 * d)),
+        "b": ParamSpec((4 * d,), init="zeros"),
+        # block-diagonal recurrent weights per head
+        "w_h": ParamSpec((H, hd, 4 * hd)),
+        "out_proj": ParamSpec((d, d)),
+    }
+
+
+def slstm_cache(cfg: ArchConfig, batch: int, device) -> State:
+    """The zero state (``device="meta"``: its shapes and dtypes)."""
+    return {k: torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+                           device=device) for k in ("c", "n", "h", "m")}
+
+
+def _slstm_step(w_h: torch.Tensor, b: torch.Tensor, state: State,
+                x_t: torch.Tensor):
+    """One token on every row: the JAX ``_slstm_step``.  ``w_h`` and
+    ``b`` are the f32 weights, converted once per window; x_t: [B, 4d],
+    the precomputed input projection."""
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    B, d = c.shape
+    H = w_h.shape[0]
+    hh = h.reshape(B, H, d // H)
+    rec = torch.stack([linear(hh[:, i], w_h[i], blocked=True)
+                       for i in range(H)], dim=1).reshape(B, 4 * d)
+    g = x_t.float() + rec + b
+    gi, gf, gz, go = g.split(d, dim=-1)
+    li = gi                                                  # exp input gate
+    lf = -softplus(-gf)                                      # log sigmoid
+    m_new = torch.maximum(lf + m, li)
+    iw = torch.exp(li - m_new)
+    fw = torch.exp(lf + m - m_new)
+    z = torch.tanh(gz)
+    o = torch.sigmoid(go)
+    c_new = fw * c + iw * z
+    n_new = fw * n + iw
+    h_new = o * c_new / torch.clamp(n_new, min=1.0)
+    return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
+
+
+def _slstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
+               stack: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+    """Sequential (c, n, h, m) advance, one ``_slstm_step`` per token.
+    Returns (y [B, L, d], final state)."""
+    xg = linear(x, params["w_x"], blocked=True)              # [B, L, 4d]
+    # hoisted out of the token loop: the same values, converted once
+    w_h = params["w_h"].float()
+    b = params["b"].float()
+    hs = []
+    with no_tf32(x.device):
+        for t in range(x.shape[1]):
+            state = _slstm_step(w_h, b, state, xg[:, t])
+            hs.append(state["h"])
+            _write_stack(stack, t, state)
+    y = linear(torch.stack(hs, dim=1).to(x.dtype), params["out_proj"],
+               blocked=True)
+    return y, state
+
+
+def slstm_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
+                 stack: Optional[State] = None):
+    """Multi-token continuation from a live state (ingest and verify
+    windows).  x: [B, L, d]."""
+    return _slstm_seq(params, cfg, x, cache, stack)
+
+
+def slstm_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
+                             initial_state: Optional[State] = None):
+    if initial_state is None:
+        initial_state = slstm_cache(cfg, x.shape[0], x.device)
+    return _slstm_seq(params, cfg, x, initial_state)
+
+
+def slstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
+    """One token.  x: [B, 1, d]."""
+    return _slstm_seq(params, cfg, x, cache)

@@ -30,12 +30,15 @@ that key:
   hold, which ``relaxed`` mode would let through.
 
 The caller keys a step by everything its graph bakes in: the step, the
-layout, the shapes, and the addresses of the cache it writes.  A capture
-that fails raises; nothing falls back to the eager step.
+layout and the shapes; :meth:`StepGraphs.run` adds the addresses of the
+tensors bound to it (the cache it writes, the verify's stacks), and
+:meth:`StepGraphs.drop_bound_to` forgets the steps bound to a buffer
+before it is freed.  A capture that fails raises; nothing falls back to
+the eager step.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, Hashable, Sequence, Tuple
 
 import torch
 
@@ -43,16 +46,18 @@ from ..kernels import build
 
 
 class CapturedStep:
-    """One step as a CUDA graph: its input buffers, its output tensors
-    and the kernel launches that one replay makes."""
+    """One step as a CUDA graph: its input buffers, its output tensors,
+    the kernel launches that one replay makes and the addresses of the
+    tensors bound to it."""
 
     def __init__(self, graph: "torch.cuda.CUDAGraph",
                  inputs: Sequence[torch.Tensor], outputs,
-                 launched: Dict[str, int]):
+                 launched: Dict[str, int], bound: FrozenSet[int]):
         self.graph = graph
         self.inputs = tuple(inputs)
         self.outputs = outputs
         self.launched = launched
+        self.bound = bound
 
     def __call__(self, args: Sequence[torch.Tensor]):
         for buf, a in zip(self.inputs, args):
@@ -75,13 +80,15 @@ class StepGraphs:
     def __len__(self) -> int:
         return len(self.steps)
 
-    def run(self, key: Hashable, step: Callable,
-            args: Sequence[torch.Tensor]):
-        """``step(*args)`` on the card: the captured graph of ``key``
-        when there is one, else the step run eagerly and then captured.
-        ``args`` are tensors on any device, of the shapes ``key`` fixes;
-        ``step`` returns one tensor, and a replay returns the graph's
-        own output tensor."""
+    def run(self, key: Tuple, step: Callable,
+            args: Sequence[torch.Tensor], bound: Sequence = ()):
+        """``step(*args)`` on the card: the captured graph of ``key`` and
+        the addresses of ``bound`` when there is one, else the step run
+        eagerly and then captured.  ``args`` are tensors on any device,
+        of the shapes ``key`` fixes; ``bound`` are the trees of tensors
+        the step reads and writes in place.  ``step`` returns one
+        tensor, and a replay returns the graph's own output tensor."""
+        key = key + tuple(cache_key(tree) for tree in bound)
         captured = self.steps.get(key)
         if captured is not None:
             return captured(args)
@@ -94,11 +101,18 @@ class StepGraphs:
             out = step(*(a.to(self.device) for a in args))
         caller.wait_stream(self.stream)
         out.record_stream(caller)
-        self.steps[key] = self._capture(step, args)
+        self.steps[key] = self._capture(step, args, addresses(bound))
         return out
 
-    def _capture(self, step: Callable,
-                 args: Sequence[torch.Tensor]) -> CapturedStep:
+    def drop_bound_to(self, tree) -> None:
+        """Forget the captured steps bound to any tensor of ``tree``, so
+        that none writes it once it is freed."""
+        old = addresses(tree)
+        self.steps = {k: cs for k, cs in self.steps.items()
+                      if not old & cs.bound}
+
+    def _capture(self, step: Callable, args: Sequence[torch.Tensor],
+                 bound: FrozenSet[int]) -> CapturedStep:
         inputs = [torch.empty(a.shape, dtype=a.dtype, device=self.device)
                   for a in args]
         graph = torch.cuda.CUDAGraph()
@@ -106,7 +120,7 @@ class StepGraphs:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 outputs = step(*inputs)
-        return CapturedStep(graph, inputs, outputs, launched)
+        return CapturedStep(graph, inputs, outputs, launched, bound)
 
     def pool_bytes(self) -> int:
         """Bytes the card holds for the shared pool (its segments)."""
@@ -130,3 +144,11 @@ def cache_key(cache) -> Tuple:
 
     walk(cache)
     return tuple(out)
+
+
+def addresses(tree) -> FrozenSet[int]:
+    """The addresses of a tree's tensors (a sequence of trees, a dict or
+    a tensor), leaving out those that hold no bytes."""
+    if isinstance(tree, (list, tuple)):
+        return frozenset().union(*map(addresses, tree))
+    return frozenset(ptr for ptr, _ in cache_key(tree) if ptr)

@@ -1,14 +1,16 @@
 """Serving step factories: prompt ingestion, lockstep decode,
-continuous-batching decode and speculative verify over slot rows or a
-paged arena, the row inserts of both layouts, and chunked /
-prefix-extend prefill.
+continuous-batching decode and speculative verify over slot rows, a
+paged arena, state slabs or the hybrid of the last two, the row inserts
+of every layout, chunked / prefix-extend prefill, and the state
+layouts' stack-returning verify and rewind.
 
-The steps run eagerly.  Decode and verify take every input as a tensor
-of a fixed shape and make no host round trip, so the engine can capture
-them as CUDA graphs (``runtime/graphs.py``); prefill, extend and the
-inserts change shape with every prompt or chunk and stay eager.  Caches
-are updated in place (see ``models.transformer``); each step still
-returns the cache so callers read like the JAX package's.
+The steps run eagerly.  Decode and verify take every input (and the
+state verify its stack buffers) as a tensor of a fixed shape and make
+no host round trip, so the engine can capture them as CUDA graphs
+(``runtime/graphs.py``); prefill, extend, the inserts and the rewind
+change shape with every prompt or chunk, or are a copy, and stay
+eager.  Caches are updated in place (see ``models.transformer``); each
+step still returns the cache so callers read like the JAX package's.
 """
 from __future__ import annotations
 
@@ -47,9 +49,12 @@ def kernel_path(cfg, flags: RuntimeFlags) -> str:
     """Which decode-attention implementation a serving step runs:
     ``"fused"`` (the fused flash-decode op, K2 or K4) or ``"fallback"``
     (K5 or the page gather on the paged layout, the plain fused version
-    on the slot layout).  The engine labels its ``engine.kernel_path``
+    on the slot layout, and a recurrent-only stack, which has no
+    attention to fuse).  The engine labels its ``engine.kernel_path``
     counter with it, so a silent fall-off the fused path shows in
     ``metrics_text()``."""
+    if "attn" not in cfg.layer_kinds():
+        return "fallback"
     return "fused" if paging.use_fused_decode(cfg, flags) else "fallback"
 
 
@@ -62,20 +67,26 @@ def _mask_tok(tok: torch.Tensor, active: torch.Tensor,
 
 
 def make_serve_decode_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS,
-                           pad_id: int = 0):
+                           pad_id: int = 0, masked_state: bool = False):
     """Decode one token for every slot of a continuous batch: ``positions``
     is a [N] vector of per-slot cache offsets and ``active`` a [N] bool
     mask.  Inactive slots still flow through the step (every row op is
     row-independent, so they cannot perturb active rows, and a later
-    insert overwrites the whole row) but emit ``pad_id``.  A paged cache
-    passes ``block_tables`` ([N, P] int32; inactive rows all zero, so
-    their writes land in the trash block 0); the layout difference is
-    entirely inside the model's block-table seam."""
+    insert overwrites the whole row) but emit ``pad_id``.  A paged or
+    hybrid cache passes ``block_tables`` ([N, P] int32; inactive rows all
+    zero, so their writes land in the trash block 0); the layout
+    difference is entirely inside the model's block-table seam.
+
+    ``masked_state`` (the state and hybrid layouts) passes ``active`` as
+    the model's ``state_mask``: recurrent mixers overwrite their whole
+    state every step, so without it a decode tick would destroy the
+    ingest-frontier state of rows mid chunked prefill."""
     def serve_decode_step(tokens, cache, positions, active,
                           block_tables=None):
-        logits, cache = model.decode_step(tokens, cache, positions,
-                                          flags=flags,
-                                          block_tables=block_tables)
+        logits, cache = model.decode_step(
+            tokens, cache, positions, flags=flags,
+            block_tables=block_tables,
+            state_mask=active if masked_state else None)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return _mask_tok(tok, active, pad_id), cache
 
@@ -126,6 +137,18 @@ def make_slot_insert():
     return insert
 
 
+def _scatter_pages(block_size: int, big: torch.Tensor, r: torch.Tensor,
+                   ax: int, ids: torch.Tensor) -> None:
+    """Write one cache row ``r`` (``[R, S, ...]`` under ``"blocks"``,
+    else ``[S, ...]``) into arena leaf ``big`` page by page, in place:
+    page ``j`` to block ``ids[j]``."""
+    if ax == 1:                         # scanned blocks: [R, S, ...]
+        pages = r.reshape((r.shape[0], -1, block_size) + r.shape[2:])
+        big[:, ids] = pages.to(big.dtype)
+    else:                               # head layers: [S, ...]
+        big[ids] = r.reshape((-1, block_size) + r.shape[1:]).to(big.dtype)
+
+
 def _paged_scatter_rows(block_size: int, arena, rows, row: int,
                         page_ids: torch.Tensor):
     """Scatter one prefilled cache row (``[B, S_cache, ...]``, ``S_cache``
@@ -142,12 +165,7 @@ def _paged_scatter_rows(block_size: int, arena, rows, row: int,
     CUDA: harmless only because block 0 is never read unmasked."""
     ids = page_ids.long()
     for ax, big, r in _leaves(arena, rows):
-        r = r.select(ax, row)
-        if ax == 1:                     # scanned blocks: [R, S, ...]
-            pages = r.reshape((r.shape[0], -1, block_size) + r.shape[2:])
-            big[:, ids] = pages.to(big.dtype)
-        else:                           # head layers: [S, ...]
-            big[ids] = r.reshape((-1, block_size) + r.shape[1:]).to(big.dtype)
+        _scatter_pages(block_size, big, r.select(ax, row), ax, ids)
     return arena
 
 
@@ -206,3 +224,129 @@ def make_extend_step(model: Model, prefix_len: int,
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return slot_extend_step
+
+
+# ---------------------------------------------------------------------------
+# state / hybrid layouts (recurrent mixers in O(1) state slabs)
+# ---------------------------------------------------------------------------
+
+def make_state_verify_step(model: Model, flags: RuntimeFlags = DEFAULT_FLAGS,
+                           pad_id: int = 0):
+    """:func:`make_verify_step` for the state and hybrid layouts.
+
+    Recurrent state cannot be rolled back by rewinding a position, so
+    the window pass leaves every state slab *uncommitted* and writes the
+    state after each window position, for every slot, into ``stacks``
+    (buffers of ``Model.new_state_stacks``, in place); the backend's
+    ``truncate`` commits the accepted prefix's entry through
+    :func:`make_state_rewind`.  Attention caches (slot rows, or the
+    hybrid's arena through ``block_tables``) are written as usual: their
+    rejected tail rolls back by position rewind and page truncate.
+    Returns (guess [N, 1+k], cache, stacks)."""
+    def state_verify_step(tokens, cache, positions, active,
+                          block_tables=None, *, stacks):
+        logits, cache, stacks = model.decode_step(
+            tokens, cache, positions, flags=flags, all_logits=True,
+            block_tables=block_tables, want_state_stacks=True,
+            stacks=stacks)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return _mask_tok(tok, active, pad_id), cache, stacks
+
+    return state_verify_step
+
+
+def make_state_rewind():
+    """Build ``rewind(cache, stacks, slot, idx)``: commit the state after
+    window position ``idx`` (0-based within the verify window) of row
+    ``slot`` from the stacks a state verify step wrote, in place.
+    State-slab leaves take ``stack[slot, idx]``; attention leaves (their
+    stacks are zero-size placeholders) are left as they are."""
+    def rewind(cache, stacks, slot: int, idx: int):
+        for ax, live, stk in _leaves(cache, stacks):
+            if stk.numel() == 0:
+                continue
+            live.select(ax, slot).copy_(stk.select(ax, slot).select(ax, idx))
+        return cache
+
+    return rewind
+
+
+def _state_write_rows(model: Model, cache, rows, slot: int, offset: int):
+    """Chunked-prefill write-back on the state layout, in place:
+    attention leaves (mixed stacks keep contiguous slot rows there)
+    write the batch-1 suffix rows at ``[slot, offset:offset + S')``;
+    recurrent leaves overwrite slab row ``slot`` with the state after
+    the chunk — the slab row is the ingest-frontier checkpoint."""
+    src = flatten(rows)
+    for path, big in flatten(cache).items():
+        ax = slot_batch_axis(path.split("."))
+        r = src[path].select(ax, 0)
+        dst = big.select(ax, slot)
+        if model.layer_kind_of_path(path) == "attn":
+            dst = dst.narrow(ax, offset, r.shape[ax])
+        dst.copy_(r)
+    return cache
+
+
+def _hybrid_scatter_rows(model: Model, block_size: int, arena, rows,
+                         row: int, page_ids: torch.Tensor, slot: int):
+    """Hybrid-layout cache write, in place: attention leaves scatter the
+    row's pages to the ``page_ids`` blocks (see
+    :func:`_paged_scatter_rows`); recurrent leaves copy batch row
+    ``row`` of the prefilled states into slab row ``slot``."""
+    ids = page_ids.long()
+    src = flatten(rows)
+    for path, big in flatten(arena).items():
+        ax = slot_batch_axis(path.split("."))
+        r = src[path].select(ax, row)
+        if model.layer_kind_of_path(path) == "attn":
+            _scatter_pages(block_size, big, r, ax, ids)
+        else:
+            big.select(ax, slot).copy_(r)
+    return arena
+
+
+def make_hybrid_insert(model: Model, block_size: int):
+    """Build ``insert(arena, rows, row, page_ids, slot)`` — see
+    :func:`_hybrid_scatter_rows`."""
+    return functools.partial(_hybrid_scatter_rows, model, block_size)
+
+
+def make_state_extend_step(model: Model, prefix_len: int,
+                           flags: RuntimeFlags = DEFAULT_FLAGS, *,
+                           block_size: int = 0, max_cache_len: int = 0):
+    """:func:`make_extend_step` for the state and hybrid layouts:
+    attention layers extend against their gathered prefix K/V as before,
+    while recurrent layers *continue the sequential state scan* from
+    their slab row, so the state after chunk k is bitwise that of a cold
+    prefill of ``prompt[:end_k]``, wherever the chunk boundaries fall.
+
+    ``block_size == 0`` builds the state-layout step ``(tokens [1,S'],
+    cache, slot) -> (tok [1], cache)``; otherwise the hybrid step
+    ``(tokens [1,S'], cache, table_row [P], page_ids [P], slot) ->
+    (tok [1], cache)``."""
+    if block_size:
+        if max_cache_len <= 0:
+            raise ValueError("hybrid extend step needs max_cache_len "
+                             "(attention rows must pad to whole pages)")
+
+        def hybrid_extend_step(tokens, cache, table_row, page_ids, slot):
+            ref = paging.PagedPrefix(table_row[None], block_size)
+            logits, rows = model.prefill_extend(
+                tokens, cache, ref, prefix_len, max_cache_len, flags=flags,
+                slots=slot[None])
+            cache = _hybrid_scatter_rows(model, block_size, cache, rows, 0,
+                                         page_ids, int(slot))
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+        return hybrid_extend_step
+
+    def state_extend_step(tokens, cache, slot):
+        ref = paging.SlotPrefix(slot[None])
+        logits, rows = model.prefill_extend(
+            tokens, cache, ref, prefix_len, tokens.shape[1], flags=flags,
+            slots=slot[None])
+        cache = _state_write_rows(model, cache, rows, int(slot), prefix_len)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return state_extend_step

@@ -3,8 +3,9 @@
 * :class:`LLMEngine` (``engine.py``) — eager prefill / decode / extend /
   verify on the card, dispatched on a cache backend's layout;
 * :class:`CacheBackend` / :class:`SlotBackend` / :class:`PagedBackend`
-  (``kvcache/``) — contiguous slot rows or a paged block-pool arena with
-  ref-counted prefix sharing;
+  / :class:`StateBackend` / :class:`HybridBackend` (``kvcache/``) —
+  contiguous slot rows, a paged block-pool arena with ref-counted prefix
+  sharing, O(1) recurrent state slabs, or the Jamba-style per-layer mix;
 * :class:`Scheduler` (``batching.py``) — continuous batching: priority
   admission, chunked prefill, preemption, self-speculative decoding;
 * :class:`GraphServer` (``server.py``) — the whole thing wired as a
@@ -25,8 +26,7 @@ Quickstart (on the CPU; drop ``device`` to run on the card)::
         tokens = server.submit([1, 2, 3, 4]).result()
 
 The Scheduler alone, without the graph, is driven by ``sched.admit() +
-sched.step()`` until ``sched.has_work()`` is false.  The state and
-hybrid layouts raise until ROADMAP Queue 1 item 7 ports them.
+sched.step()`` until ``sched.has_work()`` is false.
 """
 from .engine import LLMEngine
 from .batching import DeadlineExceeded, Request, Scheduler, TokenEvent
@@ -35,8 +35,8 @@ from .calculators import (BatcherCalculator, ContinuousBatchCalculator,
                           LLMDecodeLoopCalculator)
 from .frontend import AsyncFrontend, Policy, RequestTimeout
 from .kvcache import (BlockPool, BlockPoolError, CacheBackend,
-                      CachePressure, PagedBackend, PrefixIndex, SlotBackend,
-                      make_backend)
+                      CachePressure, HybridBackend, PagedBackend,
+                      PrefixIndex, SlotBackend, StateBackend, make_backend)
 from .observe import (FlightRecorder, NULL_OBSERVER, Observer,
                       RequestTimeline, export_run)
 from .pipeline import build_continuous_serving_graph, build_serving_graph
@@ -48,7 +48,8 @@ __all__ = ["LLMEngine", "BatcherCalculator", "ContinuousBatchCalculator",
            "LLMDecodeLoopCalculator", "Request", "Scheduler", "TokenEvent",
            "DeadlineExceeded", "AsyncFrontend", "Policy", "RequestTimeout",
            "BlockPool", "BlockPoolError", "CacheBackend", "CachePressure",
-           "PagedBackend", "PrefixIndex", "SlotBackend", "make_backend",
+           "HybridBackend", "PagedBackend", "PrefixIndex", "SlotBackend",
+           "StateBackend", "make_backend",
            "build_serving_graph", "build_continuous_serving_graph",
            "GraphServer", "RequestHandle", "lookup_draft",
            "FlightRecorder", "NULL_OBSERVER", "Observer",

@@ -8,21 +8,25 @@ The same surface as the JAX package's ``serving.LLMEngine``:
 * the serving API — continuous batching over a
   :class:`~repro_torch.serving.kvcache.CacheBackend`: :meth:`new_cache`
   / :meth:`insert` / :meth:`decode` / :meth:`extend` / :meth:`verify`,
-  dispatched on the backend's layout: contiguous slot rows or a paged
-  block-pool arena.  Used by :class:`~repro_torch.serving.batching.
-  Scheduler`.  The state and hybrid layouts raise until ROADMAP Queue 1
-  item 7 ports them.
+  dispatched on the backend's layout: contiguous slot rows, a paged
+  block-pool arena, O(1) recurrent state slabs (``state``; attention
+  layers of a mixed stack keep slot rows) or paged attention beside
+  state slabs (``hybrid``).  The state layouts' speculative verify is
+  :meth:`verify_window` with :meth:`state_rewind`.  Used by
+  :class:`~repro_torch.serving.batching.Scheduler`.
 
 Caches live on the engine's device and are updated in place; each call
 still returns the cache, as the JAX engine does.  On the card the decode
-and verify steps (the serving API's and ``generate``'s lockstep decode)
-run as captured CUDA graphs, one per key, as the JAX engine jits each
-step once per shape (``runtime/graphs.py``; ``RuntimeFlags.cuda_graphs``
-turns it off); prefill, extend and insert run eagerly.  ``metrics``
+and verify steps (the serving API's, the state layouts' stack-returning
+verify, and ``generate``'s lockstep decode) run as captured CUDA graphs,
+one per key, as the JAX engine jits each step once per shape
+(``runtime/graphs.py``; ``RuntimeFlags.cuda_graphs`` turns it off);
+prefill, extend, insert and the rewind run eagerly.  ``metrics``
 counts decode/verify steps by kernel path with their wall time.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -33,18 +37,23 @@ from ..core import tracer as trace_mod
 from ..core.metrics import MetricsRegistry, NullRegistry
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
-from ..models.params import flatten
+from ..models.params import flatten, tree_map
 from ..models.moe import check_moe_impl
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
-                                  check_supported)
-from ..runtime.graphs import StepGraphs, cache_key
+                                  check_paged_support, check_supported)
+from ..runtime.graphs import StepGraphs
 from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
-                             make_paged_insert, make_prefill_step,
-                             make_serve_decode_step, make_slot_insert,
+                             make_hybrid_insert, make_paged_insert,
+                             make_prefill_step, make_serve_decode_step,
+                             make_slot_insert, make_state_extend_step,
+                             make_state_rewind, make_state_verify_step,
                              make_verify_step)
 
-#: the layouts this slice serves
-LAYOUTS = ("slot", "paged")
+#: cache layouts whose recurrent layers live in O(1) state slabs: decode
+#: masks state commits per row, and verify writes per-position state
+#: stacks for the rewind (docs/STATE_CACHE.md)
+STATE_KINDS = ("state", "hybrid")
+LAYOUTS = ("slot", "paged") + STATE_KINDS
 
 
 class LLMEngine:
@@ -66,8 +75,15 @@ class LLMEngine:
         self._prefill = make_prefill_step(self.model, max_len, flags)
         self._decode = make_decode_step(self.model, flags)
         self._serve_decode = make_serve_decode_step(self.model, flags)
+        self._masked_decode = make_serve_decode_step(self.model, flags,
+                                                     masked_state=True)
         self._verify = make_verify_step(self.model, flags)
+        self._state_verify = make_state_verify_step(self.model, flags)
+        self._state_rewind = make_state_rewind()
         self._slot_insert = make_slot_insert()
+        #: the state layouts' verify-window stack buffers, one per
+        #: (layout, N), as wide as the widest window yet (``_stack_views``)
+        self._stacks: Dict[Tuple, Dict] = {}
         # per-(step, layout) kernel-path metric handles
         self._kernel_obs: Dict[Tuple, Tuple] = {}
         #: the captured decode/verify steps (None: the steps run eagerly,
@@ -92,32 +108,37 @@ class LLMEngine:
         """A host array as a CPU tensor of ``dtype`` (a numpy dtype)."""
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
 
-    def _step(self, key: Tuple, step, cache, args) -> torch.Tensor:
+    def _step(self, key: Tuple, step, cache, args,
+              stacks=None) -> torch.Tensor:
         """``step(args[0], cache, *args[1:])``'s tokens: through the
-        captured graph of ``key`` and the cache's addresses where the
-        engine captures, else eagerly.  ``args`` are tensors on any
-        device; the cache is written in place."""
+        captured graph of ``key`` and the addresses of the cache (and of
+        the verify's ``stacks``, bound to the step) where the engine
+        captures, else eagerly.  ``args`` are tensors on any device; the
+        cache and the stacks are written in place."""
+        if stacks is not None:
+            step = functools.partial(step, stacks=stacks)
         if self.graphs is None:
             tokens, *rest = (a.to(self.device) for a in args)
             return step(tokens, cache, *rest)[0]
         return self.graphs.run(
-            key + (cache_key(cache),),
-            lambda tokens, *rest: step(tokens, cache, *rest)[0], args)
+            key, lambda tokens, *rest: step(tokens, cache, *rest)[0], args,
+            bound=(cache, stacks or {}))
 
     def _serve_step(self, name: str, step, backend, cache, tokens,
-                    positions, active, block_tables) -> torch.Tensor:
+                    positions, active, block_tables,
+                    stacks=None) -> torch.Tensor:
         """A serving decode or verify step over all ``N`` slots, keyed
         like the JAX engine's jit cache: (step, layout, block size, N,
         table width P, window width W)."""
         args = [self._host(tokens, np.int64), self._host(positions, np.int32),
                 self._host(active, np.bool_)]
-        if backend.kind == "paged":
+        if backend.kind in ("paged", "hybrid"):
             args.append(self._host(block_tables, np.int32))
         N, W = args[0].shape
         P = args[3].shape[1] if len(args) > 3 else 0
         key = (name, backend.kind, getattr(backend, "block_size", 0), N, P,
                W)
-        return self._step(key, step, cache, args)
+        return self._step(key, step, cache, args, stacks)
 
     def _lockstep_cache(self, B: int, rows):
         """The lockstep cache of batch width ``B``, holding ``rows`` (a
@@ -202,28 +223,41 @@ class LLMEngine:
     @staticmethod
     def _check_layout(kind: str) -> None:
         if kind not in LAYOUTS:
-            raise NotImplementedError(
-                f"cache layout {kind!r}: recurrent state slabs are not yet "
-                f"ported to repro_torch (ROADMAP Queue 1 item 7)")
+            raise ValueError(f"unknown cache layout {kind!r} (expected one "
+                             f"of {LAYOUTS})")
+
+    def _check_blocks(self, block_size: int) -> None:
+        if self.max_len % block_size != 0:
+            raise ValueError(f"engine max_len {self.max_len} must be a "
+                             f"multiple of block_size {block_size}")
 
     def check_extend_support(self, backend_kind: str = "slot") -> None:
-        """Prefix/chunked-extend prefill runs on the slot and paged
-        layouts for every architecture the port serves: the suffix
-        attends through the flash op at ``q_offset = prefix_len`` (K3),
-        chunk-invariant bitwise because its k blocks sit at absolute
-        multiples of 128.  (The JAX package's other refusals — sliding
-        windows, recurrent layers — are raised at construction by
-        ``check_supported``.)"""
+        """Prefix/chunked-extend prefill.  The suffix attends through the
+        flash op at ``q_offset = prefix_len`` (K3), chunk-invariant
+        bitwise because its k blocks sit at absolute multiples of 128.
+        On the slot and paged layouts it needs a pure-attention stack;
+        the state and hybrid layouts instead *continue the sequential
+        state scan* of recurrent layers from their slab rows
+        (docs/STATE_CACHE.md).  (The JAX package's other refusals —
+        sliding windows, encoder-decoders — are raised at construction
+        by ``check_supported``.)"""
         self._check_layout(backend_kind)
+        if backend_kind not in STATE_KINDS:
+            check_paged_support(self.cfg)
 
     def check_spec_support(self, backend_kind: str = "slot") -> None:
         """Speculative decoding verifies a multi-token window through the
         decode path: in-kernel under ``use_fused_decode`` (K2/K4 mask
         each query at ``idx <= pos + s``), else through the page gather.
-        The single-query paged kernel (K5) cannot express a window, so
-        ``use_paged_kernel`` without ``use_fused_decode`` is rejected,
-        as in JAX."""
+        The slot and paged layouts need a pure-attention stack (their
+        recurrent state has no rollback); the state and hybrid layouts
+        verify recurrent layers through the window pass with state
+        stacks and a rewind.  The single-query paged kernel (K5) cannot
+        express a window, so ``use_paged_kernel`` without
+        ``use_fused_decode`` is rejected, as in JAX."""
         self._check_layout(backend_kind)
+        if backend_kind not in STATE_KINDS:
+            check_paged_support(self.cfg)
         if self.flags.use_paged_kernel and not self.flags.use_fused_decode:
             raise ValueError("speculative decode reads paged K/V through "
                              "the page-gather path; drop use_paged_kernel "
@@ -232,16 +266,20 @@ class LLMEngine:
 
     def new_cache(self, backend):
         """Zeroed decode cache in the backend's layout: ``num_slots``
-        contiguous max_len rows (slot) or a ``num_blocks`` x
-        ``block_size`` block-pool arena with trash block 0 (paged)."""
+        contiguous max_len rows (slot, and state: a recurrent layer's
+        slot cache already is its O(1) state slab), a ``num_blocks`` x
+        ``block_size`` block-pool arena with trash block 0 (paged), or
+        the per-layer mix of both (hybrid)."""
         self._check_layout(backend.kind)
         if backend.kind == "paged":
-            if self.max_len % backend.block_size != 0:
-                raise ValueError(f"engine max_len {self.max_len} must be a "
-                                 f"multiple of block_size "
-                                 f"{backend.block_size}")
+            check_paged_support(self.cfg)
+            self._check_blocks(backend.block_size)
             return self.model.new_paged_cache(backend.num_blocks,
                                               backend.block_size)
+        if backend.kind == "hybrid":
+            self._check_blocks(backend.block_size)
+            return self.model.new_hybrid_cache(
+                backend.num_slots, backend.num_blocks, backend.block_size)
         return self.model.new_cache(backend.num_slots, self.max_len)
 
     @property
@@ -254,10 +292,15 @@ class LLMEngine:
 
     def insert(self, backend, cache, rows, row: int, dst):
         """Land prefilled cache row ``row`` of ``rows`` in the cache.
-        ``dst`` is the backend's write ref: a slot index (slot layout) or
-        a [max_len // block_size] int32 page-id vector (paged layout,
-        0 = skip page)."""
+        ``dst`` is the backend's write ref: a slot index (slot and state
+        layouts), a [max_len // block_size] int32 page-id vector (paged
+        layout, 0 = skip page), or a ``(page_ids, slot)`` pair
+        (hybrid)."""
         self._check_layout(backend.kind)
+        if backend.kind == "hybrid":
+            page_ids, slot = dst
+            return make_hybrid_insert(self.model, backend.block_size)(
+                cache, rows, int(row), self._ints(page_ids), int(slot))
         if backend.kind == "paged":
             return make_paged_insert(backend.block_size)(
                 cache, rows, int(row), self._ints(dst))
@@ -268,12 +311,16 @@ class LLMEngine:
                block_tables: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, Dict]:
         """One greedy decode step across all slots: ``last_tokens``,
-        ``positions`` and ``active`` are [N]; paged backends pass their
-        ``block_tables`` ([N, P] int32; inactive rows all zero).  Returns
-        ([N] next tokens, cache); inactive slots yield the pad token."""
+        ``positions`` and ``active`` are [N]; paged and hybrid backends
+        pass their ``block_tables`` ([N, P] int32; inactive rows all
+        zero).  On the state layouts only active rows commit recurrent
+        state.  Returns ([N] next tokens, cache); inactive slots yield
+        the pad token."""
         self._check_layout(backend.kind)
+        step = self._masked_decode if backend.kind in STATE_KINDS \
+            else self._serve_decode
         t0 = time.perf_counter()
-        tok = self._serve_step("decode", self._serve_decode, backend, cache,
+        tok = self._serve_step("decode", step, backend, cache,
                                np.asarray(last_tokens)[:, None], positions,
                                active, block_tables)
         out = tok[:, 0].cpu().numpy()
@@ -288,8 +335,13 @@ class LLMEngine:
         ([N, 1+k] greedy argmax at every window position, cache).  The
         caller guarantees ``positions[b] + k < max_len`` for every slot
         and, on paged backends, has backed every position it intends to
-        keep (unbacked pages trash-route their writes)."""
+        keep (unbacked pages trash-route their writes).  The state
+        layouts verify through :meth:`verify_window`: a window here would
+        commit every row's recurrent state over the whole window."""
         self._check_layout(backend.kind)
+        if backend.kind in STATE_KINDS:
+            raise ValueError(f"layout {backend.kind!r}: verify through "
+                             f"verify_window and state_rewind")
         t0 = time.perf_counter()
         guess = self._serve_step("verify", self._verify, backend, cache,
                                  tokens, positions, active, block_tables)
@@ -297,24 +349,86 @@ class LLMEngine:
         self._observe_kernel("verify", backend, t0)
         return out, cache
 
+    def verify_window(self, backend, cache, tokens: np.ndarray,
+                      positions: np.ndarray, active: np.ndarray,
+                      block_tables: Optional[np.ndarray] = None):
+        """:meth:`verify` for the state and hybrid layouts: the same
+        window contract, but recurrent state slabs are left
+        *uncommitted* and the state after every window position comes
+        back as stacks, which the backend's ``truncate`` commits for the
+        accepted prefix through :meth:`state_rewind`
+        (docs/STATE_CACHE.md).  The stacks are the engine's buffers for
+        (layout, N, W), which the next verify of that key overwrites.
+        Returns ([N, 1+k] guesses, cache, stacks)."""
+        kind = backend.kind
+        if kind not in STATE_KINDS:
+            raise ValueError(f"verify_window serves the state layouts "
+                             f"{STATE_KINDS}, not {kind!r}")
+        N, W = np.asarray(tokens).shape
+        stacks = self._stack_views(kind, cache, N, W)
+        t0 = time.perf_counter()
+        guess = self._serve_step("verify_stacks", self._state_verify,
+                                 backend, cache, tokens, positions, active,
+                                 block_tables, stacks)
+        out = guess.cpu().numpy()
+        self._observe_kernel("verify", backend, t0)
+        return out, cache, stacks
+
+    def _stack_views(self, kind: str, cache, N: int, W: int):
+        """Stack buffers for a window of ``W`` over ``N`` slots: views of
+        the first ``W`` positions of one buffer per (layout, N), which
+        the step writes in place and the backend reads right after,
+        before the next verify.  A window wider than the buffer
+        replaces it, dropping the captured steps that write the old one,
+        so that windows of every width a tick takes share one buffer
+        (for full-width xlstm_1_3b at 4 slots each position is 2.8 GB)."""
+        buf = self._stacks.get((kind, N))
+        if buf is None or _stack_width(buf) < W:
+            if buf is not None and self.graphs is not None:
+                self.graphs.drop_bound_to(buf)
+            self._stacks[kind, N] = buf = None      # freed before the new
+            buf = self._stacks[kind, N] = \
+                self.model.new_state_stacks(cache, W)
+        return tree_map(lambda a: a[:, :, :W] if a.numel() else a, buf)
+
+    def state_rewind(self, cache, stacks, slot: int, idx: int):
+        """Commit the state after window position ``idx`` (0-based) of
+        row ``slot`` from ``stacks`` (returned by :meth:`verify_window`)
+        into the live state slabs, in place; attention leaves are left
+        as they are."""
+        return self._state_rewind(cache, stacks, int(slot), int(idx))
+
     def extend(self, backend, cache, suffix_tokens: np.ndarray,
                prefix_len: int, ref) -> Tuple[np.ndarray, Dict]:
         """Chunked/prefix prefill: compute ``suffix_tokens`` (positions
         ``prefix_len`` on) against the request's cached prefix and write
-        the new K/V back.  ``ref`` is the backend's write ref — a slot
-        index (slot) or a ``(table_row, page_ids)`` pair (paged).
-        Returns ([1] next token after the suffix, cache)."""
+        the new K/V (and recurrent state) back.  ``ref`` is the backend's
+        write ref — a slot index (slot and state), a ``(table_row,
+        page_ids)`` pair (paged), or a ``(table_row, page_ids, slot)``
+        triple (hybrid).  Returns ([1] next token after the suffix,
+        cache)."""
         kind = backend.kind
         self._check_layout(kind)
-        step = make_extend_step(
-            self.model, int(prefix_len), self.flags,
-            block_size=backend.block_size if kind == "paged" else 0,
-            max_cache_len=self.max_len)
+        make = make_state_extend_step if kind in STATE_KINDS \
+            else make_extend_step
+        step = make(self.model, int(prefix_len), self.flags,
+                    block_size=backend.block_size
+                    if kind in ("paged", "hybrid") else 0,
+                    max_cache_len=self.max_len)
         suffix = self._tokens(suffix_tokens)[None]
         if kind == "paged":
             table_row, page_ids = ref
             tok, cache = step(suffix, cache, self._ints(table_row),
                               self._ints(page_ids))
+        elif kind == "hybrid":
+            table_row, page_ids, slot = ref
+            tok, cache = step(suffix, cache, self._ints(table_row),
+                              self._ints(page_ids), self._ints(slot))
         else:
             tok, cache = step(suffix, cache, self._ints(ref))
         return tok.cpu().numpy(), cache
+
+
+def _stack_width(stacks) -> int:
+    """The positions a stack buffer holds: axis 2 of its state leaves."""
+    return max(a.shape[2] for a in flatten(stacks).values() if a.numel())

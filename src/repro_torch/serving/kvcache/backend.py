@@ -34,7 +34,9 @@ A preempted request is recomputed on readmission: the scheduler ingests
 ``prompt ++ tokens[:-1]`` again.  The backend recomputes the prompt
 through prefill and extend in its original chunks, and feeds the
 streamed tokens through the serve decode (or verify) step, which is
-the arithmetic the decode ticks that made them ran.  A replay through
+the arithmetic the decode ticks that made them ran (on the state
+layouts: the masked decode, or the verify window and the rewind of the
+replayed row to the window's last position in range).  A replay through
 prefill alone rounds differently from decode on the card in bf16 and
 need not re-derive a streamed token (ROADMAP Hazard 5).
 """
@@ -207,20 +209,36 @@ class CacheBackend:
             positions[row] = p
             active = np.zeros(N, bool)
             active[row] = True
+            m = min(n, end - p)          # the window's positions in range
             if req.speculate_k > 0:
-                guess = self._step(self.engine.verify, window, positions,
-                                   active, row)[row]
+                guess = self._step(self._replay_verify(row, m), window,
+                                   positions, active, row)[row]
             else:
                 guess = self._step(self.engine.decode, window[:, 0],
                                    positions, active, row)[row:row + 1]
             self.stats["replay_steps"] += 1
-            m = min(n, end - p)          # the window's positions in range
             for s in range(m - 1):
                 self._check_derived(req, seq, p + s + 1, int(guess[s]))
             tok = int(guess[m - 1])
             p += m
         self._check_derived(req, seq, end, tok)
         return tok
+
+    def _replay_verify(self, row: int, m: int) -> Callable:
+        """The engine call of a replayed verify window whose first ``m``
+        positions are in range.  On the state layouts the window pass
+        commits no recurrent state: the replayed row's state after
+        window position ``m - 1`` is committed from the stacks, as the
+        tick's truncate would."""
+        if self.kind not in ("state", "hybrid"):
+            return self.engine.verify
+
+        def call(backend, cache, tokens, positions, active, **kw):
+            guess, cache, stacks = self.engine.verify_window(
+                backend, cache, tokens, positions, active, **kw)
+            return guess, self.engine.state_rewind(cache, stacks, row, m - 1)
+
+        return call
 
     @staticmethod
     def _check_derived(req, seq, p: int, tok: Optional[int]) -> None:
@@ -684,9 +702,14 @@ def make_backend(engine, *, paged: bool = False, num_slots: int = 4,
                             block_size=block_size,
                             prefix_sharing=prefix_sharing,
                             admission=admission, watermark=watermark)
-    if kind in ("state", "hybrid"):
-        raise NotImplementedError(
-            f"cache layout {kind!r}: recurrent state slabs are not yet "
-            f"ported to repro_torch (ROADMAP Queue 1 item 7)")
+    # deferred import: state.py subclasses the classes defined above
+    from .state import HybridBackend, StateBackend
+    if kind == "state":
+        return StateBackend(engine, num_slots, spec_window=spec_window)
+    if kind == "hybrid":
+        return HybridBackend(engine, num_slots, num_blocks=num_blocks,
+                             block_size=block_size, admission=admission,
+                             watermark=watermark,
+                             spec_window=spec_window)
     raise ValueError(f"unknown backend kind {kind!r} (expected 'slot', "
                      f"'paged', 'state' or 'hybrid')")

@@ -438,3 +438,41 @@ def test_cuda_moe_captured_steps_equal_eager(cuda_device, kind):
     bitwise."""
     cap, eager = _captured_and_eager("bfloat16", "granite_moe_3b_a800m")
     _check_captured(cuda_device, cap, eager, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("xlstm_1_3b", "state"),
+                                       ("jamba_1_5_large_398b", "hybrid")])
+def test_cuda_state_layouts_captured_equal_eager(cuda_device, arch, kind):
+    """Reduced xlstm_1_3b on a StateBackend and reduced jamba on a
+    HybridBackend through the Scheduler (chunked prefill, speculation
+    with stacks and rewinds, one preemption replayed through verify
+    windows): the captured engine's tokens are the eager engine's,
+    bitwise, and every slab is released."""
+    from repro_torch.serving import HybridBackend, Scheduler, StateBackend
+    cap, eager = _captured_and_eager("bfloat16", arch)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 512, n).astype(np.int32)
+               for n in (9, 21, 14, 30)]
+    runs = []
+    for e in (cap, eager):
+        be = HybridBackend(e, 2, num_blocks=33, block_size=8) \
+            if kind == "hybrid" else StateBackend(e, 2)
+        sched = Scheduler(be, max_new_tokens=10, chunk_size=8,
+                          speculate_k=3)
+        reqs = [sched.submit({"tokens": p, "id": i})
+                for i, p in enumerate(prompts)]
+        got = {}
+        for tick in range(400):
+            if not sched.has_work():
+                break
+            for ev in sched.admit() + sched.step():
+                if ev.finished:
+                    got[ev.request.id] = list(ev.request.tokens)
+            if tick == 4 and reqs[0].tokens and not reqs[0].finished:
+                sched.preempt(reqs[0])
+        assert sorted(got) == list(range(len(prompts)))
+        assert be.slabs_in_use == 0
+        runs.append(got)
+    assert runs[0] == runs[1]
+    assert len(cap.graphs) > 0

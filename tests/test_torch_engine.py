@@ -260,16 +260,26 @@ def test_model_without_device_needs_cuda(monkeypatch):
                                   "phi_3_vision_4_2b", "jamba_1_5_large_398b"])
 def test_unsupported_configs_raise(name):
     """Each architecture the port does not serve raises, naming its
-    ROADMAP item.  granite_moe_3b_a800m is served since its MoE FFN was
-    ported: what stays refused there is the expert-parallel MoE."""
+    ROADMAP item.  granite_moe_3b_a800m and jamba_1_5_large_398b are
+    served since their MoE FFN and Mamba layers were ported: what stays
+    refused there is the expert-parallel MoE.  xlstm_1_3b is served
+    since its recurrent stack was ported: its case serves a few
+    tokens."""
     from repro_torch.models.config import ArchConfig
     from repro_torch.models.transformer import RuntimeFlags
-    if name == "granite_moe_3b_a800m":
+    if name in ("granite_moe_3b_a800m", "jamba_1_5_large_398b"):
         cfg = get_config(name).reduced()
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 11"):
             LLMEngine(cfg, max_len=16, device="cpu",
                       flags=RuntimeFlags(moe_impl="ep"))
+        return
+    if name == "xlstm_1_3b":
+        cfg = get_config(name).reduced()
+        engine = LLMEngine(cfg, max_len=16, device="cpu")
+        out = engine.generate(_prompts(cfg, 2, 5, 0), 3)
+        assert out.shape == (2, 3)
+        assert ((0 <= out) & (out < cfg.vocab_size)).all()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         get_config(name)
@@ -281,23 +291,37 @@ def test_unsupported_configs_raise(name):
 
 
 def test_sliding_window_and_other_layouts_raise():
-    cfg = dataclasses.replace(get_config("minicpm_2b").reduced(),
-                              sliding_window=16)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        LLMEngine(cfg, max_len=16, device="cpu")
+    """Sliding-window attention stays refused, on a dense stack and on
+    the hybrid one, naming its ROADMAP item.  The state and hybrid
+    layouts are served since ROADMAP Queue 1 item 7: on a dense stack
+    they build and extend and speculate, while the paged layout refuses
+    a recurrent stack and an unknown layout is refused outright."""
+    for name in ("minicpm_2b", "jamba_1_5_large_398b"):
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  sliding_window=16)
+        with pytest.raises(NotImplementedError,
+                           match="sliding-window attention: ROADMAP "
+                                 "Queue 1 item 12"):
+            LLMEngine(cfg, max_len=16, device="cpu")
     engine = LLMEngine(get_config("minicpm_2b").reduced(), max_len=16,
                        device="cpu")
-    for kind in ("state", "hybrid"):
-        layout = types.SimpleNamespace(kind=kind, num_slots=2)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 7"):
-            engine.new_cache(layout)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 7"):
-            engine.check_extend_support(kind)
-    for kind in ("slot", "paged"):
+    for kind in ("slot", "paged", "state", "hybrid"):
         engine.check_extend_support(kind)
         engine.check_spec_support(kind)
+    state = engine.new_cache(types.SimpleNamespace(kind="state",
+                                                   num_slots=2))
+    assert state["blocks"]["l0"]["mixer"]["k"].shape[1:3] == (2, 16)
+    hybrid = engine.new_cache(types.SimpleNamespace(
+        kind="hybrid", num_slots=2, num_blocks=5, block_size=8))
+    assert hybrid["blocks"]["l0"]["mixer"]["k"].shape[1:3] == (5, 8)
+    with pytest.raises(ValueError, match="unknown cache layout"):
+        engine.new_cache(types.SimpleNamespace(kind="ring", num_slots=2))
+    xlstm = LLMEngine(get_config("xlstm_1_3b").reduced(), max_len=16,
+                      device="cpu")
+    for check in (xlstm.check_extend_support, xlstm.check_spec_support):
+        with pytest.raises(ValueError, match="recurrent"):
+            check("paged")
+        check("state")
     assert engine.mesh is None and engine.cache_shards() == 1
     assert engine.mesh_desc == {"devices": 1, "axes": {}}
 

@@ -491,12 +491,16 @@ class TestGraphFrontDoor:
             assert srv.stats()["scheduler"]["deadline_missed"] == 1
 
     def test_unported_layouts_raise_to_the_caller(self, engine):
-        """``state`` and ``hybrid`` are refused while the server is being
-        constructed: the engine node's error reaches the caller, naming
-        the ROADMAP item that ports them."""
-        for kind in ("state", "hybrid"):
-            with pytest.raises(GraphError, match="ROADMAP Queue 1 item 7"):
-                GraphServer(engine, num_slots=2, backend=kind)
+        """The state and hybrid layouts are served since ROADMAP Queue 1
+        item 7.  What the engine still refuses while the server is being
+        constructed reaches the caller: a hybrid arena whose block size
+        does not divide the engine's ``max_len``, and an unknown
+        layout."""
+        with pytest.raises(GraphError, match="multiple of block_size"):
+            GraphServer(engine, num_slots=2, backend="hybrid",
+                        num_blocks=17, block_size=24)
+        with pytest.raises(GraphError, match="unknown backend kind"):
+            GraphServer(engine, num_slots=2, backend="ring")
 
     def test_sliding_window_names_its_own_item(self):
         """Sliding-window attention does not come with the graph half:

@@ -50,7 +50,7 @@ REF = ROOT / "src" / "repro"
 def graphserver_leak_check(monkeypatch):
     """After every close of a port ``GraphServer``: every slot free, no
     block in use or reserved, pool invariants intact, no prefix chain
-    left registered."""
+    left registered, no state slab held."""
     from repro_torch.serving.server import GraphServer
 
     real_close = GraphServer.close
@@ -81,6 +81,9 @@ def graphserver_leak_check(monkeypatch):
             if sched.prefix is not None and len(sched.prefix) != 0:
                 leaks.append(f"prefix index still holds "
                              f"{len(sched.prefix)} chains after close")
+            slabs = getattr(sched.backend, "slabs_in_use", 0)
+            if slabs:
+                leaks.append(f"{slabs} state slabs still held after close")
         return stats
 
     monkeypatch.setattr(GraphServer, "close", checked_close)
@@ -558,13 +561,15 @@ COPIES = ([f"core/{m}.py" for m in CORE]
                                          "pipeline", "server", "frontend",
                                          "batching", "speculative")]
           + ["serving/kvcache/allocator.py", "serving/kvcache/prefix.py",
-             "launch/serve.py"])
+             "serving/kvcache/state.py", "launch/serve.py"])
 #: the definitions a copy may change or add, by file: top-level ones by
 #: name, methods as ``Class.method``
 NAMED = {"calculators/basic.py": {"SyncPointCalculator", "_cuda_devices"},
          "serving/server.py": {"GraphServer._pump"},
          # --reduced can be turned off, and --device picks the engine's
-         "launch/serve.py": {"main"}}
+         "launch/serve.py": {"main"},
+         # the state backend keeps the base's stats (``replay_steps``)
+         "serving/kvcache/state.py": {"StateBackend._stat_seed"}}
 
 
 def _named_nodes(tree, named):

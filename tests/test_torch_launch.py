@@ -1,8 +1,10 @@
 """The port's serving launcher (``python -m repro_torch.launch.serve``) on
 the CPU: every mode of the JAX package's ``launch/serve.py`` runs to
 exit code 0 on reduced granite_moe_3b_a800m (and the default
-minicpm_2b), through ``--device cpu``; a layout the port has not ported
-raises, naming its ROADMAP item.  Every port ``GraphServer`` the
+minicpm_2b), through ``--device cpu``, and so do ``--backend state`` on
+reduced xlstm_1_3b and ``--backend hybrid`` on reduced
+jamba_1_5_large_398b; an architecture the port has not ported raises,
+naming its ROADMAP item.  Every port ``GraphServer`` the
 launcher closes passes the leak check imported from
 ``test_torch_graph.py``.
 """
@@ -33,11 +35,37 @@ def test_launcher_modes_exit_zero(extra, capsys):
         assert "served 4/4 requests" in out
 
 
+@pytest.mark.parametrize("extra", [
+    ["--arch", "xlstm_1_3b", "--backend", "state"],
+    ["--arch", "xlstm_1_3b", "--backend", "state", "--speculate", "2",
+     "--chunk-size", "8", "--frontend", "async"],
+    ["--arch", "jamba_1_5_large_398b", "--backend", "hybrid"],
+    ["--arch", "jamba_1_5_large_398b", "--backend", "hybrid",
+     "--speculate", "2", "--chunk-size", "16", "--frontend", "async"],
+], ids=["xlstm_state", "xlstm_state_spec_async", "jamba_hybrid",
+        "jamba_hybrid_spec_async"])
+def test_state_layouts_exit_zero(extra, capsys):
+    assert serve.main(BASE + extra) == 0
+    out = capsys.readouterr().out
+    if "--frontend" in extra:
+        assert "async: streamed 16 tokens from 4 requests" in out
+    else:
+        assert "served 4/4 requests" in out
+        assert "state slabs: peak_in_use=2 in_use=0" in out
+
+
 def test_unported_backend_raises_naming_its_item():
-    """The engine refuses the state layout inside the server's graph,
-    whose run fails with the engine's error."""
-    with pytest.raises(GraphError, match="ROADMAP Queue 1 item 7"):
-        serve.main(BASE + ["--backend", "state"])
+    """The state and hybrid layouts are served since ROADMAP Queue 1
+    item 7.  An architecture the port does not serve raises, naming its
+    item; a hybrid arena whose block size does not divide the engine's
+    ``max_len`` is refused inside the server's graph, whose run fails
+    with the engine's error."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        serve.main(BASE + ["--arch", "deepseek_v3_671b", "--backend",
+                           "state"])
+    with pytest.raises(GraphError, match="multiple of block_size"):
+        serve.main(BASE + ["--arch", "jamba_1_5_large_398b", "--backend",
+                           "hybrid", "--block-size", "24"])
 
 
 def test_reduced_flag_turns_off(monkeypatch):

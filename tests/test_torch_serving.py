@@ -492,10 +492,16 @@ def test_replay_keeps_prefix_chunk_boundaries(engine):
 # ---------------------------------------------------------------------------
 
 def test_unported_layouts_and_k5_verify_raise(engines):
-    for kind in ("state", "hybrid"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 7"):
-            make_backend(engines["fused"], backend=kind, num_blocks=9)
+    """The state and hybrid layouts are built since ROADMAP Queue 1 item
+    7; an unknown layout, a window through the single-query paged kernel
+    and a block size that does not divide ``max_len`` stay refused."""
+    from repro_torch.serving import HybridBackend, StateBackend
+    assert isinstance(make_backend(engines["fused"], backend="state"),
+                      StateBackend)
+    assert isinstance(make_backend(engines["fused"], backend="hybrid",
+                                   num_blocks=9), HybridBackend)
+    with pytest.raises(ValueError, match="unknown backend kind"):
+        make_backend(engines["fused"], backend="ring")
     # the single-query paged kernel cannot verify a window (as in JAX)
     with pytest.raises(ValueError, match="use_paged_kernel"):
         Scheduler(backend(engines["paged_kernel"], "paged", 2),
