@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels (K1-K5) from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
-PyTorch version on the card in bf16 and f32 (K3 also at qwen3_32b's and
+PyTorch version on the card in bf16 and f32 (K1 at every served width,
+1536 to 8192, at 1, 4, 5, 256 and 1024 rows, each row's bits the same
+at every row count and alone; K3 also at qwen3_32b's and
 stablelm_12b's head shapes, its suffixes bitwise equal to the full
 prefill's rows; K2, K4 and K5 at minicpm_2b's, qwen3_32b's and
 stablelm_12b's, windows of 1 and 5 queries, each row alone bitwise equal
@@ -53,7 +55,8 @@ preemptions, the tick against its bound); checks the launch counters
 against the schedule and the outputs (slot and paged layouts bitwise
 equal; an f32 run against per-request greedy), and times each kernel
 with CUDA events over calls queued back to back (K1 also at prefill
-widths and the recurrent stacks' widths, K3 also at the serve
+rows and at the decode rows of every served width, beside the launch
+floor of a 1-element ``fill_``, K3 also at the serve
 workload's prefill chunk and qwen3_32b's full prefill, K2, K4 and K5
 also on the paged arena at the serve tick's, qwen3_32b's,
 granite_moe_3b_a800m's and jamba's shapes, K2 and K4 there at windows
@@ -175,7 +178,6 @@ def phase_kernels(torch):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_decode import fused_flash_decode_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.models import paging
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -196,17 +198,7 @@ def phase_kernels(torch):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         tol = TOL[dtype]
-        # K1: the prefill and decode rows of minicpm_2b (d = 2304), and
-        # those of xlstm_1_3b (2048) and jamba_1_5_large_398b (8192)
-        for rows, d in ((2 * GROUPS[1], 2304), (4, 2304)) + RMSNORM_ROWS:
-            x = rand((rows, d), dt)
-            s = (1 + rand((d,), torch.float32, 0.1)).to(dt)
-            out = rmsnorm_cuda(x, s)
-            record("rmsnorm", dtype, f"[{rows},{d}]", out,
-                   ref.rmsnorm_ref(x, s), tol)
-            alone = rmsnorm_cuda(x[2:3].contiguous(), s)
-            check(torch.equal(alone, out[2:3]), "rmsnorm: row 2 alone is "
-                  "not bitwise equal to row 2 of the batch")
+        check_rmsnorm(torch, dev, g, dtype, record)
         # K3: the serving prefill [2, 18, 36, 64], then [4, 128, 36, 64]
         # causal and its suffixes at q_offset
         q, k, v = (rand((2, GROUPS[1], 36, 64), dt) for _ in range(3))
@@ -293,6 +285,46 @@ def phase_kernels(torch):
 #: K1's rows at the recurrent and hybrid stacks' widths: a decode tick's
 #: 4 rows and a prefill chunk's 256
 RMSNORM_ROWS = ((4, 2048), (256, 2048), (4, 8192), (256, 8192))
+
+#: the widths K1 serves (granite_moe_3b_a800m, xlstm_1_3b, minicpm_2b,
+#: deepseek_7b, qwen3_32b and stablelm_12b, jamba_1_5_large_398b) and
+#: the row counts it is held at: one row, a decode tick's 4, a verify
+#: window's 5, a prefill chunk's 256 and qwen3_32b's 1024-row prefill
+RMSNORM_WIDTHS = (1536, 2048, 2304, 4096, 5120, 8192)
+RMSNORM_ROW_COUNTS = (1, 4, 5, 256, 1024)
+
+
+def check_rmsnorm(torch, dev, g, dtype, record):
+    """K1 at every served width and row count against its plain
+    version.  The batch of each row count is the first rows of one x of
+    the most rows, so every row's output must be bitwise the same at
+    every count; and the first, a middle and the last row of that x
+    alone must equal their rows of its batch."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    dt = getattr(torch, dtype)
+    most = max(RMSNORM_ROW_COUNTS)
+    for d in RMSNORM_WIDTHS:
+        x = torch.randn(most, d, device=dev, generator=g).to(dt)
+        s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        full = rmsnorm_cuda(x, s)
+        for rows in RMSNORM_ROW_COUNTS:
+            xr = x[:rows].contiguous()
+            out = rmsnorm_cuda(xr, s)
+            record("rmsnorm", dtype, f"[{rows},{d}]", out,
+                   ref.rmsnorm_ref(xr, s), TOL[dtype])
+            check(torch.equal(out, full[:rows]),
+                  f"rmsnorm {dtype} d {d}: {rows} rows alone are not "
+                  f"bitwise equal to those rows of a {most}-row batch")
+        for i in (0, most // 2, most - 1):
+            alone = rmsnorm_cuda(x[i:i + 1].contiguous(), s)
+            check(torch.equal(alone, full[i:i + 1]),
+                  f"rmsnorm {dtype} d {d}: row {i} alone is not bitwise "
+                  f"equal to row {i} of a {most}-row batch")
+        emit({"phase": "kernel_vs_plain", "kernel": "rmsnorm",
+              "dtype": dtype, "case": f"d {d}: rows bitwise at "
+              f"{list(RMSNORM_ROW_COUNTS)} and rows 0, {most // 2}, "
+              f"{most - 1} alone", "ok": True})
 
 #: (name, H, KV, hd) of the prefill shapes K3 is held at beside
 #: minicpm_2b's: qwen3_32b's (GQA, head_dim 128) and stablelm_12b's
@@ -3200,10 +3232,18 @@ def phase_times(torch):
                   if hasattr(F, "rms_norm") else None),
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 2 * L + 1}
     # K1 where bytes count: the serve workload's prefill chunk, and
-    # qwen3_32b's prefill of 1024 rows at d_model 5120
+    # qwen3_32b's prefill of 1024 rows at d_model 5120; and the decode
+    # ticks of the other widths
     for shape in RMSNORM_TIMED + RMSNORM_ROWS:
         emit({"phase": "times", "kernel": "rmsnorm",
               **time_rmsnorm(torch, g, shape)})
+    # the launch floor: the smallest PyTorch kernel, a 1-element fill_,
+    # in the same timer; at 4 rows K1 is bound by it, not by bytes
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(torch, lambda: one.fill_(1.0))
+    emit({"phase": "times", "kernel": None,
+          "case": "launch floor: a 1-element fill_", "ms": floor[0],
+          "host_ms": floor[1], "profiler_ms": floor[2], "queued": floor[3]})
 
     # K3 at the serving prefill's shape: 2 rows of 18 tokens, causal
     B, S = 2, GROUPS[1]
@@ -3335,8 +3375,9 @@ def time_flash_shapes(torch, g):
 
 #: [rows, d] of K1's further timed shapes: the serve workload's prefill
 #: chunk at minicpm_2b's d_model, qwen3_32b's prefill of 1024 rows, and
-#: granite_moe_3b_a800m's decode tick
-RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120), (4, 1536))
+#: the decode ticks of granite_moe_3b_a800m, deepseek_7b and qwen3_32b
+RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120), (4, 1536), (4, 4096),
+                 (4, 5120))
 
 
 def time_rmsnorm(torch, g, shape):

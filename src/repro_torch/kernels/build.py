@@ -67,8 +67,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signature of every entry point; each returns a cudaError_t
 SIGNATURES = {
-    # x, scale, out, rows, d, eps, dtype, stream
-    "repro_rmsnorm": [_V, _V, _V, _I, _I, _F, _I, _V],
+    # x, scale, out, rows, d, eps, dtype, threads, vecs (the launch
+    # plan), stream
+    "repro_rmsnorm": [_V, _V, _V, _I, _I, _F, _I, _I, _I, _V],
     # q, k, v, out, B, S, T, H, KV, hd, q_offset, causal, window,
     # scale, dtype, stream
     "repro_flash_attention": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I,

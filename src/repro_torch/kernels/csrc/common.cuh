@@ -34,21 +34,31 @@ template <typename T> struct Vec {
   static constexpr int N = 16 / sizeof(T);
 };
 
+// a 16-byte vector of T held as raw bits, to and from f32
 template <typename T>
-__device__ __forceinline__ void load16(const T* p, float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f(e[i]);
 }
 
 template <typename T>
-__device__ __forceinline__ void store16(T* p, const float* in) {
+__device__ __forceinline__ uint4 pack16(const float* in) {
   uint4 raw;
   T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) e[i] = from_f<T>(in[i]);
-  *reinterpret_cast<uint4*>(p) = raw;
+  return raw;
+}
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* out) {
+  unpack16<T>(*reinterpret_cast<const uint4*>(p), out);
+}
+
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* in) {
+  *reinterpret_cast<uint4*>(p) = pack16<T>(in);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -67,6 +67,29 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [2304, 8192])
+def test_cuda_rmsnorm_rows_independent_of_the_batch(cuda_device, d, dtype):
+    """K1's rows are bitwise the same at 1, 4, 5, 256 and 1024 rows (the
+    first rows of one x) and alone (the first, a middle and the last
+    row), and each batch holds against the plain version."""
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(1024, d, device=cuda_device, generator=g).to(dt)
+    s = (1 + 0.1 * torch.randn(d, device=cuda_device, generator=g)).to(dt)
+    full = ops.rmsnorm(x, s)
+    for rows in (1, 4, 5, 256, 1024):
+        out = ops.rmsnorm(x[:rows].contiguous(), s)
+        assert torch.equal(out, full[:rows]), rows
+        torch.testing.assert_close(
+            out.float(), ref.rmsnorm_ref(x[:rows], s).float(),
+            atol=TOL[dtype], rtol=TOL[dtype])
+    for i in (0, 511, 1023):
+        assert torch.equal(ops.rmsnorm(x[i:i + 1].contiguous(), s),
+                           full[i:i + 1]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_paged_kernels_match_plain(cuda_device, dtype):
     """K4 (split-K fused decode) against its plain version and K2, K5
     (paged attention) against its plain version, on a paged arena whose

@@ -26,7 +26,12 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda)
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ALL_ARCHS, NOT_YET_PORTED, get_config)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    MAX_THREADS, MAX_VECS, rmsnorm_cuda)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    launch_plan as rmsnorm_launch_plan)
 from test_torch_engine import one_torch_thread  # noqa: E402,F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -51,7 +56,10 @@ def _err(j, t) -> float:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,d", [(7, 256), (33, 512), (3, 2304)])
+@pytest.mark.parametrize("rows,d", [(7, 256), (33, 512), (3, 2304),
+                                    # the other served widths
+                                    (4, 1536), (5, 4096), (4, 5120),
+                                    (3, 8192)])
 def test_rmsnorm_plain_matches_jax(rows, d, dtype):
     rng = np.random.RandomState(rows * d)
     jx, tx = _pair(rng.randn(rows, d), dtype)
@@ -60,6 +68,81 @@ def test_rmsnorm_plain_matches_jax(rows, d, dtype):
     assert out.dtype == TDT[dtype] and out.shape == (rows, d)
     assert _err(rmsnorm_kernel(jx, js, eps=1e-5), out) < TOL[dtype]
     assert _err(jax_rmsnorm_ref(jx, js), out) < TOL[dtype]
+
+
+def _ported_configs():
+    return [(name, cfg) for name in ALL_ARCHS if name not in NOT_YET_PORTED
+            for cfg in (get_config(name), get_config(name).reduced())]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_launch_plan_covers_every_config(dtype):
+    """K1's plan at every ported config's d_model, full and reduced:
+    whole warps within MAX_THREADS (at most 1024, the kernel's
+    ``kMaxThreads``), at most MAX_VECS vectors a thread, so at most 64
+    registers of row data a thread (x and scale, 4 registers a 16-byte
+    vector), vectors enough to cover the row and none a thread holds in
+    vain."""
+    dt = TDT[dtype]
+    n = 16 // torch.empty((), dtype=dt).element_size()
+    widths = {cfg.d_model for _, cfg in _ported_configs()}
+    assert {1536, 2048, 2304, 4096, 5120, 8192} <= widths
+    for d in sorted(widths):
+        threads, vecs = rmsnorm_launch_plan(d, dt)
+        assert threads % 32 == 0 and 32 <= threads <= MAX_THREADS <= 1024
+        assert 1 <= vecs <= MAX_VECS and 2 * 4 * vecs <= 64
+        nvec = d // n
+        assert threads * vecs >= nvec > threads * (vecs - 1), d
+    assert rmsnorm_launch_plan(2304, torch.bfloat16) == (160, 2)
+    assert rmsnorm_launch_plan(8192, torch.float32) == (256, 8)
+
+
+def test_rmsnorm_launch_plan_limits_match_the_kernel():
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    assert f"constexpr int kMaxThreads = {MAX_THREADS};" in src
+    assert f"constexpr int kMaxVecs = {MAX_VECS};" in src
+
+
+@pytest.mark.parametrize("d,dtype,match", [
+    (2300, torch.bfloat16, "16-byte"), (2306, torch.float32, "16-byte"),
+    (0, torch.float32, "16-byte"), (16384 + 8, torch.bfloat16, "wider"),
+    (8192 + 4, torch.float32, "wider")])
+def test_rmsnorm_launch_plan_refuses(d, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        rmsnorm_launch_plan(d, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1536, 2048, 2304, 4096, 5120, 8192])
+def test_rmsnorm_wrapper_plan_is_the_same_at_every_row_count(
+        monkeypatch, d, dtype):
+    """The wrapper passes the C entry the plan of (d, dtype) whatever
+    the row count (1, 4, 256, 1024; x of 2 or 3 dims), and counts one
+    launch a call.  The operand checks (a CUDA tensor) are stubbed and
+    the library is a recorder: no card here."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def repro_rmsnorm(x, s, out, rows, d_, eps, code, threads, vecs,
+                          stream):
+            calls.append((rows, d_, code, threads, vecs))
+            return 0
+
+    monkeypatch.setattr(build, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(build, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(build, "lib", lambda: Lib)
+    dt = TDT[dtype]
+    before = build.launches["rmsnorm"]
+    shapes = [(1, d), (4, d), (256, d), (1024, d), (2, 128, d)]
+    for shape in shapes:
+        out = rmsnorm_cuda(torch.zeros(shape, dtype=dt),
+                           torch.ones(d, dtype=dt))
+        assert out.shape == shape and out.dtype == dt
+    plan = rmsnorm_launch_plan(d, dt)
+    assert calls == [(r, d, build.DTYPE_CODE[dt], *plan)
+                     for r in (1, 4, 256, 1024, 256)]
+    assert build.launches["rmsnorm"] == before + len(shapes)
 
 
 # ---------------------------------------------------------------------------
