@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels (K1-K5) from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
 PyTorch version on the card in bf16 and f32 (K1 at every served width,
-1536 to 8192, at 1, 4, 5, 256 and 1024 rows, each row's bits the same
+512 to 8192, at 1, 4, 5, 256 and 1024 rows, each row's bits the same
 at every row count and alone; K3 also at qwen3_32b's and
 stablelm_12b's head shapes, its suffixes bitwise equal to the full
 prefill's rows; K2, K4 and K5 at minicpm_2b's, qwen3_32b's and
@@ -51,7 +51,22 @@ their bounds (``xlstm_serve``), through the launcher
 (``xlstm_graph_serve``), and ``jamba_1_5_large_398b``'s first two
 layers at full width on a ``HybridBackend`` (``hybrid_serve``: K1-K4,
 captured against eager, hybrid against state, pressure and forced
-preemptions, the tick against its bound); checks the launch counters
+preemptions, the tick against its bound), then ``deepseek_v3_671b``'s
+first two layers at full width (d_model 7168, 128 heads of MLA with q/kv
+latents of 1536/512, a dense layer of 18432 and a MoE layer of 256
+experts top-8 + 1 shared, bf16): one MLA layer on the card in bf16 and
+f32 against the CPU, prefill, extend, slot and paged decode at S' = 1
+and 5, paged bitwise slot (``mla_layer_vs_cpu``), the engine's main path
+with K1 at four launches a layer and the final norm, against the plain
+path (``mla_main_path``), the serve workload through the Scheduler
+captured against eager with its drops counted, slot against paged,
+forced preemptions replayed, the captured tick against its bounds and an
+f32 engine against per-request greedy (``mla_serve``, ``mla_tick``);
+and, after ``serve_preempt_decode``, ROADMAP F2's two replay paths on
+minicpm_2b, each replay held bitwise to the run without preemption
+(``f2_group_prefill``: a slot layout's group-prefilled prompts replayed
+alone; ``f2_prefix_readmit``: a readmission whose prefix sharer is
+gone); checks the launch counters
 against the schedule and the outputs (slot and paged layouts bitwise
 equal; an f32 run against per-request greedy), and times each kernel
 with CUDA events over calls queued back to back (K1 also at prefill
@@ -286,11 +301,12 @@ def phase_kernels(torch):
 #: 4 rows and a prefill chunk's 256
 RMSNORM_ROWS = ((4, 2048), (256, 2048), (4, 8192), (256, 8192))
 
-#: the widths K1 serves (granite_moe_3b_a800m, xlstm_1_3b, minicpm_2b,
-#: deepseek_7b, qwen3_32b and stablelm_12b, jamba_1_5_large_398b) and
+#: the widths K1 serves (deepseek_v3_671b's kv latent, granite_moe_3b_a800m
+#: and deepseek_v3_671b's q latent, xlstm_1_3b, minicpm_2b, deepseek_7b,
+#: qwen3_32b and stablelm_12b, deepseek_v3_671b, jamba_1_5_large_398b) and
 #: the row counts it is held at: one row, a decode tick's 4, a verify
 #: window's 5, a prefill chunk's 256 and qwen3_32b's 1024-row prefill
-RMSNORM_WIDTHS = (1536, 2048, 2304, 4096, 5120, 8192)
+RMSNORM_WIDTHS = (512, 1536, 2048, 2304, 4096, 5120, 7168, 8192)
 RMSNORM_ROW_COUNTS = (1, 4, 5, 256, 1024)
 
 
@@ -629,13 +645,18 @@ def top2_agree(want_tok, got_tok, logits, tol):
 
 
 def schedule(cfg):
-    """(RMSNorm launches per forward pass, attention layers): a norm
-    before each mixer, one before each FFN, and the final one."""
+    """(RMSNorm launches per forward pass, layers that launch an
+    attention kernel): a norm before each mixer, one before each FFN,
+    MLA's two latent norms (``q_a_norm``, ``kv_a_norm``) in each of its
+    layers, dense head layers included, and the final one.  MLA attends
+    in plain PyTorch (``models/mla.py``, as JAX attends outside any
+    Pallas kernel) and launches no attention kernel."""
     from repro_torch.models import transformer as tf
     kinds = list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+    mla = 2 if cfg.use_mla else 0
     norms = 1 + sum(1 + ("ffn" in tf.layer_template(cfg, k, f))
-                    for k, f in kinds)
-    return norms, sum(k == "attn" for k, _ in kinds)
+                    + (mla if k == "attn" else 0) for k, f in kinds)
+    return norms, 0 if cfg.use_mla else sum(k == "attn" for k, _ in kinds)
 
 
 def drive_engine_path(torch, engine, cfg, rng, kind="slot"):
@@ -1069,18 +1090,25 @@ def decode_replay_agreement(engine, requests, new=24,
 
 
 def compare_with_greedy(torch, engine, requests, got, max_len=SERVE_MAX_LEN,
-                        new=SERVE_NEW):
+                        new=SERVE_NEW, chunk=None):
     """Each request alone through ``engine.model``: prefill, then greedy
     decode steps, keeping the logits.  A served token must equal the
     reference's while the reference's top-2 gap is at least TOP2_GAP; a
-    row is compared up to its first near-tie."""
+    row is compared up to its first near-tie.  With ``chunk`` the prompt
+    is prefilled in the served chunks (a first chunk, then extends
+    against the row's own cache), so that a MoE call of the reference
+    carries a served call's tokens and drops what it drops (Hazard 7)."""
     V = engine.cfg.vocab_size
     dev = engine.device
     rows = tokens = mismatches = 0
     near_ties = []
     for i, prompt in enumerate(requests):
         x = torch.as_tensor(prompt, device=dev).long()[None]
-        logits, cache = engine.model.prefill(x, max_len, flags=engine.flags)
+        logits, cache = engine.model.prefill(x[:, :chunk], max_len,
+                                             flags=engine.flags)
+        for start in range(chunk, prompt.size, chunk) if chunk else ():
+            logits = extend_own_row(torch, engine, x, cache, start, chunk,
+                                    max_len)
         n = 0
         for j in range(new):
             top2 = torch.topk(logits[0, :V].float(), 2).values
@@ -1103,6 +1131,25 @@ def compare_with_greedy(torch, engine, requests, got, max_len=SERVE_MAX_LEN,
     return {"rows": len(requests), "rows_compared": rows,
             "tokens_compared": tokens, "mismatches": mismatches,
             "near_ties": near_ties, "top2_gap": TOP2_GAP}
+
+
+def extend_own_row(torch, engine, x, cache, start, chunk, max_len):
+    """Prefill ``x[:, start:start + chunk]`` against positions ``[0,
+    start)`` of the one-row slot ``cache`` and write its rows there, in
+    place; returns the logits after the chunk."""
+    from repro_torch.models import paging
+    from repro_torch.models.params import flatten
+    logits, rows = engine.model.prefill_extend(
+        x[:, start:start + chunk], cache,
+        paging.SlotPrefix(torch.zeros(1, dtype=torch.long,
+                                      device=engine.device)),
+        start, max_len, flags=engine.flags)
+    n = min(chunk, x.shape[1] - start)
+    leaves = flatten(cache)
+    for path, a in flatten(rows).items():
+        ax = 2 if path.startswith("blocks.") else 1     # [R, B, T, ...]
+        leaves[path].narrow(ax, start, n).copy_(a.narrow(ax, 0, n))
+    return logits
 
 
 def time_paged_tick(torch, engine, requests, ticks=20, profiled=5):
@@ -1524,6 +1571,8 @@ class ForcedPreemption:
         model = be.engine.model
         out = []
         for path, leaf in flatten(be.cache).items():
+            if not path.startswith("blocks."):            # a head layer's
+                leaf = leaf[None]
             if model.layer_kind_of_path(path) != "attn":
                 out.append(leaf[:, req.slot].clone())     # [R, ...] state
             elif be.kind in ("paged", "hybrid"):          # [R, NB, bs, ...]
@@ -1627,6 +1676,155 @@ def phase_serve_preempt_decode(torch):
     for k, v in run.counts.items():
         counts_all[k] = counts_all.get(k, 0) + v
     return counts_all, tokens
+
+
+# ---------------------------------------------------------------------------
+# phase 3d' — ROADMAP F2: the two replay paths of Hazard 5 not yet read
+# ---------------------------------------------------------------------------
+
+#: f2_group_prefill: prompt lengths shorter than the chunk, two requests
+#: each, so that the slot layout prefills them in groups of two (width 2)
+#: and a readmitted victim replays its prompt alone (width 1)
+F2_GROUP_LENGTHS = (96, 96, 160, 160, 200, 200, 240, 240)
+#: f2_prefix_readmit: the shared prefix (6 whole blocks of 16 and 4 more
+#: tokens, so that the sharer's chunks start at 96, not at a multiple of
+#: the chunk) and the two prompts' lengths
+F2_PREFIX = 100
+F2_PREFIX_LENGTHS = (520, 600)
+
+
+def f2_requests(vocab, lengths, prefix=0, seed=SEED + 7):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, vocab, prefix)
+    return [np.concatenate([shared, rng.randint(0, vocab, n - prefix)])
+            .astype(np.int32) for n in lengths]
+
+
+def f2_report(phase, forced, want, run):
+    """Print one F2 reading and hold it: the forced run's tokens bitwise
+    the run's without preemption, and the replayed rows' K/V bitwise
+    what they held; a replay whose derived token broke the determinism
+    check is reported with its error before the run fails."""
+    import numpy as np
+    got, stats, error = run
+    equal = sum(bool(i in got and np.array_equal(got[i], want[i]))
+                for i in want)
+    r = {"phase": phase, "forced_preemptions": len(forced.streamed),
+         "victims_streamed_tokens": forced.streamed,
+         "replays_kv_bitwise": sum(forced.kv_equal),
+         "replays_checked": len(forced.kv_equal),
+         "bitwise_equal_to_unpreempted": equal, "requests": len(want),
+         "replay_error": error}
+    if stats is not None:
+        r["stats"] = {k: stats[k] for k in (
+            "preemptions", "replayed_tokens", "replay_steps",
+            "prefill_calls", "decode_steps")}
+    r["exact"] = error is None and equal == len(want) \
+        and all(forced.kv_equal) and len(forced.kv_equal) > 0
+    emit(r)
+    check(r["exact"], f"{phase}: the replay is not exact")
+    return r
+
+
+def forced_serve(torch, engine, requests, forced, **kw):
+    """``serve`` with ``forced`` installed: (tokens, stats, None), or
+    (the tokens finished, None, the error) where a replay raised."""
+    try:
+        got, stats, _, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
+                                 hook=forced.install, **kw)
+        return got, stats, None
+    except RuntimeError as e:
+        return {}, None, str(e)
+
+
+class SharerGone(ForcedPreemption):
+    """Preempts request 1 once it has streamed PREEMPT_AFTER tokens and
+    holds its readmission until request 0, which computed the prefix
+    blocks request 1 shares, has finished and released them; records the
+    prefix tokens request 1 reused at each admission."""
+
+    def install(self, sched):
+        super().install(sched)
+        self.prefix_lens = []
+        admit, acquire = sched.admit, sched.backend.acquire
+
+        def held_admit():
+            alive = any(r is not None and r.id == 0 for r in sched.slots)
+            if self.streamed and alive:
+                return []
+            return admit()
+
+        def recorded_acquire(req, seq):
+            acquire(req, seq)
+            if req.id == 1:
+                self.prefix_lens.append(req.prefix_len)
+
+        sched.admit = held_admit
+        sched.backend.acquire = recorded_acquire
+
+    def _preempt(self):
+        sched = self.sched
+        if self.streamed:
+            return
+        for req in sched.slots:
+            if (req is not None and req.id == 1
+                    and req not in sched.ingesting
+                    and len(req.tokens) >= PREEMPT_AFTER):
+                self._held[req] = self._kv(req, int(sched.positions[req.slot]))
+                self.streamed.append(len(req.tokens))
+                sched.preempt(req)
+                return
+
+
+def phase_f2(torch):
+    """ROADMAP F2 on bf16 minicpm_2b at full width and depth.  (a)
+    ``f2_group_prefill``: prompts shorter than the chunk on a SlotBackend,
+    which prefills them in groups of two; PREEMPTIONS requests preempted
+    after streaming tokens replay their prompts alone.  (b)
+    ``f2_prefix_readmit``: on a PagedBackend with prefix sharing, the
+    second of two requests sharing a 100-token prefix is preempted and
+    readmitted only once the first has finished, so that the shared
+    blocks are gone and its prompt is recomputed from position 0 in
+    chunks other than its first admission's.  Each is held to the same
+    run without preemption: tokens, and the replayed rows' K/V, bitwise
+    (``f2_report``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import LLMEngine
+    cfg = get_config("minicpm_2b")
+    engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    out = {}
+    requests = f2_requests(cfg.vocab_size, F2_GROUP_LENGTHS)
+    want, st0, _, _ = serve(torch, engine, requests, 0, paged=False,
+                            speculate_k=0)
+    check(st0["preemptions"] == 0 and st0["prefill_padded_rows"] == 0,
+          "f2_group_prefill: the run without preemption preempted, or "
+          "padded a group")
+    forced = ForcedPreemption(torch)
+    out["group_prefill"] = f2_report(
+        "f2_group_prefill", forced, want,
+        forced_serve(torch, engine, requests, forced, paged=False,
+                     speculate_k=0))
+
+    requests = f2_requests(cfg.vocab_size, F2_PREFIX_LENGTHS, F2_PREFIX)
+    want, st0, _, _ = serve(torch, engine, requests, ROOMY_BLOCKS,
+                            speculate_k=0)
+    check(st0["shared_block_hits"] > 0, "f2_prefix_readmit: the second "
+                                        "request shared no prefix block")
+    forced = SharerGone(torch)
+    r = f2_report("f2_prefix_readmit", forced, want,
+                  forced_serve(torch, engine, requests, forced,
+                               speculate_k=0))
+    emit({"phase": "f2_prefix_readmit_admissions",
+          "prefix_tokens_reused": forced.prefix_lens})
+    check(len(forced.prefix_lens) == 2 and forced.prefix_lens[0] > 0
+          and forced.prefix_lens[1] == 0,
+          f"f2_prefix_readmit: the readmission reused prefix blocks "
+          f"{forced.prefix_lens}")
+    out["prefix_readmit"] = r
+    del engine
+    free_card(torch)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1932,7 +2130,7 @@ def compare_moe_first_tick(torch, engine, plain, toks, limit, relative,
     cfg = engine.cfg
     x = torch.as_tensor(toks, device=engine.device).long()
     B, S = x.shape
-    V, L = cfg.vocab_size, cfg.num_layers
+    V, L = cfg.vocab_size, moe_layers(cfg)
     E_pad = moe.padded_experts(cfg)
     nxt = None
     out, calls = {}, {}
@@ -2072,19 +2270,25 @@ def phase_moe_main_path(torch):
     return run.counts
 
 
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``: one ``moe.route`` call each per forward
+    pass."""
+    return cfg.ffn_kinds().count("moe")
+
+
 def moe_drops(calls, cfg, N):
     """Dropped (token, expert) pairs summed over the layers of the first
     forward pass among ``calls`` whose calls carry N tokens."""
     from repro_torch.models import moe
-    hits = [c for c in calls if c.shape[0] == N][:cfg.num_layers]
-    check(len(hits) == cfg.num_layers, f"no forward pass of {N} tokens "
-                                       f"recorded")
+    L = moe_layers(cfg)
+    hits = [c for c in calls if c.shape[0] == N][:L]
+    check(len(hits) == L, f"no forward pass of {N} tokens recorded")
     C = moe.capacity(cfg, N)
     E_pad = moe.padded_experts(cfg)
     per = [moe.count_dropped(c, E_pad, C) for c in hits]
     return {"tokens": N, "capacity": C, "dropped_pairs": sum(per),
             "layers_with_drops": sum(n > 0 for n in per),
-            "pairs": N * cfg.num_experts_per_tok * cfg.num_layers}
+            "pairs": N * cfg.num_experts_per_tok * L}
 
 
 def phase_moe_serve(torch):
@@ -2405,9 +2609,12 @@ def jamba_config():
 def tick_weight_bytes(engine, rows):
     """The weight bytes a tick of ``rows`` tokens reads: every parameter
     once, but of an untied embedding table only the rows it looks up (a
-    tied one is the LM head as well, read whole)."""
+    tied one is the LM head as well, read whole), and none of the
+    multi-token prediction head's, which no tick runs."""
     total = 0
     for name, p in engine.model.named_parameters():
+        if name.startswith("mtp."):
+            continue
         if name == "embed.embedding" and not engine.cfg.tie_embeddings:
             total += rows * p.shape[-1] * p.element_size()
         else:
@@ -3042,6 +3249,334 @@ def layout_ticks(torch, engine, requests, make, ticks=40, profiled=5):
             "graphs_captured": graph_count(engine)}
 
 
+# ---------------------------------------------------------------------------
+# phase 7 — deepseek_v3_671b: MLA, its dense head and MTP, at full width
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_ARCH = "deepseek_v3_671b"
+#: deepseek is cut to two layers, its first (dense) one and one MoE layer,
+#: which hold every kind of layer it has: MLA + the dense FFN (18432), and
+#: MLA + 256 routed experts top-8 + 1 shared.  Its own first_k_dense is 3,
+#: so the cut also sets it to 1
+DEEPSEEK_DEPTH = 2
+#: mla_layer_vs_cpu: tokens of the prefill and of the extend's prefix and
+#: suffix, the slot rows' length (the paged table's P x block size), and
+#: the outputs' limit on the card against the CPU's f32, relative to the
+#: output's scale (bf16 rounds weights, inputs and the products' outputs)
+MLA_TOKENS = 256
+MLA_ROWS_LEN = 512
+MLA_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: the rows' positions of mla_layer_vs_cpu's decode windows (the last
+#: row's 5-token window ends at the row's last position but one)
+MLA_POSITIONS = (100, 257, 384, MLA_ROWS_LEN - 6)
+
+
+def deepseek_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(DEEPSEEK_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.q_lora_rank,
+           cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+           cfg.v_head_dim, cfg.d_ff, cfg.dense_d_ff, cfg.num_experts,
+           cfg.num_experts_per_tok, cfg.num_shared_experts,
+           cfg.first_k_dense, cfg.mtp_depth, cfg.padded_vocab)
+          == (61, 7168, 128, 1536, 512, 128, 64, 128, 2048, 18432, 256, 8,
+              1, 3, 1, 131072),
+          f"{DEEPSEEK_ARCH} is not at full width")
+    cfg = dataclasses.replace(cfg, num_layers=DEEPSEEK_DEPTH,
+                              first_k_dense=1)
+    check(list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+          == [("attn", "dense"), ("attn", "moe")],
+          f"{DEEPSEEK_ARCH}'s two layers")
+    return cfg
+
+
+def phase_mla_layer_vs_cpu(torch):
+    """One full-width MLA layer (random weights from the seed) on the
+    card in bf16 and in f32 against the port's CPU f32 on the same
+    weights: a MLA_TOKENS-token prefill (output and latents), an extend
+    of MLA_TOKENS after a prefix of as many, slot decode at S' = 1 and 5
+    over MLA_ROWS_LEN-position rows of 4 slots, and paged decode at
+    S' = 1 and 5 over the same rows in a shuffled arena of SERVE_BLOCK-
+    token blocks: each within MLA_TOL of the CPU output's scale, and on
+    the card paged bitwise equal to slot (the slot rows' length is the
+    table's P x block size)."""
+    from repro_torch.models import mla
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.transformer import DEFAULT_FLAGS
+    cfg = deepseek_config()
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_params(mla.mla_template(cfg), gen, "float32", "cpu")
+    S, T, bs = MLA_TOKENS, MLA_ROWS_LEN, SERVE_BLOCK
+    B, P = SERVE_SLOTS, MLA_ROWS_LEN // SERVE_BLOCK
+    x = torch.randn(1, 2 * S, cfg.d_model, generator=gen)
+    pos = torch.arange(2 * S)[None]
+    rows = {"c_kv": torch.randn(B, T, cfg.kv_lora_rank, generator=gen),
+            "k_rope": torch.randn(B, T, cfg.qk_rope_head_dim,
+                                  generator=gen)}
+    win = {n: torch.randn(B, n, cfg.d_model, generator=gen) for n in (1, 5)}
+    at = torch.tensor(MLA_POSITIONS, dtype=torch.int32)
+    tables = (1 + torch.randperm(B * P, generator=gen)).view(B, P).int()
+
+    def run(dev, dtype):
+        """Every case's output on ``dev`` in ``dtype``, as CPU f32."""
+        dt = getattr(torch, dtype)
+        to = (lambda t: t.to(dev, dt) if t.is_floating_point()
+              else t.to(dev))
+        p = tree_map(to, params)
+        out = {}
+        y, c_kv, k_rope = mla.mla_forward(p, cfg, to(x[:, :S]),
+                                          to(pos[:, :S]), DEFAULT_FLAGS)
+        out["prefill"], out["prefill_c_kv"] = y, c_kv
+        y, _ = mla.prefill_extend_into_cache(
+            p, cfg, to(x[:, S:]), to(pos[:, S:]),
+            {"c_kv": c_kv, "k_rope": k_rope}, S, DEFAULT_FLAGS)
+        out["extend"] = y
+        for n, xw in win.items():
+            slot = tree_map(to, rows)
+            out[f"slot_decode_{n}"] = mla.slot_decode(
+                p, cfg, to(xw), slot, to(at), DEFAULT_FLAGS)
+            arena = {k: torch.zeros((1 + B * P, bs) + a.shape[2:],
+                                    device=dev, dtype=dt)
+                     for k, a in rows.items()}
+            for k, a in arena.items():
+                a[tables.view(-1).long().to(dev)] = to(rows[k]).view(
+                    B * P, bs, -1)
+            out[f"paged_decode_{n}"] = mla.paged_decode(
+                p, cfg, to(xw), arena, to(at), to(tables), DEFAULT_FLAGS)
+        return out
+
+    want = run("cpu", "float32")
+    for dtype in ("float32", "bfloat16"):
+        got = run(DEVICE, dtype)
+        res = {}
+        for name, w in want.items():
+            g = got[name].float().cpu()
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            res[name] = {"max_abs_err": err, "scale": scale,
+                         "ok": bool(torch.isfinite(g).all())
+                         and err <= MLA_TOL[dtype] * scale}
+        paged_eq = {n: torch.equal(got[f"paged_decode_{n}"],
+                                   got[f"slot_decode_{n}"]) for n in win}
+        emit({"phase": "mla_layer_vs_cpu", "dtype": dtype,
+              "tokens": S, "rows_len": T, "block_size": bs,
+              "positions": list(MLA_POSITIONS), "tol_rel": MLA_TOL[dtype],
+              "cases": res, "paged_bitwise_slot": paged_eq})
+        for name, r in res.items():
+            check(r["ok"], f"mla_layer_vs_cpu {dtype} {name}: {r}")
+        check(all(paged_eq.values()), f"mla_layer_vs_cpu {dtype}: paged "
+                                      f"decode differs from slot decode")
+        del got
+
+
+def phase_mla_main_path(torch):
+    """deepseek's two layers at full width in bf16 (random weights from
+    the seed) through the engine's main path (``drive_engine_path``: K1
+    launches held to the schedule, four a layer and the final norm; the
+    decode and verify steps captured), then the first tick against the
+    plain path (``fused_rmsnorm`` off, the same weights) on the rows
+    routed alike (``compare_moe_first_tick``).  Returns the launch
+    counts."""
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = deepseek_config()
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    run = drive_engine_path(torch, engine, cfg, np.random.RandomState(SEED))
+    steps = captured_steps(engine)
+    emit({"phase": "mla_main_path", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "experts": cfg.num_experts,
+          "padded_experts": moe.padded_experts(cfg),
+          "top_k": cfg.num_experts_per_tok, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in engine.model.parameters()),
+          "norms_per_pass": schedule(cfg)[0], "init_seconds": init_s,
+          "path_seconds": run.seconds, "launches": run.counts,
+          "expected_launches": run.expected, "generate": run.gen.tolist(),
+          "verify": run.guess.tolist(), "captured_steps": steps,
+          "graphs_captured": graph_count(engine)})
+    check(run.counts == run.expected, f"mla_main_path: launch counts "
+                                      f"{run.counts} != {run.expected}")
+    check({"generate", "decode", "verify"} <= set(steps),
+          f"mla_main_path: captured steps {steps}")
+    plain = LLMEngine(cfg, dict(engine.model.named_parameters()),
+                      max_len=MAX_LEN, flags=RuntimeFlags(fused_rmsnorm=False))
+    cmp = compare_moe_first_tick(torch, engine, plain, run.groups[0], 0.1,
+                                 True)
+    emit({"phase": "mla_main_vs_plain", "dtype": cfg.dtype, **cmp})
+    check(cmp["ok"], "mla_main_vs_plain: logits or tokens disagree with "
+                     "the plain path")
+    return run.counts
+
+
+def captured_steps(engine):
+    """The names of the engine's captured steps (``generate``,
+    ``decode``, ``verify``, ...)."""
+    return sorted({key[0] for key in engine.graphs.steps})
+
+
+def phase_mla_serve(torch, smi):
+    """deepseek's two layers at full width in bf16 on the serve
+    workload through the Scheduler: on a PagedBackend (the pressure
+    arena, prefix sharing, chunk 256, speculate 4) captured against
+    eager (tokens bitwise, K1 launches equal to the schedule, the drops
+    of the first 256-row chunk and the first verify tick of 20 counted
+    by ``RouteRecorder``); on a roomy PagedBackend and a SlotBackend
+    with no speculation and no sharing (tokens bitwise); with
+    PREEMPTIONS requests preempted after streaming tokens, replayed
+    through the decode step with speculation off (``check_forced``);
+    the captured decode tick against its bounds (``mla_tick``); and an
+    f32 engine (its own weights from the seed) on the pressure arena
+    without speculation against per-request greedy prefilled in the
+    same chunks, under the top-2-gap rule.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = deepseek_config()
+    requests = serve_requests(cfg.vocab_size)
+    blocks, four, three = pressure_blocks(requests)
+    cap = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    eager = LLMEngine(cfg, dict(cap.model.named_parameters()),
+                      max_len=SERVE_MAX_LEN,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    verify_n = SERVE_SLOTS * (SERVE_SPEC + 1)
+    runs, counts_all = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    for name, e in (("eager", eager), ("captured", cap)):
+        with RouteRecorder(lambda n: n in (SERVE_CHUNK, verify_n)) \
+                if name == "eager" else contextlib.nullcontext() as rec:
+            got, stats, counts, wall = serve(torch, e, requests, blocks)
+        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        emit({"phase": "mla_serve", "steps": name, "num_blocks": blocks,
+              "seconds": wall, "launches": counts,
+              "expected_launches": want, "graphs_captured": graph_count(e),
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "spec_drafted", "spec_accepted",
+                  "preemptions", "replayed_tokens", "shared_block_hits",
+                  "completed", "admit_seconds", "step_seconds")}})
+        check(counts == want, f"mla_serve {name}: launch counts {counts} "
+                              f"!= {want}")
+        check(stats["completed"] == len(requests)
+              and all(got[i].shape == (SERVE_NEW,) for i in got),
+              f"mla_serve {name}: not every request completed")
+        check(stats["shared_block_hits"] > 0, f"mla_serve {name}: no "
+                                              f"prefix shared")
+        runs[name] = got
+        if name == "eager":
+            calls = rec.calls
+        add(counts)
+    del eager
+    equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
+                for i in runs["eager"])
+    drops = {"first_chunk": moe_drops(calls, cfg, SERVE_CHUNK),
+             "first_verify_tick": moe_drops(calls, cfg, verify_n)}
+    emit({"phase": "mla_serve_compare", "requests": len(requests),
+          "captured_bitwise_equal_to_eager": equal, "drops": drops})
+    check(equal == len(requests), "mla_serve: captured tokens differ from "
+                                  "eager")
+
+    # ---- the layout check: paged and slot, no sharing, no speculation --
+    layouts = {}
+    for kind in ("paged", "slot"):
+        got, stats, counts, _ = serve(
+            torch, cap, requests, ROOMY_BLOCKS, paged=kind == "paged",
+            prefix_sharing=False, speculate_k=0)
+        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        check(counts == want, f"mla_serve_layouts {kind}: launch counts "
+                              f"{counts} != {want}")
+        check(stats["completed"] == len(requests)
+              and stats["preemptions"] == 0,
+              f"mla_serve_layouts {kind}: a request did not complete or "
+              f"was preempted")
+        layouts[kind] = got
+        add(counts)
+    equal = sum(bool(np.array_equal(layouts["paged"][i], layouts["slot"][i]))
+                for i in layouts["paged"])
+    emit({"phase": "mla_serve_layouts", "requests": len(requests),
+          "speculate_k": 0, "bitwise_equal": equal})
+    check(equal == len(requests), "mla_serve_layouts: paged and slot "
+                                  "tokens are not bitwise equal")
+
+    # ---- forced preemptions mid-decode, replayed through the decode step -
+    forced = ForcedPreemption(torch)
+    got, stats, counts, _ = serve(torch, cap, requests, ROOMY_BLOCKS,
+                                  prefix_sharing=False, speculate_k=0,
+                                  hook=forced.install)
+    check_forced("paged", forced, stats, got, layouts["paged"], counts,
+                 expected_serve_launches(cfg, stats, "fused_flash_decode"),
+                 phase="mla_preempt_decode")
+    check(len(forced.streamed) == PREEMPTIONS,
+          f"mla_preempt_decode: {len(forced.streamed)} preemptions, not "
+          f"{PREEMPTIONS}")
+    add(counts)
+
+    phase_mla_tick(torch, cap, requests, smi)
+    # the loop's engine and the forced run's scheduler hold cap too
+    del cap, e, forced
+    free_card(torch)
+
+    # ---- f32 against per-request greedy -------------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    e32 = LLMEngine(cfg32, max_len=SERVE_MAX_LEN, seed=SEED)
+    got, stats, counts, _ = serve(torch, e32, requests, blocks,
+                                  speculate_k=0)
+    add(counts)
+    exact = compare_with_greedy(torch, e32, requests, got,
+                                chunk=SERVE_CHUNK)
+    emit({"phase": "mla_serve_f32_exact", "preemptions": stats["preemptions"],
+          "replayed_tokens": stats["replayed_tokens"],
+          "weight_bytes": sum(p.numel() * p.element_size()
+                              for p in e32.model.parameters()), **exact})
+    check(exact["rows_compared"] > 0, "mla f32 exactness: no row compared")
+    check(exact["mismatches"] == 0, "mla f32 exactness: a served token "
+                                    "differs from the greedy reference's")
+    del e32
+    free_card(torch)
+    return counts_all
+
+
+def phase_mla_tick(torch, engine, requests, smi):
+    """The captured paged decode tick at 4 slots (``layout_ticks``)
+    against two bytes bounds: every weight a tick reads once
+    (``tick_weight_bytes``: all padded experts, which the gather dispatch
+    multiplies every tick) and the rows' latents once; and the same with
+    only the experts the tick's tokens can hit (at most 4 x top-8 = 32),
+    the gap between the two being ROADMAP item 14's.  Beside them the
+    latent arena's bytes a token (c_kv and k_rope, every layer)."""
+    from repro_torch.models import moe
+    from repro_torch.serving import PagedBackend
+    cfg = engine.cfg
+    r = layout_ticks(torch, engine, requests, lambda e: PagedBackend(
+        e, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS, block_size=SERVE_BLOCK))
+    keys = sum(p.size + 3 + r["ticks"] // 2 for p in requests[:SERVE_SLOTS])
+    latent_token = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2 \
+        * cfg.num_layers
+    weights = tick_weight_bytes(engine, SERVE_SLOTS)
+    E_pad = moe.padded_experts(cfg)
+    expert = 3 * cfg.d_model * cfg.d_ff * 2 * moe_layers(cfg)
+    hit = min(E_pad, SERVE_SLOTS * cfg.num_experts_per_tok)
+    all_bytes = weights + keys * latent_token
+    hit_bytes = all_bytes - (E_pad - hit) * expert
+    bound = all_bytes / HBM_BPS * 1e3
+    emit({"phase": "mla_tick", **r, "weight_bytes": weights,
+          "latent_bytes_per_token": latent_token, "keys": keys,
+          "bound_bytes": all_bytes, "bound_ms": bound, "bound_by": "bytes",
+          "median_over_bound": r["ms_median"] / bound,
+          "experts_hit_at_most": hit,
+          "bound_bytes_hit_experts": hit_bytes,
+          "bound_ms_hit_experts": hit_bytes / HBM_BPS * 1e3,
+          "nvidia_smi": smi})
+
+
 def time_recurrent_updates(torch):
     """One mLSTM decode update and one 5-token window with stacks at 4
     slots, and one Mamba decode update at 4 slots, at full width in bf16:
@@ -3377,7 +3912,7 @@ def time_flash_shapes(torch, g):
 #: chunk at minicpm_2b's d_model, qwen3_32b's prefill of 1024 rows, and
 #: the decode ticks of granite_moe_3b_a800m, deepseek_7b and qwen3_32b
 RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120), (4, 1536), (4, 4096),
-                 (4, 5120))
+                 (4, 5120), (4, 512), (4, 7168), (SERVE_CHUNK, 7168))
 
 
 def time_rmsnorm(torch, g, shape):
@@ -3513,6 +4048,7 @@ def main() -> int:
     graph_counts, graph_tokens = phase_graph_serve(
         torch, serve_tokens["default"], smi)
     preempt_counts, preempt_tokens = phase_serve_preempt_decode(torch)
+    phase_f2(torch)
     phase_captured(torch, {**serve_tokens, "graph_serve": graph_tokens,
                            "serve_preempt_decode": preempt_tokens["default"]},
                    smi)
@@ -3539,13 +4075,21 @@ def main() -> int:
     free_card(torch)
     rec_counts.append(phase_hybrid_serve(torch, smi))
     free_card(torch)
+    # deepseek_v3_671b's first two layers at full width: MLA, a dense head
+    # layer and a MoE layer
+    phase_mla_layer_vs_cpu(torch)
+    ds_counts = [phase_mla_main_path(torch)]
+    free_card(torch)
+    ds_counts.append(phase_mla_serve(torch, smi))
+    free_card(torch)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
         launches = (counts[name] + serve_counts[name] + graph_counts[name]
                     + preempt_counts[name]
-                    + sum(c.get(name, 0) for c in moe_counts + rec_counts))
+                    + sum(c.get(name, 0)
+                          for c in moe_counts + rec_counts + ds_counts))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

@@ -1,9 +1,11 @@
 """Architecture configs of the port (``--arch <id>``).
 
 The dense GQA/MHA decoders, the MoE decoder (granite_moe_3b_a800m), the
-recurrent xLSTM stack (xlstm_1_3b) and the hybrid Mamba + attention +
-MoE stack (jamba_1_5_large_398b) are ported; every other assigned
-architecture raises, naming the ROADMAP item that will port it.
+recurrent xLSTM stack (xlstm_1_3b), the hybrid Mamba + attention + MoE
+stack (jamba_1_5_large_398b) and the MLA + MoE decoder with a dense head
+and multi-token prediction (deepseek_v3_671b) are ported; every other
+assigned architecture raises, naming the ROADMAP item that will port
+it.
 ``get_config(name)`` resolves an id; ``ALL_ARCHS`` lists the ten
 assigned ids.
 """
@@ -28,7 +30,6 @@ ALL_ARCHS = [
 
 #: where each architecture that is not ported yet will be ported
 NOT_YET_PORTED = {
-    "deepseek_v3_671b": "ROADMAP Queue 1 item 8 (MLA)",
     "seamless_m4t_large_v2": "ROADMAP Queue 1 item 9 (encoder-decoder)",
     "phi_3_vision_4_2b": "ROADMAP Queue 1 item 9 (modality stubs)",
 }

@@ -1,0 +1,82 @@
+"""Blockwise online-softmax attention in plain PyTorch: the port of the
+JAX package's ``models/chunked_attention.py`` (the single-device path).
+
+MLA's prefill and extend attend with it: their per-head keys carry
+``qk_nope + qk_rope`` dims and their values ``v_head_dim`` (192 against
+128 at deepseek_v3's width), which neither K3 nor its plain version
+(``kernels/ref.py::flash_attention_ref``, K3's alone) takes.  The JAX
+package computes MLA's attention outside any Pallas kernel too.
+
+The port's row rules hold here as in K3's plain version: keys go in
+blocks of ``kv_chunk`` at absolute multiples of it (the last padded with
+masked zeros), so a query row's arithmetic depends on its absolute
+position alone, never on ``T``, ``q_offset`` or the number of query
+rows; a suffix's rows at ``q_offset`` are bitwise the full prefill's.
+A single query row is multiplied as two (``two_rows``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ref import NEG_INF, heads_major, keys_t, two_rows, upcast, \
+    values
+
+#: keys per block: K3's absolute key block
+KV_CHUNK = 128
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_offset: int = 0,
+                      kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """q: [B, S, H, hd]; k: [B, T, KV, hd]; v: [B, T, KV, vd] with
+    ``H % KV == 0``; returns [B, S, H, vd] in q's dtype.  Query row ``s``
+    sits at absolute position ``q_offset + s``; the scale is
+    ``1/sqrt(hd)``.  Computes in f32 (f64 for f64 inputs); blocks past
+    the last query's position are skipped under ``causal``."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    G = H // KV
+    dev = q.device
+    Sp = 2 if S == 1 else S
+    qb = heads_major(upcast(two_rows(q, 1)).reshape(B, Sp, KV, G, hd))
+    kf, vf = upcast(k), upcast(v)
+    ft = kf.dtype
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=ft))
+    i = q_offset + torch.arange(Sp, device=dev)[:, None]
+    m = torch.full((B, KV, G, Sp), NEG_INF, dtype=ft, device=dev)
+    l = torch.zeros((B, KV, G, Sp), dtype=ft, device=dev)
+    acc = torch.zeros((B, KV, G, Sp, vd), dtype=ft, device=dev)
+    last = min(T, q_offset + S) if causal else T
+    for k0 in range(0, last, kv_chunk):
+        kb, vb = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
+        if kb.shape[1] < kv_chunk:
+            pad = (0, 0, 0, 0, 0, kv_chunk - kb.shape[1])
+            kb, vb = F.pad(kb, pad), F.pad(vb, pad)
+        s = (torch.bmm(qb, keys_t(kb)) * scale).view(B, KV, G, Sp, kv_chunk)
+        j = k0 + torch.arange(kv_chunk, device=dev)[None, :]
+        valid = j < T
+        if causal:
+            valid = valid & (j <= i)
+        if window:
+            valid = valid & (j > i - window)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.bmm(p.reshape(B * KV, G * Sp, kv_chunk), values(vb))
+        acc = acc * corr[..., None] + pv.view(B, KV, G, Sp, vd)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(
+        0, 3, 1, 2, 4)[:, :S]
+    return out.reshape(B, S, H, vd).to(q.dtype)
+
+
+def sequence_parallel_attention(*args, **kwargs):
+    """The JAX package's model-axis-parallel attention: not ported."""
+    raise NotImplementedError(
+        "sequence-parallel attention is not yet ported to repro_torch: "
+        "ROADMAP Queue 1 item 11")

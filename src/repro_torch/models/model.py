@@ -2,7 +2,9 @@
 with prefill / prefix-extend / decode and the caches of every layout.
 
 The weights are registered under the JAX param-tree paths, so
-``state_dict()`` keys read ``blocks.l0.mixer.wq`` and the stacked
+``state_dict()`` keys read ``blocks.l0.mixer.wq`` (and
+``head_layers.layer0.mixer.wq_a``, ``mtp.proj`` where the architecture
+has a dense head and a multi-token prediction head) and the stacked
 ``[R, ...]`` leaves keep their JAX shapes; ``params_from_jax`` output
 loads as it is.
 """
@@ -63,7 +65,8 @@ class Model(nn.Module):
         self._register(self, tree)
         _, _, R = tf.group_structure(cfg)
         # per-layer-group views of the stacked leaves, made once
-        self.groups = tf.unstack_groups(self.params["blocks"], R)
+        self.groups = tf.unstack_groups(self.params["blocks"], R) \
+            if R else []
 
     @staticmethod
     def _register(module: nn.Module, tree) -> None:
@@ -109,6 +112,13 @@ class Model(nn.Module):
                               state_mask=state_mask,
                               want_state_stacks=want_state_stacks,
                               stacks=stacks)
+
+    @torch.no_grad()
+    def mtp_logits(self, hidden: torch.Tensor, tokens: torch.Tensor,
+                   flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS):
+        """The multi-token prediction head's logits [B, S, V] from the
+        final hidden states [B, S, d] and the tokens [B, S]."""
+        return tf.mtp_logits(self.params, self.cfg, hidden, tokens, flags)
 
     @property
     def device(self) -> torch.device:

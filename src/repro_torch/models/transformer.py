@@ -1,17 +1,20 @@
-"""Model composition: the layer (attention, Mamba, mLSTM or sLSTM mixer
-x dense or MoE FFN), the stacked layer groups (a Python loop over the
-``[R, ...]`` leaves takes the place of ``lax.scan``), the logits, and
-the serving entry points ``prefill``, ``prefill_extend`` and
+"""Model composition: the layer (GQA attention, MLA, Mamba, mLSTM or
+sLSTM mixer x dense or MoE FFN), the unrolled dense head layers, the
+stacked layer groups (a Python loop over the ``[R, ...]`` leaves takes
+the place of ``lax.scan``), the logits, the multi-token prediction head,
+and the serving entry points ``prefill``, ``prefill_extend`` and
 ``decode_step``.
 
 Caches are nested dicts with the JAX package's keys and shapes
 (``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``
 for slot rows, ``[R, num_blocks, block_size, KV, hd]`` leaves for the
 paged arena, ``[R, B, ...]`` recurrent state slabs such as mLSTM's
-``C`` ``[R, B, H, hd, hd]``) and are updated **in place**:
-``decode_step`` returns the cache it was given, written at each row's
-window positions.  The hybrid layout pages attention layers and keeps
-recurrent layers in slabs of ``num_slots`` rows.
+``C`` ``[R, B, H, hd, hd]``; MLA layers hold latents ``c_kv`` and
+``k_rope`` instead of ``k`` and ``v``; the dense head layers sit under
+``head_layers.layer{i}`` without the ``[R]`` axis) and are updated **in
+place**: ``decode_step`` returns the cache it was given, written at each
+row's window positions.  The hybrid layout pages attention layers and
+keeps recurrent layers in slabs of ``num_slots`` rows.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from . import attention as attn
 from . import mamba as mam
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import paging
 from . import xlstm as xl
@@ -29,8 +33,8 @@ from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
                      lm_head_template, mlp_apply, mlp_template,
                      rms_norm, rmsnorm_template)
-from .params import (DTYPES, Template, flatten, stack_template, tree_map,
-                     unflatten)
+from .params import (DTYPES, ParamSpec, Template, flatten, stack_template,
+                     tree_map, unflatten)
 from ..kernels.ref import rope_freqs
 
 
@@ -73,18 +77,10 @@ def check_supported(cfg: ArchConfig) -> None:
     sharded serving port, item 11: the port has no sharding flags, and
     ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.)"""
     why = None
-    if cfg.use_mla:
-        why = "MLA: ROADMAP Queue 1 item 8"
-    elif cfg.is_encoder_decoder or cfg.frontend:
+    if cfg.is_encoder_decoder or cfg.frontend:
         why = "encoder-decoder and modality stubs: ROADMAP Queue 1 item 9"
     elif cfg.sliding_window:
         why = "sliding-window attention: ROADMAP Queue 1 item 12"
-    elif cfg.mtp_depth:
-        why = "multi-token prediction: ROADMAP Queue 1 item 8"
-    elif cfg.num_experts and cfg.first_k_dense:
-        # the unrolled dense head of group_structure is not built
-        why = "dense head layers before MoE (first_k_dense): ROADMAP " \
-              "Queue 1 item 8"
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: not yet ported to repro_torch ({why})")
@@ -106,7 +102,8 @@ def check_paged_support(cfg: ArchConfig) -> None:
 
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
-_MIXER_TEMPLATES = {"attn": attn.attention_template,
+_MIXER_TEMPLATES = {"attn": lambda cfg: mla_mod.mla_template(cfg)
+                    if cfg.use_mla else attn.attention_template(cfg),
                     "mamba": mam.mamba_template,
                     "mlstm": xl.mlstm_template,
                     "slstm": xl.slstm_template}
@@ -161,10 +158,20 @@ def model_template(cfg: ArchConfig) -> Template:
                    "final_norm": rmsnorm_template(d)}
     if not cfg.tie_embeddings:
         t["lm_head"] = lm_head_template(d, V)
-    _, pattern, R = group_structure(cfg)
-    t["blocks"] = stack_template(
-        {f"l{j}": layer_template(cfg, kind, ffn)
-         for j, (kind, ffn) in enumerate(pattern)}, R)
+    head, pattern, R = group_structure(cfg)
+    if head:
+        t["head_layers"] = {f"layer{i}": layer_template(cfg, kind, ffn)
+                            for i, (kind, ffn) in enumerate(head)}
+    if R:
+        t["blocks"] = stack_template(
+            {f"l{j}": layer_template(cfg, kind, ffn)
+             for j, (kind, ffn) in enumerate(pattern)}, R)
+    if cfg.mtp_depth:
+        t["mtp"] = {"proj": ParamSpec((2 * d, d)),
+                    "norm": rmsnorm_template(d),
+                    "block": layer_template(
+                        cfg, "attn", "dense" if cfg.first_k_dense
+                        else cfg.ffn_kinds()[-1])}
     return t
 
 
@@ -178,31 +185,52 @@ def _kv(cfg: ArchConfig, shape) -> Dict[str, torch.Tensor]:
     return {"k": a, "v": a}
 
 
+def _attn_slots(cfg: ArchConfig, batch: int, max_len: int):
+    """An attention layer's slot rows: K/V, or MLA's latents."""
+    if cfg.use_mla:
+        return mla_mod.abstract_mla_cache(cfg, batch, max_len)
+    return _kv(cfg, attn.kv_cache_shape(cfg, batch, max_len))
+
+
+def _attn_arena(cfg: ArchConfig, num_blocks: int, block_size: int):
+    """An attention layer's block-pool arena: K/V, or MLA's latents."""
+    if cfg.use_mla:
+        return mla_mod.abstract_paged_mla_cache(cfg, num_blocks, block_size)
+    return _kv(cfg, attn.paged_kv_cache_shape(cfg, num_blocks, block_size))
+
+
 def _stacked(cfg: ArchConfig, layer: Callable[[str], Dict]):
-    """The cache tree of the layer pattern, each layer's mixer cache
-    ``layer(kind)`` given a leading ``[R]`` axis."""
-    _, pattern, R = group_structure(cfg)
-    return {"blocks": {
-        f"l{j}": {"mixer": tree_map(lambda a: a.new_empty((R,) + a.shape),
-                                    layer(kind))}
-        for j, (kind, _) in enumerate(pattern)}}
+    """The cache tree: each head layer's mixer cache ``layer(kind)`` as
+    it is, and each layer of the pattern's given a leading ``[R]``
+    axis."""
+    head, pattern, R = group_structure(cfg)
+    out = {}
+    if head:
+        out["head_layers"] = {f"layer{i}": {"mixer": layer(kind)}
+                              for i, (kind, _) in enumerate(head)}
+    if R:
+        out["blocks"] = {
+            f"l{j}": {"mixer": tree_map(
+                lambda a: a.new_empty((R,) + a.shape), layer(kind))}
+            for j, (kind, _) in enumerate(pattern)}
+    return out
 
 
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int):
     """The cache ``prefill`` returns, and the slot and state layouts'
-    cache: ``[R, batch, max_len, KV, hd]`` per attention k/v leaf, and
-    the ``[R, batch, ...]`` state of each recurrent layer (f32, Mamba's
-    conv tail in the model dtype)."""
-    return _stacked(cfg, lambda kind: _kv(cfg, attn.kv_cache_shape(
-        cfg, batch, max_len)) if kind == "attn"
-        else _STATE_CACHES[kind](cfg, batch, "meta"))
+    cache: ``[R, batch, max_len, KV, hd]`` per attention k/v leaf (MLA:
+    ``c_kv`` and ``k_rope`` rows), and the ``[R, batch, ...]`` state of
+    each recurrent layer (f32, Mamba's conv tail in the model dtype)."""
+    return _stacked(cfg, lambda kind: _attn_slots(cfg, batch, max_len)
+                    if kind == "attn"
+                    else _STATE_CACHES[kind](cfg, batch, "meta"))
 
 
 def abstract_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int):
     """The paged arena: ``[R, num_blocks, block_size, KV, hd]`` leaves."""
     check_paged_support(cfg)
-    return _stacked(cfg, lambda kind: _kv(cfg, attn.paged_kv_cache_shape(
-        cfg, num_blocks, block_size)))
+    return _stacked(cfg, lambda kind: _attn_arena(cfg, num_blocks,
+                                                  block_size))
 
 
 def abstract_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
@@ -212,9 +240,10 @@ def abstract_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
     exactly the paged layout), recurrent mixers in ``[num_slots, ...]``
     state slabs (slot i of every slab belongs to the request in
     scheduler slot i)."""
-    return _stacked(cfg, lambda kind: _kv(cfg, attn.paged_kv_cache_shape(
-        cfg, num_blocks, block_size)) if kind == "attn"
-        else _STATE_CACHES[kind](cfg, num_slots, "meta"))
+    return _stacked(cfg, lambda kind: _attn_arena(cfg, num_blocks,
+                                                  block_size)
+                    if kind == "attn"
+                    else _STATE_CACHES[kind](cfg, num_slots, "meta"))
 
 
 def _zeros(tree, device):
@@ -242,9 +271,11 @@ def layer_kind_of_path(cfg: ArchConfig, path) -> str:
     gives it, or split): the one dispatch point mixed-layout cache
     writers use to tell a paged attention arena from a state slab."""
     parts = path.split(".") if isinstance(path, str) else list(path)
+    head, pattern, _ = group_structure(cfg)
+    if parts[0] == "head_layers":
+        return head[int(parts[1][len("layer"):])][0]
     if parts[0] != "blocks":
         raise KeyError(f"not a layer cache path: {path}")
-    _, pattern, _ = group_structure(cfg)
     return pattern[int(parts[1][1:])][0]
 
 
@@ -301,16 +332,29 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _run_groups(params, cfg, x, cache_blocks, flags, groups, mixer):
-    """Every layer in order.  ``cache_blocks`` is a tree with ``[R, ...]``
-    leaves (``cache["blocks"]``, or a dict of such trees); layer ``lj``
-    of kind ``kind`` in group ``r`` runs ``mixer(kind, mixer_params, h,
-    group_cache, "lj")`` with ``group_cache`` the tree's ``r``-th
-    slice."""
-    _, pattern, R = group_structure(cfg)
+def _run_groups(params, cfg, x, caches, flags, groups, mixer):
+    """Every layer in order: the dense head layers, then the stacked
+    groups.  ``caches`` names whole cache trees (``{"cache": cache}``,
+    or several such as a prefix arena and the rows an extend writes);
+    head layer ``layer{i}`` of kind ``kind`` runs ``mixer(kind,
+    mixer_params, h, c, "layer{i}")`` with ``c`` each tree's
+    ``head_layers``, and layer ``lj`` of group ``r`` runs it with ``c``
+    each tree's ``blocks`` sliced at ``r`` and the name ``"lj"``."""
+    head, pattern, R = group_structure(cfg)
+    for i, (kind, ffn) in enumerate(head):
+        name = f"layer{i}"
+        c = {k: tree["head_layers"] for k, tree in caches.items()}
+        x = layer_apply(
+            params["head_layers"][name], cfg, ffn, x, flags,
+            lambda mp, h, c=c, n=name, k=kind: mixer(k, mp, h, c, n))
+    if not R:
+        return x
     groups = groups if groups is not None \
         else unstack_groups(params["blocks"], R)
-    cache_groups = unstack_groups(cache_blocks, R)
+    per_tree = {k: unstack_groups(tree["blocks"], R)
+                for k, tree in caches.items()}
+    cache_groups = [{k: g[r] for k, g in per_tree.items()}
+                    for r in range(R)]
     for r in range(R):
         for j, (kind, ffn) in enumerate(pattern):
             name = f"l{j}"
@@ -352,14 +396,16 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     cache = new_cache(cfg, B, max_cache_len, x.device)
 
     def mixer(kind, mp, h, c, name):
+        live = c["cache"][name]["mixer"]
         if kind == "attn":
-            return attn.prefill_into_cache(mp, cfg, h, positions,
-                                           c[name]["mixer"], flags)
+            into = mla_mod.prefill_into_cache if cfg.use_mla \
+                else attn.prefill_into_cache
+            return into(mp, cfg, h, positions, live, flags)
         y, state = _PREFILLS[kind](mp, cfg, h)
-        commit_state(c[name]["mixer"], state)
+        commit_state(live, state)
         return y
 
-    x = _run_groups(params, cfg, x, cache["blocks"], flags, groups, mixer)
+    x = _run_groups(params, cfg, x, {"cache": cache}, flags, groups, mixer)
     return _last_logits(params, cfg, x, flags), cache
 
 
@@ -394,10 +440,11 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
         if kind == "attn":
             pkv = paging.gather_prefix_kv(c["arena"][name]["mixer"],
                                           prefix_ref, prefix_len)
-            y, kv = attn.prefill_extend_into_cache(mp, cfg, h, positions,
-                                                   pkv, prefix_len, flags)
-            out["k"][:, :S_] = kv["k"]
-            out["v"][:, :S_] = kv["v"]
+            extend = mla_mod.prefill_extend_into_cache if cfg.use_mla \
+                else attn.prefill_extend_into_cache
+            y, kv = extend(mp, cfg, h, positions, pkv, prefix_len, flags)
+            for k, a in kv.items():
+                out[k][:, :S_] = a
             return y
         # recurrent: resume the state scan from the slab rows
         init = {k: a[slots.long()]
@@ -406,18 +453,17 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
         commit_state(out, state)
         return y
 
-    x = _run_groups(params, cfg, x,
-                    {"arena": cache["blocks"], "rows": rows["blocks"]},
+    x = _run_groups(params, cfg, x, {"arena": cache, "rows": rows},
                     flags, groups, mixer)
     return _last_logits(params, cfg, x, flags), rows
 
 
 def _slot_max_len(cfg: ArchConfig, cache) -> int:
-    """The row length of a slot cache's attention layers (0 when the
+    """The row length of a slot cache's GQA attention layers (0 when the
     stack has none)."""
-    for j, (kind, _) in enumerate(group_structure(cfg)[1]):
-        if kind == "attn":
-            return cache["blocks"][f"l{j}"]["mixer"]["k"].shape[2]
+    for path, a in flatten(cache).items():
+        if path.endswith(".mixer.k"):
+            return a.shape[-3]
     return 0
 
 
@@ -449,16 +495,28 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
     B, S_q = x.shape[0], x.shape[1]
     pos = cache_pos.to(torch.int32).contiguous()
-    freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)
     if want_state_stacks and stacks is None:
         stacks = new_state_stacks(cfg, cache, S_q)
-    if block_tables is not None:
+    if cfg.use_mla:
+        # the latent path: weight absorption over c_kv / k_rope
+        if block_tables is not None:
+            tables = block_tables.to(torch.int32).contiguous()
+
+            def attend(mp, h, c):
+                return mla_mod.paged_decode(mp, cfg, h, c, pos, tables,
+                                            flags)
+        else:
+            def attend(mp, h, c):
+                return mla_mod.slot_decode(mp, cfg, h, c, pos, flags)
+    elif block_tables is not None:
         tables = block_tables.to(torch.int32).contiguous()
+        freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)
 
         def attend(mp, h, c):
             return attn.paged_decode(mp, cfg, h, c, pos, tables, freqs,
                                      flags)
     else:
+        freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)
         max_len = _slot_max_len(cfg, cache)
         tables = paging.slot_arena_tables(
             B, max_len, paging.fused_page_size(max_len), x.device) \
@@ -479,13 +537,39 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
         commit_state(live, state, state_mask)
         return y
 
-    blocks = {"cache": cache["blocks"]}
+    trees = {"cache": cache}
     if want_state_stacks:
-        blocks["stacks"] = stacks["blocks"]
-    x = _run_groups(params, cfg, x, blocks, flags, groups, mixer)
+        trees["stacks"] = stacks
+    x = _run_groups(params, cfg, x, trees, flags, groups, mixer)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
     logits = _logits(params, cfg, x)
     logits = logits if all_logits else logits[:, 0]
     if want_state_stacks:
         return logits, cache, stacks
     return logits, cache
+
+
+def mtp_logits(params, cfg: ArchConfig, hidden: torch.Tensor,
+               tokens: torch.Tensor, flags: RuntimeFlags = DEFAULT_FLAGS
+               ) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction head (depth 1): the final
+    hidden state at position t with the embedding of token t+1 predicts
+    token t+2.  hidden: [B, S, d]; tokens: [B, S]; returns [B, S, V].
+    Its block runs MLA's prefill arm with no cache; its norm takes
+    ``fused_rmsnorm`` like every other norm of the port (the JAX
+    package calls it plain)."""
+    dt = DTYPES[cfg.dtype]
+    B, S, d = hidden.shape
+    nxt = embed_apply(params["embed"], tokens, dt)
+    nxt = torch.cat([nxt[:, 1:], nxt.new_zeros((B, 1, d))], dim=1)
+    h = linear(torch.cat([hidden.to(dt), nxt], dim=-1),
+               params["mtp"]["proj"])
+    h = rms_norm(params["mtp"]["norm"], h, cfg.norm_eps, flags.fused_rmsnorm)
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    block = params["mtp"]["block"]
+    ffn = "moe" if "router" in block.get("ffn", {}) else "dense"
+    # the one configuration with an MTP head (deepseek_v3) attends by MLA
+    h = layer_apply(block, cfg, ffn, h, flags,
+                    lambda mp, x: mla_mod.mla_forward(mp, cfg, x, positions,
+                                                      flags)[0])
+    return _logits(params, cfg, h)

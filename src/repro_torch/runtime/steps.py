@@ -49,11 +49,12 @@ def kernel_path(cfg, flags: RuntimeFlags) -> str:
     """Which decode-attention implementation a serving step runs:
     ``"fused"`` (the fused flash-decode op, K2 or K4) or ``"fallback"``
     (K5 or the page gather on the paged layout, the plain fused version
-    on the slot layout, and a recurrent-only stack, which has no
+    on the slot layout, MLA, whose latent cache decodes in
+    ``models/mla.py``, and a recurrent-only stack, which has no
     attention to fuse).  The engine labels its ``engine.kernel_path``
     counter with it, so a silent fall-off the fused path shows in
     ``metrics_text()``."""
-    if "attn" not in cfg.layer_kinds():
+    if cfg.use_mla or "attn" not in cfg.layer_kinds():
         return "fallback"
     return "fused" if paging.use_fused_decode(cfg, flags) else "fallback"
 

@@ -22,7 +22,10 @@ verify, and ``generate``'s lockstep decode) run as captured CUDA graphs,
 one per key, as the JAX engine jits each step once per shape
 (``runtime/graphs.py``; ``RuntimeFlags.cuda_graphs`` turns it off);
 prefill, extend, insert and the rewind run eagerly.  ``metrics``
-counts decode/verify steps by kernel path with their wall time.
+counts decode/verify steps by kernel path with their wall time, and,
+under the JAX engine's names and labels, each jitted step's first call
+(``engine.jit_compiles``, ``engine.jit_compile_ms``): on the card the
+kernels' build, the eager run and the capture, on the CPU the first run.
 """
 from __future__ import annotations
 
@@ -86,6 +89,8 @@ class LLMEngine:
         self._stacks: Dict[Tuple, Dict] = {}
         # per-(step, layout) kernel-path metric handles
         self._kernel_obs: Dict[Tuple, Tuple] = {}
+        #: the compile labels already recorded (``_first_call``)
+        self._called: set = set()
         #: the captured decode/verify steps (None: the steps run eagerly,
         #: on the CPU or with ``flags.cuda_graphs`` off)
         self.graphs: Optional[StepGraphs] = \
@@ -108,21 +113,65 @@ class LLMEngine:
         """A host array as a CPU tensor of ``dtype`` (a numpy dtype)."""
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
 
+    def _first_call(self, labels: Tuple[str, str, str], run):
+        """``run()``; the first call of a step of ``labels`` (``step``,
+        ``layout``, ``width``: the JAX engine's jitted step) is timed to
+        a device sync and recorded as the JAX engine's ``_timed`` records
+        it: ``engine.jit_compiles`` and ``engine.jit_compile_ms``."""
+        if labels in self._called:
+            return run()
+        self._called.add(labels)
+        t0 = time.perf_counter()
+        out = run()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        step, layout, width = labels
+        self.metrics.counter(
+            "engine.jit_compiles",
+            "jitted serving steps compiled, by cache key").inc(
+                step=step, layout=layout, width=width)
+        self.metrics.histogram(
+            "engine.jit_compile_ms",
+            "first-call wall time per jit cache entry "
+            "(trace + compile + run)").observe(
+                dt_ms, step=step, layout=layout, width=width)
+        return out
+
+    @staticmethod
+    def _step_labels(key: Tuple) -> Tuple[str, str, str]:
+        """The JAX engine's compile labels of a captured step's key:
+        generate's lockstep decode is its ``decode`` on the ``batch``
+        layout, a serving decode its ``serve_decode``, and a verify is
+        labelled by its window's width."""
+        name, kind, block_size = key[:3]
+        if name == "generate":
+            return "decode", "batch", ""
+        if name == "decode":
+            return "serve_decode", f"{kind}/{block_size}", ""
+        return name, f"{kind}/{block_size}", str(key[5])
+
     def _step(self, key: Tuple, step, cache, args,
               stacks=None) -> torch.Tensor:
         """``step(args[0], cache, *args[1:])``'s tokens: through the
         captured graph of ``key`` and the addresses of the cache (and of
         the verify's ``stacks``, bound to the step) where the engine
         captures, else eagerly.  ``args`` are tensors on any device; the
-        cache and the stacks are written in place."""
+        cache and the stacks are written in place.  The key's first
+        call is recorded (``_first_call``)."""
         if stacks is not None:
             step = functools.partial(step, stacks=stacks)
         if self.graphs is None:
-            tokens, *rest = (a.to(self.device) for a in args)
-            return step(tokens, cache, *rest)[0]
-        return self.graphs.run(
-            key, lambda tokens, *rest: step(tokens, cache, *rest)[0], args,
-            bound=(cache, stacks or {}))
+            def run():
+                tokens, *rest = (a.to(self.device) for a in args)
+                return step(tokens, cache, *rest)[0]
+        else:
+            def run():
+                return self.graphs.run(
+                    key, lambda tokens, *rest: step(tokens, cache,
+                                                    *rest)[0],
+                    args, bound=(cache, stacks or {}))
+        return self._first_call(self._step_labels(key), run)
 
     def _serve_step(self, name: str, step, backend, cache, tokens,
                     positions, active, block_tables,
@@ -190,7 +239,7 @@ class LLMEngine:
         """Greedy-decode a batch. tokens: [B, S] int -> [B, max_new]."""
         tokens = self._tokens(tokens)
         B, S = tokens.shape
-        next_tok, cache = self._prefill(tokens)
+        next_tok, cache = self._run_prefill(tokens)
         if self.graphs is not None:
             cache = self._lockstep_cache(B, cache)
         out = [next_tok]
@@ -217,14 +266,35 @@ class LLMEngine:
     def prefill(self, tokens: np.ndarray) -> Tuple[np.ndarray, Dict]:
         """Prefill [B, S] prompts of one length; returns (first tokens
         [B], cache rows)."""
-        next_tok, cache = self._prefill(self._tokens(tokens))
+        next_tok, cache = self._run_prefill(self._tokens(tokens))
         return next_tok.cpu().numpy(), cache
+
+    def _run_prefill(self, tokens: torch.Tensor):
+        return self._first_call(("prefill", "batch", ""),
+                                lambda: self._prefill(tokens))
 
     @staticmethod
     def _check_layout(kind: str) -> None:
         if kind not in LAYOUTS:
             raise ValueError(f"unknown cache layout {kind!r} (expected one "
                              f"of {LAYOUTS})")
+
+    def _check_mla_layout(self, kind: str) -> None:
+        """MLA's latent cache is served on the slot and paged layouts;
+        on the state and hybrid layouts it is refused until ROADMAP
+        Queue 1 item 15.  As in JAX, the paged kernel (K5) reads GQA K/V
+        only, so ``use_paged_kernel`` is refused with MLA."""
+        if not self.cfg.use_mla:
+            return
+        if kind in STATE_KINDS:
+            raise NotImplementedError(
+                f"{self.cfg.name}: MLA on the {kind!r} layout is not yet "
+                f"ported to repro_torch (ROADMAP Queue 1 item 15); serve "
+                f"it on the slot or paged layout")
+        if kind == "paged" and self.flags.use_paged_kernel:
+            raise ValueError("use_paged_kernel covers GQA/MHA/MQA only; "
+                             "MLA paged decode uses the latent-gather "
+                             "path (drop the flag)")
 
     def _check_blocks(self, block_size: int) -> None:
         if self.max_len % block_size != 0:
@@ -242,6 +312,7 @@ class LLMEngine:
         sliding windows, encoder-decoders — are raised at construction
         by ``check_supported``.)"""
         self._check_layout(backend_kind)
+        self._check_mla_layout(backend_kind)
         if backend_kind not in STATE_KINDS:
             check_paged_support(self.cfg)
 
@@ -256,6 +327,7 @@ class LLMEngine:
         express a window, so ``use_paged_kernel`` without
         ``use_fused_decode`` is rejected, as in JAX."""
         self._check_layout(backend_kind)
+        self._check_mla_layout(backend_kind)
         if backend_kind not in STATE_KINDS:
             check_paged_support(self.cfg)
         if self.flags.use_paged_kernel and not self.flags.use_fused_decode:
@@ -271,6 +343,7 @@ class LLMEngine:
         ``block_size`` block-pool arena with trash block 0 (paged), or
         the per-layer mix of both (hybrid)."""
         self._check_layout(backend.kind)
+        self._check_mla_layout(backend.kind)
         if backend.kind == "paged":
             check_paged_support(self.cfg)
             self._check_blocks(backend.block_size)
@@ -299,12 +372,16 @@ class LLMEngine:
         self._check_layout(backend.kind)
         if backend.kind == "hybrid":
             page_ids, slot = dst
-            return make_hybrid_insert(self.model, backend.block_size)(
+            run = functools.partial(
+                make_hybrid_insert(self.model, backend.block_size),
                 cache, rows, int(row), self._ints(page_ids), int(slot))
-        if backend.kind == "paged":
-            return make_paged_insert(backend.block_size)(
-                cache, rows, int(row), self._ints(dst))
-        return self._slot_insert(cache, rows, int(row), int(dst))
+        elif backend.kind == "paged":
+            run = functools.partial(make_paged_insert(backend.block_size),
+                                    cache, rows, int(row), self._ints(dst))
+        else:
+            run = functools.partial(self._slot_insert, cache, rows,
+                                    int(row), int(dst))
+        return self._first_call(("insert", self._layout(backend), ""), run)
 
     def decode(self, backend, cache, last_tokens: np.ndarray,
                positions: np.ndarray, active: np.ndarray,
@@ -396,7 +473,9 @@ class LLMEngine:
         row ``slot`` from ``stacks`` (returned by :meth:`verify_window`)
         into the live state slabs, in place; attention leaves are left
         as they are."""
-        return self._state_rewind(cache, stacks, int(slot), int(idx))
+        return self._first_call(
+            ("state_rewind", "state", ""),
+            lambda: self._state_rewind(cache, stacks, int(slot), int(idx)))
 
     def extend(self, backend, cache, suffix_tokens: np.ndarray,
                prefix_len: int, ref) -> Tuple[np.ndarray, Dict]:
@@ -418,14 +497,16 @@ class LLMEngine:
         suffix = self._tokens(suffix_tokens)[None]
         if kind == "paged":
             table_row, page_ids = ref
-            tok, cache = step(suffix, cache, self._ints(table_row),
-                              self._ints(page_ids))
+            args = (self._ints(table_row), self._ints(page_ids))
         elif kind == "hybrid":
             table_row, page_ids, slot = ref
-            tok, cache = step(suffix, cache, self._ints(table_row),
-                              self._ints(page_ids), self._ints(slot))
+            args = (self._ints(table_row), self._ints(page_ids),
+                    self._ints(slot))
         else:
-            tok, cache = step(suffix, cache, self._ints(ref))
+            args = (self._ints(ref),)
+        tok, cache = self._first_call(
+            ("extend", self._layout(backend), str(int(prefix_len))),
+            lambda: step(suffix, cache, *args))
         return tok.cpu().numpy(), cache
 
 

@@ -499,3 +499,58 @@ def test_cuda_state_layouts_captured_equal_eager(cuda_device, arch, kind):
         runs.append(got)
     assert runs[0] == runs[1]
     assert len(cap.graphs) > 0
+
+
+# ---------------------------------------------------------------------------
+# MLA on the card (models/mla.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slot", "paged"])
+def test_cuda_mla_captured_steps_equal_eager(cuda_device, kind):
+    """Reduced deepseek_v3_671b (a dense MLA layer, a MoE MLA layer):
+    the weight-absorbed decode and verify windows through their captured
+    graphs give the eager steps' tokens and latent caches, bitwise."""
+    cap, eager = _captured_and_eager("bfloat16", "deepseek_v3_671b")
+    _check_captured(cuda_device, cap, eager, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq", [1, 5])
+def test_cuda_mla_paged_decode_equals_slot(cuda_device, dtype, Sq):
+    """MLA's paged decode over a shuffled arena is bitwise its slot
+    decode over the same rows (slot max_len = P x block size), and
+    within tolerance of the CPU's f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.transformer import DEFAULT_FLAGS
+    cfg = get_config("deepseek_v3_671b").reduced()
+    gen = torch.Generator().manual_seed(1)
+    params = init_params(mla.mla_template(cfg), gen, "float32", "cpu")
+    B, P, bs = 3, 4, 8
+    rows = {"c_kv": torch.randn(B, P * bs, cfg.kv_lora_rank, generator=gen),
+            "k_rope": torch.randn(B, P * bs, cfg.qk_rope_head_dim,
+                                  generator=gen)}
+    x = torch.randn(B, Sq, cfg.d_model, generator=gen)
+    pos = torch.tensor([0, 11, P * bs - Sq], dtype=torch.int32)
+    tables = (1 + torch.randperm(B * P, generator=gen)).view(B, P).int()
+    want = mla.slot_decode(params, cfg, x, tree_map(torch.clone, rows), pos,
+                           DEFAULT_FLAGS)
+    to = (lambda t: t.to(cuda_device, TDT[dtype]) if t.is_floating_point()
+          else t.to(cuda_device))
+    p = tree_map(to, params)
+    slot = mla.slot_decode(p, cfg, to(x), tree_map(to, rows), to(pos),
+                           DEFAULT_FLAGS)
+    arena = {k: torch.zeros((1 + B * P, bs) + a.shape[2:],
+                            device=cuda_device, dtype=TDT[dtype])
+             for k, a in rows.items()}
+    for k, a in arena.items():
+        a[tables.view(-1).long().to(cuda_device)] = to(rows[k]).view(
+            B * P, bs, -1)
+    paged = mla.paged_decode(p, cfg, to(x), arena, to(pos), to(tables),
+                             DEFAULT_FLAGS)
+    assert torch.equal(paged, slot)
+    tol = {"float32": 1e-4, "bfloat16": 5e-2}[dtype]
+    assert (slot.float().cpu() - want).abs().max() <= tol * want.abs().max()

@@ -260,21 +260,24 @@ def test_model_without_device_needs_cuda(monkeypatch):
                                   "phi_3_vision_4_2b", "jamba_1_5_large_398b"])
 def test_unsupported_configs_raise(name):
     """Each architecture the port does not serve raises, naming its
-    ROADMAP item.  granite_moe_3b_a800m and jamba_1_5_large_398b are
-    served since their MoE FFN and Mamba layers were ported: what stays
-    refused there is the expert-parallel MoE.  xlstm_1_3b is served
-    since its recurrent stack was ported: its case serves a few
-    tokens."""
+    ROADMAP item.  granite_moe_3b_a800m, jamba_1_5_large_398b and
+    deepseek_v3_671b are served since their MoE FFN, Mamba layers and
+    MLA were ported: what stays refused there is the expert-parallel
+    MoE; deepseek_v3_671b's case also serves a few tokens.  xlstm_1_3b
+    is served since its recurrent stack was ported: its case serves a
+    few tokens."""
     from repro_torch.models.config import ArchConfig
     from repro_torch.models.transformer import RuntimeFlags
-    if name in ("granite_moe_3b_a800m", "jamba_1_5_large_398b"):
+    if name in ("granite_moe_3b_a800m", "jamba_1_5_large_398b",
+                "deepseek_v3_671b"):
         cfg = get_config(name).reduced()
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 11"):
             LLMEngine(cfg, max_len=16, device="cpu",
                       flags=RuntimeFlags(moe_impl="ep"))
-        return
-    if name == "xlstm_1_3b":
+        if name != "deepseek_v3_671b":
+            return
+    if name in ("xlstm_1_3b", "deepseek_v3_671b"):
         cfg = get_config(name).reduced()
         engine = LLMEngine(cfg, max_len=16, device="cpu")
         out = engine.generate(_prompts(cfg, 2, 5, 0), 3)

@@ -57,11 +57,12 @@ def test_state_layouts_exit_zero(extra, capsys):
 def test_unported_backend_raises_naming_its_item():
     """The state and hybrid layouts are served since ROADMAP Queue 1
     item 7.  An architecture the port does not serve raises, naming its
-    item; a hybrid arena whose block size does not divide the engine's
-    ``max_len`` is refused inside the server's graph, whose run fails
-    with the engine's error."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        serve.main(BASE + ["--arch", "deepseek_v3_671b", "--backend",
+    item (seamless_m4t_large_v2, item 9, since deepseek_v3_671b is
+    served); a hybrid arena whose block size does not divide the
+    engine's ``max_len`` is refused inside the server's graph, whose run
+    fails with the engine's error."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        serve.main(BASE + ["--arch", "seamless_m4t_large_v2", "--backend",
                            "state"])
     with pytest.raises(GraphError, match="multiple of block_size"):
         serve.main(BASE + ["--arch", "jamba_1_5_large_398b", "--backend",

@@ -146,17 +146,28 @@ def test_ep_impl_refused():
 
 
 def test_dense_head_layers_refused():
-    """A MoE stack with dense head layers (``first_k_dense``) is refused,
-    not served without them; deepseek_v3 stays refused for MLA first."""
-    cfg, _ = _cfgs(first_k_dense=1)
-    with pytest.raises(NotImplementedError, match="first_k_dense.*item 8"):
-        LLMEngine(cfg, max_len=16, device="cpu")
-    from repro_torch.models.config import ArchConfig
-    v3 = ArchConfig(**dataclasses.asdict(
-        jax_get_config("deepseek_v3_671b").reduced()))
-    with pytest.raises(NotImplementedError, match="MLA: ROADMAP Queue 1 "
-                                                  "item 8"):
-        LLMEngine(v3, max_len=16, device="cpu")
+    """A MoE stack with dense head layers (``first_k_dense``) is built
+    with the reference's param paths: the unrolled ``head_layers`` before
+    the stacked MoE blocks, leaf for leaf the JAX template.  (The name
+    dates from before the head was ported, when such a stack was
+    refused; what stays refused is the expert-parallel MoE.)"""
+    from repro.models.transformer import model_template as jax_template
+    from repro_torch.models.params import flatten
+    cfg, jcfg = _cfgs(first_k_dense=1)
+    engine = LLMEngine(cfg, max_len=16, device="cpu")
+    want = {path: spec.shape for path, spec in
+            flatten(jax_template(jcfg)).items()}
+    got = {path: tuple(a.shape) for path, a in
+           engine.model.state_dict().items()}
+    assert got == want
+    assert any(p.startswith("head_layers.layer0.") for p in got)
+    assert "head_layers.layer0.ffn.w_gate" in got       # dense, not MoE
+    assert tuple(got["blocks.l0.ffn.router"])[0] == cfg.num_layers - 1
+    out = engine.generate(np.zeros((1, 4), np.int32), 2)
+    assert out.shape == (1, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        LLMEngine(cfg, max_len=16, device="cpu",
+                  flags=RuntimeFlags(moe_impl="ep"))
 
 
 def test_hazard7_token_output_depends_on_its_call():
