@@ -61,8 +61,21 @@ with K1 at four launches a layer and the final norm, against the plain
 path (``mla_main_path``), the serve workload through the Scheduler
 captured against eager with its drops counted, slot against paged,
 forced preemptions replayed, the captured tick against its bounds and an
-f32 engine against per-request greedy (``mla_serve``, ``mla_tick``);
-and, after ``serve_preempt_decode``, ROADMAP F2's two replay paths on
+f32 engine against per-request greedy (``mla_serve``, ``mla_tick``),
+then the modality stubs at full width and depth:
+``phi_3_vision_4_2b`` (32 layers, d_model 3072, 32 heads of 96) through
+``make_prefill_step`` over 576 patch embeddings and 16 tokens, lockstep
+decode steps and ``generate`` on the tokens alone, with launches held to
+the schedule and an f32 engine's kernel path against its plain path and
+an f64 run (``vlm_main_path``), the serve workload's requests through
+the Scheduler captured with K2 against eager, with K4, and slot against
+paged, and the captured paged tick against its bound (``vlm_serve``),
+and ``seamless_m4t_large_v2`` (24 encoder and 24 decoder layers,
+d_model 1024) through ``make_prefill_step`` over 256 frame embeddings
+and a 16-token prompt and decode steps that read the cross caches, with
+the encode, prefill and decode-step times beside the step's bound and
+the f32 comparison (``encdec_main_path``); and, after
+``serve_preempt_decode``, ROADMAP F2's two replay paths on
 minicpm_2b, each replay held bitwise to the run without preemption
 (``f2_group_prefill``: a slot layout's group-prefilled prompts replayed
 alone; ``f2_prefix_readmit``: a readmission whose prefix sharer is
@@ -77,8 +90,11 @@ also on the paged arena at the serve tick's, qwen3_32b's,
 granite_moe_3b_a800m's and jamba's shapes, K2 and K4 there at windows
 of 1 and 5), and the recurrent updates against their bounds.
 Kernels are also held at granite_moe_3b_a800m's head shape (24 heads
-over 8 KV heads), and ``gemm_width`` reads its router and expert
-products.  Every phase and check
+over 8 KV heads) and at the stub models' (K1 at widths 1024 and 3072,
+K3 over two rows of phi_3_vision_4_2b's 592-row prefill and of a
+16-token prompt, K2, K4 and K5 at 32 heads of 96 and 16 of 64), and
+``gemm_width`` reads granite's router and expert products.  Every phase
+and check
 prints a JSON line; any failure raises and exits non-zero.  The last
 lines are the card's name and power limit, the kernel summary, and
 ``{"ok": true, "device": {...}}``.
@@ -124,6 +140,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # scale of 5.2 (4 rows x 8 steps), and every row's top-2 gap was wider
 # than this limit
 F32_MODEL_TOL = 1e-3
+#: the flags of the plain path, which each kernel path is held against
+PLAIN_FLAGS = {"use_flash": False, "fused_rmsnorm": False,
+               "use_fused_decode": False}
 
 
 #: the run's start, for each phase line's elapsed seconds
@@ -143,6 +162,13 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def add_counts(total, counts):
+    """Add the launch counts ``counts`` into ``total``; returns it."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def setup():
@@ -239,6 +265,9 @@ def phase_kernels(torch):
               "is not bitwise equal to row 2 of the batch")
         for shape in PREFILL_SHAPES:
             check_flash_shape(torch, dev, g, dtype, shape, record)
+        for shape, rows, offsets in STUB_PREFILLS:
+            check_flash_shape(torch, dev, g, dtype, shape, record,
+                              rows=rows, offsets=offsets, batch=2)
         # K2: 4 rows, max_len 512, page 8, windows of 1 and 4
         B, KV, hd, page = 4, 36, 64, 8
         P = MAX_LEN // page
@@ -290,7 +319,8 @@ def phase_kernels(torch):
         # prefill, K2 and K4's windows against single queries
         check_flash_shape(torch, dev, g, dtype, GRANITE, record,
                           rows=512, offsets=(50, 256))
-        check_window_independence(torch, dev, g, GRANITE, dtype)
+        for shape in (GRANITE,) + STUB_HEADS:
+            check_window_independence(torch, dev, g, shape, dtype)
     for shape in DECODE_SHAPES[:2]:
         check_window_independence(torch, dev, g, shape)
     torch.cuda.synchronize()
@@ -301,12 +331,14 @@ def phase_kernels(torch):
 #: 4 rows and a prefill chunk's 256
 RMSNORM_ROWS = ((4, 2048), (256, 2048), (4, 8192), (256, 8192))
 
-#: the widths K1 serves (deepseek_v3_671b's kv latent, granite_moe_3b_a800m
-#: and deepseek_v3_671b's q latent, xlstm_1_3b, minicpm_2b, deepseek_7b,
-#: qwen3_32b and stablelm_12b, deepseek_v3_671b, jamba_1_5_large_398b) and
-#: the row counts it is held at: one row, a decode tick's 4, a verify
+#: the widths K1 serves (deepseek_v3_671b's kv latent,
+#: seamless_m4t_large_v2, granite_moe_3b_a800m and deepseek_v3_671b's q
+#: latent, xlstm_1_3b, minicpm_2b, phi_3_vision_4_2b, deepseek_7b,
+#: qwen3_32b and stablelm_12b, deepseek_v3_671b, jamba_1_5_large_398b)
+#: and the row counts it is held at: one row, a decode tick's 4, a verify
 #: window's 5, a prefill chunk's 256 and qwen3_32b's 1024-row prefill
-RMSNORM_WIDTHS = (512, 1536, 2048, 2304, 4096, 5120, 7168, 8192)
+RMSNORM_WIDTHS = (512, 1024, 1536, 2048, 2304, 3072, 4096, 5120, 7168,
+                  8192)
 RMSNORM_ROW_COUNTS = (1, 4, 5, 256, 1024)
 
 
@@ -350,26 +382,33 @@ PREFILL_ROWS = 768
 #: suffix offsets: the serve workload's chunk boundaries and one inside
 #: a 128-key block
 PREFILL_OFFSETS = (50, 256, 512)
+#: (shape, rows, suffix offsets) of the stub models' prefills, two rows
+#: each: phi_3_vision_4_2b's 576 patch embeddings and 16 tokens (head_dim
+#: 96; its text starts at 576) and seamless_m4t_large_v2's 16-token
+#: decoder prompt
+STUB_PREFILLS = ((("phi_3_vision_4_2b", 32, 32, 96), 592, (50, 576)),
+                 (("seamless_m4t_large_v2", 16, 16, 64), 16, (1, 8)))
 
 
 def check_flash_shape(torch, dev, g, dtype, shape, record,
-                      rows=PREFILL_ROWS, offsets=PREFILL_OFFSETS):
-    """K3 at ``shape`` = (name, H, KV, hd): a causal prefill of ``rows``
-    rows against its plain version, and its suffixes at ``offsets``
-    against theirs and bitwise against the full rows."""
+                      rows=PREFILL_ROWS, offsets=PREFILL_OFFSETS, batch=1):
+    """K3 at ``shape`` = (name, H, KV, hd): a causal prefill of ``batch``
+    x ``rows`` rows against its plain version, and its suffixes at
+    ``offsets`` against theirs and bitwise against the full rows; with
+    two or more rows, each row alone bitwise its row of the batch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     name, H, KV, hd = shape
     dt = getattr(torch, dtype)
     tol = TOL[dtype]
-    S = rows
+    S, B = rows, batch
 
     def rand(*shp):
         return torch.randn(*shp, device=dev, generator=g).to(dt)
 
-    q, k, v = rand(1, S, H, hd), rand(1, S, KV, hd), rand(1, S, KV, hd)
+    q, k, v = rand(B, S, H, hd), rand(B, S, KV, hd), rand(B, S, KV, hd)
     full = flash_attention_cuda(q, k, v)
-    case = f"{name} [1,{S},{H},{hd}] kv {KV} causal"
+    case = f"{name} [{B},{S},{H},{hd}] kv {KV} causal"
     record("flash_attention", dtype, case, full,
            ref.flash_attention_ref(q, k, v), tol)
     for off in offsets:
@@ -380,17 +419,29 @@ def check_flash_shape(torch, dev, g, dtype, shape, record,
         check(torch.equal(suf, full[:, off:]),
               f"flash_attention {name}: suffix at q_offset={off} is not "
               f"bitwise equal to the full prefill's rows")
+    for b in range(B if B > 1 else 0):
+        alone = flash_attention_cuda(*(t[b:b + 1].contiguous()
+                                       for t in (q, k, v)))
+        check(torch.equal(alone, full[b:b + 1]),
+              f"flash_attention {name}: row {b} alone is not bitwise "
+              f"equal to row {b} of the batch")
 
 
 #: (name, H, KV, hd) of the attention shapes K2, K4 and K5 are held at:
 #: minicpm_2b's (the served path), qwen3_32b's (GQA, wide heads: a
-#: 5-query window is three 16-row tiles) and stablelm_12b's (head_dim
-#: 160, the widest bf16 instance)
+#: 5-query window is three 16-row tiles), stablelm_12b's (head_dim 160,
+#: the widest bf16 instance), granite_moe_3b_a800m's, and the stub
+#: models' (phi_3_vision_4_2b's head_dim 96, seamless_m4t_large_v2's 16
+#: heads of 64, both MHA)
 DECODE_SHAPES = (("minicpm_2b", 36, 36, 64), ("qwen3_32b", 64, 8, 128),
                  ("stablelm_12b", 32, 8, 160),
-                 ("granite_moe_3b_a800m", 24, 8, 64))
+                 ("granite_moe_3b_a800m", 24, 8, 64),
+                 ("phi_3_vision_4_2b", 32, 32, 96),
+                 ("seamless_m4t_large_v2", 16, 16, 64))
 #: granite_moe_3b_a800m's attention shape: 3 query heads per kv head
 GRANITE = DECODE_SHAPES[3]
+#: the stub models' attention shapes
+STUB_HEADS = DECODE_SHAPES[4:]
 #: keys seen by the first window query of each active row, and the one
 #: inactive row (all-zero table) at a stale position
 ROW_KEYS = (1, 15, 16, 17, 300, 4095)
@@ -755,8 +806,7 @@ def phase_main_path(torch):
     # ---- against the plain path on the same weights ----------------------
     # bf16 kernel and plain paths, and the plain path in f32 on the same
     # weights (upcast) as the reference for both
-    plain_flags = RuntimeFlags(use_flash=False, fused_rmsnorm=False,
-                               use_fused_decode=False)
+    plain_flags = RuntimeFlags(**PLAIN_FLAGS)
     plain = LLMEngine(cfg, dict(engine.model.named_parameters()),
                       max_len=MAX_LEN, flags=plain_flags)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -995,8 +1045,7 @@ def phase_serve(torch):
             check(toks.shape == (SERVE_NEW,)
                   and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
                   f"serve {name}: request {i}'s tokens")
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
+        add_counts(counts_all, counts)
         tokens[name] = got
         if name == "paged_kernel":
             del engines[name], engine
@@ -1225,35 +1274,57 @@ def compare_first_tick(torch, engine, plain, ref32, toks, cfg):
     return {"tol_rel": tol, "ok": ok, **res}
 
 
-def compare_greedy(torch, engine, plain, toks, steps, tol):
+def compare_greedy(torch, engine, plain, toks, steps, tol, max_len=MAX_LEN,
+                   exact=None, **embeds):
     """Greedy decode on the kernel path; the plain path is teacher-forced
     on its tokens.  Tokens must agree wherever the plain logits' top-2
     gap exceeds ``tol``, and at least half of the rows must be compared
-    so; logits are held at ``tol`` too."""
-    x = torch.as_tensor(toks).long().cuda()
+    so; logits are held at ``tol`` too.  With ``exact`` (the plain path
+    on the same weights in f64, teacher-forced as well) a step's limit
+    is ``tol`` or, where the f32 plain path itself sits further than
+    that from the f64 run, that distance: the two f32 paths may part by
+    no more than f32 rounding parts the plain path from exact.
+    ``embeds`` are the prefill's stub inputs (``prefix_embeds``,
+    ``enc_embeds``)."""
+    x = torch.as_tensor(toks).long().to(DEVICE)
     B, S = x.shape
+    if "prefix_embeds" in embeds:
+        S += embeds["prefix_embeds"].shape[1]
     V = engine.cfg.vocab_size
-    lk, ck = engine.model.prefill(x, MAX_LEN)
-    lp, cp = plain.model.prefill(x, MAX_LEN, flags=plain.flags)
+    lk, ck = engine.model.prefill(x, max_len, **embeds)
+    lp, cp = plain.model.prefill(x, max_len, flags=plain.flags, **embeds)
+    if exact is not None:
+        lx, cx = exact.model.prefill(x, max_len, flags=exact.flags, **embeds)
     worst, scale, agree_all, compared = 0.0, 0.0, True, 0
+    errs, limits = [], []
     for i in range(steps):
         lk, lp = lk[:, :V], lp[:, :V]
         for a in (lk, lp):
             check(bool(torch.isfinite(a).all()), "non-finite logits")
-        worst = max(worst, float((lk - lp).abs().max()))
+        errs.append(float((lk - lp).abs().max()))
+        limits.append(tol if exact is None else max(
+            tol, float((lp.double() - lx[:, :V]).abs().max())))
+        worst = max(worst, errs[-1])
         scale = max(scale, float(lp.abs().max()))
         tok = torch.argmax(lk, -1)
         agree, n = top2_agree(torch.argmax(lp, -1), tok, lp, tol)
         agree_all, compared = agree_all and agree, compared + n
-        pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=DEVICE)
         lk, ck = engine.model.decode_step(tok[:, None], ck, pos)
         lp, cp = plain.model.decode_step(tok[:, None], cp, pos,
                                          flags=plain.flags)
+        if exact is not None:
+            lx, cx = exact.model.decode_step(tok[:, None], cx, pos,
+                                             flags=exact.flags)
     total = steps * B
-    return {"steps": steps, "rows": B, "max_abs_logit_err": worst,
-            "logit_scale": scale, "tol": tol, "tokens_agree": agree_all,
-            "tokens_compared": compared, "tokens_total": total,
-            "ok": agree_all and worst <= tol and 2 * compared >= total}
+    out = {"steps": steps, "rows": B, "max_abs_logit_err": worst,
+           "logit_scale": scale, "tol": tol, "tokens_agree": agree_all,
+           "tokens_compared": compared, "tokens_total": total,
+           "ok": (agree_all and all(e <= m for e, m in zip(errs, limits))
+                  and 2 * compared >= total)}
+    if exact is not None:
+        out.update({"step_errs": errs, "step_limits": limits})
+    return out
 
 
 def time_decode(torch, engine, backend, cache, last, pos, ticks=20):
@@ -1653,8 +1724,7 @@ def phase_serve_preempt_decode(torch):
         check_forced(name, forced, stats, got, want, counts,
                      expected_serve_launches(cfg, stats, attend))
         tokens[name] = got
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
+        add_counts(counts_all, counts)
 
     # ---- through GraphServer and AsyncFrontend, on the K2 engine -------
     engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
@@ -1673,8 +1743,7 @@ def phase_serve_preempt_decode(torch):
                                                      "fused_flash_decode"))
     check(run.drained and all(r == "length" for r in run.reasons.values()),
           "graph: a request did not finish, or the arena did not drain")
-    for k, v in run.counts.items():
-        counts_all[k] = counts_all.get(k, 0) + v
+    add_counts(counts_all, run.counts)
     return counts_all, tokens
 
 
@@ -2231,8 +2300,7 @@ def phase_moe_main_path(torch):
     free_card(torch)
     toks32 = np.random.RandomState(SEED + 4).randint(
         0, cfg.vocab_size, (4, 16)).astype(np.int32)
-    plain_flags = RuntimeFlags(use_flash=False, fused_rmsnorm=False,
-                               use_fused_decode=False)
+    plain_flags = RuntimeFlags(**PLAIN_FLAGS)
     for dtype in ("bfloat16", "float32"):
         weights = bf if dtype == "bfloat16" else \
             {k: v.float() for k, v in bf.items()}
@@ -2336,8 +2404,7 @@ def phase_moe_serve(torch):
         runs[name] = got
         if name == "eager":
             calls = rec.calls
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
+        add_counts(counts_all, counts)
     equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
                 for i in runs["eager"])
     drops = {"first_chunk": moe_drops(calls, cfg, SERVE_CHUNK),
@@ -2372,8 +2439,7 @@ def phase_moe_serve_layouts(torch, engine):
               == 0, f"moe_serve_layouts {kind}: a request did not complete "
                     f"or was preempted")
         runs[kind] = got
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
+        add_counts(counts_all, counts)
     equal = sum(bool(np.array_equal(runs["paged"][i], runs["slot"][i]))
                 for i in runs["paged"])
     emit({"phase": "moe_serve_layouts", "requests": len(requests),
@@ -2488,8 +2554,7 @@ def launcher_serve(torch, smi, argv, cfg, attend, phase):
                   "tpot_ms_p50": float(np.percentile(tpot, 50)),
                   "tokens_per_s": tokens / (span_ms / 1e3),
                   "tokens": tokens, "span_ms": span_ms, "nvidia_smi": smi})
-            for k, v in counts.items():
-                counts_all[k] = counts_all.get(k, 0) + v
+            add_counts(counts_all, counts)
     finally:
         launcher.GraphServer = server_cls
     return counts_all
@@ -2610,10 +2675,10 @@ def tick_weight_bytes(engine, rows):
     """The weight bytes a tick of ``rows`` tokens reads: every parameter
     once, but of an untied embedding table only the rows it looks up (a
     tied one is the LM head as well, read whole), and none of the
-    multi-token prediction head's, which no tick runs."""
+    multi-token prediction head's or an encoder's, which no tick runs."""
     total = 0
     for name, p in engine.model.named_parameters():
-        if name.startswith("mtp."):
+        if name.startswith(("mtp.", "encoder.")):
             continue
         if name == "embed.embedding" and not engine.cfg.tie_embeddings:
             total += rows * p.shape[-1] * p.element_size()
@@ -2891,10 +2956,6 @@ def phase_xlstm_serve(torch, smi):
                       flags=RuntimeFlags(cuda_graphs=False))
     runs, counts_all = {}, {}
 
-    def add(counts):
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
-
     for name, e in (("eager", eager), ("captured", cap)):
         got, stats, counts, wall = serve_state(torch, e, requests, SERVE_SPEC)
         want = expected_serve_launches(cfg, stats, "fused_flash_decode")
@@ -2914,7 +2975,7 @@ def phase_xlstm_serve(torch, smi):
         check(stats["state_slabs_in_use"] == 0,
               f"xlstm_serve {name}: slabs held after the run")
         runs[name] = got
-        add(counts)
+        add_counts(counts_all, counts)
     equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
                 for i in runs["eager"])
     emit({"phase": "xlstm_serve_compare", "requests": len(requests),
@@ -2937,7 +2998,7 @@ def phase_xlstm_serve(torch, smi):
                      phase="xlstm_preempt")
         check(stats["state_slabs_in_use"] == 0,
               "xlstm_preempt: slabs held after the run")
-        add(counts)
+        add_counts(counts_all, counts)
 
     # ---- the ticks against their bounds ---------------------------------
     for spec in (0, SERVE_SPEC):
@@ -3113,10 +3174,6 @@ def phase_hybrid_serve(torch, smi):
     params = dict(cap.model.named_parameters())
     counts_all, runs = {}, {}
 
-    def add(counts):
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
-
     engines = (("eager", LLMEngine(cfg, params, max_len=SERVE_MAX_LEN,
                                    flags=RuntimeFlags(cuda_graphs=False)),
                 "fused_flash_decode"),
@@ -3152,7 +3209,7 @@ def phase_hybrid_serve(torch, smi):
         check(watch.done(), f"hybrid_serve {name}: slabs and blocks were "
                             f"not freed together")
         runs[name] = got
-        add(counts)
+        add_counts(counts_all, counts)
     del engines
     free_card(torch)
     equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
@@ -3176,7 +3233,7 @@ def phase_hybrid_serve(torch, smi):
               f"hybrid_serve_layouts {kind}: a request did not complete or "
               f"was preempted")
         layouts[kind] = got
-        add(counts)
+        add_counts(counts_all, counts)
     equal = sum(bool(np.array_equal(layouts["hybrid"][i], layouts["state"][i]))
                 for i in layouts["hybrid"])
     emit({"phase": "hybrid_serve_layouts", "requests": len(requests),
@@ -3192,7 +3249,7 @@ def phase_hybrid_serve(torch, smi):
     check_forced("hybrid", forced, stats, got, layouts["hybrid"], counts,
                  expected_serve_launches(cfg, stats, "fused_flash_decode"),
                  phase="hybrid_preempt_decode")
-    add(counts)
+    add_counts(counts_all, counts)
 
     # ---- the decode tick against its bound -------------------------------
     r = layout_ticks(torch, cap, requests, hybrid_backend(ROOMY_BLOCKS))
@@ -3446,10 +3503,6 @@ def phase_mla_serve(torch, smi):
     verify_n = SERVE_SLOTS * (SERVE_SPEC + 1)
     runs, counts_all = {}, {}
 
-    def add(counts):
-        for k, v in counts.items():
-            counts_all[k] = counts_all.get(k, 0) + v
-
     for name, e in (("eager", eager), ("captured", cap)):
         with RouteRecorder(lambda n: n in (SERVE_CHUNK, verify_n)) \
                 if name == "eager" else contextlib.nullcontext() as rec:
@@ -3473,7 +3526,7 @@ def phase_mla_serve(torch, smi):
         runs[name] = got
         if name == "eager":
             calls = rec.calls
-        add(counts)
+        add_counts(counts_all, counts)
     del eager
     equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
                 for i in runs["eager"])
@@ -3498,7 +3551,7 @@ def phase_mla_serve(torch, smi):
               f"mla_serve_layouts {kind}: a request did not complete or "
               f"was preempted")
         layouts[kind] = got
-        add(counts)
+        add_counts(counts_all, counts)
     equal = sum(bool(np.array_equal(layouts["paged"][i], layouts["slot"][i]))
                 for i in layouts["paged"])
     emit({"phase": "mla_serve_layouts", "requests": len(requests),
@@ -3517,7 +3570,7 @@ def phase_mla_serve(torch, smi):
     check(len(forced.streamed) == PREEMPTIONS,
           f"mla_preempt_decode: {len(forced.streamed)} preemptions, not "
           f"{PREEMPTIONS}")
-    add(counts)
+    add_counts(counts_all, counts)
 
     phase_mla_tick(torch, cap, requests, smi)
     # the loop's engine and the forced run's scheduler hold cap too
@@ -3529,7 +3582,7 @@ def phase_mla_serve(torch, smi):
     e32 = LLMEngine(cfg32, max_len=SERVE_MAX_LEN, seed=SEED)
     got, stats, counts, _ = serve(torch, e32, requests, blocks,
                                   speculate_k=0)
-    add(counts)
+    add_counts(counts_all, counts)
     exact = compare_with_greedy(torch, e32, requests, got,
                                 chunk=SERVE_CHUNK)
     emit({"phase": "mla_serve_f32_exact", "preemptions": stats["preemptions"],
@@ -3575,6 +3628,400 @@ def phase_mla_tick(torch, engine, requests, smi):
           "bound_bytes_hit_experts": hit_bytes,
           "bound_ms_hit_experts": hit_bytes / HBM_BPS * 1e3,
           "nvidia_smi": smi})
+
+
+# ---------------------------------------------------------------------------
+# phase 8 — the modality stubs at full width and depth: phi_3_vision_4_2b
+# (576 patch embeddings before the prompt) and seamless_m4t_large_v2 (an
+# encoder over frame embeddings, cross-attention caches)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "phi_3_vision_4_2b"
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+#: rows and text tokens of each stub prompt, the lockstep decode steps
+#: after its prefill, and the frames of seamless_m4t_large_v2's encoder
+#: input
+STUB_ROWS = 2
+STUB_TOKENS = 16
+STUB_STEPS = 8
+ENC_FRAMES = 256
+
+
+def vlm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.num_prefix_embeddings,
+           cfg.padded_vocab, cfg.dtype)
+          == (32, 3072, 32, 32, 96, 8192, 576, 32768, "bfloat16"),
+          f"{VLM_ARCH} is not at full width and depth")
+    return cfg
+
+
+def encdec_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    check((cfg.num_layers, cfg.num_encoder_layers, cfg.d_model,
+           cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.padded_vocab, cfg.tie_embeddings, cfg.dtype)
+          == (24, 24, 1024, 16, 16, 64, 8192, 258048, False, "bfloat16"),
+          f"{ENCDEC_ARCH} is not at full width and depth")
+    return cfg
+
+
+def stub_inputs(torch, cfg):
+    """(tokens [STUB_ROWS, STUB_TOKENS], the stub embeddings as the
+    prefill's keyword) from the seed, drawn as ``data/pipeline.py``
+    draws them: frame embeddings of unit scale for an encoder-decoder,
+    patch embeddings x 0.02 otherwise."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 5)
+    toks = rng.randint(0, cfg.vocab_size,
+                       (STUB_ROWS, STUB_TOKENS)).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        key, e = "enc_embeds", rng.randn(STUB_ROWS, ENC_FRAMES, cfg.d_model)
+    else:
+        key, e = "prefix_embeds", rng.randn(
+            STUB_ROWS, cfg.num_prefix_embeddings, cfg.d_model) * 0.02
+    return toks, {key: torch.as_tensor(e.astype(np.float32), device=DEVICE)}
+
+
+def stub_path(torch, engine, toks, embeds, max_len):
+    """The stub model's main path with every launch counter at 0 first:
+    ``make_prefill_step`` over ``toks`` and ``embeds``, then STUB_STEPS
+    lockstep decode steps (``make_decode_step``, eager) at the positions
+    after the prompt.  Returns the tokens [STUB_ROWS, 1 + STUB_STEPS],
+    the launch counts, the cache, the cross caches as the prefill left
+    them, the prefill's wall seconds and the steps' wall ms."""
+    from repro_torch.kernels import build
+    from repro_torch.models.params import flatten
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    prefill = make_prefill_step(engine.model, max_len, engine.flags)
+    decode = make_decode_step(engine.model, engine.flags)
+    x = torch.as_tensor(toks, device=DEVICE).long()
+    S = x.shape[1] + (embeds["prefix_embeds"].shape[1]
+                      if "prefix_embeds" in embeds else 0)
+    for name in build.launches:
+        build.launches[name] = 0
+    t0 = time.perf_counter()
+    first, cache = prefill(x, **embeds)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cross = {p: a.clone() for p, a in flatten(cache).items()
+             if ".cross." in p}
+    out, cur, step_ms = [first], first[:, None], []
+    for i in range(STUB_STEPS):
+        pos = torch.full((x.shape[0],), S + i, dtype=torch.int32,
+                         device=DEVICE)
+        t0 = time.perf_counter()
+        cur, cache = decode(cur.long(), cache, pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(cur[:, 0])
+    counts = dict(build.launches)
+    toks_out = torch.stack(out, dim=1).cpu().numpy()
+    check(toks_out.shape == (x.shape[0], 1 + STUB_STEPS)
+          and ((toks_out >= 0) & (toks_out < engine.cfg.vocab_size)).all(),
+          f"{engine.cfg.name}: stub path tokens")
+    return types.SimpleNamespace(tokens=toks_out, counts=counts, cache=cache,
+                                 cross=cross, prefill_s=prefill_s,
+                                 step_ms=step_ms, rows=S)
+
+
+def stub_launches(attn, prefill_norms, step_norms, steps):
+    """The launch counts of one prefill and ``steps`` decode steps:
+    ``prefill_norms`` and ``step_norms`` K1 launches, one K3 per
+    attention layer at the prefill and one K2 per attention layer a
+    step."""
+    from repro_torch.kernels import build
+    want = {name: 0 for name in build.launches}
+    want.update({"rmsnorm": prefill_norms + step_norms * steps,
+                 "flash_attention": attn,
+                 "fused_flash_decode": attn * steps})
+    return want
+
+
+def text_generate(torch, engine, toks, norms, attn):
+    """``LLMEngine.generate`` on the tokens alone, as JAX serves a stub
+    model, for GEN_NEW tokens: launches held to ``norms`` K1 a pass.
+    Returns (tokens, launch counts)."""
+    from repro_torch.kernels import build
+    for name in build.launches:
+        build.launches[name] = 0
+    gen = engine.generate(toks, GEN_NEW)
+    counts = dict(build.launches)
+    want = stub_launches(attn, norms, norms, GEN_NEW - 1)
+    check(gen.shape == (toks.shape[0], GEN_NEW)
+          and ((gen >= 0) & (gen < engine.cfg.vocab_size)).all(),
+          f"{engine.cfg.name}: generate's tokens")
+    check(counts == want, f"{engine.cfg.name} generate: launch counts "
+                          f"{counts} != {want}")
+    return gen, counts
+
+
+def f32_against_plain(torch, cfg, max_len, toks, embeds):
+    """An f32 engine (its own weights from the seed) on the kernel path
+    against the plain path on the same weights: ``compare_greedy`` over
+    the stub prompt, STUB_STEPS steps, held at F32_MODEL_TOL or, where
+    the f32 plain path sits further from the plain path in f64 on the
+    same weights, at that distance.  (On an H100 the f32 plain path sat
+    4.0e-3-9.7e-3 from the f64 run on phi_3_vision_4_2b and
+    1.4e-2-8.1e-2 on seamless_m4t_large_v2, at logit scales of 4.8 and
+    5.0: ``step_limits``.)"""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    k32 = LLMEngine(cfg32, max_len=max_len, seed=SEED)
+    w32 = dict(k32.model.named_parameters())
+    p32 = LLMEngine(cfg32, w32, max_len=max_len,
+                    flags=RuntimeFlags(**PLAIN_FLAGS))
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    x64 = LLMEngine(cfg64, {k: v.double() for k, v in w32.items()},
+                    max_len=max_len, flags=RuntimeFlags(**PLAIN_FLAGS))
+    out = compare_greedy(torch, k32, p32, toks, steps=STUB_STEPS,
+                         tol=F32_MODEL_TOL, max_len=max_len, exact=x64,
+                         **embeds)
+    out["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in k32.model.parameters())
+    return out
+
+
+def phase_vlm_main_path(torch):
+    """phi_3_vision_4_2b at full width and depth in bf16 (random weights
+    from the seed): ``make_prefill_step`` over 576 patch embeddings and
+    16 tokens (592 rows: K3 at head_dim 96), then STUB_STEPS lockstep
+    decode steps at positions from 592 (K2), launches held to the
+    schedule; ``generate`` on the tokens alone, as JAX serves it; then
+    an f32 engine's kernel path against its plain path over the same
+    prefix.  Returns the launch counts."""
+    from repro_torch.serving import LLMEngine
+    cfg = vlm_config()
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, embeds = stub_inputs(torch, cfg)
+    run = stub_path(torch, engine, toks, embeds, SERVE_MAX_LEN)
+    norms, attn = schedule(cfg)
+    want = stub_launches(attn, norms, norms, STUB_STEPS)
+    gen, gen_counts = text_generate(torch, engine, toks, norms, attn)
+    emit({"phase": "vlm_main_path", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "head_dim": cfg.head_dim, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in engine.model.parameters()),
+          "prefix_embeddings": cfg.num_prefix_embeddings,
+          "prompt_rows": run.rows, "init_seconds": init_s,
+          "prefill_seconds": run.prefill_s,
+          "decode_step_ms": run.step_ms, "launches": run.counts,
+          "expected_launches": want, "tokens": run.tokens.tolist(),
+          "generate_text_only": gen.tolist(),
+          "generate_launches": gen_counts})
+    check(run.rows == cfg.num_prefix_embeddings + STUB_TOKENS,
+          "vlm_main_path: prompt rows")
+    check(run.counts == want, f"vlm_main_path: launch counts {run.counts} "
+                              f"!= {want}")
+    counts = add_counts(dict(run.counts), gen_counts)
+    del engine, run
+    free_card(torch)
+    cmp32 = f32_against_plain(torch, cfg, SERVE_MAX_LEN, toks, embeds)
+    emit({"phase": "vlm_f32_vs_plain", **cmp32})
+    check(cmp32["ok"], "vlm f32 greedy tokens or logits disagree with the "
+                       "plain path")
+    free_card(torch)
+    return counts
+
+
+def phase_vlm_serve(torch, smi):
+    """The serve workload's requests (``serve_requests``, re-drawn in
+    phi_3_vision_4_2b's vocab, text only) through the Scheduler at full
+    width and depth in bf16: on the pressure PagedBackend (prefix
+    sharing, chunk 256, speculate 4) captured with K2 against eager
+    (tokens bitwise), and captured with K4; on a roomy PagedBackend
+    against a SlotBackend (no sharing; tokens bitwise); every run's
+    launches held to its schedule; then the captured paged decode tick
+    at 4 slots (``layout_ticks``) against its bytes bound: every decoder
+    weight once, 4 embedding rows, and the rows' K/V once.  Returns the
+    launch counts."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine, PagedBackend
+    cfg = vlm_config()
+    requests = serve_requests(cfg.vocab_size)
+    blocks, _, _ = pressure_blocks(requests)
+    cap = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    weights = dict(cap.model.named_parameters())
+    runs, total = {}, {}
+    for name, flags, attend in (
+            ("captured", None, "fused_flash_decode"),
+            ("eager", {"cuda_graphs": False}, "fused_flash_decode"),
+            ("split_k", {"fused_split_k": True},
+             "fused_flash_decode_splitk")):
+        e = cap if flags is None else LLMEngine(
+            cfg, weights, max_len=SERVE_MAX_LEN, flags=RuntimeFlags(**flags))
+        got, stats, counts, wall = serve(torch, e, requests, blocks)
+        want = expected_serve_launches(cfg, stats, attend)
+        emit({"phase": "vlm_serve", "run": name, "num_blocks": blocks,
+              "seconds": wall, "launches": counts,
+              "expected_launches": want,
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "preemptions", "replayed_tokens",
+                  "shared_block_hits", "completed", "admit_seconds",
+                  "step_seconds")}})
+        check(counts == want, f"vlm_serve {name}: launch counts {counts} "
+                              f"!= {want}")
+        check(stats["completed"] == len(requests)
+              and sorted(got) == list(range(len(requests)))
+              and all(got[i].shape == (SERVE_NEW,) for i in got),
+              f"vlm_serve {name}: not every request completed")
+        check(stats["preemptions"] > 0 and stats["shared_block_hits"] > 0,
+              f"vlm_serve {name}: no preemption or no prefix shared")
+        runs[name] = got
+        add_counts(total, counts)
+        del e
+    equal = sum(bool(np.array_equal(runs["captured"][i], runs["eager"][i]))
+                for i in runs["eager"])
+    emit({"phase": "vlm_serve_compare", "requests": len(requests),
+          "captured_bitwise_equal_to_eager": equal})
+    check(equal == len(requests), "vlm_serve: captured tokens differ from "
+                                  "eager")
+
+    # ---- the layout check: paged and slot, no sharing, no pressure -----
+    layouts = {}
+    for kind in ("paged", "slot"):
+        got, stats, counts, _ = serve(torch, cap, requests, ROOMY_BLOCKS,
+                                      paged=kind == "paged",
+                                      prefix_sharing=False)
+        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        check(counts == want, f"vlm_serve_layouts {kind}: launch counts "
+                              f"{counts} != {want}")
+        check(stats["completed"] == len(requests)
+              and stats["preemptions"] == 0,
+              f"vlm_serve_layouts {kind}: a request did not complete or "
+              f"was preempted")
+        layouts[kind] = got
+        add_counts(total, counts)
+    equal = sum(bool(np.array_equal(layouts["paged"][i], layouts["slot"][i]))
+                for i in layouts["paged"])
+    emit({"phase": "vlm_serve_layouts", "requests": len(requests),
+          "bitwise_equal": equal})
+    check(equal == len(requests), "vlm_serve_layouts: paged and slot "
+                                  "tokens are not bitwise equal")
+
+    # ---- the captured paged tick against its bound ---------------------
+    r = layout_ticks(torch, cap, requests, lambda e: PagedBackend(
+        e, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS, block_size=SERVE_BLOCK))
+    keys = sum(p.size + 3 + r["ticks"] // 2 for p in requests[:SERVE_SLOTS])
+    kv_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    weight_bytes = tick_weight_bytes(cap, SERVE_SLOTS)
+    nbytes = weight_bytes + keys * kv_token
+    b_ms = nbytes / HBM_BPS * 1e3
+    emit({"phase": "vlm_tick", **r, "weight_bytes": weight_bytes,
+          "kv_bytes_per_token": kv_token, "keys": keys,
+          "bound_bytes": nbytes, "bound_ms": b_ms, "bound_by": "bytes",
+          "median_over_bound": r["ms_median"] / b_ms, "nvidia_smi": smi})
+    del cap, weights
+    free_card(torch)
+    return total
+
+
+def phase_encdec_main_path(torch, smi):
+    """seamless_m4t_large_v2 at full width and depth in bf16 (random
+    weights from the seed): ``make_prefill_step`` over 256 frame
+    embeddings (the encoder: K1 at its norms, its bidirectional
+    attention in plain PyTorch) and a 16-token decoder prompt (K3), then
+    STUB_STEPS lockstep decode steps that read the cross caches (K2),
+    launches held to the schedule (K1: 2 an encoder layer and its final
+    norm, 3 a decoder layer with memory and the final norm), the cross
+    caches bitwise what the prefill wrote; ``generate`` without memory,
+    as JAX serves it; the encode, prefill and eager decode-step times
+    beside the step's bytes bound (decoder and LM head weights, 2
+    embedding rows, the cross and self K/V once); then an f32 engine's
+    kernel path against its plain path over the same frames.  Returns
+    the launch counts."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import flatten
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    from repro_torch.serving import LLMEngine
+    cfg = encdec_config()
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, embeds = stub_inputs(torch, cfg)
+    run = stub_path(torch, engine, toks, embeds, MAX_LEN)
+    norms, attn = schedule(cfg)            # a decoder pass without memory
+    enc_norms = 2 * cfg.num_encoder_layers + 1
+    step_norms = norms + cfg.num_layers    # and a cross_norm a layer
+    want = stub_launches(attn, enc_norms + step_norms, step_norms,
+                         STUB_STEPS)
+    cache = flatten(run.cache)
+    cross_shape = (cfg.num_layers, STUB_ROWS, ENC_FRAMES, cfg.num_kv_heads,
+                   cfg.head_dim)
+    cross_kept = all(torch.equal(cache[p], a) for p, a in run.cross.items())
+    gen, gen_counts = text_generate(torch, engine, toks, norms, attn)
+
+    # ---- times beside the decode step's bound: each call launches ~10^3
+    # kernels, more than the card's launch queue holds, so the calls do
+    # not queue (``cuda_ms``'s ``queue``); the host's wall time and the
+    # profiler's sum, the device's busy time, are read
+    params = engine.model.params
+    enc = embeds["enc_embeds"]
+    enc_ms = cuda_ms(torch, lambda: tf.encode(params, cfg, enc,
+                                              engine.flags), 5, False)
+    prefill = make_prefill_step(engine.model, MAX_LEN, engine.flags)
+    x = torch.as_tensor(toks, device=DEVICE).long()
+    pre_ms = cuda_ms(torch, lambda: prefill(x, enc_embeds=enc), 5, False)
+    decode = make_decode_step(engine.model, engine.flags)
+    cur = torch.as_tensor(run.tokens[:, -1:], device=DEVICE).long()
+    pos = torch.full((STUB_ROWS,), run.rows + STUB_STEPS, dtype=torch.int32,
+                     device=DEVICE)
+    dec_ms = cuda_ms(torch, lambda: decode(cur, run.cache, pos), 5, False)
+    kv = sum(a.numel() * a.element_size() for p, a in cache.items()
+             if ".cross." in p)
+    self_kv = (2 * cfg.num_layers * STUB_ROWS * (run.rows + STUB_STEPS + 1)
+               * cfg.num_kv_heads * cfg.head_dim * 2)
+    weight_bytes = tick_weight_bytes(engine, STUB_ROWS)
+    nbytes = weight_bytes + kv + self_kv
+    b_ms = nbytes / HBM_BPS * 1e3
+    emit({"phase": "encdec_main_path", "arch": cfg.name,
+          "layers": cfg.num_layers,
+          "encoder_layers": cfg.num_encoder_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "padded_vocab": cfg.padded_vocab,
+          "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in engine.model.parameters()),
+          "encoder_frames": ENC_FRAMES, "prompt_rows": run.rows,
+          "init_seconds": init_s, "path_prefill_seconds": run.prefill_s,
+          "path_decode_step_ms": run.step_ms, "launches": run.counts,
+          "expected_launches": want, "tokens": run.tokens.tolist(),
+          "cross_shape": list(cache["blocks.l0.cross.k"].shape),
+          "cross_bitwise_kept": cross_kept,
+          "generate_without_memory": gen.tolist(),
+          "generate_launches": gen_counts,
+          **{f"{name}_{key}": t[i] for name, t in (
+              ("encode", enc_ms), ("prefill", pre_ms),
+              ("decode_step", dec_ms))
+             for i, key in ((1, "host_ms"), (2, "profiler_ms"))},
+          "decode_weight_bytes": weight_bytes, "cross_kv_bytes": kv,
+          "self_kv_bytes": self_kv, "decode_bound_ms": b_ms,
+          "bound_by": "bytes", "nvidia_smi": smi})
+    check(run.counts == want, f"encdec_main_path: launch counts "
+                              f"{run.counts} != {want}")
+    check(tuple(cache["blocks.l0.cross.k"].shape) == cross_shape
+          and len(run.cross) == 2, "encdec_main_path: the cross caches")
+    check(cross_kept, "encdec_main_path: a decode step wrote the cross "
+                      "caches")
+    counts = add_counts(dict(run.counts), gen_counts)
+    del engine, run, cache, params, prefill, decode
+    free_card(torch)
+    cmp32 = f32_against_plain(torch, cfg, MAX_LEN, toks, embeds)
+    emit({"phase": "encdec_f32_vs_plain", **cmp32})
+    check(cmp32["ok"], "encdec f32 greedy tokens or logits disagree with "
+                       "the plain path")
+    free_card(torch)
+    return counts
 
 
 def time_recurrent_updates(torch):
@@ -3698,13 +4145,15 @@ def queued_ms(torch, fn, reps, host_ms):
         n = (n + 1) // 2
 
 
-def cuda_ms(torch, fn, reps=REPS):
+def cuda_ms(torch, fn, reps=REPS, queue=True):
     """(device ms, host ms, profiler ms per call, queued): the card's
     time per call over ``reps`` calls queued back to back (CUDA events,
     ``queued_ms``, and whether they queued), the median wall time of one
     synchronised call as the host sees it, and the sum of the calls'
     kernel times as torch.profiler records them (None where it records
-    none)."""
+    none).  ``queue`` False skips the queued reading (None, False): a
+    call of more launches than the card's launch queue holds does not
+    queue, and its events would hold the host's gaps."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -3716,8 +4165,9 @@ def cuda_ms(torch, fn, reps=REPS):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     host_ms = statistics.median(walls)
-    device_ms, queued = queued_ms(torch, fn, reps, host_ms)
-    check(device_ms > 0, "CUDA events recorded no device time")
+    device_ms, queued = queued_ms(torch, fn, reps, host_ms) if queue \
+        else (None, False)
+    check(not queue or device_ms > 0, "CUDA events recorded no device time")
     per = profiled_ms(torch, fn, reps)
     return device_ms, host_ms, sum(per.values()) if per else None, queued
 
@@ -3835,7 +4285,8 @@ def phase_times(torch):
                         (("qwen3_32b", 64, 8, 128), (4096,) * 4),
                         (GRANITE, (300, 520, 700, 930)),
                         (("jamba_1_5_large_398b", 64, 8, 128),
-                         (300, 520, 700, 930))):
+                         (300, 520, 700, 930)),
+                        (STUB_HEADS[0], (300, 520, 700, 930))):
         for Sq in (1, SERVE_SPEC + 1):
             timed = time_paged_kernels(torch, g, shape, keys, Sq)
             for name, r in timed.items():
@@ -3854,14 +4305,16 @@ def phase_times(torch):
 #: (name, B, S, H, KV, hd, q_offset) of K3's further timed shapes: the
 #: serve workload's third chunk of a prompt (minicpm_2b, and
 #: granite_moe_3b_a800m's G = 3 and jamba's G = 8 with head_dim 128),
-#: and qwen3_32b's full causal prefill
+#: qwen3_32b's full causal prefill, and phi_3_vision_4_2b's two rows of
+#: 576 patch embeddings and 16 tokens (head_dim 96)
 FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                 2 * SERVE_CHUNK),
                ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0),
                ("serve chunk granite_moe_3b_a800m", 1, SERVE_CHUNK, 24, 8,
                 64, 2 * SERVE_CHUNK),
                ("serve chunk jamba_1_5_large_398b", 1, SERVE_CHUNK, 64, 8,
-                128, 2 * SERVE_CHUNK))
+                128, 2 * SERVE_CHUNK),
+               ("prefill phi_3_vision_4_2b", STUB_ROWS, 592, 32, 32, 96, 0))
 
 
 def time_flash_shapes(torch, g):
@@ -3909,10 +4362,14 @@ def time_flash_shapes(torch, g):
 
 
 #: [rows, d] of K1's further timed shapes: the serve workload's prefill
-#: chunk at minicpm_2b's d_model, qwen3_32b's prefill of 1024 rows, and
-#: the decode ticks of granite_moe_3b_a800m, deepseek_7b and qwen3_32b
+#: chunk at minicpm_2b's d_model, qwen3_32b's prefill of 1024 rows, the
+#: decode ticks of granite_moe_3b_a800m, deepseek_7b and qwen3_32b,
+#: deepseek_v3_671b's rows, and seamless_m4t_large_v2's and
+#: phi_3_vision_4_2b's decode rows and phi_3_vision_4_2b's two 592-row
+#: prefills
 RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120), (4, 1536), (4, 4096),
-                 (4, 5120), (4, 512), (4, 7168), (SERVE_CHUNK, 7168))
+                 (4, 5120), (4, 512), (4, 7168), (SERVE_CHUNK, 7168),
+                 (4, 1024), (4, 3072), (2 * 592, 3072))
 
 
 def time_rmsnorm(torch, g, shape):
@@ -4082,14 +4539,20 @@ def main() -> int:
     free_card(torch)
     ds_counts.append(phase_mla_serve(torch, smi))
     free_card(torch)
+    # the modality stubs at full width and depth: phi_3_vision_4_2b (patch
+    # embeddings before the prompt) and seamless_m4t_large_v2 (the
+    # encoder-decoder)
+    stub_counts = [phase_vlm_main_path(torch)]
+    stub_counts.append(phase_vlm_serve(torch, smi))
+    stub_counts.append(phase_encdec_main_path(torch, smi))
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]
         launches = (counts[name] + serve_counts[name] + graph_counts[name]
                     + preempt_counts[name]
-                    + sum(c.get(name, 0)
-                          for c in moe_counts + rec_counts + ds_counts))
+                    + sum(c.get(name, 0) for c in moe_counts + rec_counts
+                          + ds_counts + stub_counts))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

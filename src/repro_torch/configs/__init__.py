@@ -1,11 +1,12 @@
 """Architecture configs of the port (``--arch <id>``).
 
-The dense GQA/MHA decoders, the MoE decoder (granite_moe_3b_a800m), the
-recurrent xLSTM stack (xlstm_1_3b), the hybrid Mamba + attention + MoE
-stack (jamba_1_5_large_398b) and the MLA + MoE decoder with a dense head
-and multi-token prediction (deepseek_v3_671b) are ported; every other
-assigned architecture raises, naming the ROADMAP item that will port
-it.
+All ten assigned architectures are ported: the dense GQA/MHA decoders,
+the MoE decoder (granite_moe_3b_a800m), the recurrent xLSTM stack
+(xlstm_1_3b), the hybrid Mamba + attention + MoE stack
+(jamba_1_5_large_398b), the MLA + MoE decoder with a dense head and
+multi-token prediction (deepseek_v3_671b), the encoder-decoder over stub
+frame embeddings (seamless_m4t_large_v2) and the decoder behind stub
+patch embeddings (phi_3_vision_4_2b).
 ``get_config(name)`` resolves an id; ``ALL_ARCHS`` lists the ten
 assigned ids.
 """
@@ -28,12 +29,6 @@ ALL_ARCHS = [
     "stablelm_12b",
 ]
 
-#: where each architecture that is not ported yet will be ported
-NOT_YET_PORTED = {
-    "seamless_m4t_large_v2": "ROADMAP Queue 1 item 9 (encoder-decoder)",
-    "phi_3_vision_4_2b": "ROADMAP Queue 1 item 9 (modality stubs)",
-}
-
 _ALIASES = {
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
@@ -53,9 +48,5 @@ def get_config(name: str) -> ArchConfig:
     if mod_name not in ALL_ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: "
                        f"{sorted(_ALIASES)} (or module ids {ALL_ARCHS})")
-    if mod_name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch: "
-            f"{NOT_YET_PORTED[mod_name]}")
     mod = importlib.import_module(f".{mod_name}", __package__)
     return mod.CONFIG

@@ -4,8 +4,10 @@ JAX package's ``models/chunked_attention.py`` (the single-device path).
 MLA's prefill and extend attend with it: their per-head keys carry
 ``qk_nope + qk_rope`` dims and their values ``v_head_dim`` (192 against
 128 at deepseek_v3's width), which neither K3 nor its plain version
-(``kernels/ref.py::flash_attention_ref``, K3's alone) takes.  The JAX
-package computes MLA's attention outside any Pallas kernel too.
+(``kernels/ref.py::flash_attention_ref``, K3's alone) takes.  So do an
+encoder-decoder's bidirectional encoder and its decoder's cross
+attention (``causal=False``).  The JAX package computes all three
+outside any Pallas kernel too.
 
 The port's row rules hold here as in K3's plain version: keys go in
 blocks of ``kv_chunk`` at absolute multiples of it (the last padded with

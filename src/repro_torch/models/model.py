@@ -87,9 +87,15 @@ class Model(nn.Module):
     # ---- compute ------------------------------------------------------
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_cache_len: int,
-                flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS):
+                flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,
+                prefix_embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None):
+        """``prefix_embeds`` [B, P, d] go before the tokens;
+        ``enc_embeds`` [B, T, d] are an encoder-decoder's encoder input
+        (``transformer.prefill``)."""
         return tf.prefill(self.params, self.cfg, tokens, max_cache_len,
-                          flags, groups=self.groups)
+                          flags, groups=self.groups,
+                          prefix_embeds=prefix_embeds, enc_embeds=enc_embeds)
 
     @torch.no_grad()
     def prefill_extend(self, tokens: torch.Tensor, cache, prefix_ref,
@@ -124,11 +130,12 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def new_cache(self, batch: int, max_len: int):
+    def new_cache(self, batch: int, max_len: int, enc_len: int = 0):
         """Zeroed cache of the JAX ``abstract_cache`` shapes: the slot
         layout's, and the state layout's (a recurrent layer's slot cache
-        already is its O(1) state slab)."""
-        return tf.new_cache(self.cfg, batch, max_len, self.device)
+        already is its O(1) state slab); an encoder-decoder's holds
+        ``enc_len`` memory rows of cross-attention K/V a layer."""
+        return tf.new_cache(self.cfg, batch, max_len, self.device, enc_len)
 
     def new_paged_cache(self, num_blocks: int, block_size: int):
         """Zeroed block-pool arena of the JAX ``abstract_paged_cache``

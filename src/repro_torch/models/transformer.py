@@ -1,16 +1,20 @@
 """Model composition: the layer (GQA attention, MLA, Mamba, mLSTM or
-sLSTM mixer x dense or MoE FFN), the unrolled dense head layers, the
-stacked layer groups (a Python loop over the ``[R, ...]`` leaves takes
-the place of ``lax.scan``), the logits, the multi-token prediction head,
-and the serving entry points ``prefill``, ``prefill_extend`` and
-``decode_step``.
+sLSTM mixer x dense or MoE FFN, and in an encoder-decoder's decoder a
+cross-attention block between the two), the unrolled dense head layers,
+the stacked layer groups (a Python loop over the ``[R, ...]`` leaves
+takes the place of ``lax.scan``), the bidirectional encoder over stub
+frame embeddings, the logits, the multi-token prediction head, and the
+serving entry points ``prefill`` (with stub prefix or encoder
+embeddings), ``prefill_extend`` and ``decode_step``.
 
 Caches are nested dicts with the JAX package's keys and shapes
 (``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``
 for slot rows, ``[R, num_blocks, block_size, KV, hd]`` leaves for the
 paged arena, ``[R, B, ...]`` recurrent state slabs such as mLSTM's
 ``C`` ``[R, B, H, hd, hd]``; MLA layers hold latents ``c_kv`` and
-``k_rope`` instead of ``k`` and ``v``; the dense head layers sit under
+``k_rope`` instead of ``k`` and ``v``; an encoder-decoder's decoder
+layers add their cross-attention memory K/V under ``cross``, ``[R, B,
+enc_len, KV, hd]``; the dense head layers sit under
 ``head_layers.layer{i}`` without the ``[R]`` axis) and are updated **in
 place**: ``decode_step`` returns the cache it was given, written at each
 row's window positions.  The hybrid layout pages attention layers and
@@ -29,6 +33,7 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import paging
 from . import xlstm as xl
+from .chunked_attention import chunked_attention
 from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
                      lm_head_template, mlp_apply, mlp_template,
@@ -75,25 +80,44 @@ def check_supported(cfg: ArchConfig) -> None:
     naming the ROADMAP item that will port them.  Nothing falls back.
     (Sequence-parallel mLSTM and expert-parallel MoE come with the
     sharded serving port, item 11: the port has no sharding flags, and
-    ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.)"""
-    why = None
-    if cfg.is_encoder_decoder or cfg.frontend:
-        why = "encoder-decoder and modality stubs: ROADMAP Queue 1 item 9"
-    elif cfg.sliding_window:
-        why = "sliding-window attention: ROADMAP Queue 1 item 12"
-    if why is not None:
+    ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.  What JAX
+    refuses of an encoder-decoder is refused where JAX refuses it:
+    :func:`check_paged_support`, :func:`check_hybrid_support`,
+    :func:`check_mixed_extend_support` and the Scheduler.)"""
+    if cfg.sliding_window:
         raise NotImplementedError(
-            f"{cfg.name}: not yet ported to repro_torch ({why})")
+            f"{cfg.name}: not yet ported to repro_torch (sliding-window "
+            f"attention: ROADMAP Queue 1 item 12)")
 
 
 def check_paged_support(cfg: ArchConfig) -> None:
     """The paged KV cache pages attention K/V; recurrent mixers keep
-    O(1) state, which the state and hybrid layouts hold."""
+    O(1) state, which the state and hybrid layouts hold, and cross
+    attention keeps its memory in slot rows."""
+    if cfg.is_encoder_decoder:
+        raise ValueError("paged KV cache: encoder-decoder models are "
+                         "not supported")
     bad = sorted({k for k in cfg.layer_kinds() if k != "attn"})
     if bad:
         raise ValueError(f"paged KV cache: recurrent layer kinds {bad} "
                          f"have O(1) state, not a growing KV cache; use "
                          f"the state or hybrid layout")
+
+
+def check_hybrid_support(cfg: ArchConfig) -> None:
+    """The hybrid layout pages attention K/V beside recurrent state
+    slabs, so it refuses what the paged arena refuses of attention."""
+    if cfg.is_encoder_decoder:
+        raise ValueError("hybrid cache: encoder-decoder models are not "
+                         "supported")
+
+
+def check_mixed_extend_support(cfg: ArchConfig) -> None:
+    """Prefix-extend limits that hold on every cache layout (the paged
+    arena adds :func:`check_paged_support`)."""
+    if cfg.is_encoder_decoder:
+        raise ValueError("prefix extend: encoder-decoder models are not "
+                         "supported")
 
 
 # ---------------------------------------------------------------------------
@@ -136,12 +160,19 @@ def group_structure(cfg: ArchConfig):
     return head, rest[:P], (len(rest) // P if rest else 0)
 
 
-def layer_template(cfg: ArchConfig, kind: str, ffn_kind: str) -> Template:
+def layer_template(cfg: ArchConfig, kind: str, ffn_kind: str,
+                   cross: bool = False) -> Template:
+    """A layer's params; ``cross`` adds a decoder layer's cross-attention
+    block (its norm and a GQA attention without qk-norm)."""
     d = cfg.d_model
     if kind not in _MIXER_TEMPLATES:
         raise ValueError(f"unknown layer kind {kind!r}")
     t: Template = {"norm1": rmsnorm_template(d),
                    "mixer": _MIXER_TEMPLATES[kind](cfg)}
+    if cross:
+        t["cross_norm"] = rmsnorm_template(d)
+        t["cross"] = attn.attention_template(
+            dataclasses.replace(cfg, qk_norm=False))
     dff = cfg.dense_d_ff if ffn_kind == "dense" else cfg.d_ff
     # xLSTM blocks carry integral up/down projections: no separate FFN
     if dff and not (kind in ("mlstm", "slstm") and cfg.d_ff == 0):
@@ -164,8 +195,16 @@ def model_template(cfg: ArchConfig) -> Template:
                             for i, (kind, ffn) in enumerate(head)}
     if R:
         t["blocks"] = stack_template(
-            {f"l{j}": layer_template(cfg, kind, ffn)
+            {f"l{j}": layer_template(cfg, kind, ffn,
+                                     cross=cfg.is_encoder_decoder)
              for j, (kind, ffn) in enumerate(pattern)}, R)
+    if cfg.is_encoder_decoder:
+        enc_layer = layer_template(
+            dataclasses.replace(cfg, use_mla=False, num_experts=0),
+            "attn", "dense")
+        t["encoder"] = {
+            "blocks": stack_template(enc_layer, cfg.num_encoder_layers),
+            "final_norm": rmsnorm_template(d)}
     if cfg.mtp_depth:
         t["mtp"] = {"proj": ParamSpec((2 * d, d)),
                     "norm": rmsnorm_template(d),
@@ -199,10 +238,11 @@ def _attn_arena(cfg: ArchConfig, num_blocks: int, block_size: int):
     return _kv(cfg, attn.paged_kv_cache_shape(cfg, num_blocks, block_size))
 
 
-def _stacked(cfg: ArchConfig, layer: Callable[[str], Dict]):
+def _stacked(cfg: ArchConfig, layer: Callable[[str], Dict],
+             cross: Optional[Dict] = None):
     """The cache tree: each head layer's mixer cache ``layer(kind)`` as
-    it is, and each layer of the pattern's given a leading ``[R]``
-    axis."""
+    it is, and each layer of the pattern's (with ``cross``, the decoder
+    layers' memory K/V, beside it) given a leading ``[R]`` axis."""
     head, pattern, R = group_structure(cfg)
     out = {}
     if head:
@@ -210,20 +250,26 @@ def _stacked(cfg: ArchConfig, layer: Callable[[str], Dict]):
                               for i, (kind, _) in enumerate(head)}
     if R:
         out["blocks"] = {
-            f"l{j}": {"mixer": tree_map(
-                lambda a: a.new_empty((R,) + a.shape), layer(kind))}
+            f"l{j}": tree_map(lambda a: a.new_empty((R,) + a.shape),
+                              {"mixer": layer(kind), "cross": cross}
+                              if cross else {"mixer": layer(kind)})
             for j, (kind, _) in enumerate(pattern)}
     return out
 
 
-def abstract_cache(cfg: ArchConfig, batch: int, max_len: int):
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   enc_len: int = 0):
     """The cache ``prefill`` returns, and the slot and state layouts'
     cache: ``[R, batch, max_len, KV, hd]`` per attention k/v leaf (MLA:
-    ``c_kv`` and ``k_rope`` rows), and the ``[R, batch, ...]`` state of
-    each recurrent layer (f32, Mamba's conv tail in the model dtype)."""
+    ``c_kv`` and ``k_rope`` rows), the ``[R, batch, ...]`` state of each
+    recurrent layer (f32, Mamba's conv tail in the model dtype), and an
+    encoder-decoder's cross-attention memory K/V ``[R, batch, enc_len,
+    KV, hd]``."""
+    cross = _kv(cfg, (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)) \
+        if cfg.is_encoder_decoder else None
     return _stacked(cfg, lambda kind: _attn_slots(cfg, batch, max_len)
                     if kind == "attn"
-                    else _STATE_CACHES[kind](cfg, batch, "meta"))
+                    else _STATE_CACHES[kind](cfg, batch, "meta"), cross)
 
 
 def abstract_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int):
@@ -240,6 +286,7 @@ def abstract_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
     exactly the paged layout), recurrent mixers in ``[num_slots, ...]``
     state slabs (slot i of every slab belongs to the request in
     scheduler slot i)."""
+    check_hybrid_support(cfg)
     return _stacked(cfg, lambda kind: _attn_arena(cfg, num_blocks,
                                                   block_size)
                     if kind == "attn"
@@ -251,8 +298,9 @@ def _zeros(tree, device):
                                           device=device), tree)
 
 
-def new_cache(cfg: ArchConfig, batch: int, max_len: int, device):
-    return _zeros(abstract_cache(cfg, batch, max_len), device)
+def new_cache(cfg: ArchConfig, batch: int, max_len: int, device,
+              enc_len: int = 0):
+    return _zeros(abstract_cache(cfg, batch, max_len, enc_len), device)
 
 
 def new_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
@@ -302,17 +350,40 @@ def unstack_groups(blocks, R: int) -> List[Dict[str, Any]]:
 # layer
 # ---------------------------------------------------------------------------
 
+def cross_kv(params, memory: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A decoder layer's cross-attention memory K/V: the encoder's
+    output [B, T, d] projected to k, v [B, T, KV, hd] (no RoPE)."""
+    return {"k": attn._proj(memory, params["wk"]),
+            "v": attn._proj(memory, params["wv"])}
+
+
+def _cross_attention(params, x: torch.Tensor,
+                     memory_kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x [B, S, d] attends, with no mask and no RoPE, over the memory
+    K/V; in plain PyTorch (``chunked_attention``), as the JAX package
+    attends here outside any Pallas kernel."""
+    q = attn._proj(x, params["wq"])
+    out = chunked_attention(q, memory_kv["k"], memory_kv["v"], causal=False)
+    return attn._out_proj(out, params["wo"])
+
+
 def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
                 flags: RuntimeFlags,
-                mixer: Callable[[Any, torch.Tensor], torch.Tensor]
+                mixer: Callable[[Any, torch.Tensor], torch.Tensor],
+                memory_kv: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
-    """One pre-norm block: the mixer, then (where the layer has one) a
-    SwiGLU or MoE FFN.  ``mixer(mixer_params, h)`` is the mixer of the
-    entry point (prefill, extend, slot, paged or hybrid decode), which
-    writes its cache in place.  A MoE layer's load-balance loss is
+    """One pre-norm block: the mixer, then (in a decoder layer given its
+    memory K/V) the cross-attention block, then (where the layer has
+    one) a SwiGLU or MoE FFN.  ``mixer(mixer_params, h)`` is the mixer
+    of the entry point (prefill, extend, slot, paged or hybrid decode),
+    which writes its cache in place.  A MoE layer's load-balance loss is
     dropped: serving has no use for it."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
     x = x + mixer(params["mixer"], h)
+    if "cross" in params and memory_kv is not None:
+        hc = rms_norm(params["cross_norm"], x, cfg.norm_eps,
+                      flags.fused_rmsnorm)
+        x = x + _cross_attention(params["cross"], hc, memory_kv)
     if "ffn" not in params:
         return x
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
@@ -332,14 +403,16 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _run_groups(params, cfg, x, caches, flags, groups, mixer):
+def _run_groups(params, cfg, x, caches, flags, groups, mixer, memory=None):
     """Every layer in order: the dense head layers, then the stacked
     groups.  ``caches`` names whole cache trees (``{"cache": cache}``,
     or several such as a prefix arena and the rows an extend writes);
     head layer ``layer{i}`` of kind ``kind`` runs ``mixer(kind,
     mixer_params, h, c, "layer{i}")`` with ``c`` each tree's
     ``head_layers``, and layer ``lj`` of group ``r`` runs it with ``c``
-    each tree's ``blocks`` sliced at ``r`` and the name ``"lj"``."""
+    each tree's ``blocks`` sliced at ``r`` and the name ``"lj"``.  A
+    group layer's cross attention attends over ``memory(layer_params,
+    c, "lj")``'s K/V (none: the block is skipped)."""
     head, pattern, R = group_structure(cfg)
     for i, (kind, ffn) in enumerate(head):
         name = f"layer{i}"
@@ -356,12 +429,13 @@ def _run_groups(params, cfg, x, caches, flags, groups, mixer):
     cache_groups = [{k: g[r] for k, g in per_tree.items()}
                     for r in range(R)]
     for r in range(R):
+        c = cache_groups[r]
         for j, (kind, ffn) in enumerate(pattern):
-            name = f"l{j}"
+            name, lp = f"l{j}", groups[r][f"l{j}"]
             x = layer_apply(
-                groups[r][name], cfg, ffn, x, flags,
-                lambda mp, h, c=cache_groups[r], n=name, k=kind:
-                    mixer(k, mp, h, c, n))
+                lp, cfg, ffn, x, flags,
+                lambda mp, h, n=name, k=kind: mixer(k, mp, h, c, n),
+                memory(lp, c, name) if memory is not None else None)
     return x
 
 
@@ -384,16 +458,65 @@ def commit_state(dst: Dict[str, torch.Tensor],
         a.copy_(new)
 
 
+def encode(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
+           flags: RuntimeFlags = DEFAULT_FLAGS) -> torch.Tensor:
+    """The bidirectional encoder of an encoder-decoder over stub frame
+    embeddings [B, T, d], cast to the model dtype: GQA self-attention
+    with RoPE at 0 .. T-1 and no mask, in plain PyTorch
+    (``chunked_attention``), and a SwiGLU FFN in each layer, then the
+    final norm.  Returns the memory [B, T, d].  Its norms take
+    ``fused_rmsnorm`` like every other norm of the port (the JAX package
+    calls them plain)."""
+    x = enc_embeds.to(DTYPES[cfg.dtype])
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    enc_cfg = dataclasses.replace(cfg, use_mla=False, num_experts=0,
+                                  sliding_window=0)
+
+    def bidirectional(mp, h):
+        q, k, v = attn._qkv(mp, enc_cfg, h, positions)
+        return attn._out_proj(chunked_attention(q, k, v, causal=False),
+                              mp["wo"])
+
+    enc = params["encoder"]
+    for lp in unstack_groups(enc["blocks"], cfg.num_encoder_layers):
+        x = layer_apply(lp, enc_cfg, "dense", x, flags, bidirectional)
+    return rms_norm(enc["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
+
+
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             max_cache_len: int, flags: RuntimeFlags = DEFAULT_FLAGS,
-            groups=None):
+            groups=None, prefix_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None):
     """Run the prompt [B, S]; return (last-token logits [B, V], cache).
     ``groups`` are per-group param views (``unstack_groups``), made here
-    when not given."""
-    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
+    when not given.  ``prefix_embeds`` [B, P, d] (a modality stub's
+    patch embeddings), cast to the model dtype, go before the tokens'
+    embeddings, and positions run over both: the cache holds P + S
+    rows.  ``enc_embeds`` [B, T, d] (an encoder-decoder's stub frame
+    embeddings) are encoded into the memory whose K/V each decoder layer
+    attends over and stores under ``cross``; without them the decoder
+    runs without cross attention and its cache holds no ``cross``
+    leaves, as in JAX."""
+    dt = DTYPES[cfg.dtype]
+    x = embed_apply(params["embed"], tokens, dt)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    cache = new_cache(cfg, B, max_cache_len, x.device)
+    memory = encode(params, cfg, enc_embeds, flags) \
+        if enc_embeds is not None and cfg.is_encoder_decoder else None
+    cache = new_cache(cfg, B, max_cache_len, x.device,
+                      0 if memory is None else memory.shape[1])
+    if memory is None:
+        for layer in cache.get("blocks", {}).values():
+            layer.pop("cross", None)
+
+    def cross(lp, c, name):
+        kv = cross_kv(lp["cross"], memory)
+        for k, a in kv.items():
+            c["cache"][name]["cross"][k].copy_(a)
+        return kv
 
     def mixer(kind, mp, h, c, name):
         live = c["cache"][name]["mixer"]
@@ -405,7 +528,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
         commit_state(live, state)
         return y
 
-    x = _run_groups(params, cfg, x, {"cache": cache}, flags, groups, mixer)
+    x = _run_groups(params, cfg, x, {"cache": cache}, flags, groups, mixer,
+                    cross if memory is not None else None)
     return _last_logits(params, cfg, x, flags), cache
 
 
@@ -429,7 +553,9 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     ``[R, B, ...]`` rows.  ``cache`` is only read.  Returns (last-token
     logits [B, V], rows).  The suffix's outputs are bitwise those of a
     cold prefill of the whole prompt (row-independent attention,
-    chunk-invariant state scans)."""
+    chunk-invariant state scans).  An encoder-decoder is refused
+    (``check_mixed_extend_support``), as in JAX."""
+    check_mixed_extend_support(cfg)
     x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
     B, S_, _ = x.shape
     positions = (prefix_len + torch.arange(S_, device=x.device)).expand(B, S_)
@@ -491,7 +617,10 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     window position goes to ``stacks`` (buffers of
     :func:`new_state_stacks`, written in place; made here when not
     given), and the return becomes (logits, cache, stacks) — the
-    speculative verify's rewind commits the accepted prefix's entry."""
+    speculative verify's rewind commits the accepted prefix's entry.
+
+    A decoder layer whose cache holds ``cross`` memory K/V attends over
+    it; it is only read."""
     x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
     B, S_q = x.shape[0], x.shape[1]
     pos = cache_pos.to(torch.int32).contiguous()
@@ -540,7 +669,8 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     trees = {"cache": cache}
     if want_state_stacks:
         trees["stacks"] = stacks
-    x = _run_groups(params, cfg, x, trees, flags, groups, mixer)
+    x = _run_groups(params, cfg, x, trees, flags, groups, mixer,
+                    lambda lp, c, name: c["cache"][name].get("cross"))
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
     logits = _logits(params, cfg, x)
     logits = logits if all_logits else logits[:, 0]

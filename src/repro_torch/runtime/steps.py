@@ -15,6 +15,7 @@ step still returns the cache so callers read like the JAX package's.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -26,8 +27,15 @@ from ..models.transformer import DEFAULT_FLAGS, RuntimeFlags
 
 def make_prefill_step(model: Model, max_cache_len: int,
                       flags: RuntimeFlags = DEFAULT_FLAGS):
-    def prefill_step(tokens: torch.Tensor):
-        logits, cache = model.prefill(tokens, max_cache_len, flags=flags)
+    """Prompt ingestion: ``(tokens [B, S], prefix_embeds=None,
+    enc_embeds=None) -> (first tokens [B], cache)``; the embeddings are
+    the JAX step's optional batch keys of a modality stub."""
+    def prefill_step(tokens: torch.Tensor,
+                     prefix_embeds: Optional[torch.Tensor] = None,
+                     enc_embeds: Optional[torch.Tensor] = None):
+        logits, cache = model.prefill(tokens, max_cache_len, flags=flags,
+                                      prefix_embeds=prefix_embeds,
+                                      enc_embeds=enc_embeds)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return prefill_step

@@ -43,6 +43,7 @@ from ..models.model import Model, resolve_device
 from ..models.params import flatten, tree_map
 from ..models.moe import check_moe_impl
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
+                                  check_mixed_extend_support,
                                   check_paged_support, check_supported)
 from ..runtime.graphs import StepGraphs
 from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
@@ -305,15 +306,18 @@ class LLMEngine:
         """Prefix/chunked-extend prefill.  The suffix attends through the
         flash op at ``q_offset = prefix_len`` (K3), chunk-invariant
         bitwise because its k blocks sit at absolute multiples of 128.
-        On the slot and paged layouts it needs a pure-attention stack;
-        the state and hybrid layouts instead *continue the sequential
-        state scan* of recurrent layers from their slab rows
-        (docs/STATE_CACHE.md).  (The JAX package's other refusals —
-        sliding windows, encoder-decoders — are raised at construction
-        by ``check_supported``.)"""
+        On the slot and paged layouts it needs a pure-attention stack
+        (``check_paged_support``); the state and hybrid layouts instead
+        *continue the sequential state scan* of recurrent layers from
+        their slab rows (docs/STATE_CACHE.md), and keep the limits of
+        every layout (``check_mixed_extend_support``).  Both refuse an
+        encoder-decoder, as in JAX; sliding windows are refused at
+        construction by ``check_supported``."""
         self._check_layout(backend_kind)
         self._check_mla_layout(backend_kind)
-        if backend_kind not in STATE_KINDS:
+        if backend_kind in STATE_KINDS:
+            check_mixed_extend_support(self.cfg)
+        else:
             check_paged_support(self.cfg)
 
     def check_spec_support(self, backend_kind: str = "slot") -> None:
@@ -321,7 +325,8 @@ class LLMEngine:
         decode path: in-kernel under ``use_fused_decode`` (K2/K4 mask
         each query at ``idx <= pos + s``), else through the page gather.
         The slot and paged layouts need a pure-attention stack (their
-        recurrent state has no rollback); the state and hybrid layouts
+        recurrent state has no rollback) and refuse an encoder-decoder,
+        as in JAX (``check_paged_support``); the state and hybrid layouts
         verify recurrent layers through the window pass with state
         stacks and a rewind.  The single-query paged kernel (K5) cannot
         express a window, so ``use_paged_kernel`` without
@@ -510,6 +515,9 @@ class LLMEngine:
         return tok.cpu().numpy(), cache
 
 
-def _stack_width(stacks) -> int:
-    """The positions a stack buffer holds: axis 2 of its state leaves."""
-    return max(a.shape[2] for a in flatten(stacks).values() if a.numel())
+def _stack_width(stacks) -> float:
+    """The positions a stack buffer holds: axis 2 of its state leaves;
+    a stack of attention layers alone, all placeholders, holds any
+    window."""
+    return max((a.shape[2] for a in flatten(stacks).values() if a.numel()),
+               default=float("inf"))

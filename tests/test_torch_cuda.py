@@ -67,7 +67,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [2304, 8192])
+@pytest.mark.parametrize("d", [2304, 8192, 1024, 3072])
 def test_cuda_rmsnorm_rows_independent_of_the_batch(cuda_device, d, dtype):
     """K1's rows are bitwise the same at 1, 4, 5, 256 and 1024 rows (the
     first rows of one x) and alone (the first, a middle and the last
@@ -191,12 +191,15 @@ def test_cuda_attention_kernels_at_qwen3_shape(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,KV,hd", [(64, 8, 128), (32, 8, 160)],
-                         ids=["qwen3_32b", "stablelm_12b"])
+@pytest.mark.parametrize("H,KV,hd", [(64, 8, 128), (32, 8, 160),
+                                     (32, 32, 96)],
+                         ids=["qwen3_32b", "stablelm_12b",
+                              "phi_3_vision_4_2b"])
 def test_cuda_fused_decode_verify_window(cuda_device, dtype, H, KV, hd):
     """K2 and K4 over a verify window of 5 queries at qwen3_32b's GQA
-    shape (40 query rows a kv head: three 16-row tiles) and stablelm_12b's
-    head_dim 160, against their plain version (output and both arenas),
+    shape (40 query rows a kv head: three 16-row tiles), stablelm_12b's
+    head_dim 160 and phi_3_vision_4_2b's head_dim 96 with one query head
+    a kv head, against their plain version (output and both arenas),
     on a paged arena whose rows end inside, at and past 256-key span
     boundaries; each row alone is bitwise equal to its row of the
     batch."""
@@ -230,6 +233,60 @@ def test_cuda_fused_decode_verify_window(cuda_device, dtype, H, KV, hd):
         for b in range(B):
             alone = ops.fused_flash_decode(
                 q[b:b + 1].contiguous(), kn[b:b + 1].contiguous(),
+                vn[b:b + 1].contiguous(), *[t.clone() for t in arena],
+                tables[b:b + 1].contiguous(), pos[b:b + 1].contiguous(),
+                freqs, split_k=split_k)
+            assert torch.equal(alone, out[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_at_head_dim_96(cuda_device, dtype):
+    """phi_3_vision_4_2b's attention shape (32 heads, 32 kv heads,
+    head_dim 96): K3 over two rows of its 592-row prefill (576 patch
+    embeddings and 16 tokens) and K2 and K4 at S' = 1, against their
+    plain versions; K3's text suffix at q_offset 576 bitwise the full
+    prefill's rows, and each row alone bitwise its row of the batch."""
+    dt = TDT[dtype]
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dt)
+
+    H, hd, S = 32, 96, 592
+    q, k, v = rand(2, S, H, hd), rand(2, S, H, hd), rand(2, S, H, hd)
+    full = ops.flash_attention(q, k, v)
+    torch.testing.assert_close(
+        full.float(), ref.flash_attention_ref(q, k, v).float(), atol=tol,
+        rtol=tol)
+    suffix = ops.flash_attention(q[:, 576:].contiguous(), k, v, q_offset=576)
+    assert torch.equal(suffix, full[:, 576:])
+    for b in range(2):
+        alone = ops.flash_attention(*(t[b:b + 1].contiguous()
+                                      for t in (q, k, v)))
+        assert torch.equal(alone, full[b:b + 1])
+
+    bs, P = 16, 64
+    pos = torch.tensor([0, 255, 591, 1000], dtype=torch.int32,
+                       device=cuda_device)
+    B = pos.numel()
+    tables = (1 + torch.randperm(B * P, device=cuda_device, generator=g)
+              .view(B, P)).int()
+    qd, kn, vn = (rand(B, 1, H, hd) for _ in range(3))
+    arena = [rand(1 + B * P, bs, H, hd), rand(1 + B * P, bs, H, hd)]
+    freqs = ref.rope_freqs(hd, 10_000.0, cuda_device)
+    want = ref.fused_flash_decode_ref(qd, kn, vn,
+                                      *[t.clone() for t in arena], tables,
+                                      pos, freqs)
+    for split_k in (False, True):
+        out = ops.fused_flash_decode(qd, kn, vn, *[t.clone() for t in arena],
+                                     tables, pos, freqs, split_k=split_k)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        for b in range(B):
+            alone = ops.fused_flash_decode(
+                qd[b:b + 1].contiguous(), kn[b:b + 1].contiguous(),
                 vn[b:b + 1].contiguous(), *[t.clone() for t in arena],
                 tables[b:b + 1].contiguous(), pos[b:b + 1].contiguous(),
                 freqs, split_k=split_k)

@@ -263,10 +263,11 @@ def test_unsupported_configs_raise(name):
     ROADMAP item.  granite_moe_3b_a800m, jamba_1_5_large_398b and
     deepseek_v3_671b are served since their MoE FFN, Mamba layers and
     MLA were ported: what stays refused there is the expert-parallel
-    MoE; deepseek_v3_671b's case also serves a few tokens.  xlstm_1_3b
-    is served since its recurrent stack was ported: its case serves a
-    few tokens."""
-    from repro_torch.models.config import ArchConfig
+    MoE; deepseek_v3_671b's case also serves a few tokens.  xlstm_1_3b,
+    seamless_m4t_large_v2 and phi_3_vision_4_2b are served since their
+    recurrent stack and the encoder-decoder and modality stubs were
+    ported: their cases serve a few tokens (``generate`` takes tokens
+    only, as in JAX)."""
     from repro_torch.models.transformer import RuntimeFlags
     if name in ("granite_moe_3b_a800m", "jamba_1_5_large_398b",
                 "deepseek_v3_671b"):
@@ -277,20 +278,11 @@ def test_unsupported_configs_raise(name):
                       flags=RuntimeFlags(moe_impl="ep"))
         if name != "deepseek_v3_671b":
             return
-    if name in ("xlstm_1_3b", "deepseek_v3_671b"):
-        cfg = get_config(name).reduced()
-        engine = LLMEngine(cfg, max_len=16, device="cpu")
-        out = engine.generate(_prompts(cfg, 2, 5, 0), 3)
-        assert out.shape == (2, 3)
-        assert ((0 <= out) & (out < cfg.vocab_size)).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_config(name)
-    # the same architectures built by hand are refused by the engine
-    jcfg = jax_get_config(name).reduced()
-    cfg = ArchConfig(**dataclasses.asdict(jcfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        LLMEngine(cfg, max_len=16, device="cpu")
+    cfg = get_config(name).reduced()
+    engine = LLMEngine(cfg, max_len=16, device="cpu")
+    out = engine.generate(_prompts(cfg, 2, 5, 0), 3)
+    assert out.shape == (2, 3)
+    assert ((0 <= out) & (out < cfg.vocab_size)).all()
 
 
 def test_sliding_window_and_other_layouts_raise():

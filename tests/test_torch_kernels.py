@@ -26,8 +26,7 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda)
-from repro_torch.configs import (  # noqa: E402
-    ALL_ARCHS, NOT_YET_PORTED, get_config)
+from repro_torch.configs import ALL_ARCHS, get_config  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     MAX_THREADS, MAX_VECS, rmsnorm_cuda)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
@@ -71,7 +70,7 @@ def test_rmsnorm_plain_matches_jax(rows, d, dtype):
 
 
 def _ported_configs():
-    return [(name, cfg) for name in ALL_ARCHS if name not in NOT_YET_PORTED
+    return [(name, cfg) for name in ALL_ARCHS
             for cfg in (get_config(name), get_config(name).reduced())]
 
 
@@ -86,7 +85,7 @@ def test_rmsnorm_launch_plan_covers_every_config(dtype):
     dt = TDT[dtype]
     n = 16 // torch.empty((), dtype=dt).element_size()
     widths = {cfg.d_model for _, cfg in _ported_configs()}
-    assert {1536, 2048, 2304, 4096, 5120, 8192} <= widths
+    assert {1024, 1536, 2048, 2304, 3072, 4096, 5120, 8192} <= widths
     for d in sorted(widths):
         threads, vecs = rmsnorm_launch_plan(d, dt)
         assert threads % 32 == 0 and 32 <= threads <= MAX_THREADS <= 1024
@@ -113,7 +112,8 @@ def test_rmsnorm_launch_plan_refuses(d, dtype, match):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [1536, 2048, 2304, 4096, 5120, 8192])
+@pytest.mark.parametrize("d", [1024, 1536, 2048, 2304, 3072, 4096, 5120,
+                               8192])
 def test_rmsnorm_wrapper_plan_is_the_same_at_every_row_count(
         monkeypatch, d, dtype):
     """The wrapper passes the C entry the plan of (d, dtype) whatever

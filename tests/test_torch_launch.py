@@ -3,8 +3,8 @@ the CPU: every mode of the JAX package's ``launch/serve.py`` runs to
 exit code 0 on reduced granite_moe_3b_a800m (and the default
 minicpm_2b), through ``--device cpu``, and so do ``--backend state`` on
 reduced xlstm_1_3b and ``--backend hybrid`` on reduced
-jamba_1_5_large_398b; an architecture the port has not ported raises,
-naming its ROADMAP item.  Every port ``GraphServer`` the
+jamba_1_5_large_398b; an encoder-decoder is refused by the Scheduler,
+as by the JAX launcher.  Every port ``GraphServer`` the
 launcher closes passes the leak check imported from
 ``test_torch_graph.py``.
 """
@@ -56,12 +56,13 @@ def test_state_layouts_exit_zero(extra, capsys):
 
 def test_unported_backend_raises_naming_its_item():
     """The state and hybrid layouts are served since ROADMAP Queue 1
-    item 7.  An architecture the port does not serve raises, naming its
-    item (seamless_m4t_large_v2, item 9, since deepseek_v3_671b is
-    served); a hybrid arena whose block size does not divide the
-    engine's ``max_len`` is refused inside the server's graph, whose run
-    fails with the engine's error."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    item 7.  An encoder-decoder (seamless_m4t_large_v2, served by
+    ``generate`` since item 9) is refused by the Scheduler inside the
+    server's graph, as by the JAX launcher; a hybrid arena whose block
+    size does not divide the engine's ``max_len`` is refused inside the
+    server's graph too.  Each run fails with the refusal."""
+    with pytest.raises(GraphError, match="continuous batching supports "
+                                         "decoder-only models"):
         serve.main(BASE + ["--arch", "seamless_m4t_large_v2", "--backend",
                            "state"])
     with pytest.raises(GraphError, match="multiple of block_size"):
