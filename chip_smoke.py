@@ -74,7 +74,24 @@ and ``seamless_m4t_large_v2`` (24 encoder and 24 decoder layers,
 d_model 1024) through ``make_prefill_step`` over 256 frame embeddings
 and a 16-token prompt and decode steps that read the cross caches, with
 the encode, prefill and decode-step times beside the step's bound and
-the f32 comparison (``encdec_main_path``); and, after
+the f32 comparison (``encdec_main_path``); then training on the plain
+path (the kernels have no backward and refuse autograd):
+``minicpm_2b`` at full width and depth (``train_main_path``: the
+no-grad ``forward`` with K1 and K3 against the plain one in f32, 81
+K1 and 40 K3 launches; AdamW with WSD over 8 x 256 batches, no kernel
+launch in a step, every gradient leaf finite and non-zero, the kernel
+flags refused, the step's ms, tokens/s, peak memory and flops bound;
+the loss falling on one batch; the TrainState's checkpoint round trip
+bitwise; one f32 step at depth 2 on the card against the CPU, each
+gradient leaf held; the train
+launcher in a subprocess), ``xlstm_1_3b`` at full width
+(``train_recurrent``: the chunkwise forward against the token-by-token
+prefill over one layer group, one timed step at full depth, the checks
+on its first two layers, where the reference's random-init gradient
+stays finite, and an mLSTM + sLSTM pair's f32 step on the card against
+the CPU, leaf by leaf) and ``jamba_1_5_large_398b``'s first two layers at full width
+(``train_hybrid``: Adafactor, its state factored as ``_factored``
+admits, the aux loss and the MoE drops); and, after
 ``serve_preempt_decode``, ROADMAP F2's two replay paths on
 minicpm_2b, each replay held bitwise to the run without preemption
 (``f2_group_prefill``: a slot layout's group-prefilled prompts replayed
@@ -107,6 +124,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2633,6 +2651,8 @@ JAMBA_DEPTH = 2
 #: each, 4 slots, chunks of 32, speculation of 4 with state stacks capped
 #: at 8 positions
 STATE_MAX_LEN = 256
+#: the depth of xlstm_serve's f32 exactness check: one layer group
+XLSTM_F32_DEPTH = 8
 STATE_CHUNK = 32
 STATE_NEW = 24
 STATE_PROMPT = (48, 96)
@@ -2937,10 +2957,10 @@ def phase_xlstm_serve(torch, smi):
     tokens (``ForcedPreemption``), once with speculation off (replayed
     through the masked decode) and once on (verify windows and the
     rewind of the row), each against the same run without preemption:
-    tokens and slab rows bitwise; in f32, the served tokens against
-    per-request greedy under the top-2 gap rule; then the decode and the
-    verify tick against their bounds (``state_ticks``).  Returns the
-    launch counts."""
+    tokens and slab rows bitwise; in f32 (the first layer group), the
+    served tokens against per-request greedy under the top-2 gap rule;
+    then the decode and the verify tick against their bounds
+    (``state_ticks``).  Returns the launch counts."""
     import numpy as np
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
@@ -3005,9 +3025,13 @@ def phase_xlstm_serve(torch, smi):
         emit({"phase": "xlstm_tick", **state_ticks(torch, cap, requests,
                                                    spec), "nvidia_smi": smi})
 
-    # ---- exactness in f32 against per-request greedy --------------------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    w32 = {k: v.float() for k, v in cap.model.named_parameters()}
+    # ---- exactness in f32 against per-request greedy, on the first layer
+    # group (XLSTM_F32_DEPTH layers: 7 mLSTM + 1 sLSTM), which keeps the
+    # run within its time budget
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=XLSTM_F32_DEPTH)
+    w32 = {k: (v[:1] if k.startswith("blocks.") else v).float()
+           for k, v in cap.model.named_parameters()}
     del cap
     free_card(torch)
     e32 = LLMEngine(cfg32, w32, max_len=STATE_MAX_LEN)
@@ -4024,6 +4048,717 @@ def phase_encdec_main_path(torch, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training: minicpm_2b at full width and depth, xlstm_1_3b at full width
+# and depth, jamba_1_5_large_398b's first two layers at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm_2b"
+TRAIN_PEAK_LR = 3e-4          # the launcher's default --lr
+TRAIN_STEPS = 6               # timed steps (the median of steps 2-6)
+FIT_STEPS = 8                 # steps on one fixed batch
+#: [batch, sequence] of each train phase's steps, of the card-vs-CPU
+#: step (the CPU runs the plain path at full width) and of the f32
+#: forward checks
+TRAIN_SHAPE = {TRAIN_ARCH: (8, 256), XLSTM_ARCH: (2, 512),
+               JAMBA_ARCH: (1, 256)}
+CPU_SHAPE = {TRAIN_ARCH: (1, 32), XLSTM_ARCH: (1, 512)}
+#: xlstm_1_3b's finite-gradient checks (steps, one batch, card vs CPU)
+#: run its first two layers (two mLSTM layers): at the reference's
+#: random init its f32 gradient over 512 tokens is NaN from depth 8 on,
+#: and from an mLSTM + sLSTM pair, in JAX as in the port
+#: (``tools/xlstm_grad_growth.py``); the full-depth steps are timed
+CPU_DEPTH = {TRAIN_ARCH: 2, XLSTM_ARCH: 2}
+XLSTM_TRAIN_DEPTH = 2
+#: sLSTM's backward on the card against the CPU: an mLSTM + sLSTM pair
+#: over 1 x 128 tokens (two of sLSTM's outer chunks of 64), its
+#: recurrent weights ``w_h`` scaled by 0.1 as the CPU tests' chunkwise
+#: sLSTM check scales them.  At the reference's init the pair's f32
+#: gradient is ill conditioned from a few tokens on: on the CPU its
+#: sLSTM leaves sit 0.13-0.16 of their norm from an f64 run at 16
+#: tokens, its grad norm reads 1603 against 3408 in f64 at 32
+#: (``tools/train_f32_floor.py``), and it is inf at 128
+#: (``tools/xlstm_grad_growth.py --pattern mlstm slstm``); scaled,
+#: every leaf is within 4.0e-4 of the f64 run at 128 tokens.
+PAIR_PATTERN = ("mlstm", "slstm")
+PAIR_SHAPE = (1, 128)
+PAIR_W_H_SCALE = 0.1
+
+F32_FORWARD_SHAPE = {TRAIN_ARCH: (2, 256), XLSTM_ARCH: (1, 512)}
+#: xlstm_1_3b's forward-vs-prefill check runs one layer group (7 mLSTM
+#: + 1 sLSTM): at these random weights f32 rounding grows with depth to
+#: O(1) logits at 48 layers, in either form, from an f64 run
+FORWARD_DEPTH = {XLSTM_ARCH: 8}
+#: the card's train step against the CPU's in f32: loss and grad norm
+#: relative, params of the leaf's scale where |g| > 1e-3 of its largest
+TRAIN_CPU_TOL = 1e-4
+#: a card gradient leaf this near the f64 leaf (by norm) passes whatever
+#: the CPU's distance: on an H100 the mLSTM + sLSTM pair's mLSTM leaves
+#: sat 1.0-1.4e-4 of their norm from f64 on the card and 3.5e-5 on the
+#: CPU, two f32 accumulation orders; an error in a backward formula
+#: moves a leaf by O(1)
+TRAIN_GRAD_NEAR = 1e-3
+
+
+def minicpm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim,
+           cfg.d_ff, cfg.padded_vocab, cfg.tie_embeddings, cfg.dtype,
+           cfg.lr_schedule, cfg.optimizer)
+          == (40, 2304, 36, 64, 5760, 122880, True, "bfloat16", "wsd",
+              "adamw"), f"{TRAIN_ARCH} is not at full width and depth")
+    return cfg
+
+
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_batch(torch, cfg, index, shape, device=None):
+    """Batch ``index`` of the port's copy of the synthetic data pipeline
+    (``data/pipeline.py``): [B, S] tokens and labels on ``device``."""
+    from repro_torch.data import SyntheticTextDataset
+    B, S = shape
+    b = SyntheticTextDataset(cfg.vocab_size, S, SEED).batch(index, B)
+    return {k: torch.as_tensor(v, device=device or DEVICE).long()
+            for k, v in b.items()}
+
+
+def launcher_schedule(cfg, steps):
+    """The schedule ``launch/train.py`` builds for ``steps`` steps."""
+    from repro_torch.optim import make_schedule
+    return make_schedule(cfg.lr_schedule, peak_lr=TRAIN_PEAK_LR,
+                         warmup=max(steps // 20, 5), total=steps)
+
+
+def zero_launches():
+    from repro_torch.kernels import build
+    for name in build.launches:
+        build.launches[name] = 0
+
+
+def train_flops(cfg, model, B, S):
+    """(the step's flops, the weight products' parameters N) from the
+    shapes: 2 N T for the products (leaves of two or more dims; the
+    embedding counts as the tied LM head, or not at all as a lookup;
+    MoE expert leaves at top-k of their experts), causal attention
+    2 B S^2 H hd a layer (the half of its score and value products that
+    the mask keeps), mLSTM's chunk products 4 B S L H hd a layer (L the
+    chunk), x 3 for the backward, plus the group remat's second
+    forward."""
+    from repro_torch.models.params import flatten
+    n = 0
+    for path, p in flatten(model.params).items():
+        if p.dim() < 2 or (path == "embed.embedding"
+                           and not cfg.tie_embeddings):
+            continue
+        k = p.numel()
+        if cfg.num_experts and ".ffn.w_" in path and p.dim() >= 3:
+            k = k * cfg.num_experts_per_tok // p.shape[-3]
+        n += k
+    kinds = cfg.layer_kinds()
+    attn = 2 * B * S * S * cfg.num_heads * cfg.head_dim \
+        * kinds.count("attn")
+    hd = 2 * cfg.d_model // cfg.num_heads
+    mlstm = 4 * B * S * min(cfg.mlstm_chunk, S) * cfg.num_heads * hd \
+        * kinds.count("mlstm")
+    return 4 * (2 * n * B * S + attn + mlstm), n
+
+
+def grad_check(torch, step, params, batch):
+    """Every leaf's gradient of ``step.loss_fn`` by autograd: the leaves
+    whose gradient is not finite or all zero (a path cut off from the
+    loss leaves its leaves at zero), and the leaves, grads set."""
+    from repro_torch.models.params import flatten
+    leaves = flatten(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = step.loss_fn(params, batch)
+    loss.backward()
+    bad = [k for k, p in leaves.items()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    return bad, leaves
+
+
+def refuses_kernel_flags(torch, model, cfg):
+    """``make_train_step(flags=DEFAULT_FLAGS)`` raises at its first
+    kernel op, which has no backward (F3)."""
+    from repro_torch.models.transformer import DEFAULT_FLAGS
+    from repro_torch.runtime.steps import make_train_step
+    step, init = make_train_step(model, schedule=launcher_schedule(cfg, 1),
+                                 flags=DEFAULT_FLAGS, optimizer="adafactor")
+    try:
+        step(init(model.params), train_batch(torch, cfg, 0, (1, 16)))
+    except RuntimeError as e:
+        return "no backward" in str(e)
+    return False
+
+
+def train_numbers(torch, cfg, model, shape, ms, smi, per):
+    """Step ms (the median of steps 2 .., or step 1's alone), tokens/s,
+    peak memory, the flops bound and the device's busy share."""
+    B, S = shape
+    flops, n = train_flops(cfg, model, B, S)
+    step_ms = statistics.median(ms[1:] or ms)
+    share = device_share(per, step_ms, ())
+    return {"step_ms": ms, "median_step_ms": step_ms,
+            "tokens_per_step": B * S,
+            "tokens_per_s": B * S / step_ms * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()
+            if DEVICE == "cuda" else None,
+            "matmul_params": n, "step_flops": flops,
+            "bound_ms": flops / BF16_FLOPS * 1e3, "bound_by": "operations",
+            "peak": "H100 SXM dense bf16, 989 TFLOP/s",
+            "bound_share": flops / BF16_FLOPS * 1e3 / step_ms,
+            "device_ms_per_step": share["device_ms_per_tick"],
+            "device_busy_share": share["device_busy_share"],
+            "profiler": share["profiler"],
+            "top_kernels_ms": dict(sorted(per.items(), key=lambda kv: -kv[1])
+                                   [:12]),
+            "nvidia_smi": smi}
+
+
+def train_steps(torch, smi, cfg, arch, phase, rec=None):
+    """The bf16 train step of ``cfg`` with its own optimizer and
+    schedule as the launcher builds them (checks 2 and 6): the kernel
+    flags refused, every leaf's gradient finite and non-zero, then
+    TRAIN_STEPS steps on batches 0 .. with every launch counter at 0
+    first (none may launch), finite losses and aux losses, finite grad
+    norms (or inf where, as in JAX's arithmetic, a gradient element's
+    square overflows the f32 sum: xlstm_1_3b's random weights give
+    gradients past 1e19 from depth 8), and the numbers; ``rec`` (a
+    ``RouteRecorder``) wraps the steps.
+    Emits the phase line; returns (the model, the state, the line)."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import make_train_step
+    shape = TRAIN_SHAPE[arch]
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEVICE, seed=SEED)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    refused = refuses_kernel_flags(torch, model, cfg)
+    step, init = make_train_step(model, schedule=launcher_schedule(
+        cfg, TRAIN_STEPS))
+    bad, _ = grad_check(torch, step, model.params,
+                        train_batch(torch, cfg, 0, shape))
+    g_max = max(float(p.grad.float().abs().max()) for p in model.parameters())
+    for p in model.parameters():
+        p.grad = None
+    free_card(torch)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init(model.params)
+    losses, gnorms, aux, ms = [], [], [], []
+    zero_launches()
+    with (rec or contextlib.nullcontext()):
+        for i in range(TRAIN_STEPS):
+            batch = train_batch(torch, cfg, i, shape)
+            sync(torch)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(m["grad_norm"]))
+            aux.append(float(m["aux"]))
+    counts = dict(build.launches)
+    batch = train_batch(torch, cfg, TRAIN_STEPS, shape)
+    per = profiled_ms(torch, lambda: step(state, batch), 1)
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "optimizer": cfg.optimizer, "schedule": cfg.lr_schedule,
+            "params": sum(p.numel() for p in model.parameters()),
+            "shape": list(shape), "init_seconds": init_s,
+            "losses": losses, "grad_norms": gnorms, "aux": aux,
+            "launches": counts, "leaves_without_grad": bad,
+            "grad_max_abs": g_max, "kernel_flags_refused": refused,
+            **train_numbers(torch, cfg, model, shape, ms, smi, per)}
+    emit(line)
+    # the grad norm sums each leaf's squares in f32, as JAX does: a
+    # gradient element past sqrt(f32 max) overflows it to inf there too
+    overflow = g_max > math.sqrt(torch.finfo(torch.float32).max)
+    check(all(map(math.isfinite, losses + aux)) and (
+        all(map(math.isfinite, gnorms)) or overflow)
+        and not any(math.isnan(g) for g in gnorms),
+        f"{phase}: a loss, aux or grad norm is not finite")
+    check(not bad, f"{phase}: leaves without a finite non-zero gradient: "
+                   f"{bad}")
+    check(not any(counts.values()), f"{phase}: the train steps launched "
+                                    f"kernels: {counts}")
+    check(refused, f"{phase}: make_train_step(flags=DEFAULT_FLAGS) did not "
+                   f"raise")
+    return model, state, line
+
+
+def fit_one_batch(torch, model, cfg, shape):
+    """FIT_STEPS steps on batch 0 from a fresh optimizer state, the
+    schedule the launcher builds for them: (the losses, the first being
+    the loss at step 0; the state; the step)."""
+    from repro_torch.runtime.steps import make_train_step
+    step, init = make_train_step(model, schedule=launcher_schedule(
+        cfg, FIT_STEPS))
+    state = init(model.params)
+    batch = train_batch(torch, cfg, 0, shape)
+    losses = []
+    for _ in range(FIT_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return losses, state, step
+
+
+def _step_on(torch, model, schedule, batch):
+    """One train step of ``model`` from a fresh optimizer state on
+    ``batch`` (moved to the model's device), in true f32 on the card,
+    each gradient its backward accumulates copied out as it is made (a
+    hook a leaf): (the updated params, the metrics as floats, the step's
+    seconds, the gradients), tensors in f64 on DEVICE, where the
+    comparisons run; a leaf autograd never reached reads as zeros."""
+    from repro_torch.models.layers import no_tf32
+    from repro_torch.models.params import flatten
+    from repro_torch.runtime.steps import make_train_step
+    step, init = make_train_step(model, schedule=schedule)
+    batch = {k: v.to(model.device) for k, v in batch.items()}
+    leaves, grads = flatten(model.params), {}
+
+    def keep(k):
+        def hook(p):
+            grads[k] = p.grad.detach().to(DEVICE).double()
+        return hook
+    hooks = [p.requires_grad_(True).register_post_accumulate_grad_hook(
+        keep(k)) for k, p in leaves.items()]
+    with no_tf32(model.device):
+        t0 = time.perf_counter()
+        state, m = step(init(model.params), batch)
+        if model.device.type == "cuda":
+            sync(torch)
+        seconds = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    for k, p in leaves.items():
+        grads.setdefault(k, torch.zeros(p.shape, dtype=torch.float64,
+                                        device=DEVICE))
+    params = {k: v.detach().to(DEVICE).double()
+              for k, v in flatten(state.params).items()}
+    return params, {k: float(v) for k, v in m.items()}, seconds, grads
+
+
+def _agree(a, b, x, tol):
+    """``a`` (the card) against ``b`` (the CPU): equal, within ``tol``
+    relative, or (the f32 floor) no further from the f64 reading ``x``
+    than twice ``b`` is."""
+    return (a == b or abs(a - b) <= tol * abs(b)
+            or abs(a - x) <= 2 * abs(b - x))
+
+
+def _leaves_agree(card, cpu, f64, tol, near, keep=None):
+    """Leaf by leaf, the card's leaf against the CPU's: within ``tol`` of
+    the CPU leaf's largest magnitude, or else no further from the f64
+    leaf than twice the CPU's or than ``near``, each distance the norm
+    of the difference over the f64 leaf's norm (floored at 1e-6 of the
+    tree's, for a leaf whose exact value is zero).  ``keep`` (a mask a
+    leaf) limits a leaf to those elements.  Returns (the leaves that
+    disagree, the largest direct distance and its leaf)."""
+    floor = 1e-6 * math.sqrt(sum(float((v * v).sum()) for v in f64.values()))
+    bad, worst, where = [], 0.0, None
+    for k, x in f64.items():
+        a, b = card[k], cpu[k]
+        if keep is not None:
+            if not keep[k].any():
+                continue
+            a, b, x = a[keep[k]], b[keep[k]], x[keep[k]]
+        d = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if d > worst:
+            worst, where = d, k
+        if d <= tol:
+            continue
+        n = max(float(x.norm()), floor)
+        a_x, b_x = float((a - x).norm()) / n, float((b - x).norm()) / n
+        if a_x > max(2 * b_x, near):
+            bad.append([k, d, a_x, b_x])
+    return bad, worst, where
+
+
+def card_vs_cpu(torch, cfg, depth, shape, pattern=None, w_h_scale=None):
+    """One f32 step at full width and ``depth`` layers (``pattern``: the
+    block pattern, else the model's own) on the card and the same step
+    in the port on the CPU, from the same weights (``w_h_scale`` scales
+    the sLSTM layers' recurrent weights) and batch: loss and grad norm
+    within TRAIN_CPU_TOL relative; every gradient leaf on the card
+    finite and non-zero, and within TRAIN_CPU_TOL of the CPU leaf's
+    largest (or, below, within TRAIN_GRAD_NEAR of the f64 run); the
+    updated params within TRAIN_CPU_TOL of each leaf's
+    scale wherever the f64 run's gradient exceeds 1e-3 of the leaf's
+    largest (a first Adam step is about sign(g)).  Where f32 rounding
+    alone parts them further, as it does at these random weights
+    (minicpm_2b's attention scores reach ~4e3 at its init, so its softmax
+    is saturated: ``tools/train_f32_floor.py``), each reading is held to
+    the same step in f64 on the card: the card's no further from it than
+    twice the CPU's (the CPU tests' rule against JAX), leaf by leaf for
+    the gradients and params.  ``grad_gap_leaves``: the leaves whose
+    squared norms part the card's grad norm from the CPU's the most.
+    The card's products run in true f32."""
+    from repro_torch.models.model import Model
+    cut = dict(num_layers=depth, dtype="float32")
+    if pattern:
+        cut["block_pattern"] = pattern
+    cfg32 = dataclasses.replace(cfg, **cut)
+    schedule = launcher_schedule(cfg32, TRAIN_STEPS)
+    batch = train_batch(torch, cfg32, 0, shape, device="cpu")
+    card = Model(cfg32, device=DEVICE, seed=SEED)
+    w = {k: v.detach().cpu().clone() for k, v in card.named_parameters()}
+    if w_h_scale is not None:
+        for k in w:
+            if k.endswith(".mixer.w_h"):
+                w[k] *= w_h_scale
+        del card
+        card = Model(cfg32, device=DEVICE,
+                     params={k: v.clone() for k, v in w.items()})
+    cp, cm, card_s, cg = _step_on(torch, card, schedule, batch)
+    del card
+    free_card(torch)
+    xp, xm, _, xg = _step_on(torch, Model(
+        dataclasses.replace(cfg32, dtype="float64"), device=DEVICE,
+        params={k: v.double() for k, v in w.items()}), schedule, batch)
+    free_card(torch)
+    pp, pm, cpu_s, pg = _step_on(torch, Model(cfg32, device="cpu",
+                                              params=w), schedule, batch)
+    out = {"depth": depth, "layer_kinds": cfg32.layer_kinds(),
+           "shape": list(shape), "w_h_scale": w_h_scale,
+           "card_step_s": card_s, "cpu_step_s": cpu_s,
+           "tol": TRAIN_CPU_TOL}
+    ok = True
+    for k in ("loss", "grad_norm"):
+        out[k] = {"card": cm[k], "cpu": pm[k], "f64": xm[k]}
+        ok = ok and _agree(cm[k], pm[k], xm[k], TRAIN_CPU_TOL)
+    unfit = [k for k, g in cg.items()
+             if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    gbad, gworst, gwhere = _leaves_agree(cg, pg, xg, TRAIN_CPU_TOL,
+                                         TRAIN_GRAD_NEAR)
+    keep = {k: g.abs() > 1e-3 * g.abs().max() for k, g in xg.items()}
+    pbad, pworst, pwhere = _leaves_agree(cp, pp, xp, TRAIN_CPU_TOL,
+                                         TRAIN_CPU_TOL, keep)
+    gap = sorted(((abs(float((cg[k] ** 2).sum() - (pg[k] ** 2).sum())), k)
+                  for k in cg), reverse=True)[:3]
+    out.update({
+        "leaves_without_finite_grad": unfit,
+        "grads_rel": gworst, "grads_worst_leaf": gwhere,
+        "grads_disagree": gbad,
+        "grad_gap_leaves": [{"leaf": k, "sq_norm_gap": d,
+                             "norm": {"card": float(cg[k].norm()),
+                                      "cpu": float(pg[k].norm()),
+                                      "f64": float(xg[k].norm())}}
+                            for d, k in gap],
+        "params_rel": pworst, "params_worst_leaf": pwhere,
+        "params_disagree": pbad})
+    out["ok"] = ok and not unfit and not gbad and not pbad
+    return out
+
+
+def checkpoint_roundtrip(torch, step, state, cfg, shape):
+    """Save the TrainState under ``build/`` and load it back: every leaf
+    bitwise equal; the next step from the loaded state gives bitwise the
+    loss of the next step from the state itself.  Frees ``state``."""
+    import shutil
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    directory = ROOT / "build" / "train_checkpoint"
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(directory), int(state.opt.step), state)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    back = load_checkpoint(str(directory), None, state)
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(_flatten_with_paths(state), _flatten_with_paths(back)))
+    equal = all(ka == kb and a.dtype == b.dtype and a.device == b.device
+                and torch.equal(a, b) for (ka, a), (kb, b) in pairs)
+    batch = train_batch(torch, cfg, FIT_STEPS + 1, shape)
+    _, m = step(state, batch)
+    want = float(m["loss"])
+    del state, m
+    free_card(torch)
+    _, m = step(back, batch)
+    got = float(m["loss"])
+    del back, m
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"leaves": len(pairs), "bytes": nbytes, "save_s": save_s,
+            "load_s": load_s, "leaves_bitwise_equal": equal,
+            "next_loss": [want, got], "next_loss_bitwise": want == got}
+
+
+def train_launcher(torch):
+    """``python -m repro_torch.launch.train`` on minicpm_2b at full width
+    in a subprocess: its rc, last lines and wall seconds."""
+    import os
+    B, S = TRAIN_SHAPE[TRAIN_ARCH]
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--steps", "20", "--batch", str(B), "--seq", str(S)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, env=env,
+                       timeout=600, cwd=str(ROOT))
+    return {"phase": "train_launcher", "argv": argv[1:], "rc": r.returncode,
+            "seconds": time.perf_counter() - t0,
+            "stdout": r.stdout.strip().splitlines()[-6:],
+            "stderr": r.stderr.strip().splitlines()[-4:]}
+
+
+def f32_forward_check(torch, cfg, arch, against_prefill=False):
+    """The no-grad ``forward`` in f32 at full width and depth: with the
+    kernel flags against the plain path (``against_prefill`` False: the
+    K1 and K3 launches counted: held at F32_MODEL_TOL or, where the f32
+    plain path sits further than that from an f64 run of the plain
+    forward on the same weights, at that distance, as the stub models'
+    f32 checks are held), or
+    the plain chunkwise forward's last position against the
+    token-by-token serving ``prefill`` on the same weights (each form
+    within F32_MODEL_TOL of the logit scale from the f64 run: on an
+    H100 the serving form sat 1.0e-3 and the chunkwise 3.6e-4 from it at
+    a scale of 4.2, xlstm_1_3b's first layer group over 512 tokens).
+    Returns (the phase line's fields, the launch counts)."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import TRAIN_FLAGS
+    shape = F32_FORWARD_SHAPE[arch]
+    toks = train_batch(torch, cfg, 0, shape)["tokens"]
+    V = cfg.vocab_size
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=DEVICE,
+                seed=SEED)
+    with torch.no_grad():
+        plain = m32.forward(toks, flags=TRAIN_FLAGS)[0][..., :V]
+        zero_launches()
+        if against_prefill:
+            plain = plain[:, -1]
+            got = m32.prefill(toks, shape[1], flags=TRAIN_FLAGS)[0][:, :V]
+        else:
+            got = m32.forward(toks)[0][..., :V]
+        sync(torch)
+        counts = dict(build.launches)
+        got, plain = got.cpu(), plain.cpu()
+        w64 = {k: v.detach().double() for k, v in m32.named_parameters()}
+        del m32
+        free_card(torch)
+        m64 = Model(dataclasses.replace(cfg, dtype="float64"),
+                    device=DEVICE, params=w64)
+        del w64
+        exact = m64.forward(toks, flags=TRAIN_FLAGS)[0][..., :V].cpu()
+        del m64
+        free_card(torch)
+    if against_prefill:
+        exact = exact[:, -1]
+    err = float((got - plain).abs().max())
+    plain_x = float((plain.double() - exact).abs().max())
+    got_x = float((got.double() - exact).abs().max())
+    scale = float(exact.abs().max())
+    if against_prefill:
+        # two algorithms, each held to the f64 run at F32_MODEL_TOL of
+        # its logit scale: a formula error moves one by O(1)
+        ok = max(got_x, plain_x) <= F32_MODEL_TOL * scale
+    else:
+        ok = err <= max(F32_MODEL_TOL, plain_x)
+    return {"shape": list(shape), "layers": cfg.num_layers,
+            "max_abs_logit_err": err,
+            "plain_vs_f64": plain_x, "read_vs_f64": got_x,
+            "logit_scale": scale, "tol": F32_MODEL_TOL,
+            "finite": bool(torch.isfinite(got).all()),
+            "ok": ok and bool(torch.isfinite(got).all())}, counts
+
+
+def phase_train_main_path(torch, smi):
+    """minicpm_2b at full width and depth (40 layers, d_model 2304, bf16,
+    random weights from the seed): (1) the no-grad ``forward`` with K1
+    and K3 against the plain ``forward`` in f32 at full depth, K1 at
+    2L + 1 and K3 at L launches; (2, 6) the train step on the plain path
+    (AdamW, WSD as the launcher builds it, peak 3e-4) over batches of
+    8 x 256 from the synthetic pipeline: no kernel launch, finite
+    losses, every leaf's gradient finite and non-zero, the kernel flags
+    refused, the step's numbers; (4) FIT_STEPS steps on one batch lower
+    its loss; (5) a checkpoint of the TrainState round trip bitwise; (3)
+    one f32 step at depth 2 on the card against the CPU; (7) the
+    launcher in a subprocess.  Returns the launch counts."""
+    from repro_torch.kernels import build
+    cfg = minicpm_config()
+    L = cfg.num_layers
+    fwd, counts = f32_forward_check(torch, cfg, TRAIN_ARCH)
+    want = {name: 0 for name in build.launches}
+    want.update({"rmsnorm": 2 * L + 1, "flash_attention": L})
+    emit({"phase": "train_forward_vs_plain", "arch": cfg.name,
+          "launches": counts, "expected_launches": want, **fwd})
+    check(counts == want, f"train forward: launch counts {counts} != {want}")
+    check(fwd["ok"], "train forward: the kernel path disagrees with the "
+                     "plain path")
+    model, state, line = train_steps(torch, smi, cfg, TRAIN_ARCH,
+                                     "train_main_path")
+    del state
+    free_card(torch)
+    shape = TRAIN_SHAPE[TRAIN_ARCH]
+    fit, state, step = fit_one_batch(torch, model, cfg, shape)
+    emit({"phase": "train_fit_one_batch", "arch": cfg.name, "losses": fit})
+    check(fit[-1] < fit[0], f"{cfg.name}: the loss on one batch did not "
+                            f"fall in {FIT_STEPS} steps: {fit}")
+    ck = checkpoint_roundtrip(torch, step, state, cfg, shape)
+    emit({"phase": "train_checkpoint", "arch": cfg.name, **ck})
+    check(ck["leaves_bitwise_equal"] and ck["next_loss_bitwise"],
+          "train checkpoint: the round trip is not bitwise")
+    del model, state, step
+    free_card(torch)
+    cmp = card_vs_cpu(torch, cfg, CPU_DEPTH[TRAIN_ARCH],
+                      CPU_SHAPE[TRAIN_ARCH])
+    emit({"phase": "train_card_vs_cpu", "arch": cfg.name, **cmp})
+    check(cmp["ok"], "train: the card's f32 step disagrees with the CPU's")
+    free_card(torch)
+    launch = train_launcher(torch)
+    emit(launch)
+    check(launch["rc"] == 0, f"the train launcher exited {launch['rc']}")
+    return counts
+
+
+def full_depth_steps(torch, smi, cfg, arch, phase):
+    """One bf16 train step of ``cfg`` on batch 0, every launch counter at
+    0 first (none may launch), timed (the first step of the model,
+    allocations included) beside its bound; not profiled: the profiler
+    takes minutes over the ~4e5 launches of xlstm_1_3b's step (its
+    sLSTM layers' token loops).  Holds the step's loss (computed before
+    the update) finite and records whether the gradients were: at the
+    reference's random init xlstm_1_3b's are NaN at full depth, in JAX
+    as in the port.  Emits the phase line."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import make_train_step
+    shape = TRAIN_SHAPE[arch]
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEVICE, seed=SEED)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    step, init = make_train_step(model, schedule=launcher_schedule(
+        cfg, TRAIN_STEPS))
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init(model.params)
+    zero_launches()
+    batch = train_batch(torch, cfg, 0, shape)
+    sync(torch)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    gnorm = float(m["grad_norm"])
+    counts = dict(build.launches)
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "optimizer": cfg.optimizer, "schedule": cfg.lr_schedule,
+            "params": sum(p.numel() for p in model.parameters()),
+            "shape": list(shape), "init_seconds": init_s, "loss": loss,
+            "grad_norm": gnorm, "grads_finite": math.isfinite(gnorm),
+            "launches": counts,
+            **train_numbers(torch, cfg, model, shape, [ms], smi, {})}
+    emit(line)
+    check(math.isfinite(loss), f"{phase}: the first loss is not finite")
+    check(not any(counts.values()), f"{phase}: the train step launched "
+                                    f"kernels: {counts}")
+    del model, state, step
+    free_card(torch)
+
+
+def phase_train_recurrent(torch, smi):
+    """xlstm_1_3b at full width (d_model 2048, bf16), AdamW with the
+    cosine schedule, batches of 2 x 512 (two mLSTM chunks of 256, so the
+    state carries between chunks): the chunkwise ``forward``'s
+    last-position logits against the token-by-token serving ``prefill``
+    in f32 over one layer group (7 mLSTM + 1 sLSTM); one train step at
+    full depth (48 layers), timed; the train steps and
+    their numbers, FIT_STEPS steps on one batch and one f32 step on the
+    card against the CPU on the first XLSTM_TRAIN_DEPTH layers, where
+    the reference's gradient is finite; one f32 step of an mLSTM +
+    sLSTM pair on the card against the CPU (PAIR_*), so that sLSTM's
+    backward with its outer-chunk checkpoints is held finite and to the
+    CPU on the card.  Returns the launch counts (the prefill launches
+    none: plain flags)."""
+    cfg = xlstm_config()
+    fwd, counts = f32_forward_check(
+        torch, dataclasses.replace(cfg, num_layers=FORWARD_DEPTH[XLSTM_ARCH]),
+        XLSTM_ARCH, against_prefill=True)
+    emit({"phase": "train_recurrent_forward_vs_prefill", "arch": cfg.name,
+          "launches": counts, **fwd})
+    check(fwd["ok"], "xlstm: the chunkwise forward disagrees with the "
+                     "token-by-token prefill")
+    full_depth_steps(torch, smi, cfg, XLSTM_ARCH, "train_recurrent")
+    cut = dataclasses.replace(cfg, num_layers=XLSTM_TRAIN_DEPTH)
+    model, state, _ = train_steps(torch, smi, cut, XLSTM_ARCH,
+                                  "train_recurrent_depth2")
+    del state
+    free_card(torch)
+    fit, state, _ = fit_one_batch(torch, model, cut, TRAIN_SHAPE[XLSTM_ARCH])
+    emit({"phase": "train_recurrent_fit_one_batch", "arch": cfg.name,
+          "layers": cut.num_layers, "losses": fit})
+    check(fit[-1] < fit[0], f"{cfg.name}: the loss on one batch did not "
+                            f"fall in {FIT_STEPS} steps: {fit}")
+    del model, state
+    free_card(torch)
+    cmp = card_vs_cpu(torch, cfg, CPU_DEPTH[XLSTM_ARCH],
+                      CPU_SHAPE[XLSTM_ARCH])
+    emit({"phase": "train_recurrent_card_vs_cpu", "arch": cfg.name, **cmp})
+    check(cmp["ok"], "xlstm: the card's f32 step disagrees with the CPU's")
+    free_card(torch)
+    cmp = card_vs_cpu(torch, cfg, len(PAIR_PATTERN), PAIR_SHAPE,
+                      pattern=PAIR_PATTERN, w_h_scale=PAIR_W_H_SCALE)
+    emit({"phase": "train_recurrent_pair_card_vs_cpu", "arch": cfg.name,
+          **cmp})
+    check(cmp["ok"], "xlstm: the card's f32 step of an mLSTM + sLSTM pair "
+                     "disagrees with the CPU's")
+    free_card(torch)
+    return counts
+
+
+def phase_train_hybrid(torch, smi):
+    """jamba_1_5_large_398b's first two layers at full width (attention
+    + dense FFN, Mamba + MoE FFN of 16 experts top-2; ~24 GB of bf16
+    weights and as many of gradients), Adafactor, batches of 1 x 256
+    (two Mamba chunks of 128): the train steps and their numbers, the
+    aux loss finite and above 0, the capacity drops of the steps'
+    routing counted (Hazard 7), Adafactor's state factored for every
+    leaf ``_factored`` admits, FIT_STEPS steps on one batch.  Returns
+    the launch counts (none)."""
+    from repro_torch.models.params import flatten
+    from repro_torch.optim.optimizers import _factored
+    cfg = jamba_config()
+    B, S = TRAIN_SHAPE[JAMBA_ARCH]
+    rec = RouteRecorder(lambda n: n == B * S)
+    model, state, line = train_steps(torch, smi, cfg, JAMBA_ARCH,
+                                     "train_hybrid", rec=rec)
+    v = flatten(state.opt.v)
+    factored = {k: isinstance(v[k], tuple) == _factored(tuple(p.shape))
+                for k, p in flatten(state.params).items()}
+    emit({"phase": "train_hybrid_moe_and_state", "arch": cfg.name,
+          "aux": line["aux"], "drops": moe_drops(rec.calls, cfg, B * S),
+          "factored_leaves": sum(isinstance(x, tuple) for x in v.values()),
+          "leaves": len(v), "factored_as_admitted": all(factored.values()),
+          "opt_state_bytes": sum(
+              sum(t.numel() * t.element_size() for t in
+                  (x if isinstance(x, tuple) else (x,)))
+              for x in v.values())})
+    check(all(a > 0 for a in line["aux"]), "jamba: an aux loss is not above 0")
+    check(all(factored.values()), "jamba: Adafactor's state is not factored "
+                                  "as _factored admits")
+    del state
+    free_card(torch)
+    fit, state, _ = fit_one_batch(torch, model, cfg, (B, S))
+    emit({"phase": "train_hybrid_fit_one_batch", "arch": cfg.name,
+          "losses": fit})
+    check(fit[-1] < fit[0], f"{cfg.name}: the loss on one batch did not "
+                            f"fall in {FIT_STEPS} steps: {fit}")
+    del model, state
+    free_card(torch)
+    return {}
+
+
 def time_recurrent_updates(torch):
     """One mLSTM decode update and one 5-token window with stacks at 4
     slots, and one Mamba decode update at 4 slots, at full width in bf16:
@@ -4545,6 +5280,11 @@ def main() -> int:
     stub_counts = [phase_vlm_main_path(torch)]
     stub_counts.append(phase_vlm_serve(torch, smi))
     stub_counts.append(phase_encdec_main_path(torch, smi))
+    # training: minicpm_2b at full width and depth, xlstm_1_3b at full
+    # width and depth, jamba's first two layers at full width
+    train_counts = [phase_train_main_path(torch, smi),
+                    phase_train_recurrent(torch, smi),
+                    phase_train_hybrid(torch, smi)]
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -4552,7 +5292,7 @@ def main() -> int:
         launches = (counts[name] + serve_counts[name] + graph_counts[name]
                     + preempt_counts[name]
                     + sum(c.get(name, 0) for c in moe_counts + rec_counts
-                          + ds_counts + stub_counts))
+                          + ds_counts + stub_counts + train_counts))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

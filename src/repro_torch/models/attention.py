@@ -10,6 +10,13 @@ and verify windows the fused flash-decode op (K2, or K4 with
 paged-attention op (K5, ``use_paged_kernel``).  With a kernel flag
 turned off the plain version runs instead, on any device.  Caches are
 written in place.
+
+The full-sequence arm without a cache (``attention_forward``, the
+training ``forward``'s) dispatches as the JAX ``_seq_attention`` does:
+``"flash"`` through the flash-attention op (K3, no backward: it runs
+under ``torch.no_grad`` only), ``"chunked"`` through the plain
+``chunked_attention`` or ``"naive"`` through a masked softmax over the
+whole sequence.
 """
 from __future__ import annotations
 
@@ -19,9 +26,10 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import (flash_attention_ref, fused_flash_decode_ref,
-                           gathered_attention, upcast)
+from ..kernels.ref import (NEG_INF, flash_attention_ref,
+                           fused_flash_decode_ref, gathered_attention, upcast)
 from . import paging
+from .chunked_attention import chunked_attention
 from .config import ArchConfig
 from .layers import apply_rope, linear, rms_norm
 from .params import ParamSpec, Template
@@ -81,6 +89,55 @@ def _qkv(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """q: [B,S,H,hd], k/v: [B,T,KV,hd], mask: broadcastable to
+    [B,KV,G,S,T].  The JAX ``_grouped_attention``: f32 scores, softmax,
+    probabilities in q's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores / torch.sqrt(torch.tensor(float(hd)))
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+def causal_mask(seq: int, window: int = 0, device=None) -> torch.Tensor:
+    i = torch.arange(seq, device=device)[:, None]
+    j = torch.arange(seq, device=device)[None, :]
+    m = j <= i
+    if window:
+        m = m & (j > i - window)
+    return m[None, None, None]      # [1,1,1,S,T]
+
+
+def seq_attention(q, k, v, cfg: ArchConfig, impl: str) -> torch.Tensor:
+    """Causal attention over a whole sequence by ``impl``: "flash" (the
+    flash-attention op, K3), "chunked" or "naive" (the JAX
+    ``_seq_attention``)."""
+    if impl == "flash":
+        return ops.flash_attention(q, k, v, causal=True,
+                                   window=cfg.sliding_window)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window)
+    if impl != "naive":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return grouped_attention(q, k, v, causal_mask(
+        q.shape[1], cfg.sliding_window, q.device))
+
+
+def attention_forward(params, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor, impl: str) -> torch.Tensor:
+    """The no-cache arm of the JAX ``attention_apply``: x [B, S, d] at
+    ``positions`` [B, S] -> the attention block's output [B, S, d]."""
+    q, k, v = _qkv(params, cfg, x, positions)
+    return _out_proj(seq_attention(q, k, v, cfg, impl), params["wo"])
 
 
 def prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,

@@ -7,6 +7,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..kernels.ref import rmsnorm_ref, rotate, two_rows, upcast
@@ -116,6 +117,16 @@ def no_tf32(device: torch.device):
     finally:
         if on:
             setattr(m, name, prev)
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` under an activation checkpoint where autograd
+    records (the JAX ``jax.checkpoint``): the backward recomputes what
+    ``fn`` would have saved.  Without grad it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

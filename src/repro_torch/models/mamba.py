@@ -8,8 +8,15 @@ state after position t is bitwise the same whether the tokens came as
 one prompt, as chunks, or as t + 1 decode calls: the products run
 ``blocked`` (``layers.linear``), and the readout over the state
 dimension goes one row at a time (``layers.each_row``), so that a row's
-bits do not depend on its batch.  ``mamba_apply``, the chunked
-``associative_scan`` of training, waits for ROADMAP Queue 1 item 10.
+bits do not depend on its batch.
+
+``mamba_apply`` is the training form (the JAX ``mamba_apply``): the
+sequence in chunks of ``ssm_chunk`` carrying the state, each chunk an
+inclusive scan of ``_scan_combine`` in log depth (Hillis-Steele, where
+JAX has ``lax.associative_scan``; the two reassociate the products
+differently, so they agree to rounding, not bitwise) under one
+activation checkpoint a chunk.  Its products are plain: the serving
+rule of blocked rows has no place under autograd.
 """
 from __future__ import annotations
 
@@ -18,8 +25,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import upcast
 from .config import ArchConfig
-from .layers import each_row, linear, softplus
+from .layers import each_row, linear, remat, softplus
 from .params import DTYPES, ParamSpec, Template
 
 State = Dict[str, torch.Tensor]
@@ -64,17 +72,21 @@ def _causal_conv(params, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return out + params["conv_b"]
 
 
-def _ssm_inputs(params, cfg: ArchConfig, xc: torch.Tensor):
+def _ssm_inputs(params, cfg: ArchConfig, xc: torch.Tensor,
+                blocked: bool = True):
     """xc: [B, L, di] (post conv + silu).  Returns (dt [B, L, di] f32,
     B [B, L, ds], C [B, L, ds] f32, A [di, ds] f32): the JAX
     ``_ssm_params`` before the per-token ``a`` and ``b``."""
     dtr, ds = cfg.ssm_dt_rank, cfg.ssm_state_dim
-    proj = linear(xc, params["x_proj"], blocked=True)
+    # the serving form in f32; the training form in the accumulation
+    # dtype (f32, or f64 for an f64 run)
+    acc = (lambda t: t.float()) if blocked else upcast
+    proj = linear(xc, params["x_proj"], blocked=blocked)
     dt_raw, Bmat, Cmat = proj.split([dtr, ds, ds], dim=-1)
-    dt = softplus(linear(dt_raw, params["dt_proj"], blocked=True).float()
-                  + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())
-    return dt, Bmat, Cmat.float(), A
+    dt = softplus(acc(linear(dt_raw, params["dt_proj"], blocked=blocked))
+                  + acc(params["dt_bias"]))
+    A = -torch.exp(acc(params["A_log"]))
+    return dt, Bmat, acc(Cmat), A
 
 
 def _mamba_step(state: State, dt_t, B_t, C_t, xc_t, xin_t, A):
@@ -134,3 +146,64 @@ def mamba_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
 def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
     """One-token step.  x: [B, 1, d]."""
     return _mamba_seq(params, cfg, x, cache)
+
+
+# ---------------------------------------------------------------------------
+# training: the chunked scan
+# ---------------------------------------------------------------------------
+
+def _scan_combine(x, y):
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, a2 * b1 + b2
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """The inclusive scan of ``_scan_combine`` along dim 1 in log depth
+    (Hillis-Steele): position t becomes (prod a[0..t], h_t) with
+    ``h_t = a_t h_{t-1} + b_t`` from ``h_{-1} = 0``."""
+    k = 1
+    while k < a.shape[1]:
+        a2, b2 = _scan_combine((a[:, :-k], b[:, :-k]), (a[:, k:], b[:, k:]))
+        a = torch.cat([a[:, :k], a2], dim=1)
+        b = torch.cat([b[:, :k], b2], dim=1)
+        k *= 2
+    return a, b
+
+
+def _chunk_step(params, cfg: ArchConfig, h0: torch.Tensor,
+                xc: torch.Tensor):
+    """One chunk xc [B, L, di] from the state h0 [B, di, ds]: (y [B, L,
+    di] f32, the state after the chunk)."""
+    dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc, blocked=False)
+    a = torch.exp(dt[..., None] * A)                         # [B,L,di,ds]
+    b = dt[..., None] * upcast(Bm[:, :, None, :]) * upcast(xc[..., None])
+    A_cum, B_cum = associative_scan(a, b)
+    h = A_cum * h0[:, None] + B_cum
+    y = torch.einsum("blds,bls->bld", h, Cm)
+    return y, h[:, -1]
+
+
+def mamba_apply(params, cfg: ArchConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, None]:
+    """Full sequence (training): x [B, S, d] -> ([B, S, d], None), the
+    chunked scan with one activation checkpoint a chunk."""
+    B, S, d = x.shape
+    di = cfg.d_inner
+    xz = linear(x, params["in_proj"])
+    x_in, z = xz.split(di, dim=-1)
+    tail = x_in.new_zeros((B, cfg.ssm_conv_width - 1, di))
+    xc = F.silu(upcast(_causal_conv(params, x_in, tail))).to(x.dtype)
+    chunk = min(cfg.ssm_chunk, S)
+    pad = -S % chunk
+    xcp = F.pad(xc, (0, 0, 0, pad)) if pad else xc
+    h = torch.zeros((B, di, cfg.ssm_state_dim),
+                    dtype=upcast(x[:0]).dtype, device=x.device)
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        y_c, h = remat(_chunk_step, params, cfg, h, xcp[:, c0:c0 + chunk])
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)[:, :S].to(x.dtype)
+    y = y + params["D"].to(x.dtype) * xc
+    y = y * F.silu(upcast(z)).to(x.dtype)
+    return linear(y, params["out_proj"]), None

@@ -1,5 +1,6 @@
 """Model facade: one ``nn.Module`` per architecture holding its weights,
-with prefill / prefix-extend / decode and the caches of every layout.
+with the full-sequence ``forward`` (training and evaluation), prefill /
+prefix-extend / decode and the caches of every layout.
 
 The weights are registered under the JAX param-tree paths, so
 ``state_dict()`` keys read ``blocks.l0.mixer.wq`` (and
@@ -85,6 +86,22 @@ class Model(nn.Module):
         return unflatten(dict(self.named_parameters()))
 
     # ---- compute ------------------------------------------------------
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None,
+                flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS, params=None):
+        """The full sequence without a cache (``transformer.forward``):
+        (logits [B, S, V], aux, hidden [B, S, d]) from ``params`` (a
+        tree of the template's leaves, such as a ``TrainState``'s), or
+        from the module's own weights.  Not under ``no_grad``: the
+        stacked leaves are cut into groups anew on every call, so
+        autograd reaches them (``self.groups``, the serving entry
+        points' views, were cut before any weight required grad).
+        Gradients need the plain path (``transformer.TRAIN_FLAGS``) and
+        weights that require grad: ``make_train_step`` turns that on."""
+        return tf.forward(self.params if params is None else params,
+                          self.cfg, tokens, prefix_embeds, enc_embeds, flags)
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_cache_len: int,
                 flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,

@@ -3,9 +3,11 @@ sLSTM mixer x dense or MoE FFN, and in an encoder-decoder's decoder a
 cross-attention block between the two), the unrolled dense head layers,
 the stacked layer groups (a Python loop over the ``[R, ...]`` leaves
 takes the place of ``lax.scan``), the bidirectional encoder over stub
-frame embeddings, the logits, the multi-token prediction head, and the
-serving entry points ``prefill`` (with stub prefix or encoder
-embeddings), ``prefill_extend`` and ``decode_step``.
+frame embeddings, the logits, the multi-token prediction head, the
+training and evaluation entry point ``forward`` (the full sequence
+without a cache, differentiable on the plain path), and the serving
+entry points ``prefill`` (with stub prefix or encoder embeddings),
+``prefill_extend`` and ``decode_step``.
 
 Caches are nested dicts with the JAX package's keys and shapes
 (``{"blocks": {"l0": {"mixer": {"k": [R, B, max_len, KV, hd], ...}}}}``
@@ -36,7 +38,7 @@ from . import xlstm as xl
 from .chunked_attention import chunked_attention
 from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
-                     lm_head_template, mlp_apply, mlp_template,
+                     lm_head_template, mlp_apply, mlp_template, remat,
                      rms_norm, rmsnorm_template)
 from .params import (DTYPES, ParamSpec, Template, flatten, stack_template,
                      tree_map, unflatten)
@@ -70,9 +72,18 @@ class RuntimeFlags:
     # ``models/moe.py``); "ep" (expert parallelism over a mesh) is refused
     # until ROADMAP Queue 1 item 11
     moe_impl: str = "gather"
+    # ``forward``'s full-sequence attention without the flash op:
+    # "chunked" | "naive" ("flash" wins where use_flash is set)
+    attn_impl: str = "chunked"
+    # ``forward`` under autograd: "group" checkpoints each layer group
+    # (and each encoder layer), as JAX's ``jax.checkpoint``; "none"
+    remat: str = "group"
 
 
 DEFAULT_FLAGS = RuntimeFlags()
+#: the training path: the kernels off, as the JAX package trains (its
+#: Pallas kernels, like the port's CUDA kernels, have no backward)
+TRAIN_FLAGS = RuntimeFlags(use_flash=False, fused_rmsnorm=False)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -141,6 +152,12 @@ _WINDOWS = {"mamba": mam.mamba_window,
 _PREFILLS = {"mamba": mam.mamba_prefill_into_cache,
              "mlstm": xl.mlstm_prefill_into_cache,
              "slstm": xl.slstm_prefill_into_cache}
+
+#: the full-sequence (training) form of each recurrent kind: ``(params,
+#: cfg, x) -> (y, final state or None)``
+_APPLIES = {"mamba": mam.mamba_apply,
+            "mlstm": xl.mlstm_apply,
+            "slstm": xl.slstm_apply}
 
 _STATE_CACHES = {"mamba": mam.mamba_cache,
                  "mlstm": xl.mlstm_cache,
@@ -367,17 +384,14 @@ def _cross_attention(params, x: torch.Tensor,
     return attn._out_proj(out, params["wo"])
 
 
-def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
-                flags: RuntimeFlags,
-                mixer: Callable[[Any, torch.Tensor], torch.Tensor],
-                memory_kv: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
+def _block(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
+           flags: RuntimeFlags,
+           mixer: Callable[[Any, torch.Tensor], torch.Tensor],
+           memory_kv: Optional[Dict[str, torch.Tensor]] = None):
     """One pre-norm block: the mixer, then (in a decoder layer given its
     memory K/V) the cross-attention block, then (where the layer has
-    one) a SwiGLU or MoE FFN.  ``mixer(mixer_params, h)`` is the mixer
-    of the entry point (prefill, extend, slot, paged or hybrid decode),
-    which writes its cache in place.  A MoE layer's load-balance loss is
-    dropped: serving has no use for it."""
+    one) a SwiGLU or MoE FFN.  Returns (x, the MoE layer's load-balance
+    loss, or None for any other layer)."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
     x = x + mixer(params["mixer"], h)
     if "cross" in params and memory_kv is not None:
@@ -385,11 +399,24 @@ def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
                       flags.fused_rmsnorm)
         x = x + _cross_attention(params["cross"], hc, memory_kv)
     if "ffn" not in params:
-        return x
+        return x, None
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
     if ffn_kind == "moe":
-        return x + moe_mod.moe_apply(params["ffn"], cfg, h2, flags)[0]
-    return x + mlp_apply(params["ffn"], h2)
+        y, aux = moe_mod.moe_apply(params["ffn"], cfg, h2, flags)
+        return x + y, aux
+    return x + mlp_apply(params["ffn"], h2), None
+
+
+def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
+                flags: RuntimeFlags,
+                mixer: Callable[[Any, torch.Tensor], torch.Tensor],
+                memory_kv: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """The serving layer (:func:`_block`): ``mixer(mixer_params, h)`` is
+    the mixer of the entry point (prefill, extend, slot, paged or hybrid
+    decode), which writes its cache in place.  A MoE layer's
+    load-balance loss is dropped: serving has no use for it."""
+    return _block(params, cfg, ffn_kind, x, flags, mixer, memory_kv)[0]
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -478,10 +505,77 @@ def encode(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
         return attn._out_proj(chunked_attention(q, k, v, causal=False),
                               mp["wo"])
 
+    def layer(x, lp):
+        return layer_apply(lp, enc_cfg, "dense", x, flags, bidirectional)
+
     enc = params["encoder"]
     for lp in unstack_groups(enc["blocks"], cfg.num_encoder_layers):
-        x = layer_apply(lp, enc_cfg, "dense", x, flags, bidirectional)
+        x = remat(layer, x, lp) if flags.remat != "none" else layer(x, lp)
     return rms_norm(enc["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
+            flags: RuntimeFlags = DEFAULT_FLAGS):
+    """The full sequence without a cache (training and evaluation, the
+    JAX ``forward``): returns (logits [B, S, V], the summed MoE
+    load-balance loss (f32 scalar), the final hidden states [B, S, d]).
+    ``prefix_embeds`` [B, P, d] go before the tokens (S counts them);
+    ``enc_embeds`` [B, T, d] are an encoder-decoder's encoder input,
+    whose memory every decoder layer attends over.
+
+    Differentiable on the plain path (``TRAIN_FLAGS``); with a kernel
+    flag on, a kernel op raises under autograd (``ops.no_backward``) and
+    runs under ``torch.no_grad``.  With ``remat="group"`` and grad on,
+    each layer group (and each encoder layer) runs under an activation
+    checkpoint, and the recurrent mixers checkpoint their chunks."""
+    dt = DTYPES[cfg.dtype]
+    x = embed_apply(params["embed"], tokens, dt)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    memory = encode(params, cfg, enc_embeds, flags) \
+        if enc_embeds is not None and cfg.is_encoder_decoder else None
+    impl = "flash" if flags.use_flash else flags.attn_impl
+
+    def mixer(kind):
+        if kind in _APPLIES:
+            return lambda mp, h: _APPLIES[kind](mp, cfg, h)[0]
+        if cfg.use_mla:
+            return lambda mp, h: mla_mod.mla_forward(mp, cfg, h, positions,
+                                                     flags)[0]
+        return lambda mp, h: attn.attention_forward(mp, cfg, h, positions,
+                                                    impl)
+
+    def layer(lp, kind, ffn, x, aux):
+        mkv = cross_kv(lp["cross"], memory) \
+            if memory is not None and "cross" in lp else None
+        x, a = _block(lp, cfg, ffn, x, flags, mixer(kind), mkv)
+        return x, aux + a if a is not None else aux
+
+    head, pattern, R = group_structure(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (kind, ffn) in enumerate(head):
+        x, aux = layer(params["head_layers"][f"layer{i}"], kind, ffn, x,
+                       aux)
+
+    def group(x, aux, gp):
+        for j, (kind, ffn) in enumerate(pattern):
+            x, aux = layer(gp[f"l{j}"], kind, ffn, x, aux)
+        return x, aux
+
+    # the stacked leaves cut into their R groups once (``unbind``: the
+    # backward stacks the groups' gradients in one pass)
+    slices = {path: a.unbind(0) for path, a in
+              flatten(params.get("blocks", {})).items()}
+    for r in range(R):
+        gp = unflatten({path: a[r] for path, a in slices.items()})
+        x, aux = remat(group, x, aux, gp) if flags.remat != "none" \
+            else group(x, aux, gp)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
+    return _logits(params, cfg, x), aux, x
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -19,9 +19,13 @@ leaf that receives the state after every position (the speculative
 verify's stacks).  Gate accumulations are stabilised in log space with
 a running max ``m`` as in the paper (eqs. 15-19).
 
-The chunkwise-parallel training path (``_mlstm_chunk``,
-``_mlstm_forward``, ``_slstm_forward``) waits for ROADMAP Queue 1 item
-10, the sequence-parallel ``mlstm_apply_sp`` for item 11.
+The training forms are the JAX package's: the chunkwise-parallel mLSTM
+(``mlstm_apply``: gated attention inside a chunk of ``mlstm_chunk``,
+the (C, n, m) state carried across chunks, one activation checkpoint a
+chunk) and the sLSTM's two-level checkpointed scan (``slstm_apply``:
+one checkpoint per outer chunk of 64 tokens).  Their products are plain
+(unblocked): the serving row rule has no place under autograd.  The
+sequence-parallel ``mlstm_apply_sp`` waits for ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -30,16 +34,20 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import NEG_INF, upcast
 from .config import ArchConfig
-from .layers import each_row, linear, no_tf32, pointwise, softplus
+from .layers import each_row, linear, no_tf32, pointwise, remat, softplus
 from .params import ParamSpec, Template
 
 State = Dict[str, torch.Tensor]
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _heads(x: torch.Tensor, w: torch.Tensor,
+           blocked: bool = True) -> torch.Tensor:
     """``einsum("bshd,hde->bshe")``: a block-diagonal product, one head
-    at a time through ``linear``."""
+    at a time through ``linear`` (``blocked``), or as one einsum."""
+    if not blocked:
+        return torch.einsum("bshd,hde->bshe", x, w)
     return torch.stack([linear(x[..., i, :], w[i], blocked=True)
                         for i in range(w.shape[0])], dim=-2)
 
@@ -79,20 +87,24 @@ def mlstm_template(cfg: ArchConfig) -> Template:
     }
 
 
-def _mlstm_qkv_gates(params, cfg: ArchConfig, x: torch.Tensor):
+def _mlstm_qkv_gates(params, cfg: ArchConfig, x: torch.Tensor,
+                     blocked: bool = True):
     di = 2 * cfg.d_model
     H = cfg.num_heads
-    up = linear(x, params["up_proj"], blocked=True)
+    up = linear(x, params["up_proj"], blocked=blocked)
     xm, z = up.split(di, dim=-1)
     B, S, _ = xm.shape
     xh = xm.reshape(B, S, H, di // H)
-    q = _heads(xh, params["wq"])
-    k = _heads(xh, params["wk"])
-    v = _heads(xh, params["wv"])
-    li = (linear(xm, params["w_igate"], blocked=True)
-          + params["b_igate"]).float()
-    f_raw = (linear(xm, params["w_fgate"], blocked=True)
-             + params["b_fgate"]).float()
+    q = _heads(xh, params["wq"], blocked)
+    k = _heads(xh, params["wk"], blocked)
+    v = _heads(xh, params["wv"], blocked)
+    # the serving forms compute the gates in f32; the training forms in
+    # the accumulation dtype (f32, or f64 for an f64 run)
+    acc = (lambda t: t.float()) if blocked else upcast
+    li = acc(linear(xm, params["w_igate"], blocked=blocked)
+             + params["b_igate"])
+    f_raw = acc(linear(xm, params["w_fgate"], blocked=blocked)
+                + params["b_fgate"])
     lf = -pointwise(softplus, -f_raw)                        # log sigmoid(f)
     return q, k, v, li, lf, z
 
@@ -171,6 +183,75 @@ def mlstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
     return _mlstm_seq(params, cfg, x, cache)
 
 
+def _mlstm_chunk(C0, n0, m0, q, k, v, li, lf, hd: int):
+    """One chunk of the chunkwise-parallel mLSTM (the JAX
+    ``_mlstm_chunk``): from the state (C0 [B,H,hd,hd], n0 [B,H,hd], m0
+    [B,H]) over q, k, v [B,L,H,hd] and the log gates li, lf [B,L,H];
+    returns (C, n, m after the chunk, h [B,L,H,hd] f32)."""
+    L = q.shape[1]
+    F_t = torch.cumsum(lf, dim=1).transpose(1, 2)           # [B,H,L]
+    li_t = li.transpose(1, 2)
+    # D[t,s] = F_t - F_s + li_s   (s <= t)
+    D = F_t[..., :, None] - F_t[..., None, :] + li_t[..., None, :]
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    D = torch.where(causal, D, NEG_INF)
+    G = F_t + m0[..., None]                                  # inter-chunk
+    m = torch.maximum(D.amax(-1), G)                         # [B,H,L]
+    qf = upcast(q) * _inv_sqrt(hd)   # scale q once: intra AND inter
+    kf, vf = upcast(k), upcast(v)
+    qk = torch.einsum("bthd,bshd->bhts", qf, kf)             # [B,H,L,L]
+    Sc = qk * torch.exp(D - m[..., None])
+    inter_w = torch.exp(G - m).transpose(1, 2)               # [B,L,H]
+    num = (torch.einsum("bhts,bshd->bthd", Sc, vf)
+           + inter_w[..., None] * torch.einsum("bthd,bhde->bthe", qf, C0))
+    den = (Sc.sum(-1).transpose(1, 2)
+           + inter_w * torch.einsum("bthd,bhd->bth", qf, n0))
+    # stabilised denominator floor: max(|den|, exp(-m)) (paper eq. 19)
+    floor = torch.exp(-m).transpose(1, 2)
+    h = num / torch.maximum(den.abs(), floor)[..., None]
+    # ---- the state at the end of the chunk
+    decay_s = F_t[..., -1:] - F_t + li_t                     # [B,H,L]
+    m_next = torch.maximum(F_t[..., -1] + m0, decay_s.amax(-1))
+    w_s = torch.exp(decay_s - m_next[..., None])
+    w0 = torch.exp(F_t[..., -1] + m0 - m_next)
+    C = (w0[..., None, None] * C0
+         + torch.einsum("bhs,bshd,bshe->bhde", w_s, kf, vf))
+    n = w0[..., None] * n0 + torch.einsum("bhs,bshd->bhd", w_s, kf)
+    return C, n, m_next, h
+
+
+def mlstm_apply(params, cfg: ArchConfig, x: torch.Tensor,
+                initial_state: Optional[State] = None
+                ) -> Tuple[torch.Tensor, State]:
+    """Full sequence (training, the JAX ``_mlstm_forward``): x [B, S, d]
+    -> (y [B, S, d], the state after it), in chunks of ``mlstm_chunk``
+    with one activation checkpoint a chunk.  Padded positions have the
+    input gate closed (li = NEG_INF) and the forget gate open (lf = 0),
+    so they touch neither the outputs nor the state."""
+    B, S, d = x.shape
+    di = 2 * d
+    H = cfg.num_heads
+    hd = di // H
+    q, k, v, li, lf, z = _mlstm_qkv_gates(params, cfg, x, blocked=False)
+    L = min(cfg.mlstm_chunk, S)
+    pad = -S % L
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+        li = F.pad(li, (0, 0, 0, pad), value=NEG_INF)
+        lf = F.pad(lf, (0, 0, 0, pad))
+    st = initial_state or mlstm_cache(cfg, B, x.device)
+    C, n, m = (st[k].to(li.dtype) for k in ("C", "n", "m"))
+    hs = []
+    for c0 in range(0, S + pad, L):
+        c = slice(c0, c0 + L)
+        C, n, m, h = remat(_mlstm_chunk, C, n, m, q[:, c], k[:, c], v[:, c],
+                           li[:, c], lf[:, c], hd)
+        hs.append(h)
+    h = torch.cat(hs, dim=1)[:, :S].reshape(B, S, di).to(x.dtype)
+    h = h * F.silu(upcast(z)).to(x.dtype)
+    return linear(h, params["down_proj"]), {"C": C, "n": n, "m": m}
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -196,7 +277,7 @@ def slstm_cache(cfg: ArchConfig, batch: int, device) -> State:
 
 
 def _slstm_step(w_h: torch.Tensor, b: torch.Tensor, state: State,
-                x_t: torch.Tensor):
+                x_t: torch.Tensor, blocked: bool = True):
     """One token on every row: the JAX ``_slstm_step``.  ``w_h`` and
     ``b`` are the f32 weights, converted once per window; x_t: [B, 4d],
     the precomputed input projection."""
@@ -204,9 +285,12 @@ def _slstm_step(w_h: torch.Tensor, b: torch.Tensor, state: State,
     B, d = c.shape
     H = w_h.shape[0]
     hh = h.reshape(B, H, d // H)
-    rec = torch.stack([linear(hh[:, i], w_h[i], blocked=True)
-                       for i in range(H)], dim=1).reshape(B, 4 * d)
-    g = x_t.float() + rec + b
+    if blocked:
+        rec = torch.stack([linear(hh[:, i], w_h[i], blocked=True)
+                           for i in range(H)], dim=1).reshape(B, 4 * d)
+    else:
+        rec = torch.einsum("bhd,hdk->bhk", hh, w_h).reshape(B, 4 * d)
+    g = (x_t.float() if blocked else upcast(x_t)) + rec + b
     gi, gf, gz, go = g.split(d, dim=-1)
     li = gi                                                  # exp input gate
     lf = -softplus(-gf)                                      # log sigmoid
@@ -257,3 +341,40 @@ def slstm_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
 def slstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
     """One token.  x: [B, 1, d]."""
     return _slstm_seq(params, cfg, x, cache)
+
+
+def _slstm_outer(w_h, b, c, n, h, m, xg):
+    """One outer chunk of the sLSTM scan: the tokens of xg [B, L, 4d]
+    one at a time from the state (c, n, h, m); returns the state after
+    it and h [B, L, d] f32."""
+    state = {"c": c, "n": n, "h": h, "m": m}
+    hs = []
+    for t in range(xg.shape[1]):
+        state = _slstm_step(w_h, b, state, xg[:, t], blocked=False)
+        hs.append(state["h"])
+    return (state["c"], state["n"], state["h"], state["m"],
+            torch.stack(hs, dim=1))
+
+
+def slstm_apply(params, cfg: ArchConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, State]:
+    """Full sequence (training, the JAX ``_slstm_forward``): x [B, S, d]
+    -> (y [B, S, d], the state after it).  The two-level scan: outer
+    chunks of L = 64 tokens (S itself below 64, single tokens where 64
+    does not divide S), one activation checkpoint each, so the backward
+    keeps the state at chunk boundaries only."""
+    B, S, d = x.shape
+    xg = linear(x, params["w_x"])                            # [B, S, 4d]
+    w_h, b = upcast(params["w_h"]), upcast(params["b"])
+    L = 64 if S % 64 == 0 else (S if S < 64 else 1)
+    if S % L:
+        L = 1
+    st = slstm_cache(cfg, B, x.device)
+    c, n, h, m = (st[k].to(w_h.dtype) for k in ("c", "n", "h", "m"))
+    hs = []
+    for c0 in range(0, S, L):
+        c, n, h, m, hc = remat(_slstm_outer, w_h, b, c, n, h, m,
+                               xg[:, c0:c0 + L])
+        hs.append(hc)
+    y = linear(torch.cat(hs, dim=1).to(x.dtype), params["out_proj"])
+    return y, {"c": c, "n": n, "h": h, "m": m}

@@ -1,4 +1,6 @@
-"""Serving step factories: prompt ingestion, lockstep decode,
+"""Step factories: the train step (loss, gradients by autograd on the
+plain path, the optimizer update), and for serving prompt ingestion,
+lockstep decode,
 continuous-batching decode and speculative verify over slot rows, a
 paged arena, state slabs or the hybrid of the last two, the row inserts
 of every layout, chunked / prefix-extend prefill, and the state
@@ -15,14 +17,122 @@ step still returns the cache so callers read like the JAX package's.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from ..models import paging
+from ..models import transformer as tf
 from ..models.model import Model
-from ..models.params import flatten
-from ..models.transformer import DEFAULT_FLAGS, RuntimeFlags
+from ..models.params import flatten, unflatten
+from ..models.transformer import DEFAULT_FLAGS, TRAIN_FLAGS, RuntimeFlags
+from ..optim import make_optimizer
+from ..optim.optimizers import BLOCK, OptState
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: OptState
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE in f32.  logits [B,S,V], labels [B,S]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """``sum(square(g.astype(f32)))`` a block at a time."""
+    flat = g.reshape(-1)
+    return sum(torch.sum(torch.square(b.float()))
+               for b in flat.split(BLOCK))
+
+
+def make_train_step(model: Model, *, schedule: Callable,
+                    flags: RuntimeFlags = TRAIN_FLAGS,
+                    optimizer: Optional[str] = None):
+    """The JAX ``make_train_step``: ``(train_step, init_state)``.
+
+    ``train_step(state, batch) -> (state, metrics)``: the loss of
+    ``batch`` (``tokens``, ``labels``, and a modality stub's
+    ``prefix_embeds`` or ``enc_embeds``: tensors on the model's device)
+    — the CE, masked past a prefix, plus ``router_aux_weight`` x the
+    MoE load-balance loss, plus 0.3 x the MTP loss where the
+    architecture has an MTP head — its gradients by autograd, the
+    learning rate ``schedule(step + 1)``, and the optimizer update,
+    which writes the params and the optimizer state **in place** and
+    returns them.  ``metrics``: ``loss`` (the CE), ``aux``, ``mtp_loss``
+    where there is one, ``total_loss``, ``lr`` and ``grad_norm`` (each
+    gradient leaf's squares summed in f32, as JAX sums them), as
+    tensors.  The weights are made to require grad at each step.
+    ``train_step.loss_fn(params, batch) -> (loss, metrics)`` is the loss
+    alone.
+
+    ``flags`` defaults to the plain path (``TRAIN_FLAGS``): the kernels
+    have no backward, so kernel flags raise at the first kernel op
+    (``ops.no_backward``); nothing falls back."""
+    cfg = model.cfg
+    opt_init, opt_update = make_optimizer(optimizer or cfg.optimizer)
+
+    def loss_fn(params, batch):
+        kw = {k: batch[k] for k in ("prefix_embeds", "enc_embeds")
+              if k in batch}
+        logits, aux, hidden = model.forward(batch["tokens"], flags=flags,
+                                            params=params, **kw)
+        labels = batch["labels"]
+        mask = None
+        if "prefix_embeds" in batch:
+            P = batch["prefix_embeds"].shape[1]
+            pos = torch.arange(labels.shape[1], device=labels.device)
+            mask = (pos >= P).expand(labels.shape)
+        ce = cross_entropy(logits, labels, mask)
+        loss = ce + cfg.router_aux_weight * aux
+        metrics = {"loss": ce, "aux": aux}
+        if cfg.mtp_depth:
+            # MTP: predict token t+2 from hidden_t (+ embed of t+1)
+            mtp = tf.mtp_logits(params, cfg, hidden, batch["tokens"], flags)
+            mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+            mtp_loss = cross_entropy(mtp, mtp_labels, mask)
+            loss = loss + 0.3 * mtp_loss
+            metrics["mtp_loss"] = mtp_loss
+        return loss, metrics
+
+    def train_step(state: TrainState, batch):
+        leaves = flatten(state.params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+            p.grad = None
+        with torch.enable_grad():
+            loss, metrics = loss_fn(state.params, batch)
+            loss.backward()
+        grads = {path: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for path, p in leaves.items()}
+        for p in leaves.values():
+            p.grad = None
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(_square_sum(g) for g in grads.values()))
+            lr = schedule(state.opt.step + 1)
+            new_params, new_opt = opt_update(unflatten(grads), state.opt,
+                                             state.params, lr)
+        del grads
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(total_loss=loss.detach(), lr=lr, grad_norm=gnorm)
+        return TrainState(new_params, new_opt), metrics
+
+    def init_state(params) -> TrainState:
+        return TrainState(params, opt_init(params))
+
+    # the loss alone, ``(params, batch) -> (loss, metrics)``, for callers
+    # that read the gradients themselves
+    train_step.loss_fn = loss_fn
+    return train_step, init_state
 
 
 def make_prefill_step(model: Model, max_cache_len: int,

@@ -611,3 +611,37 @@ def test_cuda_mla_paged_decode_equals_slot(cuda_device, dtype, Sq):
     assert torch.equal(paged, slot)
     tol = {"float32": 1e-4, "bfloat16": 5e-2}[dtype]
     assert (slot.float().cpu() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["rmsnorm", "flash_attention",
+                                "fused_flash_decode", "paged_attention"])
+def test_cuda_op_refuses_grad(cuda_device, op):
+    """F3: a kernel's output would carry no ``grad_fn``, so each CUDA op
+    raises where autograd records it, and runs under ``no_grad``."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def r(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g)
+    B, H, KV, hd, P, bs = 2, 4, 2, 64, 3, 16
+    tables = (1 + torch.arange(B, device=cuda_device)[:, None] * P
+              + torch.arange(P, device=cuda_device)).int()
+    pos = torch.tensor([3, 20], dtype=torch.int32, device=cuda_device)
+    pages = (r(1 + B * P, bs, KV, hd), r(1 + B * P, bs, KV, hd))
+    calls = {
+        "rmsnorm": lambda x: ops.rmsnorm(x, r(256), eps=1e-5),
+        "flash_attention": lambda x: ops.flash_attention(
+            x, r(B, 8, KV, hd), r(B, 8, KV, hd), causal=True),
+        "fused_flash_decode": lambda x: ops.fused_flash_decode(
+            x, r(B, 1, KV, hd), r(B, 1, KV, hd), *pages, tables, pos,
+            ref.rope_freqs(hd, 1e4, cuda_device)),
+        "paged_attention": lambda x: ops.paged_attention(
+            x, *pages, tables, pos)}
+    first = {"rmsnorm": (3, 256), "flash_attention": (B, 8, H, hd),
+             "fused_flash_decode": (B, 1, H, hd),
+             "paged_attention": (B, H, hd)}[op]
+    x = r(*first).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[op](x)
+    with torch.no_grad():
+        assert calls[op](x).grad_fn is None

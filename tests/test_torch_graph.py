@@ -561,7 +561,8 @@ COPIES = ([f"core/{m}.py" for m in CORE]
                                          "pipeline", "server", "frontend",
                                          "batching", "speculative")]
           + ["serving/kvcache/allocator.py", "serving/kvcache/prefix.py",
-             "serving/kvcache/state.py", "launch/serve.py"])
+             "serving/kvcache/state.py", "launch/serve.py",
+             "data/__init__.py", "data/pipeline.py"])
 #: the definitions a copy may change or add, by file: top-level ones by
 #: name, methods as ``Class.method``
 NAMED = {"calculators/basic.py": {"SyncPointCalculator", "_cuda_devices"},
