@@ -96,7 +96,16 @@ admits, the aux loss and the MoE drops); and, after
 minicpm_2b, each replay held bitwise to the run without preemption
 (``f2_group_prefill``: a slot layout's group-prefilled prompts replayed
 alone; ``f2_prefix_readmit``: a readmission whose prefix sharer is
-gone); checks the launch counters
+gone); after ``captured``, tensor-parallel serving on the
+one card, two or four ranks on ``cuda:0`` through gloo, eager
+(``tp_serve``: minicpm_2b at tp 2, full width and depth, through the
+Scheduler with K2 and with K4 on each rank's 18 heads, every rank's
+launches held to the schedule, tokens bitwise each request served
+alone by the same engine (``own_greedy``), slot = paged, a forced preemption replayed, the eager
+tick against the unsharded one with its share in ``all_reduce``;
+``tp_f32``: 8 layers in f32, tp 2 against tp 1; ``tp_gqa``:
+qwen3_32b's first two layers at tp 2 and tp 4, K2, K4 and K3 on GQA
+slices, and in f32 against tp 1); checks the launch counters
 against the schedule and the outputs (slot and paged layouts bitwise
 equal; an f32 run against per-request greedy), and times each kernel
 with CUDA events over calls queued back to back (K1 also at prefill
@@ -333,13 +342,21 @@ def phase_kernels(torch):
                       f"bitwise equal to row 2 of the batch")
         for shape in DECODE_SHAPES:
             check_paged_kernels(torch, dev, g, dtype, shape, record)
+        # each rank's heads under tensor-parallel serving (item 11a): K2,
+        # K4 and K5 with every row alone bitwise its row of the batch,
+        # K3 with its suffix and each row alone bitwise
+        for shape in TP_HEADS:
+            check_paged_kernels(torch, dev, g, dtype, shape, record)
+            check_flash_shape(torch, dev, g, dtype, shape, record,
+                              rows=SERVE_CHUNK + 64, offsets=(SERVE_CHUNK,),
+                              batch=2)
         # granite_moe_3b_a800m's G = 3: K3's suffixes of a 512-row
         # prefill, K2 and K4's windows against single queries
         check_flash_shape(torch, dev, g, dtype, GRANITE, record,
                           rows=512, offsets=(50, 256))
         for shape in (GRANITE,) + STUB_HEADS:
             check_window_independence(torch, dev, g, shape, dtype)
-    for shape in DECODE_SHAPES[:2]:
+    for shape in DECODE_SHAPES[:2] + TP_HEADS:
         check_window_independence(torch, dev, g, shape)
     torch.cuda.synchronize()
     return errs
@@ -456,6 +473,28 @@ DECODE_SHAPES = (("minicpm_2b", 36, 36, 64), ("qwen3_32b", 64, 8, 128),
                  ("granite_moe_3b_a800m", 24, 8, 64),
                  ("phi_3_vision_4_2b", 32, 32, 96),
                  ("seamless_m4t_large_v2", 16, 16, 64))
+#: one rank's bf16 products under tensor-parallel serving (K x N): the
+#: q/k/v, output, FFN and logits products of minicpm_2b at tp 2 and of
+#: qwen3_32b at tp 2 and tp 4
+TP_GEMMS = {"minicpm tp2 q": (2304, 1152), "minicpm tp2 o": (1152, 2304),
+            "minicpm tp2 gate_up": (2304, 2880),
+            "minicpm tp2 down": (2880, 2304),
+            "minicpm tp2 logits": (2304, 61440),
+            "qwen3 q": (5120, 8192), "qwen3 kv": (5120, 1024),
+            "qwen3 o": (8192, 5120), "qwen3 gate_up": (5120, 25600),
+            "qwen3 down": (25600, 5120),
+            "qwen3 tp2 q": (5120, 4096), "qwen3 tp2 kv": (5120, 512),
+            "qwen3 tp2 o": (4096, 5120), "qwen3 tp2 gate_up": (5120, 12800),
+            "qwen3 tp2 down": (12800, 5120),
+            "qwen3 tp2 logits": (5120, 75968),
+            "qwen3 tp4 q": (5120, 2048), "qwen3 tp4 kv": (5120, 256),
+            "qwen3 tp4 o": (2048, 5120), "qwen3 tp4 gate_up": (5120, 6400),
+            "qwen3 tp4 down": (6400, 5120),
+            "qwen3 tp4 logits": (5120, 37984)}
+#: one rank's heads under tensor-parallel serving: minicpm_2b's 36 MHA
+#: heads at tp 2, qwen3_32b's 64 over 8 kv heads at tp 2 and tp 4
+TP_HEADS = (("minicpm_2b tp2", 18, 18, 64), ("qwen3_32b tp2", 32, 4, 128),
+            ("qwen3_32b tp4", 16, 2, 128))
 #: granite_moe_3b_a800m's attention shape: 3 query heads per kv head
 GRANITE = DECODE_SHAPES[3]
 #: the stub models' attention shapes
@@ -650,9 +689,10 @@ def phase_gemm_width(torch):
     out = {}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for name, (K, N) in shapes.items():
+        for name, (K, N) in list(shapes.items()) + (
+                list(TP_GEMMS.items()) if dtype == "bfloat16" else []):
             x = torch.randn(32, K, device=dev, generator=g).to(dt)
-            if name == "logits":
+            if name in ("logits", "minicpm tp2 logits"):   # tied: the embedding's transpose
                 w = torch.randn(N, K, device=dev, generator=g).to(dt).t()
             else:
                 w = torch.randn(K, N, device=dev, generator=g).to(dt)
@@ -1611,8 +1651,9 @@ class ForcedPreemption:
     compared bitwise.  Under a ``GraphServer`` this runs on the engine's
     executor thread, inside the scheduler's own calls."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, limit=PREEMPTIONS):
         self.torch = torch
+        self.limit = limit                 # preemptions to force
         self.streamed = []                 # each victim's streamed tokens
         self.kv_equal = []                 # one per completed replay
         self._held = {}                    # victim -> its K/V
@@ -1639,7 +1680,7 @@ class ForcedPreemption:
 
     def _preempt(self):
         sched = self.sched
-        if len(self.streamed) >= PREEMPTIONS:
+        if len(self.streamed) >= self.limit:
             return
         for req in sched.slots:
             if (req is not None and req not in sched.ingesting
@@ -2037,6 +2078,362 @@ def interleaved_ticks(torch, engines, requests, kind, ticks=TICK_READS,
                      **device_share(per, med, (
                          "rmsnorm_kernel", "fused_decode_mma_kernel"))}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b — tensor-parallel serving (ROADMAP item 11a): head-sliced ranks
+# on one card, gloo collectives
+# ---------------------------------------------------------------------------
+
+#: ranks of the tensor-parallel phases; every rank on the one card (the
+#: collectives are gloo, which stages CUDA tensors through the host, so
+#: ranks may share a card; NCCL refuses two ranks on one device)
+TP = 2
+TP_DEVICE = "cuda:0"
+#: the tensor-parallel serve run: the serve workload's first requests,
+#: each for fewer new tokens (cut from SERVE_REQUESTS and SERVE_NEW)
+TP_REQUESTS = 4
+TP_NEW = 12
+TP_TICKS = 12
+#: depth of the f32 comparison of tp 2 against tp 1 (as xlstm_serve's)
+TP_F32_DEPTH = 8
+QWEN_ARCH = "qwen3_32b"
+QWEN_DEPTH = 2
+GQA_MAX_LEN = 512
+GQA_REQUESTS = 4
+GQA_PROMPT = (300, 380)
+GQA_NEW = 8
+GQA_BLOCKS = 1 + SERVE_SLOTS * GQA_MAX_LEN // SERVE_BLOCK
+#: (tp, run) of tp_gqa: K2 on 32/4 heads a rank, K4 on 16/2 (K2 at 16/2
+#: and K4 at 32/4 are held in kernel_vs_plain; the two other engines'
+#: start-ups did not fit the run's budget)
+GQA_RUNS = ((2, ("default", {}, "fused_flash_decode")),
+            (4, ("split_k", {"fused_split_k": True},
+                 "fused_flash_decode_splitk")))
+
+
+def tp_engine(torch, cfg, tp, max_len, weights=None, **flags):
+    """An engine over ``tp`` ranks on the card (rank 0 here, the others
+    spawned), eager: a gloo collective cannot be captured."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    return LLMEngine(cfg, weights, max_len=max_len, seed=SEED,
+                     flags=RuntimeFlags(cuda_graphs=False, **flags),
+                     mesh=make_serving_mesh(tp, devices=[TP_DEVICE] * tp))
+
+
+def tp_serve(torch, engine, cfg, requests, blocks, attend, **kw):
+    """``serve`` on a tensor-parallel engine with every rank's launch
+    counter at 0 first; every rank's launches held to the schedule.
+    Returns (tokens, stats, the ranks' launches summed, wall)."""
+    engine.rank_launches(reset=True)
+    got, stats, _, wall = serve(torch, engine, requests, blocks, **kw)
+    per_rank = engine.rank_launches()
+    want = expected_serve_launches(cfg, stats, attend)
+    check(all(c == want for c in per_rank),
+          f"{cfg.name} tp{engine.tp}: a rank's launches {per_rank} != the "
+          f"schedule's {want}")
+    total = {}
+    for c in per_rank:
+        add_counts(total, c)
+    return got, stats, total, wall, per_rank, want
+
+
+def own_greedy(torch, engine, requests, new):
+    """Each request alone through a one-slot Scheduler on the engine's
+    slot layout, greedy, without speculation: the served run's prefill
+    and extend chunks (SERVE_CHUNK), then one decode step a token."""
+    from repro_torch.serving import SlotBackend
+    return {i: serve(torch, engine, [p], 0, speculate_k=0, max_new=new,
+                     backend=lambda e: SlotBackend(e, 1))[0][0]
+            for i, p in enumerate(requests)}
+
+
+def bitwise_equal(a, b):
+    import numpy as np
+    return sum(bool(np.array_equal(a[i], b[i])) for i in b) == len(b) \
+        and sorted(a) == sorted(b)
+
+
+def tp_ticks(torch, engines, requests, ticks=TP_TICKS):
+    """Scheduler decode ticks (4 active slots, no speculation, paged,
+    roomy) of each engine in turns, 3 of warm-up then ``ticks`` read:
+    each one's median and p10/p90 ms, and for a tensor-parallel engine
+    rank 0's ``all_reduce`` calls a tick and their share of the tick
+    (host clock around the collectives)."""
+    import numpy as np
+    from repro_torch.serving import PagedBackend, Scheduler
+    scheds = {}
+    for name, engine in engines.items():
+        be = PagedBackend(engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
+                          block_size=SERVE_BLOCK)
+        sched = Scheduler(be, max_new_tokens=4 + 3 + ticks,
+                          chunk_size=SERVE_CHUNK)
+        for i, p in enumerate(requests[:SERVE_SLOTS]):
+            sched.submit({"tokens": p, "id": i})
+        while sched.ingesting or sched.waiting:
+            sched.admit()
+        check(sched.active == SERVE_SLOTS, "tp ticks: slots not all active")
+        scheds[name] = sched
+    times = {name: [] for name in scheds}
+    reduce = {name: [0, 0.0] for name in scheds}
+    for i in range(3 + ticks):
+        for name, sched in scheds.items():
+            coll = engines[name].collectives
+            c0 = (coll.reduce_calls, coll.reduce_s) if coll else (0, 0.0)
+            t0 = time.perf_counter()
+            sched.step()
+            dt = time.perf_counter() - t0
+            if i >= 3:
+                times[name].append(dt * 1e3)
+                if coll:
+                    reduce[name][0] += coll.reduce_calls - c0[0]
+                    reduce[name][1] += coll.reduce_s - c0[1]
+    out = {}
+    for name, ms in times.items():
+        med = statistics.median(ms)
+        row = {"ticks": len(ms), "ms_median": med,
+               "ms_p10": float(np.percentile(ms, 10)),
+               "ms_p90": float(np.percentile(ms, 90)),
+               "tokens_per_s": SERVE_SLOTS / (med / 1e3)}
+        if engines[name].collectives is not None:
+            row.update({"all_reduce_per_tick": reduce[name][0] / ticks,
+                        "all_reduce_ms_per_tick":
+                            reduce[name][1] * 1e3 / ticks,
+                        "all_reduce_share": reduce[name][1] * 1e3
+                            / sum(ms)})
+        out[name] = row
+    return out
+
+
+def phase_tp_serve(torch, smi):
+    """minicpm_2b at full width and depth (bf16, random weights from the
+    seed) on TP ranks of the card: the serve workload's first
+    TP_REQUESTS requests for TP_NEW tokens through the Scheduler on a
+    PagedBackend (chunk 256, speculate 4, prefix sharing, pressure),
+    once with K2 and once with K4 (``fused_split_k``) and one forced
+    preemption of a decoding request: every rank's launches equal to the
+    schedule, the tokens bitwise each request served alone, greedy, by
+    the same engine (``own_greedy``), the forced victim's K/V (rank 0's heads) replayed
+    bitwise; slot = paged bitwise; then the eager tick against the
+    unsharded eager tick, with the share of the tick in ``all_reduce``.
+    Returns the launch counts of every rank."""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = minicpm_config()
+    requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
+    blocks, four, three = pressure_blocks(requests)
+    counts_all = {}
+    for name, flags, attend in (
+            ("split_k", {"fused_split_k": True},
+             "fused_flash_decode_splitk"),
+            ("default", {}, "fused_flash_decode")):
+        t0 = time.perf_counter()
+        engine = tp_engine(torch, cfg, TP, SERVE_MAX_LEN, **flags)
+        start_s = time.perf_counter() - t0
+        forced = ForcedPreemption(torch, limit=1)
+        got, stats, counts, wall, per_rank, want = tp_serve(
+            torch, engine, cfg, requests, blocks, attend, max_new=TP_NEW,
+            hook=forced.install if name == "split_k" else None)
+        equal = bitwise_equal(got, own_greedy(torch, engine, requests,
+                                              TP_NEW))
+        emit({"phase": "tp_serve", "run": name, "tp": TP,
+              "devices": list(engine.mesh.devices),
+              "mesh": engine.mesh_desc, "requests": len(requests),
+              "new_tokens": TP_NEW, "num_blocks": blocks,
+              "engine_start_s": start_s, "seconds": wall,
+              "launches_per_rank": per_rank, "expected_launches": want,
+              "bitwise_equal_to_own_greedy": equal,
+              "forced_preemptions": len(forced.streamed),
+              "victims_streamed_tokens": forced.streamed,
+              "replays_kv_bitwise_rank0": sum(forced.kv_equal),
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "spec_drafted", "spec_accepted",
+                  "preemptions", "replayed_tokens", "replay_steps",
+                  "shared_block_hits", "completed", "admit_seconds",
+                  "step_seconds")}})
+        check(stats["completed"] == len(requests),
+              f"tp_serve {name}: not every request completed")
+        check(stats["spec_steps"] > 0, f"tp_serve {name}: no verify step")
+        check(equal, f"tp_serve {name}: tokens differ from the engine's "
+                     f"requests served alone")
+        add_counts(counts_all, counts)
+        if name == "split_k":
+            check(len(forced.streamed) == 1 and stats["replay_steps"] > 0
+                  and forced.kv_equal == [True],
+                  "tp_serve: the forced preemption did not replay bitwise")
+            engine.close()
+            del engine
+            free_card(torch)
+
+    # ---- slot = paged (the default run's tokens, its own greedy ones) ----
+    engine.rank_launches(reset=True)
+    slot, _, _, _ = serve(torch, engine, requests, 0, paged=False,
+                          max_new=TP_NEW)
+    for c in engine.rank_launches():
+        add_counts(counts_all, c)
+    emit({"phase": "tp_serve_layouts", "tp": TP,
+          "slot_bitwise_equal_to_paged": bitwise_equal(slot, got)})
+    check(bitwise_equal(slot, got), "tp_serve: slot and paged tokens are "
+                                    "not bitwise equal")
+
+    # ---- the eager tick against the unsharded eager tick -----------------
+    plain = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    ticks = tp_ticks(torch, {"tp1_eager": plain, f"tp{TP}_eager": engine},
+                     serve_requests(cfg.vocab_size))
+    emit({"phase": "tp_tick", "nvidia_smi": smi, **ticks})
+    check(ticks[f"tp{TP}_eager"]["all_reduce_per_tick"]
+          == 2 * cfg.num_layers + 2,
+          "tp_tick: not one all_reduce after each layer's two products, "
+          "the embedding and the logits")
+    engine.close()
+    del plain, engine
+    free_card(torch)
+    return counts_all
+
+
+def phase_tp_f32(torch):
+    """minicpm_2b's first TP_F32_DEPTH layers at full width in f32: tp 2
+    against tp 1 (no mesh) on the same weights from the seed.  The tp 2
+    run's Scheduler tokens against tp 1's per-request greedy under the
+    top-2 gap rule (``compare_with_greedy``); its first-step logits
+    within F32_MODEL_TOL of tp 1's or, as ``f32_against_plain`` holds
+    two f32 paths to the f32 rounding floor, no further from an f64 run
+    on the same weights than F32_MODEL_TOL or the f32 paths without a
+    mesh (the plain one, tp 1) sit from it."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    cfg = dataclasses.replace(minicpm_config(), dtype="float32",
+                              num_layers=TP_F32_DEPTH)
+    requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
+    one = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
+    tp = tp_engine(torch, cfg, TP, SERVE_MAX_LEN)
+    got, stats, _, _ = serve(torch, tp, requests, ROOMY_BLOCKS,
+                             max_new=TP_NEW)
+    exact = compare_with_greedy(torch, one, requests, got, new=TP_NEW,
+                                chunk=SERVE_CHUNK)
+    toks = np.stack([p[:256] for p in requests])
+    w32 = dict(one.model.named_parameters())
+    plain = LLMEngine(cfg, w32, max_len=SERVE_MAX_LEN,
+                      flags=RuntimeFlags(**PLAIN_FLAGS))
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    x64 = LLMEngine(cfg64, {k: v.double() for k, v in w32.items()},
+                    max_len=SERVE_MAX_LEN, flags=RuntimeFlags(**PLAIN_FLAGS))
+    lg = {name: e.prefill_logits(toks) for name, e in (
+        ("tp1", one), ("tp2", tp), ("plain", plain), ("f64", x64))}
+    V = cfg.vocab_size
+
+    def dist(a, b):
+        return float(np.abs(lg[a][:, :V] - lg[b][:, :V]).max())
+
+    err = dist("tp2", "tp1")
+    # the f32 floor: how far the f32 runs without a mesh sit from f64
+    floor = max(dist("plain", "f64"), dist("tp1", "f64"))
+    limit = max(F32_MODEL_TOL, floor)
+    emit({"phase": "tp_f32", "tp": TP, "depth": TP_F32_DEPTH,
+          "spec_steps": stats["spec_steps"], **exact,
+          "logits_tp2_vs_tp1": err, "tp2_vs_f64": dist("tp2", "f64"),
+          "tp1_vs_f64": dist("tp1", "f64"),
+          "plain_f32_vs_f64": dist("plain", "f64"), "limit": limit,
+          "logit_scale": float(np.abs(lg["f64"][:, :V]).max())})
+    check(exact["rows_compared"] > 0 and exact["mismatches"] == 0,
+          "tp_f32: a tp 2 token differs from tp 1's greedy where the top-2 "
+          "gap is wide")
+    check(err <= F32_MODEL_TOL or dist("tp2", "f64") <= limit,
+          f"tp_f32: logits {err} from tp 1's and {dist('tp2', 'f64')} from "
+          f"the f64 run, beyond {limit}")
+    tp.close()
+    del one, tp, plain, x64, w32
+    free_card(torch)
+
+
+def qwen_config():
+    """qwen3_32b's first QWEN_DEPTH layers at full width."""
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN_ARCH)
+    check((cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.qk_norm) == (5120, 64, 8, 128, True),
+          f"{QWEN_ARCH} is not at full width")
+    return dataclasses.replace(cfg, num_layers=QWEN_DEPTH)
+
+
+def gqa_requests(vocab: int):
+    """GQA_REQUESTS prompts sharing SERVE_PREFIX tokens, bodies of a
+    repeated motif, lengths in GQA_PROMPT."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 11)
+    prefix = rng.randint(0, vocab, SERVE_PREFIX)
+    out = []
+    for n in rng.randint(GQA_PROMPT[0], GQA_PROMPT[1] + 1, GQA_REQUESTS):
+        motif = rng.randint(0, vocab, SERVE_MOTIF)
+        body = np.tile(motif, -(-(n - SERVE_PREFIX) // SERVE_MOTIF))
+        out.append(np.concatenate([prefix, body[:n - SERVE_PREFIX]])
+                   .astype(np.int32))
+    return out
+
+
+def phase_tp_gqa(torch, smi):
+    """qwen3_32b's first two layers at full width (64 heads over 8 kv
+    heads of 128, qk-norm; bf16) on the one card: the requests through
+    the Scheduler on a PagedBackend (chunk 256, speculate 4, prefix
+    sharing) at tp 2 with K2 on each rank's 32/4 heads and at tp 4 with
+    K4 on 16/2 (``GQA_RUNS``), launches per rank = the schedule, tokens
+    bitwise each request served alone by the same engine
+    (``own_greedy``); then in f32 the tp 4
+    mesh's tokens against tp 1's greedy under the top-2 gap rule.
+    Returns the launch counts of every rank."""
+    from repro_torch.serving import LLMEngine
+    cfg = qwen_config()
+    requests = gqa_requests(cfg.vocab_size)
+    counts_all = {}
+    for tp, (name, flags, attend) in GQA_RUNS:
+        t0 = time.perf_counter()
+        engine = tp_engine(torch, cfg, tp, GQA_MAX_LEN, **flags)
+        start_s = time.perf_counter() - t0
+        got, stats, counts, wall, per_rank, want = tp_serve(
+            torch, engine, cfg, requests, GQA_BLOCKS, attend,
+            max_new=GQA_NEW)
+        equal = bitwise_equal(got, own_greedy(torch, engine, requests,
+                                              GQA_NEW))
+        emit({"phase": "tp_gqa", "run": name, "tp": tp,
+              "heads_per_rank": [cfg.num_heads // tp,
+                                 cfg.num_kv_heads // tp],
+              "engine_start_s": start_s, "seconds": wall,
+              "launches_per_rank": per_rank, "expected_launches": want,
+              "bitwise_equal_to_own_greedy": equal,
+              "stats": {k: stats[k] for k in (
+                  "prefill_calls", "extend_prefills", "decode_steps",
+                  "spec_steps", "shared_block_hits", "completed")}})
+        check(stats["completed"] == len(requests)
+              and stats["spec_steps"] > 0,
+              f"tp_gqa tp{tp} {name}: the run did not complete or "
+              f"verify")
+        check(equal, f"tp_gqa tp{tp} {name}: tokens differ from the "
+                     f"requests served alone")
+        add_counts(counts_all, counts)
+        engine.close()
+        del engine
+        free_card(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    one = LLMEngine(cfg32, max_len=GQA_MAX_LEN, seed=SEED)
+    engine = tp_engine(torch, cfg32, 4, GQA_MAX_LEN)
+    got, _, _, _ = serve(torch, engine, requests, GQA_BLOCKS,
+                         max_new=GQA_NEW)
+    exact = compare_with_greedy(torch, one, requests, got,
+                                max_len=GQA_MAX_LEN, new=GQA_NEW,
+                                chunk=SERVE_CHUNK)
+    emit({"phase": "tp_gqa_f32", "tp": 4, **exact})
+    check(exact["rows_compared"] > 0 and exact["mismatches"] == 0,
+          "tp_gqa f32 tp4: a token differs from tp 1's greedy where the "
+          "top-2 gap is wide")
+    engine.close()
+    del engine, one
+    free_card(torch)
+    return counts_all
 
 
 # ---------------------------------------------------------------------------
@@ -2653,6 +3050,8 @@ JAMBA_DEPTH = 2
 STATE_MAX_LEN = 256
 #: the depth of xlstm_serve's f32 exactness check: one layer group
 XLSTM_F32_DEPTH = 8
+#: depth of xlstm_serve's forced preemptions (cut from 48)
+XLSTM_PREEMPT_DEPTH = 12
 STATE_CHUNK = 32
 STATE_NEW = 24
 STATE_PROMPT = (48, 96)
@@ -2953,14 +3352,15 @@ def phase_xlstm_serve(torch, smi):
     """The xlstm serve workload through the Scheduler on a StateBackend
     at full width and depth (bf16): captured steps against eager ones on
     the same weights (tokens bitwise, launches equal to the schedule,
-    slabs back to 0); PREEMPTIONS requests preempted after streaming
-    tokens (``ForcedPreemption``), once with speculation off (replayed
-    through the masked decode) and once on (verify windows and the
-    rewind of the row), each against the same run without preemption:
-    tokens and slab rows bitwise; in f32 (the first layer group), the
-    served tokens against per-request greedy under the top-2 gap rule;
-    then the decode and the verify tick against their bounds
-    (``state_ticks``).  Returns the launch counts."""
+    slabs back to 0); the decode and the verify tick against their
+    bounds (``state_ticks``); on the first XLSTM_PREEMPT_DEPTH layers,
+    PREEMPTIONS requests preempted after streaming tokens
+    (``ForcedPreemption``), once with speculation off (replayed through
+    the masked decode) and once on (verify windows and the rewind of
+    the row), each against the same run without preemption: tokens and
+    slab rows bitwise; in f32 (the first layer group), the served tokens
+    against per-request greedy under the top-2 gap rule.  Returns the
+    launch counts."""
     import numpy as np
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
@@ -3005,35 +3405,40 @@ def phase_xlstm_serve(torch, smi):
     del eager
     free_card(torch)
 
-    # ---- forced preemptions: decode replay, then verify replay ----------
-    for spec in (0, SERVE_SPEC):
-        want = runs["captured"] if spec else \
-            serve_state(torch, cap, requests, 0)[0]
-        forced = ForcedPreemption(torch)
-        got, stats, counts, _ = serve_state(torch, cap, requests, spec,
-                                            hook=forced.install)
-        check_forced(f"speculate_k={spec}", forced, stats, got, want, counts,
-                     expected_serve_launches(cfg, stats,
-                                             "fused_flash_decode"),
-                     phase="xlstm_preempt")
-        check(stats["state_slabs_in_use"] == 0,
-              "xlstm_preempt: slabs held after the run")
-        add_counts(counts_all, counts)
-
     # ---- the ticks against their bounds ---------------------------------
     for spec in (0, SERVE_SPEC):
         emit({"phase": "xlstm_tick", **state_ticks(torch, cap, requests,
                                                    spec), "nvidia_smi": smi})
-
-    # ---- exactness in f32 against per-request greedy, on the first layer
-    # group (XLSTM_F32_DEPTH layers: 7 mLSTM + 1 sLSTM), which keeps the
-    # run within its time budget
+    # the f32 check's weights: the first layer group (XLSTM_F32_DEPTH
+    # layers: 7 mLSTM + 1 sLSTM), which keeps the run within its budget
     cfg32 = dataclasses.replace(cfg, dtype="float32",
                                 num_layers=XLSTM_F32_DEPTH)
     w32 = {k: (v[:1] if k.startswith("blocks.") else v).float()
            for k, v in cap.model.named_parameters()}
     del cap
     free_card(torch)
+
+    # ---- forced preemptions, decode replay then verify replay, on the
+    # first XLSTM_PREEMPT_DEPTH layers (11 mLSTM + 1 sLSTM, weights from
+    # the seed; the full depth took 76 s of the run's budget)
+    pre = LLMEngine(dataclasses.replace(cfg, num_layers=XLSTM_PREEMPT_DEPTH),
+                    max_len=STATE_MAX_LEN, seed=SEED)
+    for spec in (0, SERVE_SPEC):
+        want = serve_state(torch, pre, requests, spec)[0]
+        forced = ForcedPreemption(torch)
+        got, stats, counts, _ = serve_state(torch, pre, requests, spec,
+                                            hook=forced.install)
+        check_forced(f"speculate_k={spec}", forced, stats, got, want, counts,
+                     expected_serve_launches(pre.cfg, stats,
+                                             "fused_flash_decode"),
+                     phase="xlstm_preempt")
+        check(stats["state_slabs_in_use"] == 0,
+              "xlstm_preempt: slabs held after the run")
+        add_counts(counts_all, counts)
+    del pre
+    free_card(torch)
+
+    # ---- exactness in f32 against per-request greedy ---------------------
     e32 = LLMEngine(cfg32, w32, max_len=STATE_MAX_LEN)
     got, stats, _, _ = serve_state(torch, e32, requests, SERVE_SPEC)
     exact = compare_with_greedy(torch, e32, requests, got,
@@ -4070,6 +4475,8 @@ CPU_SHAPE = {TRAIN_ARCH: (1, 32), XLSTM_ARCH: (1, 512)}
 #: (``tools/xlstm_grad_growth.py``); the full-depth steps are timed
 CPU_DEPTH = {TRAIN_ARCH: 2, XLSTM_ARCH: 2}
 XLSTM_TRAIN_DEPTH = 2
+#: layer groups of minicpm_2b's checkpoint round trip (cut from 40)
+CHECKPOINT_DEPTH = 2
 #: sLSTM's backward on the card against the CPU: an mLSTM + sLSTM pair
 #: over 1 x 128 tokens (two of sLSTM's outer chunks of 64), its
 #: recurrent weights ``w_h`` scaled by 0.1 as the CPU tests' chunkwise
@@ -4580,10 +4987,12 @@ def phase_train_main_path(torch, smi):
     8 x 256 from the synthetic pipeline: no kernel launch, finite
     losses, every leaf's gradient finite and non-zero, the kernel flags
     refused, the step's numbers; (4) FIT_STEPS steps on one batch lower
-    its loss; (5) a checkpoint of the TrainState round trip bitwise; (3)
+    its loss; (5) a checkpoint of the TrainState round trip bitwise (on
+    the first CHECKPOINT_DEPTH layer groups, after FIT_STEPS steps); (3)
     one f32 step at depth 2 on the card against the CPU; (7) the
     launcher in a subprocess.  Returns the launch counts."""
     from repro_torch.kernels import build
+    from repro_torch.models.model import Model
     cfg = minicpm_config()
     L = cfg.num_layers
     fwd, counts = f32_forward_check(torch, cfg, TRAIN_ARCH)
@@ -4603,8 +5012,17 @@ def phase_train_main_path(torch, smi):
     emit({"phase": "train_fit_one_batch", "arch": cfg.name, "losses": fit})
     check(fit[-1] < fit[0], f"{cfg.name}: the loss on one batch did not "
                             f"fall in {FIT_STEPS} steps: {fit}")
-    ck = checkpoint_roundtrip(torch, step, state, cfg, shape)
-    emit({"phase": "train_checkpoint", "arch": cfg.name, **ck})
+    del model, state, step
+    free_card(torch)
+    # the checkpoint round trip on CHECKPOINT_DEPTH layer groups (the full
+    # depth's 27 GB through the disk took 44 s of the run's budget), after
+    # FIT_STEPS steps so that the optimizer state is not its init
+    cfg_ck = dataclasses.replace(cfg, num_layers=CHECKPOINT_DEPTH)
+    model = Model(cfg_ck, device=DEVICE, seed=SEED)
+    _, state, step = fit_one_batch(torch, model, cfg_ck, shape)
+    ck = checkpoint_roundtrip(torch, step, state, cfg_ck, shape)
+    emit({"phase": "train_checkpoint", "arch": cfg.name,
+          "layers": CHECKPOINT_DEPTH, **ck})
     check(ck["leaves_bitwise_equal"] and ck["next_loss_bitwise"],
           "train checkpoint: the round trip is not bitwise")
     del model, state, step
@@ -5014,15 +5432,19 @@ def phase_times(torch):
     # K2, K4 and K5 on a paged arena: the serve phase's decode tick (4
     # rows, bs 16, rows at the served lengths), then qwen3_32b's
     # attention shape with 4 rows of 4096 keys, granite's and jamba's
-    # at the served lengths; S' = 1 and the verify window of 5 (K5 has
-    # no window)
+    # at the served lengths, then one rank's heads under tensor-parallel
+    # serving (minicpm_2b at tp 2, qwen3_32b at tp 4); S' = 1 and the
+    # verify window of 5 (K5 has no window; one rank's heads at S' = 1)
     for shape, keys in ((("minicpm_2b", H, H, hd), (300, 520, 700, 930)),
                         (("qwen3_32b", 64, 8, 128), (4096,) * 4),
                         (GRANITE, (300, 520, 700, 930)),
                         (("jamba_1_5_large_398b", 64, 8, 128),
                          (300, 520, 700, 930)),
-                        (STUB_HEADS[0], (300, 520, 700, 930))):
-        for Sq in (1, SERVE_SPEC + 1):
+                        (STUB_HEADS[0], (300, 520, 700, 930)),
+                        (TP_HEADS[0], (300, 520, 700, 930)),
+                        (TP_HEADS[2], (4096,) * 4)):
+        # one rank's heads at S' = 1 only (the run's budget)
+        for Sq in (1,) if shape in TP_HEADS else (1, SERVE_SPEC + 1):
             timed = time_paged_kernels(torch, g, shape, keys, Sq)
             for name, r in timed.items():
                 if (shape[0] == "minicpm_2b" and Sq == 1
@@ -5038,18 +5460,15 @@ def phase_times(torch):
 
 
 #: (name, B, S, H, KV, hd, q_offset) of K3's further timed shapes: the
-#: serve workload's third chunk of a prompt (minicpm_2b, and
-#: granite_moe_3b_a800m's G = 3 and jamba's G = 8 with head_dim 128),
-#: qwen3_32b's full causal prefill, and phi_3_vision_4_2b's two rows of
-#: 576 patch embeddings and 16 tokens (head_dim 96)
+#: serve workload's third chunk of a prompt (minicpm_2b, and one rank's
+#: 18 heads at tp 2) and qwen3_32b's full causal prefill.  (The chunks
+#: at granite_moe_3b_a800m's, jamba's and phi_3_vision_4_2b's heads are
+#: no longer timed, to keep the run within its budget.)
 FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                 2 * SERVE_CHUNK),
                ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0),
-               ("serve chunk granite_moe_3b_a800m", 1, SERVE_CHUNK, 24, 8,
-                64, 2 * SERVE_CHUNK),
-               ("serve chunk jamba_1_5_large_398b", 1, SERVE_CHUNK, 64, 8,
-                128, 2 * SERVE_CHUNK),
-               ("prefill phi_3_vision_4_2b", STUB_ROWS, 592, 32, 32, 96, 0))
+               ("serve chunk minicpm_2b tp2", 1, SERVE_CHUNK, 18, 18, 64,
+                2 * SERVE_CHUNK))
 
 
 def time_flash_shapes(torch, g):
@@ -5244,7 +5663,14 @@ def main() -> int:
     phase_captured(torch, {**serve_tokens, "graph_serve": graph_tokens,
                            "serve_preempt_decode": preempt_tokens["default"]},
                    smi)
-    # granite_moe_3b_a800m, with the minicpm_2b engines freed
+    # tensor-parallel serving on the one card, with the engines freed:
+    # minicpm_2b at tp 2 (full depth, bf16; 8 layers in f32), qwen3_32b's
+    # first two layers at tp 2 and tp 4
+    free_card(torch)
+    tp_counts = [phase_tp_serve(torch, smi)]
+    phase_tp_f32(torch)
+    tp_counts.append(phase_tp_gqa(torch, smi))
+    # granite_moe_3b_a800m
     free_card(torch)
     phase_moe_layer_vs_cpu(torch)
     moe_counts = [phase_moe_main_path(torch)]
@@ -5292,7 +5718,8 @@ def main() -> int:
         launches = (counts[name] + serve_counts[name] + graph_counts[name]
                     + preempt_counts[name]
                     + sum(c.get(name, 0) for c in moe_counts + rec_counts
-                          + ds_counts + stub_counts + train_counts))
+                          + ds_counts + stub_counts + train_counts
+                          + tp_counts))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

@@ -8,7 +8,7 @@ pipeline, on the card (``--device cuda``, the default) or the CPU
     python -m repro_torch.launch.train --arch minicpm_2b --steps 20 \
         --batch 8 --seq 256
 
-The port has no sharding yet (ROADMAP Queue 1 item 11): ``--host-mesh``
+The port has no sharded training yet (ROADMAP Queue 1 item 11c): ``--host-mesh``
 is accepted and shards nothing on one device, and ``--multi-pod``
 raises.  The model trains on the plain path (``TRAIN_FLAGS``).
 """
@@ -29,7 +29,7 @@ from ..optim import make_schedule
 from ..runtime.steps import make_train_step
 
 MULTI_POD_REFUSAL = ("--multi-pod: sharded training is not yet ported to "
-                     "repro_torch (ROADMAP Queue 1 item 11)")
+                     "repro_torch (ROADMAP Queue 1 item 11c)")
 
 
 def main(argv=None) -> int:

@@ -38,14 +38,20 @@ from .params import ParamSpec, Template
 def attention_template(cfg: ArchConfig) -> Template:
     d, hd = cfg.d_model, cfg.head_dim
     t: Template = {
-        "wq": ParamSpec((d, cfg.num_heads, hd)),
-        "wk": ParamSpec((d, cfg.num_kv_heads, hd)),
-        "wv": ParamSpec((d, cfg.num_kv_heads, hd)),
-        "wo": ParamSpec((cfg.num_heads, hd, d)),
+        "wq": ParamSpec((d, cfg.num_heads, hd),
+                        ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, cfg.num_kv_heads, hd),
+                        ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, cfg.num_kv_heads, hd),
+                        ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((cfg.num_heads, hd, d),
+                        ("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
-        t["q_norm"] = {"scale": ParamSpec((hd,), init="ones")}
-        t["k_norm"] = {"scale": ParamSpec((hd,), init="ones")}
+        t["q_norm"] = {"scale": ParamSpec((hd,), ("head_dim",),
+                                         init="ones")}
+        t["k_norm"] = {"scale": ParamSpec((hd,), ("head_dim",),
+                                         init="ones")}
     return t
 
 

@@ -81,4 +81,4 @@ def sequence_parallel_attention(*args, **kwargs):
     """The JAX package's model-axis-parallel attention: not ported."""
     raise NotImplementedError(
         "sequence-parallel attention is not yet ported to repro_torch: "
-        "ROADMAP Queue 1 item 11")
+        "ROADMAP Queue 1 item 11c")

@@ -3,6 +3,7 @@ embeddings.  Plain functions on tensors, in the JAX package's layouts."""
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import Callable
 
 import torch
@@ -21,6 +22,28 @@ from .params import ParamSpec, Template
 
 #: on the card a blocked product runs in blocks of this many rows
 ROW_BLOCK = 32
+
+#: set (``rows_padded``): a product of fewer than ROW_BLOCK rows runs as
+#: one of ROW_BLOCK rows
+_ROWS_PADDED = contextvars.ContextVar("rows_padded", default=False)
+
+
+@contextlib.contextmanager
+def rows_padded(on: bool = True):
+    """In the block (this thread's context only), every ``linear`` of
+    fewer than ROW_BLOCK rows runs on the card as one product of
+    ROW_BLOCK rows, the rows padded with zeros, so that a decode tick's
+    rows (1, 4 or 20) round as a batch's.  A tensor-parallel rank takes
+    it: at some per-rank shapes cuBLAS picks its kernel by the row count
+    in bf16 (qwen3_32b's q product at tp 2 and its gate/up at tp 4 round
+    rows 1-8 apart from 16's: ``chip_smoke.py`` phase ``gemm_width``,
+    ROADMAP Hazard 4).  Prefill chunks keep their row counts, the same in
+    a served run and in its reference."""
+    token = _ROWS_PADDED.set(on)
+    try:
+        yield
+    finally:
+        _ROWS_PADDED.reset(token)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -47,6 +70,7 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     K, N = w.shape
     rows = x.reshape(-1, K)
     M = rows.shape[0]
+    blocked = blocked or (M < ROW_BLOCK and _ROWS_PADDED.get())
     if rows.device.type == "cpu":
         y = (two_rows(rows, 0) @ w)[:1] if M == 1 else rows @ w
     elif not blocked:
@@ -138,8 +162,8 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 # RMSNorm
 # ---------------------------------------------------------------------------
 
-def rmsnorm_template(d: int) -> Template:
-    return {"scale": ParamSpec((d,), init="ones")}
+def rmsnorm_template(d: int, axis: str = "embed") -> Template:
+    return {"scale": ParamSpec((d,), (axis,), init="ones")}
 
 
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-5,
@@ -168,9 +192,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def mlp_template(d: int, d_ff: int) -> Template:
     return {
-        "w_gate": ParamSpec((d, d_ff)),
-        "w_up": ParamSpec((d, d_ff)),
-        "w_down": ParamSpec((d_ff, d)),
+        "w_gate": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "w_up": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "w_down": ParamSpec((d_ff, d), ("mlp", "embed")),
     }
 
 
@@ -186,15 +210,30 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_template(vocab: int, d: int) -> Template:
-    return {"embedding": ParamSpec((vocab, d), init="scaled", scale=0.02)}
+    return {"embedding": ParamSpec((vocab, d), ("vocab", "embed"),
+                                   init="scaled", scale=0.02)}
 
 
-def embed_apply(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["embedding"][tokens].to(dtype)
+def embed_apply(params, tokens: torch.Tensor, dtype,
+                tp=None) -> torch.Tensor:
+    """The tokens' embeddings.  Under a tensor-parallel rank group
+    ``tp`` (``sharding/group.py``) the embedding is this rank's slice of
+    the vocabulary, rows ``[rank * V/tp, (rank + 1) * V/tp)``: each rank
+    looks the ids up in its slice, writes zeros for the others, and the
+    ranks' sum is exact (one non-zero term)."""
+    emb = params["embedding"]
+    if tp is None:
+        return emb[tokens].to(dtype)
+    rows = emb.shape[0]
+    local = tokens - tp.rank * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    x = torch.where(inside, emb[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return tp.all_reduce(x.to(dtype))
 
 
 def lm_head_template(d: int, vocab: int) -> Template:
-    return {"w": ParamSpec((d, vocab))}
+    return {"w": ParamSpec((d, vocab), ("embed", "vocab"))}
 
 
 def lm_head_apply(params, x: torch.Tensor) -> torch.Tensor:

@@ -37,15 +37,16 @@ def mamba_template(cfg: ArchConfig) -> Template:
     d, di = cfg.d_model, cfg.d_inner
     ds, dtr, wc = cfg.ssm_state_dim, cfg.ssm_dt_rank, cfg.ssm_conv_width
     return {
-        "in_proj": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((wc, di), init="scaled", scale=0.1),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "x_proj": ParamSpec((di, dtr + 2 * ds)),
-        "dt_proj": ParamSpec((dtr, di)),
-        "dt_bias": ParamSpec((di,), init="zeros"),
-        "A_log": ParamSpec((di, ds), init="alog"),
-        "D": ParamSpec((di,), init="ones"),
-        "out_proj": ParamSpec((di, d)),
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((wc, di), (None, "ssm_inner_vec"), init="scaled",
+                            scale=0.1),
+        "conv_b": ParamSpec((di,), ("ssm_inner_vec",), init="zeros"),
+        "x_proj": ParamSpec((di, dtr + 2 * ds), ("ssm_inner", None)),
+        "dt_proj": ParamSpec((dtr, di), (None, "ssm_inner")),
+        "dt_bias": ParamSpec((di,), ("ssm_inner_vec",), init="zeros"),
+        "A_log": ParamSpec((di, ds), ("ssm_inner", None), init="alog"),
+        "D": ParamSpec((di,), ("ssm_inner_vec",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed")),
     }
 
 

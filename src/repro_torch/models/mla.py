@@ -1,6 +1,6 @@
 """Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437): the port
 of the JAX package's ``models/mla.py`` (its sequence-parallel prefill is
-ROADMAP Queue 1 item 11).
+ROADMAP Queue 1 item 11c, MLA on a serving mesh item 11b).
 
 Keys and values are compressed into a latent ``c_kv`` (rank
 ``kv_lora_rank``) plus one shared RoPE key per position, and the caches
@@ -46,14 +46,19 @@ def mla_template(cfg: ArchConfig) -> Template:
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     vd = cfg.v_head_dim
     return {
-        "wq_a": ParamSpec((d, cfg.q_lora_rank)),
-        "q_a_norm": {"scale": ParamSpec((cfg.q_lora_rank,), init="ones")},
-        "wq_b": ParamSpec((cfg.q_lora_rank, H, nope + rope)),
-        "wkv_a": ParamSpec((d, cfg.kv_lora_rank + rope)),
-        "kv_a_norm": {"scale": ParamSpec((cfg.kv_lora_rank,), init="ones")},
-        "wk_b": ParamSpec((cfg.kv_lora_rank, H, nope)),
-        "wv_b": ParamSpec((cfg.kv_lora_rank, H, vd)),
-        "wo": ParamSpec((H, vd, d)),
+        "wq_a": ParamSpec((d, cfg.q_lora_rank), ("embed", "q_lora")),
+        "q_a_norm": {"scale": ParamSpec((cfg.q_lora_rank,), ("q_lora",),
+                                        init="ones")},
+        "wq_b": ParamSpec((cfg.q_lora_rank, H, nope + rope),
+                          ("q_lora", "heads", "qk_dim")),
+        "wkv_a": ParamSpec((d, cfg.kv_lora_rank + rope), ("embed", "kv_lora")),
+        "kv_a_norm": {"scale": ParamSpec((cfg.kv_lora_rank,), ("kv_lora",),
+                                         init="ones")},
+        "wk_b": ParamSpec((cfg.kv_lora_rank, H, nope),
+                          ("kv_lora", "heads", "qk_dim")),
+        "wv_b": ParamSpec((cfg.kv_lora_rank, H, vd),
+                          ("kv_lora", "heads", "head_dim")),
+        "wo": ParamSpec((H, vd, d), ("heads", "head_dim", "embed")),
     }
 
 

@@ -8,6 +8,11 @@ The weights are registered under the JAX param-tree paths, so
 has a dense head and a multi-token prediction head) and the stacked
 ``[R, ...]`` leaves keep their JAX shapes; ``params_from_jax`` output
 loads as it is.
+
+On a tensor-parallel serving mesh (``launch/mesh.py``) a ``Model`` holds
+one rank's slice of each weight, cut by the rules' ``param_specs``
+(``sharding/rules.py``): its heads, FFN columns and vocabulary rows,
+the norms whole; its caches hold the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -18,11 +23,20 @@ from torch import nn
 
 from . import transformer as tf
 from .config import ArchConfig
-from .params import flatten, init_params, unflatten
+from .layers import rows_padded
+from .params import DTYPES, _init_leaf, flatten, unflatten
+from ..sharding.rules import param_specs, shard_tensor
 
 
 class _Node(nn.Module):
     """A container module: one per inner node of the param tree."""
+
+
+def _rank_products(flags: tf.RuntimeFlags):
+    """A tensor-parallel rank pads its products of few rows
+    (``layers.rows_padded``), so that a decode tick's rows do not follow
+    the batch's row count; elsewhere the products are as they are."""
+    return rows_padded(flags.tp is not None)
 
 
 def resolve_device(device) -> torch.device:
@@ -38,18 +52,40 @@ def resolve_device(device) -> torch.device:
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None, rank: int = 0):
         """Random weights from ``seed`` (a ``torch.Generator`` on
         ``device``), or ``params``: a flat ``state_dict`` such as
         ``params_from_jax`` returns, moved to ``device``.  ``device=None``
-        is the card, as for ``LLMEngine`` (:func:`resolve_device`)."""
+        is the card, as for ``LLMEngine`` (:func:`resolve_device`).
+
+        With a serving ``mesh`` the model holds rank ``rank``'s slice of
+        every leaf (``param_specs``): the full tree is drawn from
+        ``seed`` as without a mesh, leaf by leaf, and each leaf cut to
+        the rank's slice as it is drawn, so the ranks together hold the
+        unsharded model's bits; ``params`` (the full tree) is cut the
+        same way."""
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.template = tf.model_template(cfg)
+        self.mesh = mesh if mesh is not None and mesh.shape["model"] > 1 \
+            else None
+        specs = flatten(param_specs(self.template, self.mesh)) \
+            if self.mesh is not None else None
+
+        def local(path, t):
+            if specs is None:
+                return t
+            return shard_tensor(t, specs[path], self.mesh, rank).contiguous()
+
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            tree = init_params(self.template, gen, cfg.dtype, device)
+            dt = DTYPES[cfg.dtype]
+            tree = unflatten({path: local(path, _init_leaf(spec, gen, dt,
+                                                           device))
+                              for path, spec in
+                              flatten(self.template).items()})
         else:
             want = flatten(self.template)
             if set(params) != set(want):
@@ -62,7 +98,8 @@ class Model(nn.Module):
                     raise ValueError(f"{path}: shape "
                                      f"{tuple(params[path].shape)} != "
                                      f"{spec.shape}")
-            tree = unflatten({k: params[k].to(device) for k in want})
+            tree = unflatten({k: local(k, params[k].to(device))
+                              for k in want})
         self._register(self, tree)
         _, _, R = tf.group_structure(cfg)
         # per-layer-group views of the stacked leaves, made once
@@ -110,18 +147,21 @@ class Model(nn.Module):
         """``prefix_embeds`` [B, P, d] go before the tokens;
         ``enc_embeds`` [B, T, d] are an encoder-decoder's encoder input
         (``transformer.prefill``)."""
-        return tf.prefill(self.params, self.cfg, tokens, max_cache_len,
-                          flags, groups=self.groups,
-                          prefix_embeds=prefix_embeds, enc_embeds=enc_embeds)
+        with _rank_products(flags):
+            return tf.prefill(self.params, self.cfg, tokens, max_cache_len,
+                              flags, groups=self.groups,
+                              prefix_embeds=prefix_embeds,
+                              enc_embeds=enc_embeds)
 
     @torch.no_grad()
     def prefill_extend(self, tokens: torch.Tensor, cache, prefix_ref,
                        prefix_len: int, max_cache_len: int,
                        flags: tf.RuntimeFlags = tf.DEFAULT_FLAGS,
                        slots=None):
-        return tf.prefill_extend(self.params, self.cfg, tokens, cache,
-                                 prefix_ref, prefix_len, max_cache_len,
-                                 flags, groups=self.groups, slots=slots)
+        with _rank_products(flags):
+            return tf.prefill_extend(self.params, self.cfg, tokens, cache,
+                                     prefix_ref, prefix_len, max_cache_len,
+                                     flags, groups=self.groups, slots=slots)
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache, cache_pos,
@@ -129,12 +169,14 @@ class Model(nn.Module):
                     all_logits: bool = False, block_tables=None,
                     state_mask=None, want_state_stacks: bool = False,
                     stacks=None):
-        return tf.decode_step(self.params, self.cfg, tokens, cache,
-                              cache_pos, flags, all_logits=all_logits,
-                              groups=self.groups, block_tables=block_tables,
-                              state_mask=state_mask,
-                              want_state_stacks=want_state_stacks,
-                              stacks=stacks)
+        with _rank_products(flags):
+            return tf.decode_step(self.params, self.cfg, tokens, cache,
+                                  cache_pos, flags, all_logits=all_logits,
+                                  groups=self.groups,
+                                  block_tables=block_tables,
+                                  state_mask=state_mask,
+                                  want_state_stacks=want_state_stacks,
+                                  stacks=stacks)
 
     @torch.no_grad()
     def mtp_logits(self, hidden: torch.Tensor, tokens: torch.Tensor,
@@ -152,20 +194,21 @@ class Model(nn.Module):
         layout's, and the state layout's (a recurrent layer's slot cache
         already is its O(1) state slab); an encoder-decoder's holds
         ``enc_len`` memory rows of cross-attention K/V a layer."""
-        return tf.new_cache(self.cfg, batch, max_len, self.device, enc_len)
+        return tf.new_cache(self.cfg, batch, max_len, self.device, enc_len,
+                            self.mesh)
 
     def new_paged_cache(self, num_blocks: int, block_size: int):
         """Zeroed block-pool arena of the JAX ``abstract_paged_cache``
         shapes (block 0 is the trash block)."""
         return tf.new_paged_cache(self.cfg, num_blocks, block_size,
-                                  self.device)
+                                  self.device, self.mesh)
 
     def new_hybrid_cache(self, num_slots: int, num_blocks: int,
                          block_size: int):
         """Zeroed hybrid layout (the JAX ``abstract_hybrid_cache``):
         paged attention arenas and ``num_slots``-row state slabs."""
         return tf.new_hybrid_cache(self.cfg, num_slots, num_blocks,
-                                   block_size, self.device)
+                                   block_size, self.device, self.mesh)
 
     def new_state_stacks(self, cache, width: int):
         """Zeroed verify-window stack buffers for ``cache``."""

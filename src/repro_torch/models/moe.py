@@ -17,7 +17,8 @@ and a fixed-order sum, so a MoE layer captures inside the engine's
 decode and verify graphs and its sums do not change from run to run.
 
 Expert parallelism (``RuntimeFlags(moe_impl="ep")``, ``shard_map`` over
-a mesh in JAX) is not ported (ROADMAP Queue 1 item 11).
+a mesh in JAX) is not ported (ROADMAP Queue 1 item 11c; the MoE FFN on a
+serving mesh is item 11b).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from .params import ParamSpec, Template
 from ..kernels.ref import upcast
 
 EP_REFUSAL = ("expert-parallel MoE (moe_impl='ep'): not yet ported to "
-              "repro_torch (ROADMAP Queue 1 item 11)")
+              "repro_torch (ROADMAP Queue 1 item 11c)")
 
 
 def check_moe_impl(flags) -> None:
@@ -53,10 +54,11 @@ def moe_template(cfg: ArchConfig) -> Template:
     d, ff = cfg.d_model, cfg.d_ff
     E = padded_experts(cfg)
     t: Template = {
-        "router": ParamSpec((d, E), scale=0.02, init="scaled"),
-        "w_gate": ParamSpec((E, d, ff)),
-        "w_up": ParamSpec((E, d, ff)),
-        "w_down": ParamSpec((E, ff, d)),
+        "router": ParamSpec((d, E), ("embed", "experts_vec"), scale=0.02,
+                            init="scaled"),
+        "w_gate": ParamSpec((E, d, ff), ("experts", "embed", "mlp")),
+        "w_up": ParamSpec((E, d, ff), ("experts", "embed", "mlp")),
+        "w_down": ParamSpec((E, ff, d), ("experts", "mlp", "embed")),
     }
     if cfg.num_shared_experts:
         t["shared"] = mlp_template(d, cfg.num_shared_experts * ff)

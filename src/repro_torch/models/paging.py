@@ -91,8 +91,16 @@ def use_fused_decode(cfg, flags) -> bool:
     before deciding whether to rotate q/k outside the kernel: the fused
     path wants them un-rotated.  (Sliding-window layers, whose JAX path
     keeps the wraparound slot layout, are refused by ``check_supported``
-    until they are ported.)"""
-    return flags.use_fused_decode
+    until they are ported.)
+
+    On a tensor-parallel mesh (``flags.decode_shards`` > 1) each rank
+    runs the op on its slice of the query and kv heads against its
+    slice of the arena, which needs the kv heads to divide the ranks
+    (GQA groups then stay rank-local), as in JAX; the engine refuses
+    the other case until ROADMAP item 11b."""
+    shards = flags.decode_shards
+    return flags.use_fused_decode and (shards == 1
+                                       or cfg.num_kv_heads % shards == 0)
 
 
 def fused_page_size(max_len: int, preferred: int = 8) -> int:

@@ -1,17 +1,20 @@
-"""Parameter templates: shapes and init, and the weight bridge from JAX.
+"""Parameter templates: shapes, logical sharding axes and init, and the
+weight bridge from JAX.
 
 A model's parameters are described once as a nested dict of
 :class:`ParamSpec` leaves.  ``init_params`` materialises it with an
 explicit ``torch.Generator`` (the same distributions as the JAX
-package's ``_init_leaf``, not the same bits); ``params_from_jax`` turns
-a JAX param tree (nested dicts of numpy arrays) into the port's
-``state_dict`` so both packages can hold identical weights.
+package's ``_init_leaf``, not the same bits); ``logical_axes`` reads
+each leaf's logical axis names, which ``repro_torch.sharding.rules``
+maps onto a serving mesh; ``params_from_jax`` turns a JAX param tree
+(nested dicts of numpy arrays) into the port's ``state_dict`` so both
+packages can hold identical weights.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,8 +28,16 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    #: one logical axis name (or None) per dimension, as in the JAX
+    #: package's template; omitted, every dimension is unnamed
+    axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"      # normal | zeros | ones | scaled | alog
     scale: float = 1.0
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 Template = Dict[str, Any]   # nested dict with ParamSpec leaves
@@ -64,10 +75,17 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def stack_template(template: Template, n: int) -> Template:
-    """Add a leading stacking dimension (one slice per layer group)."""
-    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
-                    template)
+def stack_template(template: Template, n: int,
+                   axis_name: Optional[str] = "layers") -> Template:
+    """Add a leading stacking dimension (one slice per layer group),
+    named ``axis_name``."""
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=(n,) + s.shape, axes=(axis_name,) + s.axes), template)
+
+
+def logical_axes(template: Template) -> Dict[str, Any]:
+    """The template's logical axis names, leaf by leaf."""
+    return tree_map(lambda s: s.axes, template)
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,

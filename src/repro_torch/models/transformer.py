@@ -43,6 +43,8 @@ from .layers import (embed_apply, embed_template, linear, lm_head_apply,
 from .params import (DTYPES, ParamSpec, Template, flatten, stack_template,
                      tree_map, unflatten)
 from ..kernels.ref import rope_freqs
+from ..sharding.group import tp_reduce
+from ..sharding.rules import local_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +53,12 @@ class RuntimeFlags:
     three are on by default: the serving path is the kernel path on
     every device (on the CPU the ops run their plain versions), and a
     flag turned off runs that op's plain version on any device.  The two
-    paged-decode variants are off by default, as in JAX.  (The JAX
-    sharding flags come with the sharded serving port.)  ``cuda_graphs``
+    paged-decode variants are off by default, as in JAX.  ``cuda_graphs``
     is the port's own: the counterpart of the JAX engine's ``jax.jit``
-    of its steps."""
+    of its steps.  ``decode_shards`` and ``tp`` are the JAX
+    ``decode_shards`` and ``decode_mesh``: the engine sets them when it
+    serves on a mesh of more than one rank (the training sharding
+    flags wait for ROADMAP item 11c)."""
     use_flash: bool = True           # flash-attention op for prefill/extend
     fused_rmsnorm: bool = True       # fused RMSNorm op for the layer norms
     use_fused_decode: bool = True    # fused flash-decode op for decode/verify
@@ -70,7 +74,7 @@ class RuntimeFlags:
     cuda_graphs: bool = True
     # MoE implementation: "gather" (the global sort-based dispatch,
     # ``models/moe.py``); "ep" (expert parallelism over a mesh) is refused
-    # until ROADMAP Queue 1 item 11
+    # until ROADMAP Queue 1 item 11c
     moe_impl: str = "gather"
     # ``forward``'s full-sequence attention without the flash op:
     # "chunked" | "naive" ("flash" wins where use_flash is set)
@@ -78,6 +82,12 @@ class RuntimeFlags:
     # ``forward`` under autograd: "group" checkpoints each layer group
     # (and each encoder layer), as JAX's ``jax.checkpoint``; "none"
     remat: str = "group"
+    # tensor-parallel serving: the mesh's model-axis size, and this
+    # rank's group (``sharding/group.py``: the all-reduces of
+    # ``tp_reduce``, the vocab-parallel embedding and logits); the
+    # weights and caches a step is given are this rank's slices
+    decode_shards: int = 1
+    tp: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 DEFAULT_FLAGS = RuntimeFlags()
@@ -89,9 +99,8 @@ TRAIN_FLAGS = RuntimeFlags(use_flash=False, fused_rmsnorm=False)
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this slice of the port does not run,
     naming the ROADMAP item that will port them.  Nothing falls back.
-    (Sequence-parallel mLSTM and expert-parallel MoE come with the
-    sharded serving port, item 11: the port has no sharding flags, and
-    ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.  What JAX
+    (Sequence-parallel mLSTM and expert-parallel MoE come with item
+    11c: ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.  What JAX
     refuses of an encoder-decoder is refused where JAX refuses it:
     :func:`check_paged_support`, :func:`check_hybrid_support`,
     :func:`check_mixed_extend_support` and the Scheduler.)"""
@@ -223,7 +232,7 @@ def model_template(cfg: ArchConfig) -> Template:
             "blocks": stack_template(enc_layer, cfg.num_encoder_layers),
             "final_norm": rmsnorm_template(d)}
     if cfg.mtp_depth:
-        t["mtp"] = {"proj": ParamSpec((2 * d, d)),
+        t["mtp"] = {"proj": ParamSpec((2 * d, d), ("embed_b", "embed")),
                     "norm": rmsnorm_template(d),
                     "block": layer_template(
                         cfg, "attn", "dense" if cfg.first_k_dense
@@ -310,25 +319,37 @@ def abstract_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
                     else _STATE_CACHES[kind](cfg, num_slots, "meta"))
 
 
-def _zeros(tree, device):
+def _zeros(tree, device, mesh=None):
+    """The abstract cache ``tree`` materialised with zeros; on a mesh of
+    more than one rank, each leaf cut to a rank's shape by the rules'
+    ``cache_specs`` (K/V on their kv heads)."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        tree = local_tree(tree, mesh)
     return tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
                                           device=device), tree)
 
 
+def _mesh(flags: RuntimeFlags):
+    """The serving mesh of a rank of more than one (None otherwise)."""
+    return flags.tp.mesh if flags.tp is not None else None
+
+
 def new_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-              enc_len: int = 0):
-    return _zeros(abstract_cache(cfg, batch, max_len, enc_len), device)
+              enc_len: int = 0, mesh=None):
+    return _zeros(abstract_cache(cfg, batch, max_len, enc_len), device,
+                  mesh)
 
 
 def new_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
-                    device):
-    return _zeros(abstract_paged_cache(cfg, num_blocks, block_size), device)
+                    device, mesh=None):
+    return _zeros(abstract_paged_cache(cfg, num_blocks, block_size), device,
+                  mesh)
 
 
 def new_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
-                     block_size: int, device):
+                     block_size: int, device, mesh=None):
     return _zeros(abstract_hybrid_cache(cfg, num_slots, num_blocks,
-                                        block_size), device)
+                                        block_size), device, mesh)
 
 
 def layer_kind_of_path(cfg: ArchConfig, path) -> str:
@@ -391,9 +412,12 @@ def _block(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
     """One pre-norm block: the mixer, then (in a decoder layer given its
     memory K/V) the cross-attention block, then (where the layer has
     one) a SwiGLU or MoE FFN.  Returns (x, the MoE layer's load-balance
-    loss, or None for any other layer)."""
+    loss, or None for any other layer).  On a tensor-parallel rank the
+    mixer's output projection and the FFN's down projection contract
+    this rank's heads and FFN columns: ``tp_reduce`` sums them over the
+    ranks before each residual add."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
-    x = x + mixer(params["mixer"], h)
+    x = x + tp_reduce(mixer(params["mixer"], h), flags)
     if "cross" in params and memory_kv is not None:
         hc = rms_norm(params["cross_norm"], x, cfg.norm_eps,
                       flags.fused_rmsnorm)
@@ -404,7 +428,7 @@ def _block(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
     if ffn_kind == "moe":
         y, aux = moe_mod.moe_apply(params["ffn"], cfg, h2, flags)
         return x + y, aux
-    return x + mlp_apply(params["ffn"], h2), None
+    return x + tp_reduce(mlp_apply(params["ffn"], h2), flags), None
 
 
 def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
@@ -419,15 +443,27 @@ def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
     return _block(params, cfg, ffn_kind, x, flags, mixer, memory_kv)[0]
 
 
-def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ArchConfig, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """[..., padded vocab] logits, pad columns masked.  Under a
+    tensor-parallel rank group ``tp`` the head is this rank's vocab
+    slice: its columns are masked where they are pad, written into a
+    zero buffer of the whole padded vocab and summed over the ranks
+    (exact: one non-zero term a column)."""
     if cfg.tie_embeddings:
         logits = linear(x, params["embed"]["embedding"].t())
     else:
         logits = lm_head_apply(params["lm_head"], x)
-    if cfg.padded_vocab != cfg.vocab_size:
+    off = 0 if tp is None else tp.rank * logits.shape[-1]
+    pad = cfg.vocab_size - off
+    if pad < logits.shape[-1]:
         # mask pad columns so softmax mass stays on the real vocab
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        logits[..., max(pad, 0):] = -1e30
+    if tp is None:
+        return logits
+    full = logits.new_zeros(logits.shape[:-1] + (cfg.padded_vocab,))
+    full[..., off:off + logits.shape[-1]] = logits
+    return tp.all_reduce(full)
 
 
 def _run_groups(params, cfg, x, caches, flags, groups, mixer, memory=None):
@@ -468,7 +504,7 @@ def _run_groups(params, cfg, x, caches, flags, groups, mixer, memory=None):
 
 def _last_logits(params, cfg, x, flags):
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
-    return _logits(params, cfg, x[:, -1:])[:, 0]
+    return _logits(params, cfg, x[:, -1:], flags.tp)[:, 0]
 
 
 def commit_state(dst: Dict[str, torch.Tensor],
@@ -593,7 +629,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     runs without cross attention and its cache holds no ``cross``
     leaves, as in JAX."""
     dt = DTYPES[cfg.dtype]
-    x = embed_apply(params["embed"], tokens, dt)
+    x = embed_apply(params["embed"], tokens, dt, flags.tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dt), x], dim=1)
     B, S, _ = x.shape
@@ -601,7 +637,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     memory = encode(params, cfg, enc_embeds, flags) \
         if enc_embeds is not None and cfg.is_encoder_decoder else None
     cache = new_cache(cfg, B, max_cache_len, x.device,
-                      0 if memory is None else memory.shape[1])
+                      0 if memory is None else memory.shape[1],
+                      _mesh(flags))
     if memory is None:
         for layer in cache.get("blocks", {}).values():
             layer.pop("cross", None)
@@ -650,10 +687,10 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     chunk-invariant state scans).  An encoder-decoder is refused
     (``check_mixed_extend_support``), as in JAX."""
     check_mixed_extend_support(cfg)
-    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
+    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype], flags.tp)
     B, S_, _ = x.shape
     positions = (prefix_len + torch.arange(S_, device=x.device)).expand(B, S_)
-    rows = new_cache(cfg, B, max_cache_len, x.device)
+    rows = new_cache(cfg, B, max_cache_len, x.device, mesh=_mesh(flags))
 
     def mixer(kind, mp, h, c, name):
         out = c["rows"][name]["mixer"]
@@ -715,7 +752,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
 
     A decoder layer whose cache holds ``cross`` memory K/V attends over
     it; it is only read."""
-    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype])
+    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype], flags.tp)
     B, S_q = x.shape[0], x.shape[1]
     pos = cache_pos.to(torch.int32).contiguous()
     if want_state_stacks and stacks is None:
@@ -766,7 +803,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     x = _run_groups(params, cfg, x, trees, flags, groups, mixer,
                     lambda lp, c, name: c["cache"][name].get("cross"))
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
-    logits = _logits(params, cfg, x)
+    logits = _logits(params, cfg, x, flags.tp)
     logits = logits if all_logits else logits[:, 0]
     if want_state_stacks:
         return logits, cache, stacks

@@ -25,7 +25,7 @@ the (C, n, m) state carried across chunks, one activation checkpoint a
 chunk) and the sLSTM's two-level checkpointed scan (``slstm_apply``:
 one checkpoint per outer chunk of 64 tokens).  Their products are plain
 (unblocked): the serving row rule has no place under autograd.  The
-sequence-parallel ``mlstm_apply_sp`` waits for ROADMAP Queue 1 item 11.
+sequence-parallel ``mlstm_apply_sp`` waits for ROADMAP Queue 1 item 11c.
 """
 from __future__ import annotations
 
@@ -73,17 +73,19 @@ def mlstm_template(cfg: ArchConfig) -> Template:
     H = cfg.num_heads
     hd = di // H
     return {
-        "up_proj": ParamSpec((d, 2 * di)),
+        "up_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner")),
         # block-diagonal (head-wise) q/k/v, as in the paper's
         # LinearHeadwiseExpand — di^2/H params each, not di^2
-        "wq": ParamSpec((H, hd, hd)),
-        "wk": ParamSpec((H, hd, hd)),
-        "wv": ParamSpec((H, hd, hd)),
-        "w_igate": ParamSpec((di, H), init="scaled", scale=0.01),
-        "b_igate": ParamSpec((H,), init="zeros"),
-        "w_fgate": ParamSpec((di, H), init="scaled", scale=0.01),
-        "b_fgate": ParamSpec((H,), init="ones"),
-        "down_proj": ParamSpec((di, d)),
+        "wq": ParamSpec((H, hd, hd), (None, "mlstm_dk", None)),
+        "wk": ParamSpec((H, hd, hd), (None, "mlstm_dk", None)),
+        "wv": ParamSpec((H, hd, hd), (None, "mlstm_dk", None)),
+        "w_igate": ParamSpec((di, H), ("ssm_inner_b", None), init="scaled",
+                             scale=0.01),
+        "b_igate": ParamSpec((H,), (None,), init="zeros"),
+        "w_fgate": ParamSpec((di, H), ("ssm_inner_b", None), init="scaled",
+                             scale=0.01),
+        "b_fgate": ParamSpec((H,), (None,), init="ones"),
+        "down_proj": ParamSpec((di, d), ("ssm_inner", "embed")),
     }
 
 
@@ -262,11 +264,11 @@ def slstm_template(cfg: ArchConfig) -> Template:
     hd = d // H
     return {
         # input weights for i, f, z, o gates
-        "w_x": ParamSpec((d, 4 * d)),
-        "b": ParamSpec((4 * d,), init="zeros"),
+        "w_x": ParamSpec((d, 4 * d), ("embed", "ssm_inner")),
+        "b": ParamSpec((4 * d,), ("ssm_inner_vec",), init="zeros"),
         # block-diagonal recurrent weights per head
-        "w_h": ParamSpec((H, hd, 4 * hd)),
-        "out_proj": ParamSpec((d, d)),
+        "w_h": ParamSpec((H, hd, 4 * hd), (None, "head_dim", "ssm_inner")),
+        "out_proj": ParamSpec((d, d), ("embed_b", "embed")),
     }
 
 

@@ -26,18 +26,40 @@ counts decode/verify steps by kernel path with their wall time, and,
 under the JAX engine's names and labels, each jitted step's first call
 (``engine.jit_compiles``, ``engine.jit_compile_ms``): on the card the
 kernels' build, the eager run and the capture, on the CPU the first run.
+
+Tensor-parallel serving (``LLMEngine(cfg, mesh=make_serving_mesh(tp,
+devices=...))``, ``launch/mesh.py``): rank 0 is this engine, and it
+starts ``tp - 1`` worker processes (``sharding/group.py``), each an
+engine of its own over rank ``r``'s slice of the heads, the FFN width
+and the vocabulary.  Every call of the serving surface becomes one
+command — the method's name and its host operands, with caches named by
+the id rank 0 gave them — broadcast to the workers, which run the same
+step on their slices; the steps' collectives are ``all_reduce`` sums
+(``models/transformer.py``'s ``tp_reduce``, the vocab-parallel embedding
+and logits).  Each rank holds its slice of every cache under that id; a
+cache rank 0 drops is dropped by the workers at the next command.
+Greedy tokens are computed alike on every rank, and rank 0 returns its
+own.  ROADMAP item 11a serves the attention-only decoders so; MoE, MLA,
+recurrent mixers, the encoder-decoder and head counts the ranks do not
+divide are refused at tp > 1 (item 11b).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import time
-from typing import Any, Dict, Optional, Tuple
+import types
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import tracer as trace_mod
 from ..core.metrics import MetricsRegistry, NullRegistry
+from ..kernels import build
+from ..launch.mesh import mesh_desc
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
 from ..models.params import flatten, tree_map
@@ -46,6 +68,7 @@ from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
                                   check_mixed_extend_support,
                                   check_paged_support, check_supported)
 from ..runtime.graphs import StepGraphs
+from ..sharding import group as tp_group
 from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
                              make_hybrid_insert, make_paged_insert,
                              make_prefill_step, make_serve_decode_step,
@@ -59,21 +82,261 @@ from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
 STATE_KINDS = ("state", "hybrid")
 LAYOUTS = ("slot", "paged") + STATE_KINDS
 
+TP_ITEM = "ROADMAP Queue 1 item 11b"
+
+
+def check_tp_support(cfg: ArchConfig, tp: int) -> None:
+    """Raise for what tensor-parallel serving does not run yet at ``tp``
+    ranks (ROADMAP item 11b): MoE FFNs, MLA, recurrent mixers, the
+    encoder-decoder, and head counts, FFN widths or vocabularies the
+    ranks do not divide (JAX serves kv heads that do not divide through
+    K/V sharded on head_dim)."""
+    if tp <= 1:
+        return
+    kinds = sorted(set(cfg.layer_kinds()) - {"attn"})
+    what = [name for name, bad in (
+        ("MoE FFN layers", cfg.num_experts),
+        ("MLA attention", cfg.use_mla),
+        (f"recurrent mixers {kinds}", kinds),
+        ("the encoder-decoder", cfg.is_encoder_decoder)) if bad]
+    what += [f"{name} {n} not divisible by tp={tp}" for name, n in (
+        ("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+        ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab)) if n % tp]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving at tp={tp} of "
+            f"{'; '.join(what)} is not yet ported to repro_torch "
+            f"({TP_ITEM}); serve it without a mesh")
+
+
+class CacheTree(dict):
+    """A cache (or prefilled rows) of rank 0 of a tensor-parallel
+    engine: the rank's slices, tagged with the id under which every
+    worker holds its own."""
+    __slots__ = ("tp_id", "__weakref__")
+
+
+#: the mirrored methods, and which part of each one's result is a new
+#: cache the workers keep under the command's id
+_MIRRORED: Dict[str, Optional[str]] = {}
+
+
+def _mirrored(result: Optional[str] = None):
+    """Run the method on every rank of a tensor-parallel engine: on rank
+    0 it becomes a command to the workers (``_Mirror.call``); elsewhere,
+    and without workers, it runs as it is.  ``result``: ``"out"`` when
+    the method returns a new cache, ``"rows"`` when its second value is
+    one."""
+    def deco(fn):
+        _MIRRORED[fn.__name__] = result
+
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kw):
+            if self._mirror is None:
+                return fn(self, *args, **kw)
+            if args and hasattr(args[0], "kind"):
+                self._check_layout(args[0].kind)
+            return self._mirror.call(fn.__name__, args, kw,
+                                     lambda: fn(self, *args, **kw), result)
+        return wrapper
+    return deco
+
+
+@dataclasses.dataclass(frozen=True)
+class _CacheRef:
+    """A cache in a command: the id its slices are held under."""
+    id: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _BackendRef:
+    """A cache backend in a command: the attributes the engine reads."""
+    attrs: Dict[str, Any]
+
+
+class _Mirror:
+    """Rank 0's end of the command protocol: ids for the caches, the
+    drops the workers owe, and the failure path (a failed command kills
+    the workers and closes the engine)."""
+
+    def __init__(self, workers: tp_group.Workers):
+        self.workers = workers
+        self.coll = workers.coll
+        self.next_id = 0
+        self.live: set = set()
+        self.drops: List[int] = []
+        self.closed: Optional[str] = None
+
+    def _dropped(self, i: int) -> None:
+        self.live.discard(i)
+        self.drops.append(i)
+
+    def tag(self, tree, i: int) -> CacheTree:
+        out = CacheTree(tree)
+        out.tp_id = i
+        self.live.add(i)
+        weakref.finalize(out, self._dropped, i)
+        return out
+
+    def encode(self, a):
+        if isinstance(a, CacheTree):
+            return _CacheRef(a.tp_id)
+        if isinstance(a, dict):
+            raise ValueError("a tensor-parallel engine takes only the "
+                             "caches it made (new_cache, prefill)")
+        if hasattr(a, "kind"):                  # a CacheBackend
+            return _BackendRef({k: getattr(a, k) for k in (
+                "kind", "num_slots", "num_blocks", "block_size")
+                if hasattr(a, k)})
+        if isinstance(a, (tuple, list)):
+            return type(a)(self.encode(x) for x in a)
+        return a
+
+    def call(self, name: str, args, kw, run, result: Optional[str]):
+        if self.closed is not None:
+            raise RuntimeError(f"this tensor-parallel engine is closed: "
+                               f"{self.closed}")
+        i, self.next_id = self.next_id, self.next_id + 1
+        drops, self.drops = self.drops, []
+        cmd = (name, self.encode(tuple(args)),
+               {k: self.encode(v) for k, v in kw.items()}, i, drops)
+        try:
+            self.coll.broadcast(cmd)
+            out = run()
+            self.coll.barrier()
+        except BaseException as e:
+            msg = self.workers.failure(f"running {name}") + \
+                f"\n--- rank 0 ---\n{e!r}"
+            self.closed = msg
+            self.workers.kill()
+            raise RuntimeError(msg) from e
+        if result == "out":
+            return self.tag(out, i)
+        if result == "rows":
+            return out[0], self.tag(out[1], i)
+        return out
+
+    def close(self) -> None:
+        if self.closed is None:
+            self.closed = "closed"
+            try:
+                self.coll.broadcast(("close", (), {}, -1, []))
+            except Exception:           # noqa: BLE001 - the workers die
+                pass
+        self.workers.close()
+
+
+def _decode(a, objects: Dict[int, Any]):
+    """A worker's operands from rank 0's encoding."""
+    if isinstance(a, _CacheRef):
+        return objects[a.id]
+    if isinstance(a, _BackendRef):
+        return types.SimpleNamespace(**a.attrs)
+    if isinstance(a, (tuple, list)):
+        return type(a)(_decode(x, objects) for x in a)
+    if isinstance(a, dict):
+        return {k: _decode(v, objects) for k, v in a.items()}
+    return a
+
+
+def _run_worker(coll: tp_group.Collectives, payload: Dict[str, Any]) -> None:
+    """A worker rank: its engine, then rank 0's commands until close."""
+    mesh = payload["mesh"]
+    device = torch.device(mesh.devices[coll.rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    engine = LLMEngine(payload["cfg"], payload["params"],
+                       max_len=payload["max_len"], seed=payload["seed"],
+                       flags=payload["flags"], mesh=mesh, _collectives=coll)
+    payload = None
+    objects = engine._objects
+
+    def handle(cmd) -> bool:
+        name, args, kw, new_id, drops = cmd
+        for i in drops:
+            objects.pop(i, None)
+        if name == "close":
+            return True
+        out = getattr(engine, name)(*_decode(args, objects),
+                                    **_decode(kw, objects))
+        result = _MIRRORED[name]
+        if result == "out":
+            objects[new_id] = out
+        elif result == "rows":
+            objects[new_id] = out[1]
+        return False
+
+    tp_group.serve_commands(coll, handle)
+
 
 class LLMEngine:
     def __init__(self, cfg: ArchConfig, params=None, *, max_len: int = 512,
                  seed: int = 0, flags: RuntimeFlags = DEFAULT_FLAGS,
-                 device=None):
+                 device=None, mesh=None, _collectives=None):
         """``params``: a flat ``state_dict`` (e.g. ``params_from_jax``);
-        ``None`` draws random weights from ``seed``."""
+        ``None`` draws random weights from ``seed``.
+
+        ``mesh`` (``launch/mesh.py``'s ``make_serving_mesh``) serves on
+        its ranks, rank ``r`` on ``mesh.devices[r]`` (``device``, if
+        given, must be of the same type): at tp > 1 this engine is rank
+        0 and starts the workers, each drawing (or, given ``params``,
+        cutting) the full tree and keeping its slice.  The collectives
+        are gloo, whose steps cannot be captured: on CUDA a mesh of more
+        than one rank needs ``RuntimeFlags(cuda_graphs=False)``.
+        :meth:`close` (also run at exit) stops the workers.
+        ``_collectives`` is a worker's own group (``_run_worker``)."""
         check_supported(cfg)
         check_moe_impl(flags)
         self.cfg = cfg
         self.max_len = max_len
-        self.flags = flags
+        self.mesh = mesh
+        self.tp = mesh.tp if mesh is not None else 1
+        rank = _collectives.rank if _collectives is not None else 0
+        if mesh is not None:
+            types_ = {torch.device(d).type for d in mesh.devices}
+            if len(types_) != 1 or (device is not None and torch.device(
+                    device).type not in types_):
+                raise ValueError(f"mesh devices {mesh.devices} and device "
+                                 f"{device!r}: every rank runs on one "
+                                 f"device type")
+            device = mesh.devices[rank]
+            if self.tp > 1:
+                check_tp_support(cfg, self.tp)
+                if types_ == {"cuda"} and flags.cuda_graphs:
+                    raise ValueError(
+                        "a tensor-parallel mesh on CUDA runs its "
+                        "collectives through gloo, host code that a CUDA "
+                        "graph cannot capture: pass "
+                        "RuntimeFlags(cuda_graphs=False)")
         self.device = resolve_device(device)
-        self.mesh = None
-        self.model = Model(cfg, device=self.device, seed=seed, params=params)
+        self._mirror: Optional[_Mirror] = None
+        #: a worker's caches, by the id rank 0 gave them
+        self._objects: Dict[int, Any] = {}
+        coll = _collectives
+        workers = None
+        if self.tp > 1 and coll is None:
+            # the workers start while this rank draws its own weights
+            workers = tp_group.Workers(mesh, _run_worker, {
+                "cfg": cfg, "max_len": max_len, "seed": seed,
+                "flags": flags, "mesh": mesh,
+                "params": None if params is None else
+                {k: v.detach().cpu() for k, v in params.items()}})
+        try:
+            self.model = Model(cfg, device=self.device, seed=seed,
+                               params=params, mesh=mesh, rank=rank)
+        except BaseException:
+            if workers is not None:
+                workers.kill()
+            raise
+        if workers is not None:
+            coll = workers.join()
+            self._mirror = _Mirror(workers)
+            weakref.finalize(self, self._mirror.close)
+        #: this rank's group (None without a mesh of more than one rank)
+        self.collectives = coll
+        if coll is not None:
+            flags = dataclasses.replace(flags, decode_shards=self.tp, tp=coll)
+        self.flags = flags
         self.metrics: MetricsRegistry = \
             NullRegistry() if trace_mod.COMPILED_OUT else MetricsRegistry()
         self._prefill = make_prefill_step(self.model, max_len, flags)
@@ -100,6 +363,48 @@ class LLMEngine:
         # generate's lockstep cache, one per batch width: the captured
         # lockstep decode writes the cache it was captured on
         self._lockstep: Dict[int, Dict] = {}
+        if self._mirror is not None:
+            self._ready()          # the workers' engines are built
+
+    @_mirrored()
+    def _ready(self) -> None:
+        """A command that does nothing: its barrier waits for every
+        rank."""
+
+    def close(self) -> None:
+        """Stop the workers of a tensor-parallel engine (also run when
+        the engine is collected and at exit); later calls raise.  A
+        no-op without workers."""
+        if self._mirror is not None:
+            self._mirror.close()
+
+    @_mirrored()
+    def rank_launches(self, reset: bool = False) -> List[Dict[str, int]]:
+        """Every rank's kernel launch counts (``kernels.build.launches``),
+        in rank order; ``reset`` zeroes them on every rank after the
+        reading."""
+        mine = dict(build.launches)
+        if reset:
+            for k in build.launches:
+                build.launches[k] = 0
+        return self._gather(mine)
+
+    def rank_cache_ids(self) -> List[List[int]]:
+        """The cache ids each rank holds, in rank order (after rank 0's
+        garbage is collected): on a healthy engine every worker holds
+        exactly rank 0's live ids."""
+        gc.collect()
+        return self._rank_cache_ids()
+
+    @_mirrored()
+    def _rank_cache_ids(self) -> List[List[int]]:
+        mine = sorted(self._mirror.live) if self._mirror is not None \
+            else sorted(self._objects)
+        return self._gather(mine)
+
+    def _gather(self, obj) -> List[Any]:
+        return [obj] if self.collectives is None \
+            else self.collectives.all_gather(obj)
 
     def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.long,
@@ -235,6 +540,7 @@ class LLMEngine:
     # ------------------------------------------------------------------
     # static-batch generation
     # ------------------------------------------------------------------
+    @_mirrored()
     def generate(self, tokens: np.ndarray, max_new_tokens: int = 16,
                  eos_id: Optional[int] = None) -> np.ndarray:
         """Greedy-decode a batch. tokens: [B, S] int -> [B, max_new]."""
@@ -264,21 +570,34 @@ class LLMEngine:
     # ------------------------------------------------------------------
     # serving API (continuous batching over a CacheBackend)
     # ------------------------------------------------------------------
+    @_mirrored("rows")
     def prefill(self, tokens: np.ndarray) -> Tuple[np.ndarray, Dict]:
         """Prefill [B, S] prompts of one length; returns (first tokens
         [B], cache rows)."""
         next_tok, cache = self._run_prefill(self._tokens(tokens))
         return next_tok.cpu().numpy(), cache
 
+    @_mirrored()
+    def prefill_logits(self, tokens: np.ndarray) -> np.ndarray:
+        """The last prompt token's logits of a prefill of [B, S] prompts,
+        [B, padded vocab] in f32 on the host (pad columns masked)."""
+        logits, _ = self.model.prefill(self._tokens(tokens), self.max_len,
+                                       flags=self.flags)
+        return logits.float().cpu().numpy()
+
     def _run_prefill(self, tokens: torch.Tensor):
         return self._first_call(("prefill", "batch", ""),
                                 lambda: self._prefill(tokens))
 
-    @staticmethod
-    def _check_layout(kind: str) -> None:
+    def _check_layout(self, kind: str) -> None:
         if kind not in LAYOUTS:
             raise ValueError(f"unknown cache layout {kind!r} (expected one "
                              f"of {LAYOUTS})")
+        if self.tp > 1 and kind in STATE_KINDS:
+            raise NotImplementedError(
+                f"tensor-parallel serving at tp={self.tp} on the {kind!r} "
+                f"layout is not yet ported to repro_torch ({TP_ITEM}); use "
+                f"the slot or paged layout")
 
     def _check_mla_layout(self, kind: str) -> None:
         """MLA's latent cache is served on the slot and paged layouts;
@@ -341,6 +660,7 @@ class LLMEngine:
                              "(the single-query paged kernel cannot "
                              "verify a window — use use_fused_decode)")
 
+    @_mirrored("out")
     def new_cache(self, backend):
         """Zeroed decode cache in the backend's layout: ``num_slots``
         contiguous max_len rows (slot, and state: a recurrent layer's
@@ -362,12 +682,20 @@ class LLMEngine:
 
     @property
     def mesh_desc(self) -> Dict[str, Any]:
-        """JSON-able mesh shape for observability tags: one device."""
-        return {"devices": 1, "axes": {}}
+        """JSON-able mesh shape for observability tags (metrics,
+        flight-recorder incidents, scheduler debug_state)."""
+        return mesh_desc(self.mesh)
 
     def cache_shards(self) -> int:
-        return 1
+        """Factor by which one cache block's per-rank bytes shrink under
+        the serving mesh, i.e. how many times more blocks the same
+        per-rank memory holds; ``GraphServer`` scales its default paged
+        arena by it.  K/V shard on their kv heads: the constructor
+        refuses, at tp > 1, every stack whose kv heads the ranks do not
+        divide and every other cache kind (item 11b)."""
+        return self.tp
 
+    @_mirrored()
     def insert(self, backend, cache, rows, row: int, dst):
         """Land prefilled cache row ``row`` of ``rows`` in the cache.
         ``dst`` is the backend's write ref: a slot index (slot and state
@@ -388,6 +716,7 @@ class LLMEngine:
                                     int(row), int(dst))
         return self._first_call(("insert", self._layout(backend), ""), run)
 
+    @_mirrored()
     def decode(self, backend, cache, last_tokens: np.ndarray,
                positions: np.ndarray, active: np.ndarray,
                block_tables: Optional[np.ndarray] = None
@@ -409,6 +738,7 @@ class LLMEngine:
         self._observe_kernel("decode", backend, t0)
         return out, cache
 
+    @_mirrored()
     def verify(self, backend, cache, tokens: np.ndarray,
                positions: np.ndarray, active: np.ndarray,
                block_tables: Optional[np.ndarray] = None
@@ -443,6 +773,7 @@ class LLMEngine:
         (layout, N, W), which the next verify of that key overwrites.
         Returns ([N, 1+k] guesses, cache, stacks)."""
         kind = backend.kind
+        self._check_layout(kind)
         if kind not in STATE_KINDS:
             raise ValueError(f"verify_window serves the state layouts "
                              f"{STATE_KINDS}, not {kind!r}")
@@ -482,6 +813,7 @@ class LLMEngine:
             ("state_rewind", "state", ""),
             lambda: self._state_rewind(cache, stacks, int(slot), int(idx)))
 
+    @_mirrored()
     def extend(self, backend, cache, suffix_tokens: np.ndarray,
                prefix_len: int, ref) -> Tuple[np.ndarray, Dict]:
         """Chunked/prefix prefill: compute ``suffix_tokens`` (positions

@@ -1,0 +1,246 @@
+"""The rank group of a tensor-parallel serving mesh: the processes, the
+rendezvous, the two gloo groups, ``tp_reduce`` and the worker loop.
+
+JAX drives a mesh from one controller and GSPMD inserts the
+collectives; PyTorch has no such partitioner, so the port does its job
+explicitly.  Rank 0 is the caller's process.  It starts ``tp - 1``
+worker processes (``spawn``, daemonic, one intra-op thread each), rank
+``r`` on ``mesh.devices[r]``, which meet it through a ``TCPStore`` on a
+port picked at start-up.  Each process then holds two gloo groups built
+on that store (not the process-wide default group, so one process may
+hold several meshes):
+
+* the **control** group carries rank 0's commands (pickled, broadcast
+  from rank 0); a worker waits on it between commands, so its timeout
+  is long;
+* the **data** group carries every collective of a step — the
+  ``all_reduce`` of :func:`tp_reduce` and the barrier that closes each
+  command — with the mesh's timeout (60 s by default), so a dead or
+  stuck rank fails the call instead of hanging it.
+
+A CUDA tensor is all-reduced through the host (gathered by gloo and
+summed on the CPU in rank order), so two or more ranks may share one
+card; the collective is host code and cannot be captured in a CUDA
+graph.  A worker that raises puts its traceback on an
+error queue and exits; its peers' next collective then fails ("connection
+closed"), and rank 0 raises with the worker's traceback.  A worker exits
+when rank 0 sends ``close``, when rank 0's process dies (a watchdog
+thread checks the parent every second) or when its control group fails.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import pickle
+import threading
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+#: how long a worker waits for rank 0's next command
+IDLE_TIMEOUT = datetime.timedelta(days=7)
+HOST = "127.0.0.1"
+
+
+def _gloo(store, rank: int, size: int, timeout: datetime.timedelta):
+    """A gloo process group over the loopback interface, apart from the
+    process-wide default group."""
+    Options = getattr(dist.ProcessGroupGloo, "_Options", None) \
+        or dist.ProcessGroupGloo.Options
+    opts = Options()
+    opts._devices = [dist.ProcessGroupGloo.create_device(hostname=HOST)]
+    opts._timeout = timeout
+    return dist.ProcessGroupGloo(store, rank, size, opts)
+
+
+class Collectives:
+    """One rank's side of the mesh's groups.  ``reduce_calls`` and
+    ``reduce_s`` count :meth:`all_reduce` calls and their host time."""
+
+    def __init__(self, mesh, rank: int, store):
+        self.mesh, self.rank, self.size = mesh, rank, mesh.tp
+        timeout = datetime.timedelta(seconds=mesh.timeout_s)
+        self.ctrl = _gloo(dist.PrefixStore("ctrl", store), rank, self.size,
+                          IDLE_TIMEOUT)
+        self.data = _gloo(dist.PrefixStore("data", store), rank, self.size,
+                          timeout)
+        self.store = store
+        self.reduce_calls = 0
+        self.reduce_s = 0.0
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, in place, in the tensor's
+        dtype, the same bits on every rank: the ranks' parts are
+        gathered on the host and added in rank order, ``((p0 + p1) + p2)
+        + ...``, element by element.  (gloo's own all-reduce splits a
+        buffer by its size, so an element's order of addition, and so
+        its bits at more than two ranks, would follow the number of rows
+        beside it.)"""
+        t0 = time.perf_counter()
+        host = t.detach().to("cpu")
+        parts = [torch.empty_like(host) for _ in range(self.size)]
+        self.data.allgather([parts], [host.contiguous()]).wait()
+        total = parts[0]
+        for part in parts[1:]:
+            total += part
+        t.copy_(total)
+        self.reduce_s += time.perf_counter() - t0
+        self.reduce_calls += 1
+        return t
+
+    def barrier(self) -> None:
+        self.data.allreduce([torch.zeros(1, dtype=torch.int32)]).wait()
+
+    def broadcast(self, obj: Any = None) -> Any:
+        """Rank 0's ``obj`` on every rank (pickled over the control
+        group)."""
+        if self.rank == 0:
+            payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                       dtype=torch.uint8)
+            n = torch.tensor([payload.numel()], dtype=torch.int64)
+        else:
+            n = torch.zeros(1, dtype=torch.int64)
+        opts = dist.BroadcastOptions()
+        opts.rootRank = 0
+        self.ctrl.broadcast([n], opts).wait()
+        if self.rank != 0:
+            payload = torch.empty(int(n), dtype=torch.uint8)
+        self.ctrl.broadcast([payload], opts).wait()
+        return obj if self.rank == 0 else pickle.loads(payload.numpy())
+
+    def all_gather(self, obj: Any) -> List[Any]:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        mine = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                dtype=torch.uint8)
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
+        self.data.allgather([sizes], [torch.tensor([mine.numel()])]).wait()
+        width = int(max(int(s) for s in sizes))
+        buf = torch.zeros(width, dtype=torch.uint8)
+        buf[:mine.numel()] = mine
+        out = [torch.empty(width, dtype=torch.uint8)
+               for _ in range(self.size)]
+        self.data.allgather([out], [buf]).wait()
+        return [pickle.loads(o[:int(s)].numpy().tobytes())
+                for o, s in zip(out, sizes)]
+
+
+def tp_reduce(y: torch.Tensor, flags) -> torch.Tensor:
+    """The partial product ``y`` of a row-parallel weight summed over
+    the ranks (the reduction GSPMD inserts after a product that
+    contracts a sharded axis); the identity at one shard."""
+    group = getattr(flags, "tp", None)
+    return y if group is None else group.all_reduce(y)
+
+
+# ---------------------------------------------------------------------------
+# rank 0: start the workers
+# ---------------------------------------------------------------------------
+
+class Workers:
+    """Rank 0's handle on the worker processes."""
+
+    def __init__(self, mesh, target: Callable, payload: Any):
+        """Start ranks 1 .. tp-1, each running ``target(collectives,
+        payload)`` (a module-level function); :meth:`join` joins their
+        groups."""
+        timeout = datetime.timedelta(seconds=mesh.timeout_s)
+        self.mesh = mesh
+        self.store = dist.TCPStore(HOST, 0, mesh.tp, True, timeout=timeout,
+                                   wait_for_workers=False)
+        ctx = mp.get_context("spawn")
+        self.errors = ctx.SimpleQueue()
+        self.procs = [ctx.Process(
+            target=_worker_main, daemon=True, name=f"tp-rank{r}",
+            args=(r, mesh, self.store.port, target, payload, self.errors,
+                  os.getpid()))
+            for r in range(1, mesh.tp)]
+        for p in self.procs:
+            p.start()
+
+    def join(self) -> Collectives:
+        """Rank 0's side of the groups, once every worker has joined."""
+        try:
+            self.coll = Collectives(self.mesh, 0, self.store)
+        except Exception as e:
+            self.kill()
+            raise RuntimeError(self.failure("joining the groups")) from e
+        return self.coll
+
+    def failure(self, what: str) -> str:
+        """A message naming the workers' tracebacks (waiting up to 2 s
+        for a dying worker to post its own)."""
+        msgs: List[Tuple[int, str]] = []
+        deadline = time.monotonic() + 2.0
+        while time.monotonic() < deadline:
+            while not self.errors.empty():
+                msgs.append(self.errors.get())
+            if msgs or all(not p.is_alive() for p in self.procs):
+                break
+            time.sleep(0.05)
+        dead = [p.name for p in self.procs if not p.is_alive()]
+        text = f"tensor-parallel rank group failed while {what}"
+        if dead:
+            text += f" ({', '.join(dead)} exited)"
+        for rank, tb in msgs:
+            text += f"\n--- rank {rank} ---\n{tb}"
+        return text
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        for p in self.procs:
+            p.join(timeout=5)
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Join the workers (rank 0 has sent them ``close``), killing
+        any that do not exit within ``timeout``."""
+        deadline = time.monotonic() + timeout
+        for p in self.procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        self.kill()
+
+
+# ---------------------------------------------------------------------------
+# a worker process
+# ---------------------------------------------------------------------------
+
+def _watch_parent(parent: int) -> None:
+    """Exit when rank 0's process is gone (the worker is re-parented)."""
+    def watch():
+        while True:
+            time.sleep(1.0)
+            if os.getppid() != parent:
+                os._exit(0)
+
+    threading.Thread(target=watch, daemon=True, name="parent-watch").start()
+
+
+def _worker_main(rank: int, mesh, port: int, target: Callable, payload: Any,
+                 errors, parent: int) -> None:
+    torch.set_num_threads(1)
+    _watch_parent(parent)
+    try:
+        timeout = datetime.timedelta(seconds=mesh.timeout_s)
+        store = dist.TCPStore(HOST, port, mesh.tp, False, timeout=timeout)
+        target(Collectives(mesh, rank, store), payload)
+    except BaseException:           # noqa: BLE001 - reported, then exit
+        errors.put((rank, traceback.format_exc()))
+        os._exit(1)
+    os._exit(0)
+
+
+def serve_commands(coll: Collectives,
+                   handle: Callable[[Any], Optional[bool]]) -> None:
+    """A worker's loop: receive rank 0's commands and ``handle`` each,
+    then meet the others at the barrier that ends it.  ``handle``
+    returns True for the command that closes the worker."""
+    while True:
+        cmd = coll.broadcast()
+        if handle(cmd):
+            return
+        coll.barrier()

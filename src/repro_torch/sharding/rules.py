@@ -1,0 +1,239 @@
+"""Logical-axis → mesh-axis sharding rules: the JAX package's
+``sharding/rules.py`` without JAX.
+
+A spec is a tuple with one entry per dimension — a mesh-axis name, a
+tuple of names, or ``None`` (replicated) — with trailing ``None``
+entries trimmed, as JAX trims a ``PartitionSpec``.  Meshes are read
+duck-typed: ``mesh.shape`` maps axis names to sizes and
+``mesh.axis_names`` lists them (``launch/mesh.py``'s
+:class:`~repro_torch.launch.mesh.ServingMesh`, or any stand-in).
+
+``resolve_spec`` is deliberately defensive: a logical axis is only mapped
+to a mesh axis if the dimension is divisible by the axis size and the
+mesh axis has not been claimed by an earlier dimension of the same
+tensor — otherwise that dimension is replicated.
+
+Rule summary (single-pod mesh ("data","model"); multi-pod adds "pod"):
+  params:  embed→data, heads/mlp/experts/vocab/ssm_inner→model
+  decode caches: batch→(pod,data); K/V on kv_heads, else head_dim, else
+  the sequence (``_kv_cache_axes``)
+
+On top of the specs, :func:`local_shape` and :func:`shard_tensor` give a
+rank's slice, and :func:`shard_state_dict` cuts a full ``state_dict``
+into one rank's weights.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..models.params import flatten, tree_map, unflatten
+
+Spec = Tuple[Any, ...]
+
+# logical axis -> mesh axis (or "batch" placeholder resolved per mesh)
+RULES: Dict[str, Any] = {
+    "vocab": "model",
+    "embed": "data",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "experts_vec": "model",
+    "ssm_inner": "model",
+    "ssm_inner_vec": "model",
+    "ssm_inner_b": None,
+    "embed_b": None,
+    "q_lora": None,
+    "kv_lora": None,
+    "qk_dim": None,
+    "layers": None,
+    # activation / cache axes
+    "batch": "__batch__",
+    "seq": "model",
+    "mlstm_dk": "model",
+    "embed_sharded": "model",
+    "kv_lora_sharded": "model",
+    "head_dim_sharded": "model",
+}
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def _names(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh-axis names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axis_size(mesh, axes) -> int:
+    return math.prod(mesh.shape[a] for a in _names(axes))
+
+
+def resolve_spec(shape: Tuple[int, ...],
+                 axes: Tuple[Optional[str], ...],
+                 mesh, rules: Optional[Dict[str, Any]] = None) -> Spec:
+    rules = rules or RULES
+    used: set = set()
+    parts = []
+    for dim, ax in zip(shape, axes):
+        mesh_ax = rules.get(ax) if ax else None
+        if mesh_ax == "__batch__":
+            mesh_ax = _batch_axes(mesh)
+        if mesh_ax is None:
+            parts.append(None)
+            continue
+        tup = _names(mesh_ax)
+        # drop already-claimed axes; then check divisibility of the rest
+        tup = tuple(a for a in tup if a not in used)
+        if not tup or dim % _axis_size(mesh, tup) != 0:
+            parts.append(None)
+            continue
+        used.update(tup)
+        parts.append(tup[0] if len(tup) == 1 else tup)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def param_specs(template, mesh, rules=None):
+    """The spec of every leaf of a param template (a nested dict of
+    :class:`ParamSpec`)."""
+    return tree_map(lambda s: resolve_spec(s.shape, s.axes, mesh, rules),
+                    template)
+
+
+# ---------------------------------------------------------------------------
+# decode-cache specs
+# ---------------------------------------------------------------------------
+
+_MIXER_CACHE_AXES = {
+    # GQA / cross-attn KV — axes chosen mesh-aware in _kv_cache_axes
+    ("k", 4): "__kv__",
+    ("v", 4): "__kv__",
+    # MLA latent: shard the lora rank rather than the sequence
+    ("c_kv", 3): ("batch", None, "kv_lora_sharded"),
+    ("k_rope", 3): ("batch", "seq", None),
+    # mamba
+    ("conv", 3): ("batch", None, "ssm_inner"),
+    ("h", 3): ("batch", "ssm_inner", None),
+    # mLSTM
+    ("C", 4): ("batch", None, "mlstm_dk", None),
+    ("n", 3): ("batch", None, "mlstm_dk"),
+    ("m", 2): ("batch", "embed_sharded"),
+    # sLSTM ([B, d]; mLSTM's m [B,H] falls back to replication on dim 1)
+    ("c", 2): ("batch", "embed_sharded"),
+    ("n", 2): ("batch", "embed_sharded"),
+    ("h", 2): ("batch", "embed_sharded"),
+}
+
+
+def _kv_cache_axes(shape, mesh):
+    """[B, S, KV, hd] preference: kv_heads -> head_dim -> sequence."""
+    m = mesh.shape["model"]
+    B, S, KV, hd = shape
+    if KV % m == 0:
+        return ("batch", None, "kv_heads", None)
+    if hd % m == 0:
+        return ("batch", None, None, "head_dim_sharded")
+    return ("batch", "seq", None, None)
+
+
+def _cache_leaf_axes(key: str, shape, scanned: bool, mesh):
+    eff_shape = shape[1:] if scanned else shape
+    axes = _MIXER_CACHE_AXES.get((key, len(eff_shape)))
+    if axes == "__kv__":
+        axes = _kv_cache_axes(eff_shape, mesh)
+    if axes is None:
+        axes = ("batch",) + (None,) * (len(eff_shape) - 1)
+    return ((None,) + axes) if scanned else axes
+
+
+def cache_specs(cache, mesh):
+    """Walk a cache tree (tensors, ``meta`` ones included) and assign
+    each leaf its spec by name; leaves under ``"blocks"`` carry the
+    leading ``[R]`` axis."""
+    def walk(tree, scanned: bool):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, scanned or k == "blocks")
+            else:
+                axes = _cache_leaf_axes(k, tuple(v.shape), scanned, mesh)
+                out[k] = resolve_spec(tuple(v.shape), axes, mesh)
+        return out
+
+    return walk(cache, False)
+
+
+# ---------------------------------------------------------------------------
+# a rank's slice
+# ---------------------------------------------------------------------------
+
+def _coords(mesh, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each mesh axis (row-major over
+    ``mesh.axis_names``, as JAX lays a mesh's devices out)."""
+    out = {}
+    for name in reversed(tuple(mesh.axis_names)):
+        n = mesh.shape[name]
+        out[name] = rank % n
+        rank //= n
+    return out
+
+
+def _entry_slice(mesh, entry, rank: int) -> Tuple[int, int]:
+    """(index, count) of rank ``rank``'s part of a dimension whose spec
+    entry is ``entry``: mixed radix over the entry's axes, the first
+    axis major."""
+    coords = _coords(mesh, rank)
+    idx, count = 0, 1
+    for a in _names(entry):
+        idx = idx * mesh.shape[a] + coords[a]
+        count *= mesh.shape[a]
+    return idx, count
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The per-rank shape of a tensor of ``shape`` sharded by ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // _axis_size(mesh, e) for d, e in zip(shape, spec))
+
+
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh,
+                 rank: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``t`` under ``spec`` (a view)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, count = _entry_slice(mesh, entry, rank)
+        n = t.shape[dim] // count
+        t = t.narrow(dim, idx * n, n)
+    return t
+
+
+def local_tree(tree, mesh):
+    """A cache tree of ``meta`` tensors cut to one rank's shapes by
+    :func:`cache_specs` (the same for every rank)."""
+    specs = flatten(cache_specs(tree, mesh))
+    flat = flatten(tree)
+    out = {path: torch.empty(local_shape(tuple(a.shape), specs[path], mesh),
+                             dtype=a.dtype, device=a.device)
+           for path, a in flat.items()}
+    return unflatten(out)
+
+
+def shard_state_dict(state_dict: Dict[str, torch.Tensor], template, mesh,
+                     rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s weights: each leaf of a full flat ``state_dict``
+    sliced on the dimensions its spec (``param_specs`` of ``template``)
+    shards, contiguous copies.  The ranks' slices together hold the
+    full tensors' bits."""
+    specs = flatten(param_specs(template, mesh))
+    return {path: shard_tensor(t, specs[path], mesh, rank).contiguous()
+            for path, t in state_dict.items()}

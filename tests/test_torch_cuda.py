@@ -645,3 +645,21 @@ def test_cuda_op_refuses_grad(cuda_device, op):
         calls[op](x)
     with torch.no_grad():
         assert calls[op](x).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(5120, 6400), (5120, 4096)])
+def test_cuda_padded_products_do_not_follow_the_row_count(cuda_device, K, N):
+    """A tensor-parallel rank's products (``layers.rows_padded``): at
+    qwen3_32b's tp-4 gate/up and tp-2 q shapes cuBLAS rounds bf16 rows
+    1-8 apart from 16's; padded, a row is the same at every row count up
+    to 32."""
+    from repro_torch.models.layers import ROW_BLOCK, linear, rows_padded
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(ROW_BLOCK, K, device=cuda_device,
+                    generator=g).bfloat16()
+    w = torch.randn(K, N, device=cuda_device, generator=g).bfloat16()
+    with rows_padded():
+        full = linear(x, w)
+        for M in (1, 4, 8, 20):
+            assert torch.equal(linear(x[:M], w), full[:M]), M

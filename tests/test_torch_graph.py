@@ -50,7 +50,8 @@ REF = ROOT / "src" / "repro"
 def graphserver_leak_check(monkeypatch):
     """After every close of a port ``GraphServer``: every slot free, no
     block in use or reserved, pool invariants intact, no prefix chain
-    left registered, no state slab held."""
+    left registered, no state slab held, and on a tensor-parallel engine
+    every worker rank holding exactly rank 0's live cache ids."""
     from repro_torch.serving.server import GraphServer
 
     real_close = GraphServer.close
@@ -84,6 +85,11 @@ def graphserver_leak_check(monkeypatch):
             slabs = getattr(sched.backend, "slabs_in_use", 0)
             if slabs:
                 leaks.append(f"{slabs} state slabs still held after close")
+            if getattr(sched.engine, "tp", 1) > 1:
+                ids = sched.engine.rank_cache_ids()
+                if any(r != ids[0] for r in ids):
+                    leaks.append(f"worker ranks hold other caches than "
+                                 f"rank 0: {ids}")
         return stats
 
     monkeypatch.setattr(GraphServer, "close", checked_close)
