@@ -103,9 +103,20 @@ Scheduler with K2 and with K4 on each rank's 18 heads, every rank's
 launches held to the schedule, tokens bitwise each request served
 alone by the same engine (``own_greedy``), slot = paged, a forced preemption replayed, the eager
 tick against the unsharded one with its share in ``all_reduce``;
-``tp_f32``: 8 layers in f32, tp 2 against tp 1; ``tp_gqa``:
-qwen3_32b's first two layers at tp 2 and tp 4, K2, K4 and K3 on GQA
-slices, and in f32 against tp 1); checks the launch counters
+``tp_f32``: 8 layers in f32, tp 2 against tp 1; ``tp_moe``:
+granite_moe_3b_a800m at tp 2, full width and depth, each rank's 12/4
+heads and 24 experts, 2 slots, speculation, a forced preemption,
+tokens bitwise each request alone, every MoE call's kept pairs the
+unsharded plan's and the served chunks routed as alone; ``tp_hybrid``:
+jamba's first two layers at tp 2 on a HybridBackend, the verify window
+and the rewind over the mirror, hybrid = state; ``tp_state``:
+xlstm_1_3b's first 8 layers at tp 2 on a StateBackend; each with its
+eager tick against the unsharded one, its all-reduces a tick held to
+the layers'; ``tp_mixers_f32``: granite's and xlstm's first 8 layers
+in f32, tp 2 against tp 1, granite while the two route alike;
+``tp_gqa``: qwen3_32b's first two layers at tp 2 and tp 4, K2, K4 and
+K3 on GQA slices, and in f32 against tp 1; the engines of one mesh
+share its worker processes, ``TP_POOL``); checks the launch counters
 against the schedule and the outputs (slot and paged layouts bitwise
 equal; an f32 run against per-request greedy), and times each kernel
 with CUDA events over calls queued back to back (K1 also at prefill
@@ -116,7 +127,9 @@ also on the paged arena at the serve tick's, qwen3_32b's,
 granite_moe_3b_a800m's and jamba's shapes, K2 and K4 there at windows
 of 1 and 5), and the recurrent updates against their bounds.
 Kernels are also held at granite_moe_3b_a800m's head shape (24 heads
-over 8 KV heads) and at the stub models' (K1 at widths 1024 and 3072,
+over 8 KV heads), at one rank's heads at tp 2 (granite's 12 over 4,
+jamba's 32 over 4: K2, K4, K5, K3 and granite's 256-row chunk) and at
+the stub models' (K1 at widths 1024 and 3072,
 K3 over two rows of phi_3_vision_4_2b's 592-row prefill and of a
 16-token prompt, K2, K4 and K5 at 32 heads of 96 and 16 of 64), and
 ``gemm_width`` reads granite's router and expert products.  Every phase
@@ -350,6 +363,9 @@ def phase_kernels(torch):
             check_flash_shape(torch, dev, g, dtype, shape, record,
                               rows=SERVE_CHUNK + 64, offsets=(SERVE_CHUNK,),
                               batch=2)
+        # K3 over granite's rank chunk at tp 2: 256 rows of 12 heads over 4
+        check_flash_shape(torch, dev, g, dtype, TP_HEADS[3], record,
+                          rows=SERVE_CHUNK, offsets=(), batch=1)
         # granite_moe_3b_a800m's G = 3: K3's suffixes of a 512-row
         # prefill, K2 and K4's windows against single queries
         check_flash_shape(torch, dev, g, dtype, GRANITE, record,
@@ -492,9 +508,12 @@ TP_GEMMS = {"minicpm tp2 q": (2304, 1152), "minicpm tp2 o": (1152, 2304),
             "qwen3 tp4 down": (6400, 5120),
             "qwen3 tp4 logits": (5120, 37984)}
 #: one rank's heads under tensor-parallel serving: minicpm_2b's 36 MHA
-#: heads at tp 2, qwen3_32b's 64 over 8 kv heads at tp 2 and tp 4
+#: heads at tp 2, qwen3_32b's 64 over 8 kv heads at tp 2 and tp 4,
+#: granite_moe_3b_a800m's 24 over 8 and jamba's 64 over 8 at tp 2
 TP_HEADS = (("minicpm_2b tp2", 18, 18, 64), ("qwen3_32b tp2", 32, 4, 128),
-            ("qwen3_32b tp4", 16, 2, 128))
+            ("qwen3_32b tp4", 16, 2, 128),
+            ("granite_moe_3b_a800m tp2", 12, 4, 64),
+            ("jamba_1_5_large_398b tp2", 32, 4, 128))
 #: granite_moe_3b_a800m's attention shape: 3 query heads per kv head
 GRANITE = DECODE_SHAPES[3]
 #: the stub models' attention shapes
@@ -1197,20 +1216,27 @@ def decode_replay_agreement(engine, requests, new=24,
 
 
 def compare_with_greedy(torch, engine, requests, got, max_len=SERVE_MAX_LEN,
-                        new=SERVE_NEW, chunk=None):
+                        new=SERVE_NEW, chunk=None, routes=None):
     """Each request alone through ``engine.model``: prefill, then greedy
     decode steps, keeping the logits.  A served token must equal the
     reference's while the reference's top-2 gap is at least TOP2_GAP; a
     row is compared up to its first near-tie.  With ``chunk`` the prompt
     is prefilled in the served chunks (a first chunk, then extends
     against the row's own cache), so that a MoE call of the reference
-    carries a served call's tokens and drops what it drops (Hazard 7)."""
+    carries a served call's tokens and drops what it drops (Hazard 7).
+    ``routes`` (request -> the served run's MoE choices, call by call,
+    of the same passes alone) stops a row before the first token whose
+    passes were routed otherwise: a choice flipped by rounding moves the
+    row's output by O(1), which no gap rule bounds."""
     V = engine.cfg.vocab_size
     dev = engine.device
     rows = tokens = mismatches = 0
-    near_ties = []
+    near_ties, rerouted = [], []
     for i, prompt in enumerate(requests):
         x = torch.as_tensor(prompt, device=dev).long()[None]
+        rec = RouteRecorder() if routes is not None else \
+            contextlib.nullcontext()
+        rec.__enter__()
         logits, cache = engine.model.prefill(x[:, :chunk], max_len,
                                              flags=engine.flags)
         for start in range(chunk, prompt.size, chunk) if chunk else ():
@@ -1218,6 +1244,12 @@ def compare_with_greedy(torch, engine, requests, got, max_len=SERVE_MAX_LEN,
                                     max_len)
         n = 0
         for j in range(new):
+            if routes is not None and not (
+                    len(rec.calls) <= len(routes[i])
+                    and all(routed_alike(torch, a, b, engine.cfg)
+                            for a, b in zip(rec.calls, routes[i]))):
+                rerouted.append([i, j])
+                break
             top2 = torch.topk(logits[0, :V].float(), 2).values
             gap = float(top2[0] - top2[1])
             tok = int(torch.argmax(logits[0, :V]))
@@ -1233,11 +1265,27 @@ def compare_with_greedy(torch, engine, requests, got, max_len=SERVE_MAX_LEN,
             logits, cache = engine.model.decode_step(
                 torch.tensor([[tok]], device=dev), cache, pos,
                 flags=engine.flags)
+        rec.__exit__(None, None, None)
         rows += n > 0
         tokens += n
-    return {"rows": len(requests), "rows_compared": rows,
-            "tokens_compared": tokens, "mismatches": mismatches,
-            "near_ties": near_ties, "top2_gap": TOP2_GAP}
+    out = {"rows": len(requests), "rows_compared": rows,
+           "tokens_compared": tokens, "mismatches": mismatches,
+           "near_ties": near_ties, "top2_gap": TOP2_GAP}
+    if routes is not None:
+        out["rerouted_at"] = rerouted
+    return out
+
+
+def routed_alike(torch, a, b, cfg) -> bool:
+    """Two MoE calls' choices [N, k] route every token alike: the same
+    set of experts (their rank order moves no output), as many of them
+    kept."""
+    from repro_torch.models import moe
+    if a.shape != b.shape:
+        return False
+    E, C = moe.padded_experts(cfg), moe.capacity(cfg, a.shape[0])
+    return bool((a.sort(-1).values == b.sort(-1).values).all()) and \
+        torch.equal(kept(torch, a, E, C).sum(-1), kept(torch, b, E, C).sum(-1))
 
 
 def extend_own_row(torch, engine, x, cache, start, chunk, max_len):
@@ -1959,8 +2007,8 @@ def phase_f2(torch):
 # phase 3e — the decode and verify steps as CUDA graphs against eager
 # ---------------------------------------------------------------------------
 
-#: decode ticks read per engine and layout, in turns
-TICK_READS = 120
+#: decode ticks read per engine and layout, in turns (cut from 120)
+TICK_READS = 60
 
 
 def phase_captured(torch, captured, smi):
@@ -2097,6 +2145,8 @@ TP_NEW = 12
 TP_TICKS = 12
 #: depth of the f32 comparison of tp 2 against tp 1 (as xlstm_serve's)
 TP_F32_DEPTH = 8
+#: depth of tp_serve's K4 run, with its forced preemption (cut from 40)
+TP_SPLITK_DEPTH = 10
 QWEN_ARCH = "qwen3_32b"
 QWEN_DEPTH = 2
 GQA_MAX_LEN = 512
@@ -2112,15 +2162,24 @@ GQA_RUNS = ((2, ("default", {}, "fused_flash_decode")),
                  "fused_flash_decode_splitk")))
 
 
+#: the tensor-parallel phases' ``WorkerPool``: an engine takes the idle
+#: workers a closed one of the same mesh left (``main`` makes it and
+#: closes it after the last tp phase), so that a mesh's worker processes
+#: start once, not once an engine
+TP_POOL = None
+
+
 def tp_engine(torch, cfg, tp, max_len, weights=None, **flags):
     """An engine over ``tp`` ranks on the card (rank 0 here, the others
-    spawned), eager: a gloo collective cannot be captured."""
+    in TP_POOL's workers or spawned), eager: a gloo collective cannot be
+    captured."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
     return LLMEngine(cfg, weights, max_len=max_len, seed=SEED,
                      flags=RuntimeFlags(cuda_graphs=False, **flags),
-                     mesh=make_serving_mesh(tp, devices=[TP_DEVICE] * tp))
+                     mesh=make_serving_mesh(tp, devices=[TP_DEVICE] * tp),
+                     pool=TP_POOL)
 
 
 def tp_serve(torch, engine, cfg, requests, blocks, attend, **kw):
@@ -2140,13 +2199,16 @@ def tp_serve(torch, engine, cfg, requests, blocks, attend, **kw):
     return got, stats, total, wall, per_rank, want
 
 
-def own_greedy(torch, engine, requests, new):
+def own_greedy(torch, engine, requests, new, backend=None,
+               chunk=SERVE_CHUNK):
     """Each request alone through a one-slot Scheduler on the engine's
-    slot layout, greedy, without speculation: the served run's prefill
-    and extend chunks (SERVE_CHUNK), then one decode step a token."""
+    slot layout (or ``backend(engine)``, of one slot), greedy, without
+    speculation: the served run's prefill and extend chunks (``chunk``),
+    then one decode step a token."""
     from repro_torch.serving import SlotBackend
+    make = backend or (lambda e: SlotBackend(e, 1))
     return {i: serve(torch, engine, [p], 0, speculate_k=0, max_new=new,
-                     backend=lambda e: SlotBackend(e, 1))[0][0]
+                     backend=make, chunk=chunk)[0][0]
             for i, p in enumerate(requests)}
 
 
@@ -2156,20 +2218,23 @@ def bitwise_equal(a, b):
         and sorted(a) == sorted(b)
 
 
-def tp_ticks(torch, engines, requests, ticks=TP_TICKS):
-    """Scheduler decode ticks (4 active slots, no speculation, paged,
-    roomy) of each engine in turns, 3 of warm-up then ``ticks`` read:
-    each one's median and p10/p90 ms, and for a tensor-parallel engine
-    rank 0's ``all_reduce`` calls a tick and their share of the tick
-    (host clock around the collectives)."""
+def tp_ticks(torch, engines, requests, ticks=TP_TICKS, make=None,
+             chunk=SERVE_CHUNK):
+    """Scheduler decode ticks (4 active slots, no speculation; paged and
+    roomy, or on ``make(engine)``'s layout) of each engine in turns, 3
+    of warm-up then ``ticks`` read: each one's median and p10/p90 ms,
+    and for a tensor-parallel engine rank 0's ``all_reduce`` calls a
+    tick and their share of the tick (host clock around the
+    collectives)."""
     import numpy as np
     from repro_torch.serving import PagedBackend, Scheduler
     scheds = {}
     for name, engine in engines.items():
-        be = PagedBackend(engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
-                          block_size=SERVE_BLOCK)
+        be = make(engine) if make is not None else PagedBackend(
+            engine, SERVE_SLOTS, num_blocks=ROOMY_BLOCKS,
+            block_size=SERVE_BLOCK)
         sched = Scheduler(be, max_new_tokens=4 + 3 + ticks,
-                          chunk_size=SERVE_CHUNK)
+                          chunk_size=chunk)
         for i, p in enumerate(requests[:SERVE_SLOTS]):
             sched.submit({"tokens": p, "id": i})
         while sched.ingesting or sched.waiting:
@@ -2212,8 +2277,8 @@ def phase_tp_serve(torch, smi):
     seed) on TP ranks of the card: the serve workload's first
     TP_REQUESTS requests for TP_NEW tokens through the Scheduler on a
     PagedBackend (chunk 256, speculate 4, prefix sharing, pressure),
-    once with K2 and once with K4 (``fused_split_k``) and one forced
-    preemption of a decoding request: every rank's launches equal to the
+    once with K2 and once, on the first TP_SPLITK_DEPTH layers, with K4
+    (``fused_split_k``) and one forced preemption of a decoding request: every rank's launches equal to the
     schedule, the tokens bitwise each request served alone, greedy, by
     the same engine (``own_greedy``), the forced victim's K/V (rank 0's heads) replayed
     bitwise; slot = paged bitwise; then the eager tick against the
@@ -2229,16 +2294,21 @@ def phase_tp_serve(torch, smi):
             ("split_k", {"fused_split_k": True},
              "fused_flash_decode_splitk"),
             ("default", {}, "fused_flash_decode")):
+        # the K4 run on the first TP_SPLITK_DEPTH layers (the run's budget)
+        run_cfg = dataclasses.replace(cfg, num_layers=TP_SPLITK_DEPTH) \
+            if name == "split_k" else cfg
         t0 = time.perf_counter()
-        engine = tp_engine(torch, cfg, TP, SERVE_MAX_LEN, **flags)
+        engine = tp_engine(torch, run_cfg, TP, SERVE_MAX_LEN, **flags)
         start_s = time.perf_counter() - t0
         forced = ForcedPreemption(torch, limit=1)
         got, stats, counts, wall, per_rank, want = tp_serve(
-            torch, engine, cfg, requests, blocks, attend, max_new=TP_NEW,
+            torch, engine, run_cfg, requests, blocks, attend,
+            max_new=TP_NEW,
             hook=forced.install if name == "split_k" else None)
         equal = bitwise_equal(got, own_greedy(torch, engine, requests,
                                               TP_NEW))
         emit({"phase": "tp_serve", "run": name, "tp": TP,
+              "layers": run_cfg.num_layers,
               "devices": list(engine.mesh.devices),
               "mesh": engine.mesh_desc, "requests": len(requests),
               "new_tokens": TP_NEW, "num_blocks": blocks,
@@ -2297,55 +2367,101 @@ def phase_tp_serve(torch, smi):
 
 def phase_tp_f32(torch):
     """minicpm_2b's first TP_F32_DEPTH layers at full width in f32: tp 2
-    against tp 1 (no mesh) on the same weights from the seed.  The tp 2
-    run's Scheduler tokens against tp 1's per-request greedy under the
-    top-2 gap rule (``compare_with_greedy``); its first-step logits
-    within F32_MODEL_TOL of tp 1's or, as ``f32_against_plain`` holds
-    two f32 paths to the f32 rounding floor, no further from an f64 run
-    on the same weights than F32_MODEL_TOL or the f32 paths without a
-    mesh (the plain one, tp 1) sit from it."""
-    import numpy as np
-    from repro_torch.models.transformer import RuntimeFlags
-    from repro_torch.serving import LLMEngine
+    against tp 1 (no mesh) on the same weights from the seed
+    (``tp_f32_check``)."""
     cfg = dataclasses.replace(minicpm_config(), dtype="float32",
                               num_layers=TP_F32_DEPTH)
     requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
-    one = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED)
-    tp = tp_engine(torch, cfg, TP, SERVE_MAX_LEN)
-    got, stats, _, _ = serve(torch, tp, requests, ROOMY_BLOCKS,
-                             max_new=TP_NEW)
-    exact = compare_with_greedy(torch, one, requests, got, new=TP_NEW,
-                                chunk=SERVE_CHUNK)
-    toks = np.stack([p[:256] for p in requests])
+    tp_f32_check(torch, "tp_f32", cfg, requests, SERVE_MAX_LEN,
+                 [p[:256] for p in requests],
+                 {"num_blocks": ROOMY_BLOCKS, "max_new": TP_NEW},
+                 {"new": TP_NEW, "chunk": SERVE_CHUNK})
+
+
+def tp_f32_check(torch, phase, cfg, requests, max_len, prompts, serve_kw,
+                 greedy_kw):
+    """``cfg`` (f32) at tp 2 against tp 1 (no mesh) on the same weights
+    from the seed: the tp 2 run's Scheduler tokens (``serve(**serve_kw)``;
+    with ``serve_kw`` None, each request alone, its MoE routing recorded)
+    against tp 1's per-request greedy under the top-2 gap rule
+    (``compare_with_greedy(**greedy_kw)``, with the routing: while the
+    two routed alike); its first-step logits (on the rows every run
+    routed alike, ``routing_rows``) over
+    ``prompts`` within F32_MODEL_TOL of tp 1's or, as
+    ``f32_against_plain`` holds two f32 paths to the f32 rounding floor,
+    no further from an f64 run on the same weights than F32_MODEL_TOL or
+    the f32 paths without a mesh (the plain one, tp 1) sit from it."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    t0 = time.perf_counter()
+    one = LLMEngine(cfg, max_len=max_len, seed=SEED)
+    tp = tp_engine(torch, cfg, TP, max_len)
+    if serve_kw is None:
+        # a MoE stack: each request alone on both sides, its routing
+        # recorded, so that the rows are compared while routed alike
+        got, routes = {}, {}
+        for i, p in enumerate(requests):
+            with RouteRecorder() as rec:
+                got[i] = own_greedy(torch, tp, [p], greedy_kw["new"],
+                                    chunk=greedy_kw["chunk"])[0]
+            routes[i] = rec.calls
+        stats = {"spec_steps": 0}
+        greedy_kw = dict(greedy_kw, routes=routes)
+    else:
+        got, stats, _, _ = serve(torch, tp, requests, **serve_kw)
+    exact = compare_with_greedy(torch, one, requests, got, max_len=max_len,
+                                **greedy_kw)
+    toks = np.stack(prompts)
     w32 = dict(one.model.named_parameters())
-    plain = LLMEngine(cfg, w32, max_len=SERVE_MAX_LEN,
+    plain = LLMEngine(cfg, w32, max_len=max_len,
                       flags=RuntimeFlags(**PLAIN_FLAGS))
     cfg64 = dataclasses.replace(cfg, dtype="float64")
     x64 = LLMEngine(cfg64, {k: v.double() for k, v in w32.items()},
-                    max_len=SERVE_MAX_LEN, flags=RuntimeFlags(**PLAIN_FLAGS))
-    lg = {name: e.prefill_logits(toks) for name, e in (
-        ("tp1", one), ("tp2", tp), ("plain", plain), ("f64", x64))}
-    V = cfg.vocab_size
+                    max_len=max_len, flags=RuntimeFlags(**PLAIN_FLAGS))
+    lg, calls = {}, {}
+    for name, e in (("tp1", one), ("tp2", tp), ("plain", plain),
+                    ("f64", x64)):
+        with RouteRecorder() as rec:
+            lg[name] = e.prefill_logits(toks)
+        calls[name] = rec.calls
+    V, B = cfg.vocab_size, toks.shape[0]
+    # the rows every run routed alike (all rows without a MoE layer)
+    rows = torch.ones(B, dtype=torch.bool)
+    for a, b in (("tp2", "tp1"), ("tp2", "f64"), ("tp1", "f64"),
+                 ("plain", "f64")):
+        if calls[a] or calls[b]:
+            rows &= routing_rows(torch, calls[a], calls[b], B,
+                                 moe_padded(cfg), cfg)[0]
+    rows = rows.numpy()
+    check(rows.any(), f"{phase} {cfg.name}: no row routed alike")
 
     def dist(a, b):
-        return float(np.abs(lg[a][:, :V] - lg[b][:, :V]).max())
+        return float(np.abs(lg[a][rows, :V] - lg[b][rows, :V]).max())
 
     err = dist("tp2", "tp1")
-    # the f32 floor: how far the f32 runs without a mesh sit from f64
+    # the f32 floor: how far the f32 runs without a mesh sit from f64.
+    # Through a MoE stack one rounding of the same function lands about
+    # as far again from f64 as another: granite's f32 paths without a
+    # mesh, on rows every run routed alike, sit 0.0042 (kernels) and
+    # 0.0105 (plain) from f64, logit scale 3.69 (measured on one H100),
+    # so a third rounding, tp 2's, is held to twice the floor there
     floor = max(dist("plain", "f64"), dist("tp1", "f64"))
-    limit = max(F32_MODEL_TOL, floor)
-    emit({"phase": "tp_f32", "tp": TP, "depth": TP_F32_DEPTH,
-          "spec_steps": stats["spec_steps"], **exact,
-          "logits_tp2_vs_tp1": err, "tp2_vs_f64": dist("tp2", "f64"),
+    limit = max(F32_MODEL_TOL, floor * (2 if any(calls.values()) else 1))
+    emit({"phase": phase, "arch": cfg.name, "tp": TP,
+          "depth": cfg.num_layers, "spec_steps": stats["spec_steps"],
+          **exact, "logits_tp2_vs_tp1": err, "tp2_vs_f64": dist("tp2", "f64"),
           "tp1_vs_f64": dist("tp1", "f64"),
           "plain_f32_vs_f64": dist("plain", "f64"), "limit": limit,
-          "logit_scale": float(np.abs(lg["f64"][:, :V]).max())})
+          "logit_scale": float(np.abs(lg["f64"][:, :V]).max()),
+          "logit_rows_routed_alike": int(rows.sum()), "logit_rows": B,
+          "seconds": time.perf_counter() - t0})
     check(exact["rows_compared"] > 0 and exact["mismatches"] == 0,
-          "tp_f32: a tp 2 token differs from tp 1's greedy where the top-2 "
-          "gap is wide")
+          f"{phase} {cfg.name}: a tp 2 token differs from tp 1's greedy "
+          f"where the top-2 gap is wide")
     check(err <= F32_MODEL_TOL or dist("tp2", "f64") <= limit,
-          f"tp_f32: logits {err} from tp 1's and {dist('tp2', 'f64')} from "
-          f"the f64 run, beyond {limit}")
+          f"{phase} {cfg.name}: logits {err} from tp 1's and "
+          f"{dist('tp2', 'f64')} from the f64 run, beyond {limit}")
     tp.close()
     del one, tp, plain, x64, w32
     free_card(torch)
@@ -2437,6 +2553,348 @@ def phase_tp_gqa(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel serving of the MoE FFN and the recurrent mixers (item
+# 11b-i): granite_moe_3b_a800m at full width and depth, jamba's first two
+# layers at full width, xlstm_1_3b at full width, two ranks on the card
+# ---------------------------------------------------------------------------
+
+#: slots of the tp runs whose stacks hold a MoE FFN: a 4-slot verify tick
+#: (20 tokens) overflows granite's experts' capacity of 8 rows, so that a
+#: token's output would follow its batch (Hazard 7) and no longer be the
+#: token it gets served alone; 2 slots (10 tokens) stay under it
+TP_MOE_SLOTS = 2
+#: new tokens of the state and hybrid tp runs: the forced preemption
+#: wants a request that has streamed PREEMPT_AFTER tokens with 4 to go
+TP_STATE_NEW = 16
+#: xlstm_1_3b's depth at tp (cut from 48: one layer group, 7 mLSTM + 1
+#: sLSTM), and granite's in the f32 check (cut from 32)
+TP_STATE_DEPTH = 8
+TP_MIXER_F32_DEPTH = 8
+#: granite's f32 prompts: few tokens, so that few routing choices can flip
+TP_MIXER_PROMPT = 16
+
+
+def moe_padded(cfg) -> int:
+    from repro_torch.models import moe
+    return moe.padded_experts(cfg)
+
+
+def tp_moe_drops(torch, calls, cfg, ticks_n):
+    """The recorded MoE calls of one run (rank 0's choices over every
+    expert): whether each rank's plan (its E/tp experts, the global
+    capacity) keeps, together, exactly the pairs the unsharded plan
+    keeps; the dropped pairs of the prefill chunks (SERVE_CHUNK tokens)
+    and of the decode and verify ticks (at most ``ticks_n`` tokens), and
+    the chunks' choices (``chunks``: their bytes, a call's fingerprint)."""
+    from repro_torch.models import moe
+    E = moe.padded_experts(cfg)
+    E_l = E // TP
+    exact, chunks, dropped = True, set(), {"chunk": 0, "tick": 0}
+    for idx in calls:
+        C = moe.capacity(cfg, idx.shape[0])
+        whole = kept(torch, idx, E, C).int()
+        ranks = sum(kept(torch, idx, E_l, C, r * E_l).int()
+                    for r in range(TP))
+        exact = exact and torch.equal(ranks, whole)
+        n = moe.count_dropped(idx, E, C)
+        if idx.shape[0] == SERVE_CHUNK:
+            chunks.add(idx.cpu().numpy().tobytes())
+            dropped["chunk"] += n
+        elif idx.shape[0] <= ticks_n:
+            dropped["tick"] += n
+    return {"calls": len(calls), "ranks_keep_the_unsharded_pairs": exact,
+            "chunk_dropped": dropped["chunk"],
+            "tick_dropped": dropped["tick"]}, chunks
+
+
+def tp_tick_line(phase, ticks, smi, cfg, per_layer):
+    """Print ``tp_ticks``' rows, with rank 0's all-reduces a decode tick
+    held to ``per_layer(kind, ffn)`` summed over the layers, plus the
+    embedding's and the logits'."""
+    want = 2 + sum(per_layer(k, f)
+                   for k, f in zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+    emit({"phase": phase, "arch": cfg.name, "nvidia_smi": smi,
+          "expected_all_reduce_per_tick": want, **ticks})
+    for name, row in ticks.items():
+        if "all_reduce_per_tick" in row:
+            check(row["all_reduce_per_tick"] == want,
+                  f"{phase} {name}: {row['all_reduce_per_tick']} "
+                  f"all-reduces a tick, not {want}")
+
+
+def phase_tp_moe(torch, smi):
+    """granite_moe_3b_a800m at full width and depth (bf16, random weights
+    from the seed) at tp 2 on the card: a rank holds 12 of the 24 heads
+    over 4 of the 8 kv heads, 24 of the 48 padded experts and half the
+    vocabulary.  The serve workload's first TP_REQUESTS requests for
+    TP_NEW tokens through the Scheduler on a roomy PagedBackend of
+    TP_MOE_SLOTS slots (chunk 256, speculate 4, prefix sharing) with one
+    forced preemption: every rank's launches equal to the schedule, the
+    tokens bitwise each request served alone by the same engine
+    (``own_greedy``), the victim's K/V (rank 0's heads) replayed bitwise;
+    every MoE call's pairs kept by the ranks' plans are the unsharded
+    plan's, and every served prefill chunk routes (and so drops) as the
+    same chunk of its request alone; the ticks' drops are printed (a
+    verify tick of 2 x 5 tokens has the capacity of a lone decode step,
+    8 rows an expert).  Then the eager tick against the
+    unsharded eager tick.  Returns the launch counts of every rank."""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine, PagedBackend
+    t_phase = time.perf_counter()
+    cfg = moe_config()
+    requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
+    blocks = 1 + TP_MOE_SLOTS * SERVE_MAX_LEN // SERVE_BLOCK
+    t0 = time.perf_counter()
+    engine = tp_engine(torch, cfg, TP, SERVE_MAX_LEN)
+    start_s = time.perf_counter() - t0
+    forced = ForcedPreemption(torch, limit=1)
+    with RouteRecorder() as rec:
+        got, stats, counts, wall, per_rank, want = tp_serve(
+            torch, engine, cfg, requests, 0, "fused_flash_decode",
+            max_new=TP_NEW, hook=forced.install,
+            backend=lambda e: PagedBackend(e, TP_MOE_SLOTS,
+                                           num_blocks=blocks,
+                                           block_size=SERVE_BLOCK))
+    with RouteRecorder() as alone_rec:
+        alone = own_greedy(torch, engine, requests, TP_NEW)
+    equal = bitwise_equal(got, alone)
+    ticks_n = TP_MOE_SLOTS * (SERVE_SPEC + 1)
+    served, chunks = tp_moe_drops(torch, rec.calls, cfg, ticks_n)
+    ref, ref_chunks = tp_moe_drops(torch, alone_rec.calls, cfg, ticks_n)
+    # each served chunk routed (and so dropped) as the same chunk alone
+    chunks_alike = bool(chunks) and chunks <= ref_chunks
+    emit({"phase": "tp_moe", "arch": cfg.name, "tp": TP,
+          "slots": TP_MOE_SLOTS, "heads_per_rank": [
+              cfg.num_heads // TP, cfg.num_kv_heads // TP],
+          "experts_per_rank": moe_padded(cfg) // TP,
+          "engine_start_s": start_s,
+          "seconds": wall, "launches_per_rank": per_rank,
+          "expected_launches": want, "bitwise_equal_to_own_greedy": equal,
+          "forced_preemptions": len(forced.streamed),
+          "victims_streamed_tokens": forced.streamed,
+          "replays_kv_bitwise_rank0": sum(forced.kv_equal),
+          "drops_served": served, "drops_alone": ref,
+          "served_chunks_drop_as_alone": chunks_alike,
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "extend_prefills", "decode_steps",
+              "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+              "replayed_tokens", "replay_steps", "shared_block_hits",
+              "completed", "admit_seconds", "step_seconds")}})
+    check(stats["completed"] == len(requests) and stats["spec_steps"] > 0,
+          "tp_moe: the run did not complete or verify")
+    check(len(forced.streamed) == 1 and stats["replay_steps"] > 0
+          and forced.kv_equal == [True],
+          "tp_moe: the forced preemption did not replay bitwise")
+    check(served["ranks_keep_the_unsharded_pairs"]
+          and ref["ranks_keep_the_unsharded_pairs"],
+          "tp_moe: the ranks' plans keep other pairs than the unsharded "
+          "plan")
+    check(chunks_alike, "tp_moe: the served prefill chunks drop other "
+                        "pairs than the requests' chunks alone")
+    check(equal, "tp_moe: tokens differ from the engine's requests served "
+                 "alone")
+    plain = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    tp_tick_line("tp_moe_tick", tp_ticks(
+        torch, {"tp1_eager": plain, f"tp{TP}_eager": engine},
+        serve_requests(cfg.vocab_size)), smi, cfg,
+        lambda k, f: 1 + 2 * (f == "moe") + (f == "dense"))
+    engine.close()
+    del plain, engine
+    free_card(torch)
+    emit({"phase": "tp_moe_done", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def phase_tp_hybrid(torch, smi):
+    """jamba's first two layers at full width (attention + dense FFN,
+    Mamba + MoE FFN; bf16, random weights from the seed) at tp 2 on the
+    card, ~11.9 GB a rank: a rank holds 32 of the 64 heads over 4 of the
+    8 kv heads, half of Mamba's d_inner and of the dense FFN, 8 of the
+    16 experts.  The serve workload's first TP_REQUESTS requests for
+    TP_STATE_NEW tokens through the Scheduler on a roomy HybridBackend of
+    TP_MOE_SLOTS slots (chunk 256, speculate 4: ``verify_window`` and
+    ``state_rewind`` over the mirror) with one forced preemption: launches
+    per rank = the schedule, tokens bitwise each request served alone
+    (a one-slot HybridBackend) and bitwise the same run on a
+    StateBackend (attention in slot rows), the victim's K/V and state
+    (rank 0's) replayed bitwise, every MoE call's pairs kept by the
+    ranks' plans the unsharded plan's.  Then the eager tick against the
+    unsharded eager tick, one engine at a time.  Returns the launch
+    counts of every rank."""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import HybridBackend, LLMEngine, StateBackend
+    t_phase = time.perf_counter()
+    cfg = jamba_config()
+    requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
+
+    def hybrid(slots):
+        return lambda e: HybridBackend(
+            e, slots, num_blocks=1 + slots * SERVE_MAX_LEN // SERVE_BLOCK,
+            block_size=SERVE_BLOCK, spec_window=STATE_SPEC_WINDOW)
+
+    t0 = time.perf_counter()
+    engine = tp_engine(torch, cfg, TP, SERVE_MAX_LEN)
+    start_s = time.perf_counter() - t0
+    forced = ForcedPreemption(torch, limit=1)
+    with RouteRecorder() as rec:
+        got, stats, counts, wall, per_rank, want = tp_serve(
+            torch, engine, cfg, requests, 0, "fused_flash_decode",
+            max_new=TP_STATE_NEW, hook=forced.install,
+            backend=hybrid(TP_MOE_SLOTS))
+    state, sstats, scounts, _ = serve(
+        torch, engine, requests, 0, max_new=TP_STATE_NEW,
+        backend=lambda e: StateBackend(e, TP_MOE_SLOTS,
+                                       spec_window=STATE_SPEC_WINDOW))
+    alone = own_greedy(torch, engine, requests, TP_STATE_NEW,
+                       backend=hybrid(1))
+    drops = tp_moe_drops(torch, rec.calls, cfg,
+                         TP_MOE_SLOTS * (SERVE_SPEC + 1))[0]
+    equal, layouts = bitwise_equal(got, alone), bitwise_equal(got, state)
+    emit({"phase": "tp_hybrid", "arch": cfg.name, "layers": cfg.num_layers,
+          "tp": TP, "slots": TP_MOE_SLOTS,
+          "rank_param_gb": sum(p.numel() * p.element_size() for p in
+                               engine.model.parameters()) / 1e9,
+          "engine_start_s": start_s, "seconds": wall,
+          "launches_per_rank": per_rank, "expected_launches": want,
+          "bitwise_equal_to_own_greedy": equal,
+          "hybrid_bitwise_equal_to_state": layouts,
+          "forced_preemptions": len(forced.streamed),
+          "victims_streamed_tokens": forced.streamed,
+          "replays_kv_bitwise_rank0": sum(forced.kv_equal), "drops": drops,
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "extend_prefills", "decode_steps",
+              "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+              "replayed_tokens", "replay_steps", "completed",
+              "state_slabs_peak", "admit_seconds", "step_seconds")},
+          "state_spec_steps": sstats["spec_steps"]})
+    check(stats["completed"] == len(requests) and stats["spec_steps"] > 0
+          and sstats["spec_steps"] > 0,
+          "tp_hybrid: a run did not complete or verify")
+    check(len(forced.streamed) == 1 and stats["replay_steps"] > 0
+          and forced.kv_equal == [True],
+          "tp_hybrid: the forced preemption did not replay bitwise")
+    check(drops["ranks_keep_the_unsharded_pairs"],
+          "tp_hybrid: the ranks' plans keep other pairs than the unsharded "
+          "plan")
+    check(equal, "tp_hybrid: tokens differ from the engine's requests "
+                 "served alone")
+    check(layouts, "tp_hybrid: hybrid and state tokens are not bitwise "
+                   "equal")
+    add_counts(counts, scounts)
+    # the ticks one engine at a time: both hold 23.8 GB of weights
+    ticks = tp_ticks(torch, {f"tp{TP}_eager": engine}, requests,
+                     make=hybrid(SERVE_SLOTS))
+    engine.close()
+    del engine
+    free_card(torch)
+    plain = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    ticks.update(tp_ticks(torch, {"tp1_eager": plain}, requests,
+                          make=hybrid(SERVE_SLOTS)))
+    tp_tick_line("tp_hybrid_tick", ticks, smi, cfg,
+                 lambda k, f: 1 + (k == "mamba") + 1 + (f == "moe"))
+    del plain
+    free_card(torch)
+    emit({"phase": "tp_hybrid_done",
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def phase_tp_state(torch, smi):
+    """xlstm_1_3b at full width, its first TP_STATE_DEPTH layers (7 mLSTM
+    + 1 sLSTM; bf16, random weights from the seed) at tp 2 on the card:
+    a rank holds its half of each mLSTM head's dk (of C and n), 2 of its
+    4 heads' m, half of each sLSTM gate block and of its state.  The
+    xlstm workload's first TP_REQUESTS requests for TP_STATE_NEW tokens
+    through the Scheduler on a StateBackend (4 slots, chunk 32, speculate
+    4: ``verify_window`` and ``state_rewind`` over the mirror) with one
+    forced preemption: launches per rank = the schedule, tokens bitwise
+    each request served alone (a one-slot StateBackend), the victim's
+    state (rank 0's) replayed bitwise.  Then the eager tick against the
+    unsharded eager tick.  Returns the launch counts of every rank."""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine, StateBackend
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(xlstm_config(), num_layers=TP_STATE_DEPTH)
+    requests = state_requests(cfg.vocab_size)[:TP_REQUESTS]
+    t0 = time.perf_counter()
+    engine = tp_engine(torch, cfg, TP, STATE_MAX_LEN)
+    start_s = time.perf_counter() - t0
+    forced = ForcedPreemption(torch, limit=1)
+    got, stats, counts, wall, per_rank, want = tp_serve(
+        torch, engine, cfg, requests, 0, "fused_flash_decode",
+        max_new=TP_STATE_NEW, hook=forced.install, backend=state_backend(),
+        chunk=STATE_CHUNK)
+    alone = own_greedy(torch, engine, requests, TP_STATE_NEW,
+                       backend=lambda e: StateBackend(e, 1),
+                       chunk=STATE_CHUNK)
+    equal = bitwise_equal(got, alone)
+    emit({"phase": "tp_state", "arch": cfg.name, "layers": cfg.num_layers,
+          "tp": TP, "engine_start_s": start_s, "seconds": wall,
+          "launches_per_rank": per_rank, "expected_launches": want,
+          "bitwise_equal_to_own_greedy": equal,
+          "forced_preemptions": len(forced.streamed),
+          "victims_streamed_tokens": forced.streamed,
+          "replays_state_bitwise_rank0": sum(forced.kv_equal),
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "extend_prefills", "decode_steps",
+              "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+              "replayed_tokens", "replay_steps", "completed",
+              "state_slabs_in_use", "admit_seconds", "step_seconds")}})
+    check(stats["completed"] == len(requests) and stats["spec_steps"] > 0,
+          "tp_state: the run did not complete or verify")
+    check(stats["state_slabs_in_use"] == 0, "tp_state: slabs held after "
+                                            "the run")
+    check(len(forced.streamed) == 1 and stats["replay_steps"] > 0
+          and forced.kv_equal == [True],
+          "tp_state: the forced preemption did not replay bitwise")
+    check(equal, "tp_state: tokens differ from the engine's requests "
+                 "served alone")
+    plain = LLMEngine(cfg, max_len=STATE_MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    tp_tick_line("tp_state_tick", tp_ticks(
+        torch, {"tp1_eager": plain, f"tp{TP}_eager": engine}, requests,
+        make=lambda e: StateBackend(e, SERVE_SLOTS), chunk=STATE_CHUNK),
+        smi, cfg, lambda k, f: 3 if k == "mlstm" else 2)
+    engine.close()
+    del plain, engine
+    free_card(torch)
+    emit({"phase": "tp_state_done", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def phase_tp_mixers_f32(torch):
+    """In f32, tp 2 against tp 1 (``tp_f32_check``), one model at a time:
+    granite's first TP_MIXER_F32_DEPTH layers at full width, the serve
+    requests' last TP_MIXER_PROMPT tokens each alone at both, compared
+    while the two route alike; and xlstm_1_3b's first TP_STATE_DEPTH
+    layers served on a StateBackend.  (In f32 a routing choice among
+    granite's 40 experts flips on rounding and moves the token's output,
+    and through attention and the capacity its neighbours', by O(1):
+    over prompts of 256 tokens every row of tp 2 routed otherwise than
+    tp 1 in the first pass, and the f32 paths sat 0.97-1.29 from an f64
+    run, logit scale 3.4; measured on one H100.)"""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(moe_config(), dtype="float32",
+                              num_layers=TP_MIXER_F32_DEPTH)
+    requests = [p[-TP_MIXER_PROMPT:] for p in
+                serve_requests(cfg.vocab_size)]
+    tp_f32_check(torch, "tp_mixers_f32", cfg, requests, SERVE_MAX_LEN,
+                 requests, None, {"new": TP_NEW, "chunk": SERVE_CHUNK})
+    cfg = dataclasses.replace(xlstm_config(), dtype="float32",
+                              num_layers=TP_STATE_DEPTH)
+    requests = state_requests(cfg.vocab_size)[:TP_REQUESTS]
+    tp_f32_check(torch, "tp_mixers_f32", cfg, requests, STATE_MAX_LEN,
+                 [p[:STATE_PROMPT[0]] for p in requests],
+                 {"num_blocks": 0, "max_new": TP_STATE_NEW,
+                  "backend": state_backend(), "chunk": STATE_CHUNK},
+                 {"new": TP_STATE_NEW})
+    emit({"phase": "tp_mixers_f32_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
 # phase 5 — granite_moe_3b_a800m: the MoE FFN at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -2491,8 +2949,8 @@ class RouteRecorder:
         from repro_torch.models import moe
         route = self._route = moe.route
 
-        def recorded(params, cfg, xf):
-            out = route(params, cfg, xf)
+        def recorded(params, cfg, xf, *rest):
+            out = route(params, cfg, xf, *rest)
             if self.keep(xf.shape[0]):
                 self.calls.append(out[1].clone())
             return out
@@ -2505,11 +2963,12 @@ class RouteRecorder:
         moe.route = self._route
 
 
-def kept(torch, idx, E_pad, C):
+def kept(torch, idx, E_pad, C, e_offset=0):
     """[N, k] bool: which (token, choice) pairs of one call keep a
-    capacity row (the others are dropped)."""
+    capacity row (the others are dropped) in the plan over the E_pad
+    experts from ``e_offset`` (a tensor-parallel rank's)."""
     from repro_torch.models import moe
-    order, _, keep = moe.dispatch_plan(idx, E_pad, C)
+    order, _, keep = moe.dispatch_plan(idx, E_pad, C, e_offset)
     return torch.zeros_like(keep).scatter_(0, order, keep).view(idx.shape)
 
 
@@ -2996,11 +3455,12 @@ def phase_moe_tick(torch, engine, smi):
     graph = [cs for key, cs in engine.graphs.steps.items()
              if key[:2] == ("decode", "paged") and key[3] == SERVE_SLOTS]
     check(len(graph) >= 1, "moe_tick: no captured paged decode graph")
-    graph_ms = cuda_ms(torch, graph[-1].graph.replay)[0]
+    graph_ms = cuda_ms(torch, graph[-1].graph.replay, profile=False)[0]
     x = torch.randn(SERVE_SLOTS, 1, cfg.d_model, device=engine.device).to(
         DTYPES[cfg.dtype])
     layer = engine.model.groups[0]["l0"]["ffn"]
-    moe_ms = cuda_ms(torch, lambda: moe.moe_apply(layer, cfg, x))[0]
+    moe_ms = cuda_ms(torch, lambda: moe.moe_apply(layer, cfg, x),
+                     profile=False)[0]
 
     def kernels(fn, calls=10):
         """The profiler's kernel time of ``fn`` (None where it recorded
@@ -3051,7 +3511,9 @@ STATE_MAX_LEN = 256
 #: the depth of xlstm_serve's f32 exactness check: one layer group
 XLSTM_F32_DEPTH = 8
 #: depth of xlstm_serve's forced preemptions (cut from 48)
-XLSTM_PREEMPT_DEPTH = 12
+XLSTM_PREEMPT_DEPTH = 8
+#: depth of xlstm_serve's captured-against-eager run (cut from 48)
+XLSTM_SERVE_DEPTH = 24
 STATE_CHUNK = 32
 STATE_NEW = 24
 STATE_PROMPT = (48, 96)
@@ -3350,10 +3812,10 @@ def serve_state(torch, engine, requests, spec, hook=None):
 
 def phase_xlstm_serve(torch, smi):
     """The xlstm serve workload through the Scheduler on a StateBackend
-    at full width and depth (bf16): captured steps against eager ones on
-    the same weights (tokens bitwise, launches equal to the schedule,
-    slabs back to 0); the decode and the verify tick against their
-    bounds (``state_ticks``); on the first XLSTM_PREEMPT_DEPTH layers,
+    at full width (bf16): on the first XLSTM_SERVE_DEPTH layers, captured
+    steps against eager ones on the same weights (tokens bitwise,
+    launches equal to the schedule, slabs back to 0); at full depth, the
+    decode and the verify tick against their bounds (``state_ticks``); on the first XLSTM_PREEMPT_DEPTH layers,
     PREEMPTIONS requests preempted after streaming tokens
     (``ForcedPreemption``), once with speculation off (replayed through
     the masked decode) and once on (verify windows and the rewind of
@@ -3370,15 +3832,18 @@ def phase_xlstm_serve(torch, smi):
           [int(p.size) for p in requests], "max_len": STATE_MAX_LEN,
           "chunk": STATE_CHUNK, "new_tokens": STATE_NEW,
           "speculate_k": SERVE_SPEC, "spec_window": STATE_SPEC_WINDOW})
-    cap = LLMEngine(cfg, max_len=STATE_MAX_LEN, seed=SEED)
-    eager = LLMEngine(cfg, dict(cap.model.named_parameters()),
+    # captured against eager on the first XLSTM_SERVE_DEPTH layers (the
+    # eager token-by-token prefill of the full depth took ~45 s)
+    cfg_s = dataclasses.replace(cfg, num_layers=XLSTM_SERVE_DEPTH)
+    cap_s = LLMEngine(cfg_s, max_len=STATE_MAX_LEN, seed=SEED)
+    eager = LLMEngine(cfg_s, dict(cap_s.model.named_parameters()),
                       max_len=STATE_MAX_LEN,
                       flags=RuntimeFlags(cuda_graphs=False))
     runs, counts_all = {}, {}
 
-    for name, e in (("eager", eager), ("captured", cap)):
+    for name, e in (("eager", eager), ("captured", cap_s)):
         got, stats, counts, wall = serve_state(torch, e, requests, SERVE_SPEC)
-        want = expected_serve_launches(cfg, stats, "fused_flash_decode")
+        want = expected_serve_launches(cfg_s, stats, "fused_flash_decode")
         emit({"phase": "xlstm_serve", "steps": name, "seconds": wall,
               "launches": counts, "expected_launches": want,
               "graphs_captured": graph_count(e),
@@ -3402,8 +3867,10 @@ def phase_xlstm_serve(torch, smi):
           "captured_bitwise_equal_to_eager": equal})
     check(equal == len(requests), "xlstm_serve: captured tokens differ "
                                   "from eager")
-    del eager
+    del eager, cap_s
     free_card(torch)
+    # the ticks and the f32 check at full depth
+    cap = LLMEngine(cfg, max_len=STATE_MAX_LEN, seed=SEED)
 
     # ---- the ticks against their bounds ---------------------------------
     for spec in (0, SERVE_SPEC):
@@ -3419,8 +3886,9 @@ def phase_xlstm_serve(torch, smi):
     free_card(torch)
 
     # ---- forced preemptions, decode replay then verify replay, on the
-    # first XLSTM_PREEMPT_DEPTH layers (11 mLSTM + 1 sLSTM, weights from
-    # the seed; the full depth took 76 s of the run's budget)
+    # first XLSTM_PREEMPT_DEPTH layers (one group: 7 mLSTM + 1 sLSTM,
+    # weights from the seed; the full depth took 76 s of the run's
+    # budget, 12 layers 24 s)
     pre = LLMEngine(dataclasses.replace(cfg, num_layers=XLSTM_PREEMPT_DEPTH),
                     max_len=STATE_MAX_LEN, seed=SEED)
     for spec in (0, SERVE_SPEC):
@@ -3504,7 +3972,7 @@ def state_ticks(torch, engine, requests, spec, ticks=20, profiled=5):
         stack_bytes = tree_bytes(engine._stacks["state", SERVE_SLOTS])
         view = engine._stack_views("state", be.cache, SERVE_SLOTS, spec + 1)
         rewind_ms = cuda_ms(torch, lambda: engine.state_rewind(
-            be.cache, view, 0, 2))[0]
+            be.cache, view, 0, 2), profile=False)[0]
         bytes_ += tree_bytes(view)
         out.update(stack_bytes=stack_bytes, rewind_ms=rewind_ms,
                    rewind_ms_per_tick=SERVE_SLOTS * rewind_ms)
@@ -3523,7 +3991,7 @@ def captured_ms(torch, engine, step, kind):
     check(len(graphs) >= 1, f"no captured {step} graph on {kind}")
     # a verify graph holds ~10^4 kernels: few replays keep the profiler's
     # pass over them short
-    return cuda_ms(torch, graphs[-1].graph.replay, reps=5)[0]
+    return cuda_ms(torch, graphs[-1].graph.replay, reps=5, profile=False)[0]
 
 
 def phase_xlstm_graph_serve(torch, smi):
@@ -5203,7 +5671,7 @@ def time_recurrent_updates(torch):
         state = sum(v.numel() * v.element_size() for v in live.values())
         bytes_ = weights + state + (L * state if L > 1 else state)
         ms, host_ms, prof_ms, queued = cuda_ms(
-            torch, lambda: win(p, cfg, x, live, stk))
+            torch, lambda: win(p, cfg, x, live, stk), profile=False)
         rows.append({"op": f"{kind} {'window' if L > 1 else 'decode'} "
                      f"update", "slots": SERVE_SLOTS, "tokens": L,
                      "ms": ms, "host_ms": host_ms, "profiler_ms": prof_ms,
@@ -5298,13 +5766,14 @@ def queued_ms(torch, fn, reps, host_ms):
         n = (n + 1) // 2
 
 
-def cuda_ms(torch, fn, reps=REPS, queue=True):
+def cuda_ms(torch, fn, reps=REPS, queue=True, profile=True):
     """(device ms, host ms, profiler ms per call, queued): the card's
     time per call over ``reps`` calls queued back to back (CUDA events,
     ``queued_ms``, and whether they queued), the median wall time of one
     synchronised call as the host sees it, and the sum of the calls'
     kernel times as torch.profiler records them (None where it records
-    none).  ``queue`` False skips the queued reading (None, False): a
+    none, or with ``profile`` False: a profiler's start-up costs about a
+    second).  ``queue`` False skips the queued reading (None, False): a
     call of more launches than the card's launch queue holds does not
     queue, and its events would hold the host's gaps."""
     for _ in range(3):
@@ -5321,17 +5790,17 @@ def cuda_ms(torch, fn, reps=REPS, queue=True):
     device_ms, queued = queued_ms(torch, fn, reps, host_ms) if queue \
         else (None, False)
     check(not queue or device_ms > 0, "CUDA events recorded no device time")
-    per = profiled_ms(torch, fn, reps)
+    per = profiled_ms(torch, fn, reps) if profile else {}
     return device_ms, host_ms, sum(per.values()) if per else None, queued
 
 
-def measure(torch, kernel, plain, library):
+def measure(torch, kernel, plain, library, profile=True):
     """Device and host times of the kernel, its plain version and the
-    library call (``None``: there is none)."""
+    library call (``None``: there is none); ``profile`` as ``cuda_ms``."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        dev, wall, prof, queued = (cuda_ms(torch, fn) if fn is not None
-                                   else (None,) * 4)
+        dev, wall, prof, queued = (cuda_ms(torch, fn, profile=profile)
+                                   if fn is not None else (None,) * 4)
         out[key + "ms"], out[key + "host_ms"] = dev, wall
         out[key + "profiler_ms"], out[key + "queued"] = prof, queued
     return out
@@ -5367,7 +5836,7 @@ def phase_times(torch):
         **measure(torch, lambda: rmsnorm_cuda(x, s),
                   lambda: ref.rmsnorm_ref(x, s),
                   (lambda: F.rms_norm(x, (d,), s, 1e-5))
-                  if hasattr(F, "rms_norm") else None),
+                  if hasattr(F, "rms_norm") else None, profile=False),
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 2 * L + 1}
     # K1 where bytes count: the serve workload's prefill chunk, and
     # qwen3_32b's prefill of 1024 rows at d_model 5120; and the decode
@@ -5378,7 +5847,7 @@ def phase_times(torch):
     # the launch floor: the smallest PyTorch kernel, a 1-element fill_,
     # in the same timer; at 4 rows K1 is bound by it, not by bytes
     one = torch.zeros(1, device=dev)
-    floor = cuda_ms(torch, lambda: one.fill_(1.0))
+    floor = cuda_ms(torch, lambda: one.fill_(1.0), profile=False)
     emit({"phase": "times", "kernel": None,
           "case": "launch floor: a 1-element fill_", "ms": floor[0],
           "host_ms": floor[1], "profiler_ms": floor[2], "queued": floor[3]})
@@ -5442,7 +5911,9 @@ def phase_times(torch):
                          (300, 520, 700, 930)),
                         (STUB_HEADS[0], (300, 520, 700, 930)),
                         (TP_HEADS[0], (300, 520, 700, 930)),
-                        (TP_HEADS[2], (4096,) * 4)):
+                        (TP_HEADS[2], (4096,) * 4),
+                        (TP_HEADS[3], (300, 520, 700, 930)),
+                        (TP_HEADS[4], (300, 520, 700, 930))):
         # one rank's heads at S' = 1 only (the run's budget)
         for Sq in (1,) if shape in TP_HEADS else (1, SERVE_SPEC + 1):
             timed = time_paged_kernels(torch, g, shape, keys, Sq)
@@ -5460,22 +5931,26 @@ def phase_times(torch):
 
 
 #: (name, B, S, H, KV, hd, q_offset) of K3's further timed shapes: the
-#: serve workload's third chunk of a prompt (minicpm_2b, and one rank's
-#: 18 heads at tp 2) and qwen3_32b's full causal prefill.  (The chunks
+#: serve workload's third chunk of a prompt (minicpm_2b, one rank's 18
+#: heads at tp 2, and one granite rank's 12 over 4 at tp 2) and
+#: qwen3_32b's full causal prefill.  (The chunks
 #: at granite_moe_3b_a800m's, jamba's and phi_3_vision_4_2b's heads are
 #: no longer timed, to keep the run within its budget.)
 FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                 2 * SERVE_CHUNK),
                ("prefill qwen3_32b", 1, 1024, 64, 8, 128, 0),
                ("serve chunk minicpm_2b tp2", 1, SERVE_CHUNK, 18, 18, 64,
-                2 * SERVE_CHUNK))
+                2 * SERVE_CHUNK),
+               ("serve chunk granite_moe_3b_a800m tp2", 1, SERVE_CHUNK, 12,
+                4, 64, 2 * SERVE_CHUNK))
 
 
 def time_flash_shapes(torch, g):
     """K3 at FLASH_TIMED beside its plain version and SDPA: with an
     explicit boolean mask where q_offset > 0, ``is_causal`` otherwise.
     The bound counts q, k, v read and the output written once, and 4 hd
-    operations per (query row, visible key, head)."""
+    operations per (query row, visible key, head).  CUDA events alone,
+    as ``time_paged_kernels``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -5508,7 +5983,7 @@ def time_flash_shapes(torch, g):
             **measure(torch, lambda: flash_attention_cuda(q, k, v,
                                                           q_offset=off),
                       lambda: ref.flash_attention_ref(q, k, v, q_offset=off),
-                      library),
+                      library, profile=False),
             "library_note": "SDPA, explicit boolean mask" if off
                             else "SDPA, is_causal",
             "bound_ms": b_ms, "bound_by": b_by})
@@ -5528,7 +6003,8 @@ RMSNORM_TIMED = ((SERVE_CHUNK, 2304), (1024, 5120), (4, 1536), (4, 4096),
 
 def time_rmsnorm(torch, g, shape):
     """K1 at ``shape`` = (rows, d) beside its plain version and
-    ``F.rms_norm``; the bound reads x and writes the output once."""
+    ``F.rms_norm``; the bound reads x and writes the output once.  CUDA
+    events alone, as ``time_paged_kernels``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -5540,7 +6016,7 @@ def time_rmsnorm(torch, g, shape):
             **measure(torch, lambda: rmsnorm_cuda(x, s),
                       lambda: ref.rmsnorm_ref(x, s),
                       (lambda: F.rms_norm(x, (d,), s, 1e-5))
-                      if hasattr(F, "rms_norm") else None),
+                      if hasattr(F, "rms_norm") else None, profile=False),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -5578,7 +6054,9 @@ def paged_decode_inputs(torch, g, shape, keys, Sq):
 def time_paged_kernels(torch, g, shape, keys, Sq):
     """K2 and K4 (the same function on the same inputs) and, at S' = 1,
     K5 at ``paged_decode_inputs``' shapes.  K5's library call is SDPA
-    over K/V gathered beforehand; the gather's time stands beside it."""
+    over K/V gathered beforehand; the gather's time stands beside it.
+    Device times by CUDA events alone (no profiler start-up: the ~60
+    readings here took most of ``times``' ~90 s)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import (
@@ -5593,8 +6071,10 @@ def time_paged_kernels(torch, g, shape, keys, Sq):
                               "into a paged arena and attends",
               "bound_ms": b4[0], "bound_by": b4[1]}
     k4 = measure(torch, lambda: fused_flash_decode_splitk_cuda(*args),
-                 lambda: ref.fused_flash_decode_ref(*args), None)
-    k2 = measure(torch, lambda: fused_flash_decode_cuda(*args), None, None)
+                 lambda: ref.fused_flash_decode_ref(*args), None,
+                 profile=False)
+    k2 = measure(torch, lambda: fused_flash_decode_cuda(*args), None, None,
+                 profile=False)
     # one plain version serves both kernels: they compute one function
     for key in ("plain_ms", "plain_host_ms", "plain_profiler_ms",
                 "plain_queued"):
@@ -5619,14 +6099,15 @@ def time_paged_kernels(torch, g, shape, keys, Sq):
 
     kg, vg = gather()
     qs = q5[:, :, None, :]
-    gather_ms = cuda_ms(torch, gather)[0]
+    gather_ms = cuda_ms(torch, gather, profile=False)[0]
     out["paged_attention"] = {
         "shape": [B, H, hd], "arch": name, "keys": list(keys),
         "block_size": kp.shape[1],
         **measure(torch, lambda: paged_attention_cuda(q5, kp, vp, tbl, pos),
                   lambda: ref.paged_attention_ref(q5, kp, vp, tbl, pos),
                   lambda: F.scaled_dot_product_attention(
-                      qs, kg, vg, attn_mask=mask, enable_gqa=KV != H)),
+                      qs, kg, vg, attn_mask=mask, enable_gqa=KV != H),
+                  profile=False),
         "library_note": "SDPA over K/V gathered beforehand; the gather's "
                         "time is gather_ms",
         "gather_ms": gather_ms,
@@ -5664,12 +6145,24 @@ def main() -> int:
                            "serve_preempt_decode": preempt_tokens["default"]},
                    smi)
     # tensor-parallel serving on the one card, with the engines freed:
-    # minicpm_2b at tp 2 (full depth, bf16; 8 layers in f32), qwen3_32b's
-    # first two layers at tp 2 and tp 4
+    # minicpm_2b at tp 2 (full depth, bf16; 8 layers in f32), then
+    # granite_moe_3b_a800m (full depth), jamba's first two layers and
+    # xlstm_1_3b's first layer group at tp 2 (granite's and xlstm's
+    # first 8 layers in f32), then qwen3_32b's first two layers at tp 2
+    # and tp 4; a mesh's worker processes start once (TP_POOL)
     free_card(torch)
+    global TP_POOL
+    from repro_torch.sharding.group import WorkerPool
+    TP_POOL = WorkerPool()
     tp_counts = [phase_tp_serve(torch, smi)]
     phase_tp_f32(torch)
+    tp_counts.append(phase_tp_moe(torch, smi))
+    tp_counts.append(phase_tp_hybrid(torch, smi))
+    tp_counts.append(phase_tp_state(torch, smi))
+    phase_tp_mixers_f32(torch)
     tp_counts.append(phase_tp_gqa(torch, smi))
+    TP_POOL.close()
+    free_card(torch)
     # granite_moe_3b_a800m
     free_card(torch)
     phase_moe_layer_vs_cpu(torch)

@@ -29,6 +29,7 @@ from ..kernels.ref import upcast
 from .config import ArchConfig
 from .layers import each_row, linear, remat, softplus
 from .params import DTYPES, ParamSpec, Template
+from ..sharding.group import tp_reduce_parts
 
 State = Dict[str, torch.Tensor]
 
@@ -37,7 +38,9 @@ def mamba_template(cfg: ArchConfig) -> Template:
     d, di = cfg.d_model, cfg.d_inner
     ds, dtr, wc = cfg.ssm_state_dim, cfg.ssm_dt_rank, cfg.ssm_conv_width
     return {
-        "in_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner")),
+        # fused [x | z]: a tensor-parallel rank holds its channels of both
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner"),
+                             parts=(di, di)),
         "conv_w": ParamSpec((wc, di), (None, "ssm_inner_vec"), init="scaled",
                             scale=0.1),
         "conv_b": ParamSpec((di,), ("ssm_inner_vec",), init="zeros"),
@@ -74,15 +77,20 @@ def _causal_conv(params, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_inputs(params, cfg: ArchConfig, xc: torch.Tensor,
-                blocked: bool = True):
+                blocked: bool = True, tp=None):
     """xc: [B, L, di] (post conv + silu).  Returns (dt [B, L, di] f32,
     B [B, L, ds], C [B, L, ds] f32, A [di, ds] f32): the JAX
-    ``_ssm_params`` before the per-token ``a`` and ``b``."""
+    ``_ssm_params`` before the per-token ``a`` and ``b``.  On a
+    tensor-parallel rank (``tp``, its group) di is the rank's channels:
+    ``x_proj`` contracts them, so its product is summed over the ranks
+    (one all-reduce a window) before it is split."""
     dtr, ds = cfg.ssm_dt_rank, cfg.ssm_state_dim
     # the serving form in f32; the training form in the accumulation
     # dtype (f32, or f64 for an f64 run)
     acc = (lambda t: t.float()) if blocked else upcast
     proj = linear(xc, params["x_proj"], blocked=blocked)
+    if tp is not None:
+        proj, = tp_reduce_parts([proj], tp)
     dt_raw, Bmat, Cmat = proj.split([dtr, ds, ds], dim=-1)
     dt = softplus(acc(linear(dt_raw, params["dt_proj"], blocked=blocked))
                   + acc(params["dt_bias"]))
@@ -104,15 +112,18 @@ def _mamba_step(state: State, dt_t, B_t, C_t, xc_t, xin_t, A):
 
 
 def _mamba_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
-               stack: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+               stack: Optional[State] = None,
+               tp=None) -> Tuple[torch.Tensor, State]:
     """Advance the state over x [B, L, d] one token at a time (the JAX
-    ``_mamba_seq``).  Returns (y [B, L, d], final state)."""
-    di = cfg.d_inner
+    ``_mamba_seq``).  Returns (y [B, L, d], final state).  On a
+    tensor-parallel rank the weights, the state and y's ``out_proj``
+    product are the rank's channels of ``d_inner`` (the caller sums y
+    over the ranks)."""
     xz = linear(x, params["in_proj"], blocked=True)
-    x_in, z = xz.split(di, dim=-1)
+    x_in, z = xz.split(xz.shape[-1] // 2, dim=-1)
     xc = F.silu(_causal_conv(params, x_in, state["conv"]).float()
                 ).to(x.dtype)
-    dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc)
+    dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc, tp=tp)
     # elementwise, so converted for the whole window with the same bits
     Bf, xcf = Bm.float(), xc.float()
     ys = []
@@ -130,23 +141,25 @@ def _mamba_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
 
 
 def mamba_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
-                 stack: Optional[State] = None):
+                 stack: Optional[State] = None, tp=None):
     """Multi-token continuation from a live state (chunked-prefill
     ingest windows and speculative verify windows).  x: [B, L, d]."""
-    return _mamba_seq(params, cfg, x, cache, stack)
+    return _mamba_seq(params, cfg, x, cache, stack, tp)
 
 
 def mamba_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
-                             initial_state: Optional[State] = None):
+                             initial_state: Optional[State] = None,
+                             tp=None):
     """The prompt's output and its final state for decode."""
     if initial_state is None:
         initial_state = mamba_cache(cfg, x.shape[0], x.device)
-    return _mamba_seq(params, cfg, x, initial_state)
+    return _mamba_seq(params, cfg, x, initial_state, tp=tp)
 
 
-def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
+def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
+                 tp=None):
     """One-token step.  x: [B, 1, d]."""
-    return _mamba_seq(params, cfg, x, cache)
+    return _mamba_seq(params, cfg, x, cache, tp=tp)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437): the port
 of the JAX package's ``models/mla.py`` (its sequence-parallel prefill is
-ROADMAP Queue 1 item 11c, MLA on a serving mesh item 11b).
+ROADMAP Queue 1 item 11c, MLA on a serving mesh item 11b-ii).
 
 Keys and values are compressed into a latent ``c_kv`` (rank
 ``kv_lora_rank``) plus one shared RoPE key per position, and the caches

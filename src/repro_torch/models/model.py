@@ -11,8 +11,10 @@ loads as it is.
 
 On a tensor-parallel serving mesh (``launch/mesh.py``) a ``Model`` holds
 one rank's slice of each weight, cut by the rules' ``param_specs``
-(``sharding/rules.py``): its heads, FFN columns and vocabulary rows,
-the norms whole; its caches hold the rank's kv heads.
+(``sharding/rules.py``): its heads, FFN columns, experts, mixer channels
+and vocabulary rows, a fused projection block by block
+(``ParamSpec.parts``), the norms whole; its caches hold the rank's kv
+heads and its slice of each recurrent state.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from . import transformer as tf
 from .config import ArchConfig
 from .layers import rows_padded
 from .params import DTYPES, _init_leaf, flatten, unflatten
-from ..sharding.rules import param_specs, shard_tensor
+from ..sharding.rules import param_parts, param_specs, shard_tensor
 
 
 class _Node(nn.Module):
@@ -73,11 +75,13 @@ class Model(nn.Module):
             else None
         specs = flatten(param_specs(self.template, self.mesh)) \
             if self.mesh is not None else None
+        parts = param_parts(self.template)
 
         def local(path, t):
             if specs is None:
                 return t
-            return shard_tensor(t, specs[path], self.mesh, rank).contiguous()
+            return shard_tensor(t, specs[path], self.mesh, rank,
+                                parts[path]).contiguous()
 
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)

@@ -16,9 +16,17 @@ dispatch writes overflow to a trash row, and the combine is a gather
 and a fixed-order sum, so a MoE layer captures inside the engine's
 decode and verify graphs and its sums do not change from run to run.
 
+On a tensor-parallel serving mesh (ROADMAP item 11b-i) a rank holds the
+padded experts ``[r E/tp, (r+1) E/tp)`` and its columns of the router:
+every rank gathers the whole router logits (one all-reduce), routes
+every token alike, and dispatches over the *global* plan with the
+global capacity, so its drops are the unsharded call's; the pairs of
+other ranks' experts go to the trash row, and the rank's output, its
+experts' terms in ascending expert order, is summed over the ranks by
+the caller.  The pad experts sit on the last ranks (granite's 8 on
+rank 1 at tp 2, on rank 3 at tp 4), which compute them for nothing.
 Expert parallelism (``RuntimeFlags(moe_impl="ep")``, ``shard_map`` over
-a mesh in JAX) is not ported (ROADMAP Queue 1 item 11c; the MoE FFN on a
-serving mesh is item 11b).
+a mesh in JAX) is not ported (ROADMAP Queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from .config import ArchConfig
 from .layers import linear, mlp_apply, mlp_template, no_tf32
 from .params import ParamSpec, Template
 from ..kernels.ref import upcast
+from ..sharding.group import gather_blocks
 
 EP_REFUSAL = ("expert-parallel MoE (moe_impl='ep'): not yet ported to "
               "repro_torch (ROADMAP Queue 1 item 11c)")
@@ -79,13 +88,19 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def route(params, cfg: ArchConfig, xf: torch.Tensor
+def route(params, cfg: ArchConfig, xf: torch.Tensor, tp=None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router on [N, d] tokens -> (gates [N, k], expert_idx [N, k] int64,
-    aux)."""
+    aux).  On a tensor-parallel rank (``tp``, its group) the router is
+    the rank's expert columns: its logits are written into a zero [N,
+    E_pad] and summed over the ranks (exact: one non-zero term a
+    column), so that every rank routes on every expert's logit."""
     E_real = cfg.num_experts
     with no_tf32(xf.device):
         logits = linear(upcast(xf), upcast(params["router"]))
+    if tp is not None:
+        logits = tp.all_reduce(gather_blocks(logits,
+                                             logits.shape[-1] * tp.size, tp))
     E_pad = logits.shape[-1]
     if E_pad != E_real:  # mask pad experts
         col = torch.arange(E_pad, device=xf.device)
@@ -172,17 +187,22 @@ def _dispatch_ffn_combine(xl, gl, il, wg, wu, wd, *, cfg: ArchConfig,
 
 def moe_apply(params, cfg: ArchConfig, x: torch.Tensor, flags=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], aux_loss)."""
+    """x: [B, S, d] -> (out [B, S, d], aux_loss).  On a tensor-parallel
+    rank (``flags.tp``) out is the rank's part of a sum over the ranks:
+    its experts' terms (and its columns of a shared expert)."""
+    tp = None
     if flags is not None:
         check_moe_impl(flags)
+        tp = flags.tp
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    gates, idx, aux = route(params, cfg, xf)
-    E_pad = params["w_gate"].shape[0]
+    gates, idx, aux = route(params, cfg, xf, tp)
+    E_l = params["w_gate"].shape[0]
     C = capacity(cfg, B * S)
     out = _dispatch_ffn_combine(
         xf, gates, idx, params["w_gate"], params["w_up"], params["w_down"],
-        cfg=cfg, e_offset=0, E_l=E_pad, C=C).view(B, S, d)
+        cfg=cfg, e_offset=0 if tp is None else tp.rank * E_l, E_l=E_l,
+        C=C).view(B, S, d)
     if cfg.num_shared_experts:
         out = out + mlp_apply(params["shared"], x)
     return out, aux.to(torch.float32)

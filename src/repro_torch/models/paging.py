@@ -97,7 +97,10 @@ def use_fused_decode(cfg, flags) -> bool:
     runs the op on its slice of the query and kv heads against its
     slice of the arena, which needs the kv heads to divide the ranks
     (GQA groups then stay rank-local), as in JAX; the engine refuses
-    the other case until ROADMAP item 11b."""
+    the other case (K/V on head_dim) until ROADMAP item 11b-ii.  The
+    recurrent layers of the state and hybrid layouts, and the MoE FFN,
+    do not reach this predicate: they run on every mesh item 11b-i
+    serves."""
     shards = flags.decode_shards
     return flags.use_fused_decode and (shards == 1
                                        or cfg.num_kv_heads % shards == 0)

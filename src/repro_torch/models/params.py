@@ -33,11 +33,17 @@ class ParamSpec:
     axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"      # normal | zeros | ones | scaled | alog
     scale: float = 1.0
+    #: a fused last axis: the lengths of its consecutive blocks (such as
+    #: ``[x | z]``), of which a tensor-parallel rank holds its slice of
+    #: each (``sharding.rules.shard_tensor``); None: the axis is one block
+    parts: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if self.axes is None:
             object.__setattr__(self, "axes", (None,) * len(self.shape))
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+        assert self.parts is None or sum(self.parts) == self.shape[-1], \
+            (self.shape, self.parts)
 
 
 Template = Dict[str, Any]   # nested dict with ParamSpec leaves

@@ -153,7 +153,8 @@ _MIXER_TEMPLATES = {"attn": lambda cfg: mla_mod.mla_template(cfg)
                     "slstm": xl.slstm_template}
 
 #: the window of each recurrent kind: ``(params, cfg, x, state,
-#: stack=None) -> (y, final state)``
+#: stack=None, tp=None) -> (y, final state)``; on a tensor-parallel rank
+#: (``tp``, its group) y is the rank's part of a sum over the ranks
 _WINDOWS = {"mamba": mam.mamba_window,
             "mlstm": xl.mlstm_window,
             "slstm": xl.slstm_window}
@@ -414,8 +415,8 @@ def _block(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
     one) a SwiGLU or MoE FFN.  Returns (x, the MoE layer's load-balance
     loss, or None for any other layer).  On a tensor-parallel rank the
     mixer's output projection and the FFN's down projection contract
-    this rank's heads and FFN columns: ``tp_reduce`` sums them over the
-    ranks before each residual add."""
+    this rank's heads, mixer channels, FFN columns or experts:
+    ``tp_reduce`` sums them over the ranks before each residual add."""
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
     x = x + tp_reduce(mixer(params["mixer"], h), flags)
     if "cross" in params and memory_kv is not None:
@@ -427,7 +428,7 @@ def _block(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
     if ffn_kind == "moe":
         y, aux = moe_mod.moe_apply(params["ffn"], cfg, h2, flags)
-        return x + y, aux
+        return x + tp_reduce(y, flags), aux
     return x + tp_reduce(mlp_apply(params["ffn"], h2), flags), None
 
 
@@ -655,7 +656,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             into = mla_mod.prefill_into_cache if cfg.use_mla \
                 else attn.prefill_into_cache
             return into(mp, cfg, h, positions, live, flags)
-        y, state = _PREFILLS[kind](mp, cfg, h)
+        # the zero state ``live`` holds (a rank's slice of it on a mesh)
+        y, state = _PREFILLS[kind](mp, cfg, h, live, tp=flags.tp)
         commit_state(live, state)
         return y
 
@@ -706,7 +708,7 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
         # recurrent: resume the state scan from the slab rows
         init = {k: a[slots.long()]
                 for k, a in c["arena"][name]["mixer"].items()}
-        y, state = _WINDOWS[kind](mp, cfg, h, init)
+        y, state = _WINDOWS[kind](mp, cfg, h, init, tp=flags.tp)
         commit_state(out, state)
         return y
 
@@ -792,8 +794,9 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
             return attend(mp, h, live)
         if want_state_stacks:
             return _WINDOWS[kind](mp, cfg, h, live,
-                                  c["stacks"][name]["mixer"])[0]
-        y, state = _WINDOWS[kind](mp, cfg, h, live)
+                                  c["stacks"][name]["mixer"],
+                                  tp=flags.tp)[0]
+        y, state = _WINDOWS[kind](mp, cfg, h, live, tp=flags.tp)
         commit_state(live, state, state_mask)
         return y
 

@@ -29,6 +29,7 @@ sequence-parallel ``mlstm_apply_sp`` waits for ROADMAP Queue 1 item 11c.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,6 +39,8 @@ from ..kernels.ref import NEG_INF, upcast
 from .config import ArchConfig
 from .layers import each_row, linear, no_tf32, pointwise, remat, softplus
 from .params import ParamSpec, Template
+from ..sharding.group import (block_rows, gather_blocks, rank_block,
+                              tp_reduce_parts)
 
 State = Dict[str, torch.Tensor]
 
@@ -73,7 +76,11 @@ def mlstm_template(cfg: ArchConfig) -> Template:
     H = cfg.num_heads
     hd = di // H
     return {
-        "up_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner")),
+        # fused [xm | z]; a tensor-parallel rank holds its dk slice of
+        # each head of xm (the dk rows of wq/wk/wv and of the C state it
+        # holds) and its slice of z (the rows of down_proj it holds)
+        "up_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner"),
+                             parts=(hd,) * H + (di,)),
         # block-diagonal (head-wise) q/k/v, as in the paper's
         # LinearHeadwiseExpand — di^2/H params each, not di^2
         "wq": ParamSpec((H, hd, hd), (None, "mlstm_dk", None)),
@@ -89,25 +96,45 @@ def mlstm_template(cfg: ArchConfig) -> Template:
     }
 
 
-def _mlstm_qkv_gates(params, cfg: ArchConfig, x: torch.Tensor,
-                     blocked: bool = True):
-    di = 2 * cfg.d_model
+def _mlstm_products(params, cfg: ArchConfig, x: torch.Tensor,
+                    blocked: bool = True, tp=None):
+    """The window's products: (q, k, v [B, S, H, hd], the gates' raw
+    products [B, S, H] each, z).  On a tensor-parallel rank ``xm`` is
+    the rank's dk slice of each head, so q, k, v and the gates are the
+    rank's parts of sums over the ranks."""
     H = cfg.num_heads
     up = linear(x, params["up_proj"], blocked=blocked)
-    xm, z = up.split(di, dim=-1)
+    xm, z = up.split(up.shape[-1] // 2, dim=-1)
     B, S, _ = xm.shape
-    xh = xm.reshape(B, S, H, di // H)
+    xh = xm.reshape(B, S, H, -1)
     q = _heads(xh, params["wq"], blocked)
     k = _heads(xh, params["wk"], blocked)
     v = _heads(xh, params["wv"], blocked)
+    wi, wf = params["w_igate"], params["w_fgate"]
+    if tp is not None:
+        hd = wi.shape[0] // H
+        wi, wf = (block_rows(w, hd, tp) for w in (wi, wf))
+    gi = linear(xm, wi, blocked=blocked)
+    gf = linear(xm, wf, blocked=blocked)
+    return q, k, v, gi, gf, z
+
+
+def _mlstm_gates(params, gi: torch.Tensor, gf: torch.Tensor,
+                 blocked: bool = True):
+    """The log input and forget gates from their raw products."""
     # the serving forms compute the gates in f32; the training forms in
     # the accumulation dtype (f32, or f64 for an f64 run)
     acc = (lambda t: t.float()) if blocked else upcast
-    li = acc(linear(xm, params["w_igate"], blocked=blocked)
-             + params["b_igate"])
-    f_raw = acc(linear(xm, params["w_fgate"], blocked=blocked)
-                + params["b_fgate"])
+    li = acc(gi + params["b_igate"])
+    f_raw = acc(gf + params["b_fgate"])
     lf = -pointwise(softplus, -f_raw)                        # log sigmoid(f)
+    return li, lf
+
+
+def _mlstm_qkv_gates(params, cfg: ArchConfig, x: torch.Tensor,
+                     blocked: bool = True):
+    q, k, v, gi, gf, z = _mlstm_products(params, cfg, x, blocked)
+    li, lf = _mlstm_gates(params, gi, gf, blocked)
     return q, k, v, li, lf, z
 
 
@@ -130,7 +157,10 @@ def _readout(q: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 def _mlstm_step(state: State, qs, kf, vf, li0, lf0):
     """One token of the mLSTM recurrence on every row: the JAX
     ``mlstm_decode`` update.  qs (q scaled by 1/sqrt(hd)), kf, vf [B, H,
-    hd] f32, li0/lf0 [B, H]; returns (h [B, H, hd] f32, new state)."""
+    hd] f32, li0/lf0 [B, H]; returns the readout's numerator [B, H, hd]
+    and denominator [B, H] (f32) and the new state.  On a
+    tensor-parallel rank qs, kf, C and n hold the rank's dk slice, so
+    the readouts are the rank's parts of sums over dk."""
     C0, n0, m0 = state["C"], state["n"], state["m"]
     decay = lf0 + m0
     m = torch.maximum(decay, li0)
@@ -140,49 +170,83 @@ def _mlstm_step(state: State, qs, kf, vf, li0, lf0):
     n = fw * n0 + iw * kf
     num = each_row(_readout, qs, C)
     den = each_row(lambda a, b: (a * b).sum(-1), qs, n)
-    h = num / torch.maximum(den.abs(), pointwise(torch.exp, -m))[..., None]
-    return h, {"C": C, "n": n, "m": m}
+    return num, den, {"C": C, "n": n, "m": m}
 
 
 def _mlstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
-               stack: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+               stack: Optional[State] = None,
+               tp=None) -> Tuple[torch.Tensor, State]:
     """Advance (C, n, m) over x [B, L, d] one token at a time.  Returns
-    (y [B, L, d], final state)."""
+    (y [B, L, d], final state).
+
+    On a tensor-parallel rank (``tp``) the state is the rank's dk slice
+    of C and n and its heads of m, and y is the rank's part of a sum
+    over the ranks.  Two all-reduces a window: q, k, v and the gates'
+    products, with the rank's m gathered whole beside them (every rank
+    then advances m alike), and the readouts' numerators and
+    denominators, which the recurrence does not read, once after the
+    window's last token."""
     B, S, d = x.shape
     di = 2 * d
-    q, k, v, li, lf, z = _mlstm_qkv_gates(params, cfg, x)
+    H = cfg.num_heads
+    q, k, v, gi, gf, z = _mlstm_products(params, cfg, x, tp=tp)
+    if tp is not None:
+        heads = rank_block(H, tp)
+        q, k, v, gi, gf, m = tp_reduce_parts(
+            [q, k, v, gi, gf, gather_blocks(state["m"], H, tp)], tp)
+        state = dict(state, m=m)
+    li, lf = _mlstm_gates(params, gi, gf)
     # elementwise, so converted for the whole window with the same bits
-    qs = q.float() * _inv_sqrt(di // cfg.num_heads)
+    qs = q.float() * _inv_sqrt(di // H)
     kf, vf = k.float(), v.float()
-    hs = []
+    if tp is not None:
+        dk = rank_block(di // H, tp)
+        qs, kf = qs[..., dk], kf[..., dk]
+
+    def held(st: State) -> State:
+        """The state as this rank holds it (its heads of m)."""
+        return st if tp is None else dict(st, m=st["m"][:, heads])
+
+    nums, dens, ms = [], [], []
     with no_tf32(x.device):
         for t in range(S):
-            h_t, state = _mlstm_step(state, qs[:, t], kf[:, t], vf[:, t],
-                                     li[:, t], lf[:, t])
-            hs.append(h_t)
-            _write_stack(stack, t, state)
-    h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
-    h = h * F.silu(z.float()).to(x.dtype)
-    return linear(h, params["down_proj"], blocked=True), state
+            num, den, state = _mlstm_step(state, qs[:, t], kf[:, t],
+                                          vf[:, t], li[:, t], lf[:, t])
+            nums.append(num)
+            dens.append(den)
+            ms.append(state["m"])
+            _write_stack(stack, t, held(state))
+    num, den = torch.stack(nums, dim=1), torch.stack(dens, dim=1)
+    if tp is not None:
+        num, den = tp_reduce_parts([num, den], tp)
+    m = torch.stack(ms, dim=1)
+    h = num / torch.maximum(den.abs(), pointwise(torch.exp, -m))[..., None]
+    h = h.reshape(B, S, di)
+    if tp is not None:
+        h = h[..., rank_block(di, tp)]
+    h = h.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    return linear(h, params["down_proj"], blocked=True), held(state)
 
 
 def mlstm_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
-                 stack: Optional[State] = None):
+                 stack: Optional[State] = None, tp=None):
     """Multi-token continuation from a live state (ingest and verify
     windows).  x: [B, L, d]."""
-    return _mlstm_seq(params, cfg, x, cache, stack)
+    return _mlstm_seq(params, cfg, x, cache, stack, tp)
 
 
 def mlstm_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
-                             initial_state: Optional[State] = None):
+                             initial_state: Optional[State] = None,
+                             tp=None):
     if initial_state is None:
         initial_state = mlstm_cache(cfg, x.shape[0], x.device)
-    return _mlstm_seq(params, cfg, x, initial_state)
+    return _mlstm_seq(params, cfg, x, initial_state, tp=tp)
 
 
-def mlstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
+def mlstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
+                 tp=None):
     """One token.  x: [B, 1, d]."""
-    return _mlstm_seq(params, cfg, x, cache)
+    return _mlstm_seq(params, cfg, x, cache, tp=tp)
 
 
 def _mlstm_chunk(C0, n0, m0, q, k, v, li, lf, hd: int):
@@ -258,16 +322,34 @@ def mlstm_apply(params, cfg: ArchConfig, x: torch.Tensor,
 # sLSTM
 # ---------------------------------------------------------------------------
 
+def slstm_block(cfg: ArchConfig) -> int:
+    """The sLSTM's gate block: the channels ``hd * gcd(H, 4)`` that one
+    run of the recurrence's output columns covers.  The recurrence's
+    [B, H, 4 hd] product is read as [B, 4 d] and split into the gates
+    i, f, z, o of d channels each, so gate g's channel c is column ``(g
+    d + c) % 4 hd`` of head ``(g d + c) // 4 hd``: head and gate
+    boundaries both fall on multiples of this block.  A tensor-parallel
+    rank holds its slice of every block of the state's d channels, of
+    w_x's and b's 4 d gate columns and of w_h's 4 hd columns, so that
+    the columns it holds of each produce the channels it holds."""
+    H = cfg.slstm_num_heads
+    return cfg.d_model // H * math.gcd(H, 4)
+
+
 def slstm_template(cfg: ArchConfig) -> Template:
     d = cfg.d_model
     H = cfg.slstm_num_heads
     hd = d // H
+    a = slstm_block(cfg)
     return {
         # input weights for i, f, z, o gates
-        "w_x": ParamSpec((d, 4 * d), ("embed", "ssm_inner")),
-        "b": ParamSpec((4 * d,), ("ssm_inner_vec",), init="zeros"),
+        "w_x": ParamSpec((d, 4 * d), ("embed", "ssm_inner"),
+                         parts=(a,) * (4 * d // a)),
+        "b": ParamSpec((4 * d,), ("ssm_inner_vec",), init="zeros",
+                       parts=(a,) * (4 * d // a)),
         # block-diagonal recurrent weights per head
-        "w_h": ParamSpec((H, hd, 4 * hd), (None, "head_dim", "ssm_inner")),
+        "w_h": ParamSpec((H, hd, 4 * hd), (None, "head_dim", "ssm_inner"),
+                         parts=(a,) * (4 * hd // a)),
         "out_proj": ParamSpec((d, d), ("embed_b", "embed")),
     }
 
@@ -279,14 +361,18 @@ def slstm_cache(cfg: ArchConfig, batch: int, device) -> State:
 
 
 def _slstm_step(w_h: torch.Tensor, b: torch.Tensor, state: State,
-                x_t: torch.Tensor, blocked: bool = True):
+                x_t: torch.Tensor, blocked: bool = True,
+                h_all: Optional[torch.Tensor] = None):
     """One token on every row: the JAX ``_slstm_step``.  ``w_h`` and
     ``b`` are the f32 weights, converted once per window; x_t: [B, 4d],
-    the precomputed input projection."""
+    the precomputed input projection.  On a tensor-parallel rank the
+    state, x_t, b and w_h's columns are the rank's channels and
+    ``h_all`` is the whole of h [B, d_model], which every head's
+    recurrence reads."""
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     B, d = c.shape
     H = w_h.shape[0]
-    hh = h.reshape(B, H, d // H)
+    hh = (h if h_all is None else h_all).reshape(B, H, w_h.shape[1])
     if blocked:
         rec = torch.stack([linear(hh[:, i], w_h[i], blocked=True)
                            for i in range(H)], dim=1).reshape(B, 4 * d)
@@ -308,41 +394,54 @@ def _slstm_step(w_h: torch.Tensor, b: torch.Tensor, state: State,
 
 
 def _slstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
-               stack: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+               stack: Optional[State] = None,
+               tp=None) -> Tuple[torch.Tensor, State]:
     """Sequential (c, n, h, m) advance, one ``_slstm_step`` per token.
-    Returns (y [B, L, d], final state)."""
+    Returns (y [B, L, d], final state).  On a tensor-parallel rank
+    (``tp``) the state is the rank's slice of each gate block
+    (:func:`slstm_block`), h is gathered whole before every token (one
+    all-reduce a token) and y is the product of the rank's channels
+    with their rows of the replicated ``out_proj``: the rank's part of a
+    sum over the ranks."""
     xg = linear(x, params["w_x"], blocked=True)              # [B, L, 4d]
     # hoisted out of the token loop: the same values, converted once
     w_h = params["w_h"].float()
     b = params["b"].float()
+    w_out = params["out_proj"]
+    if tp is not None:
+        a = slstm_block(cfg)
+        w_out = block_rows(w_out, a, tp)
     hs = []
     with no_tf32(x.device):
         for t in range(x.shape[1]):
-            state = _slstm_step(w_h, b, state, xg[:, t])
+            h_all = None if tp is None else tp_reduce_parts(
+                [gather_blocks(state["h"], a, tp)], tp)[0]
+            state = _slstm_step(w_h, b, state, xg[:, t], h_all=h_all)
             hs.append(state["h"])
             _write_stack(stack, t, state)
-    y = linear(torch.stack(hs, dim=1).to(x.dtype), params["out_proj"],
-               blocked=True)
+    y = linear(torch.stack(hs, dim=1).to(x.dtype), w_out, blocked=True)
     return y, state
 
 
 def slstm_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
-                 stack: Optional[State] = None):
+                 stack: Optional[State] = None, tp=None):
     """Multi-token continuation from a live state (ingest and verify
     windows).  x: [B, L, d]."""
-    return _slstm_seq(params, cfg, x, cache, stack)
+    return _slstm_seq(params, cfg, x, cache, stack, tp)
 
 
 def slstm_prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
-                             initial_state: Optional[State] = None):
+                             initial_state: Optional[State] = None,
+                             tp=None):
     if initial_state is None:
         initial_state = slstm_cache(cfg, x.shape[0], x.device)
-    return _slstm_seq(params, cfg, x, initial_state)
+    return _slstm_seq(params, cfg, x, initial_state, tp=tp)
 
 
-def slstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State):
+def slstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
+                 tp=None):
     """One token.  x: [B, 1, d]."""
-    return _slstm_seq(params, cfg, x, cache)
+    return _slstm_seq(params, cfg, x, cache, tp=tp)
 
 
 def _slstm_outer(w_h, b, c, n, h, m, xg):

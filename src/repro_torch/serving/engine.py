@@ -39,9 +39,15 @@ step on their slices; the steps' collectives are ``all_reduce`` sums
 and logits).  Each rank holds its slice of every cache under that id; a
 cache rank 0 drops is dropped by the workers at the next command.
 Greedy tokens are computed alike on every rank, and rank 0 returns its
-own.  ROADMAP item 11a serves the attention-only decoders so; MoE, MLA,
-recurrent mixers, the encoder-decoder and head counts the ranks do not
-divide are refused at tp > 1 (item 11b).
+own.  ROADMAP item 11a serves the attention-only decoders so, and item
+11b-i the MoE FFN (a rank holds its experts) and the recurrent mixers
+(a rank holds its channels of Mamba's d_inner, of mLSTM's dk and of the
+sLSTM's gate blocks, and its slice of each state) on every layout,
+slot, paged, state and hybrid; the state layouts' verify stacks stay on
+each rank under the verify's id for the rewind that names them.  MLA,
+the encoder-decoder, attention heads the ranks do not divide (JAX
+shards such K/V on head_dim) and what the ranks cannot slice are
+refused at tp > 1 (item 11b-ii, :func:`check_tp_support`).
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from ..launch.mesh import mesh_desc
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
 from ..models.params import flatten, tree_map
-from ..models.moe import check_moe_impl
+from ..models.moe import check_moe_impl, padded_experts
+from ..models.xlstm import slstm_block
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
                                   check_mixed_extend_support,
                                   check_paged_support, check_supported)
@@ -82,26 +89,44 @@ from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
 STATE_KINDS = ("state", "hybrid")
 LAYOUTS = ("slot", "paged") + STATE_KINDS
 
-TP_ITEM = "ROADMAP Queue 1 item 11b"
+TP_ITEM = "ROADMAP Queue 1 item 11b-ii"
 
 
 def check_tp_support(cfg: ArchConfig, tp: int) -> None:
     """Raise for what tensor-parallel serving does not run yet at ``tp``
-    ranks (ROADMAP item 11b): MoE FFNs, MLA, recurrent mixers, the
-    encoder-decoder, and head counts, FFN widths or vocabularies the
-    ranks do not divide (JAX serves kv heads that do not divide through
-    K/V sharded on head_dim)."""
+    ranks (ROADMAP item 11b-ii): MLA, the encoder-decoder, attention
+    heads the ranks do not divide (JAX serves kv heads that do not
+    divide through K/V sharded on head_dim), and widths the ranks cannot
+    slice: FFN columns, padded experts, Mamba's d_inner, mLSTM heads and
+    their dk, the sLSTM's gate blocks, the vocabulary.  A stack with no
+    attention layer has no attention heads to divide (xlstm's heads are
+    its mixers')."""
     if tp <= 1:
         return
-    kinds = sorted(set(cfg.layer_kinds()) - {"attn"})
+    kinds = set(cfg.layer_kinds())
+    ffns = set(cfg.ffn_kinds())
     what = [name for name, bad in (
-        ("MoE FFN layers", cfg.num_experts),
         ("MLA attention", cfg.use_mla),
-        (f"recurrent mixers {kinds}", kinds),
         ("the encoder-decoder", cfg.is_encoder_decoder)) if bad]
-    what += [f"{name} {n} not divisible by tp={tp}" for name, n in (
-        ("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
-        ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab)) if n % tp]
+    sizes = [("padded_vocab", cfg.padded_vocab)]
+    if "attn" in kinds:
+        sizes += [("attention num_heads", cfg.num_heads),
+                  ("attention num_kv_heads", cfg.num_kv_heads)]
+    if "dense" in ffns and cfg.dense_d_ff:
+        sizes.append(("dense FFN width", cfg.dense_d_ff))
+    if "moe" in ffns and cfg.num_experts:
+        sizes.append(("padded experts", padded_experts(cfg)))
+    if "mamba" in kinds:
+        sizes.append(("Mamba d_inner", cfg.d_inner))
+    if "mlstm" in kinds:
+        sizes += [("mLSTM heads", cfg.num_heads),
+                  ("mLSTM dk", 2 * cfg.d_model // cfg.num_heads)]
+    if "slstm" in kinds:
+        sizes.append((f"sLSTM gate block (d_model / slstm_num_heads x "
+                      f"gcd(slstm_num_heads, 4), {cfg.slstm_num_heads} "
+                      f"heads)", slstm_block(cfg)))
+    what += [f"{name} {n} not divisible by tp={tp}" for name, n in sizes
+             if n % tp]
     if what:
         raise NotImplementedError(
             f"{cfg.name}: tensor-parallel serving at tp={tp} of "
@@ -119,6 +144,9 @@ class CacheTree(dict):
 #: the mirrored methods, and which part of each one's result is a new
 #: cache the workers keep under the command's id
 _MIRRORED: Dict[str, Optional[str]] = {}
+#: the index, in a mirrored method's result tuple, of the new cache
+#: (the prefill's rows, the verify window's stacks)
+_KEPT = {"rows": 1, "stacks": 2}
 
 
 def _mirrored(result: Optional[str] = None):
@@ -126,7 +154,8 @@ def _mirrored(result: Optional[str] = None):
     0 it becomes a command to the workers (``_Mirror.call``); elsewhere,
     and without workers, it runs as it is.  ``result``: ``"out"`` when
     the method returns a new cache, ``"rows"`` when its second value is
-    one."""
+    one, ``"stacks"`` when its third is (``verify_window``'s stacks,
+    which ``state_rewind`` names)."""
     def deco(fn):
         _MIRRORED[fn.__name__] = result
 
@@ -166,6 +195,7 @@ class _Mirror:
         self.live: set = set()
         self.drops: List[int] = []
         self.closed: Optional[str] = None
+        self.released = False
 
     def _dropped(self, i: int) -> None:
         self.live.discard(i)
@@ -212,8 +242,9 @@ class _Mirror:
             raise RuntimeError(msg) from e
         if result == "out":
             return self.tag(out, i)
-        if result == "rows":
-            return out[0], self.tag(out[1], i)
+        if result in _KEPT:
+            j = _KEPT[result]
+            return out[:j] + (self.tag(out[j], i),) + out[j + 1:]
         return out
 
     def close(self) -> None:
@@ -223,7 +254,9 @@ class _Mirror:
                 self.coll.broadcast(("close", (), {}, -1, []))
             except Exception:           # noqa: BLE001 - the workers die
                 pass
-        self.workers.close()
+        if not self.released:
+            self.released = True
+            self.workers.close()
 
 
 def _decode(a, objects: Dict[int, Any]):
@@ -262,8 +295,8 @@ def _run_worker(coll: tp_group.Collectives, payload: Dict[str, Any]) -> None:
         result = _MIRRORED[name]
         if result == "out":
             objects[new_id] = out
-        elif result == "rows":
-            objects[new_id] = out[1]
+        elif result in _KEPT:
+            objects[new_id] = out[_KEPT[result]]
         return False
 
     tp_group.serve_commands(coll, handle)
@@ -272,7 +305,7 @@ def _run_worker(coll: tp_group.Collectives, payload: Dict[str, Any]) -> None:
 class LLMEngine:
     def __init__(self, cfg: ArchConfig, params=None, *, max_len: int = 512,
                  seed: int = 0, flags: RuntimeFlags = DEFAULT_FLAGS,
-                 device=None, mesh=None, _collectives=None):
+                 device=None, mesh=None, pool=None, _collectives=None):
         """``params``: a flat ``state_dict`` (e.g. ``params_from_jax``);
         ``None`` draws random weights from ``seed``.
 
@@ -283,7 +316,10 @@ class LLMEngine:
         cutting) the full tree and keeping its slice.  The collectives
         are gloo, whose steps cannot be captured: on CUDA a mesh of more
         than one rank needs ``RuntimeFlags(cuda_graphs=False)``.
-        :meth:`close` (also run at exit) stops the workers.
+        :meth:`close` (also run at exit) stops the workers; with a
+        ``pool`` (``sharding.group.WorkerPool``) this engine takes the
+        pool's idle workers for the mesh, where it has some, and
+        :meth:`close` hands its workers back to it.
         ``_collectives`` is a worker's own group (``_run_worker``)."""
         check_supported(cfg)
         check_moe_impl(flags)
@@ -316,11 +352,14 @@ class LLMEngine:
         workers = None
         if self.tp > 1 and coll is None:
             # the workers start while this rank draws its own weights
-            workers = tp_group.Workers(mesh, _run_worker, {
+            payload = {
                 "cfg": cfg, "max_len": max_len, "seed": seed,
                 "flags": flags, "mesh": mesh,
                 "params": None if params is None else
-                {k: v.detach().cpu() for k, v in params.items()}})
+                {k: v.detach().cpu() for k, v in params.items()}}
+            workers = pool.take(mesh, _run_worker, payload) \
+                if pool is not None else \
+                tp_group.Workers(mesh, _run_worker, payload)
         try:
             self.model = Model(cfg, device=self.device, seed=seed,
                                params=params, mesh=mesh, rank=rank)
@@ -593,11 +632,6 @@ class LLMEngine:
         if kind not in LAYOUTS:
             raise ValueError(f"unknown cache layout {kind!r} (expected one "
                              f"of {LAYOUTS})")
-        if self.tp > 1 and kind in STATE_KINDS:
-            raise NotImplementedError(
-                f"tensor-parallel serving at tp={self.tp} on the {kind!r} "
-                f"layout is not yet ported to repro_torch ({TP_ITEM}); use "
-                f"the slot or paged layout")
 
     def _check_mla_layout(self, kind: str) -> None:
         """MLA's latent cache is served on the slot and paged layouts;
@@ -690,9 +724,13 @@ class LLMEngine:
         """Factor by which one cache block's per-rank bytes shrink under
         the serving mesh, i.e. how many times more blocks the same
         per-rank memory holds; ``GraphServer`` scales its default paged
-        arena by it.  K/V shard on their kv heads: the constructor
-        refuses, at tp > 1, every stack whose kv heads the ranks do not
-        divide and every other cache kind (item 11b)."""
+        arena by it.  The JAX engine's rule: K/V shard on their kv heads
+        (the constructor refuses, at tp > 1, attention kv heads the ranks
+        do not divide, and MLA, until item 11b-ii), so the paged and
+        hybrid arenas shrink by tp; a stack with no attention layer
+        reports 1, its O(1) state slabs are not the capacity bound."""
+        if self.tp <= 1 or "attn" not in self.cfg.layer_kinds():
+            return 1
         return self.tp
 
     @_mirrored()
@@ -761,6 +799,7 @@ class LLMEngine:
         self._observe_kernel("verify", backend, t0)
         return out, cache
 
+    @_mirrored("stacks")
     def verify_window(self, backend, cache, tokens: np.ndarray,
                       positions: np.ndarray, active: np.ndarray,
                       block_tables: Optional[np.ndarray] = None):
@@ -771,7 +810,9 @@ class LLMEngine:
         accepted prefix through :meth:`state_rewind`
         (docs/STATE_CACHE.md).  The stacks are the engine's buffers for
         (layout, N, W), which the next verify of that key overwrites.
-        Returns ([N, 1+k] guesses, cache, stacks)."""
+        Returns ([N, 1+k] guesses, cache, stacks); on a tensor-parallel
+        engine every rank keeps its own stacks under this call's id,
+        which :meth:`state_rewind` names."""
         kind = backend.kind
         self._check_layout(kind)
         if kind not in STATE_KINDS:
@@ -804,6 +845,7 @@ class LLMEngine:
                 self.model.new_state_stacks(cache, W)
         return tree_map(lambda a: a[:, :, :W] if a.numel() else a, buf)
 
+    @_mirrored()
     def state_rewind(self, cache, stacks, slot: int, idx: int):
         """Commit the state after window position ``idx`` (0-based) of
         row ``slot`` from ``stacks`` (returned by :meth:`verify_window`)

@@ -26,17 +26,24 @@ error queue and exits; its peers' next collective then fails ("connection
 closed"), and rank 0 raises with the worker's traceback.  A worker exits
 when rank 0 sends ``close``, when rank 0's process dies (a watchdog
 thread checks the parent every second) or when its control group fails.
+
+A :class:`WorkerPool` keeps a closed engine's workers, groups included,
+for the next engine on the same mesh: that engine sends them its
+payload instead of starting processes (a start costs a process its
+``import torch`` and its CUDA context, ~7 s on the card).
 """
 from __future__ import annotations
 
 import datetime
+import gc
 import multiprocessing as mp
 import os
 import pickle
 import threading
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Tuple
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -136,6 +143,48 @@ def tp_reduce(y: torch.Tensor, flags) -> torch.Tensor:
     return y if group is None else group.all_reduce(y)
 
 
+def tp_reduce_parts(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Several tensors summed over the ranks in one all-reduce: flattened
+    into one f32 buffer (f64 where a part is), summed in rank order, and
+    each returned in its own shape and dtype (a model-dtype part rounds
+    once, after the sum).  A part that only one rank fills (zeros
+    elsewhere) comes back with that rank's bits: the gather of a sharded
+    tensor rides along."""
+    dt = torch.float32
+    for t in tensors:
+        dt = torch.promote_types(dt, t.dtype)
+    flat = torch.cat([t.reshape(-1).to(dt) for t in tensors])
+    group.all_reduce(flat)
+    out = flat.split([t.numel() for t in tensors])
+    return [o.view(t.shape).to(t.dtype) for o, t in zip(out, tensors)]
+
+
+# A rank's channels of an axis cut as blocks (a fused projection's, or a
+# recurrent state's, ``ParamSpec.parts``): its slice of each block.
+
+def rank_block(n: int, group) -> slice:
+    """Rank ``group.rank``'s slice of a block of ``n``."""
+    k = n // group.size
+    return slice(group.rank * k, (group.rank + 1) * k)
+
+
+def block_rows(w: torch.Tensor, block: int, group) -> torch.Tensor:
+    """The rank's rows of a replicated ``w`` [K, N] whose rows are cut as
+    blocks of ``block`` (its slice of each block, in order)."""
+    N = w.shape[-1]
+    return w.view(-1, block, N)[:, rank_block(block, group)].reshape(-1, N)
+
+
+def gather_blocks(x: torch.Tensor, block: int, group) -> torch.Tensor:
+    """``x`` [..., n/tp], the rank's slice of each block of ``block`` of
+    a last axis of n, written into a zero [..., n]: summed over the
+    ranks, the whole axis (exact: one non-zero term an element)."""
+    full = x.new_zeros(x.shape[:-1] + (x.shape[-1] * group.size,))
+    full.view(x.shape[:-1] + (-1, block))[..., rank_block(block, group)] = \
+        x.view(x.shape[:-1] + (-1, block // group.size))
+    return full
+
+
 # ---------------------------------------------------------------------------
 # rank 0: start the workers
 # ---------------------------------------------------------------------------
@@ -143,12 +192,14 @@ def tp_reduce(y: torch.Tensor, flags) -> torch.Tensor:
 class Workers:
     """Rank 0's handle on the worker processes."""
 
-    def __init__(self, mesh, target: Callable, payload: Any):
+    def __init__(self, mesh, target: Callable, payload: Any, pool=None):
         """Start ranks 1 .. tp-1, each running ``target(collectives,
-        payload)`` (a module-level function); :meth:`join` joins their
-        groups."""
+        payload)`` (a module-level function) and then, while rank 0
+        sends them one, the next payload's (:meth:`reuse`); :meth:`join`
+        joins their groups.  ``pool`` (a :class:`WorkerPool`) takes them
+        back at :meth:`close`."""
         timeout = datetime.timedelta(seconds=mesh.timeout_s)
-        self.mesh = mesh
+        self.mesh, self.pool, self.coll = mesh, pool, None
         self.store = dist.TCPStore(HOST, 0, mesh.tp, True, timeout=timeout,
                                    wait_for_workers=False)
         ctx = mp.get_context("spawn")
@@ -161,8 +212,16 @@ class Workers:
         for p in self.procs:
             p.start()
 
+    def reuse(self, payload: Any) -> None:
+        """Send the idle workers the next engine's payload (they run
+        ``target`` on it while rank 0 builds its own part)."""
+        self.coll.reduce_calls, self.coll.reduce_s = 0, 0.0
+        self.coll.broadcast(payload)
+
     def join(self) -> Collectives:
         """Rank 0's side of the groups, once every worker has joined."""
+        if self.coll is not None:
+            return self.coll
         try:
             self.coll = Collectives(self.mesh, 0, self.store)
         except Exception as e:
@@ -198,11 +257,65 @@ class Workers:
 
     def close(self, timeout: float = 10.0) -> None:
         """Join the workers (rank 0 has sent them ``close``), killing
-        any that do not exit within ``timeout``."""
+        any that do not exit within ``timeout``; or, with a pool and
+        every worker alive, hand them back to it idle."""
+        alive = all(p.is_alive() for p in self.procs)
+        if self.pool is not None and alive and self.coll is not None:
+            self.pool.give(self)
+            return
+        if alive and self.coll is not None:
+            try:
+                self.coll.broadcast(None)       # no next payload: exit
+            except Exception:               # noqa: BLE001 - they die
+                pass
         deadline = time.monotonic() + timeout
         for p in self.procs:
             p.join(timeout=max(0.0, deadline - time.monotonic()))
         self.kill()
+
+
+class WorkerPool:
+    """Idle workers kept across engines, by mesh (its devices and
+    timeout): ``LLMEngine(cfg, mesh=mesh, pool=pool)`` takes a closed
+    engine's workers from the pool where it holds some for the mesh,
+    and its :meth:`~repro_torch.serving.LLMEngine.close` hands them
+    back.  A worker holds no engine while idle (it has freed the last
+    one's memory).  :meth:`close` (also at exit) stops them."""
+
+    def __init__(self):
+        self._idle: Dict[Tuple, List[Workers]] = {}
+        weakref.finalize(self, WorkerPool._stop, self._idle)
+
+    @staticmethod
+    def key(mesh) -> Tuple:
+        return (tuple(mesh.devices), mesh.timeout_s)
+
+    def take(self, mesh, target: Callable, payload: Any) -> Workers:
+        """Workers for ``mesh`` running ``target(coll, payload)``: idle
+        ones of the pool, or new ones."""
+        idle = self._idle.get(self.key(mesh), [])
+        while idle:
+            workers = idle.pop()
+            if all(p.is_alive() for p in workers.procs):
+                workers.reuse(payload)
+                return workers
+            workers.kill()
+        return Workers(mesh, target, payload, pool=self)
+
+    def give(self, workers: Workers) -> None:
+        """Keep a closed engine's live workers idle for the next one."""
+        self._idle.setdefault(self.key(workers.mesh), []).append(workers)
+
+    def close(self) -> None:
+        WorkerPool._stop(self._idle)
+
+    @staticmethod
+    def _stop(idle) -> None:
+        for group in idle.values():
+            for workers in group:
+                workers.pool = None
+                workers.close()
+        idle.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +340,15 @@ def _worker_main(rank: int, mesh, port: int, target: Callable, payload: Any,
     try:
         timeout = datetime.timedelta(seconds=mesh.timeout_s)
         store = dist.TCPStore(HOST, port, mesh.tp, False, timeout=timeout)
-        target(Collectives(mesh, rank, store), payload)
+        coll = Collectives(mesh, rank, store)
+        while payload is not None:
+            target(coll, payload)
+            payload = None
+            gc.collect()
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+            # the next engine's payload from rank 0, or None: exit
+            payload = coll.broadcast()
     except BaseException:           # noqa: BLE001 - reported, then exit
         errors.put((rank, traceback.format_exc()))
         os._exit(1)

@@ -19,8 +19,9 @@ Rule summary (single-pod mesh ("data","model"); multi-pod adds "pod"):
   the sequence (``_kv_cache_axes``)
 
 On top of the specs, :func:`local_shape` and :func:`shard_tensor` give a
-rank's slice, and :func:`shard_state_dict` cuts a full ``state_dict``
-into one rank's weights.
+rank's slice (of a fused projection, its slice of each block), and
+:func:`shard_state_dict` cuts a full ``state_dict`` into one rank's
+weights.
 """
 from __future__ import annotations
 
@@ -205,16 +206,32 @@ def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(d // _axis_size(mesh, e) for d, e in zip(shape, spec))
 
 
-def shard_tensor(t: torch.Tensor, spec: Spec, mesh,
-                 rank: int) -> torch.Tensor:
-    """Rank ``rank``'s slice of ``t`` under ``spec`` (a view)."""
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh, rank: int,
+                 parts: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``t`` under ``spec`` (a view).
+
+    ``parts`` names a fused last axis (``ParamSpec.parts``): the lengths
+    of its consecutive blocks, such as Mamba's ``in_proj`` columns ``[x
+    | z]``.  Sharded, the rank takes its slice of each block, in order
+    (a copy), where a plain cut would hand it whole blocks: rank r of
+    tp holds ``[x_r | z_r]``, the columns of its channels in both."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         idx, count = _entry_slice(mesh, entry, rank)
+        if parts is not None and dim == t.dim() - 1:
+            t = torch.cat([p.narrow(dim, idx * (p.shape[dim] // count),
+                                    p.shape[dim] // count)
+                           for p in t.split(list(parts), dim)], dim)
+            continue
         n = t.shape[dim] // count
         t = t.narrow(dim, idx * n, n)
     return t
+
+
+def param_parts(template) -> Dict[str, Optional[Tuple[int, ...]]]:
+    """Each leaf's fused blocks (``ParamSpec.parts``), by flat path."""
+    return flatten(tree_map(lambda s: s.parts, template))
 
 
 def local_tree(tree, mesh):
@@ -235,5 +252,7 @@ def shard_state_dict(state_dict: Dict[str, torch.Tensor], template, mesh,
     shards, contiguous copies.  The ranks' slices together hold the
     full tensors' bits."""
     specs = flatten(param_specs(template, mesh))
-    return {path: shard_tensor(t, specs[path], mesh, rank).contiguous()
+    parts = param_parts(template)
+    return {path: shard_tensor(t, specs[path], mesh, rank,
+                               parts[path]).contiguous()
             for path, t in state_dict.items()}

@@ -10,8 +10,8 @@ parametrised assertions over its JSON verdicts, one per (scenario,
 layout, mesh size), with the ids of ``tests/test_sharded_serving.py``'s
 slot and paged cases.
 
-In this process: the refusals of what item 11a does not serve (each
-names item 11b), the CUDA graph refusal on a gloo CUDA mesh (a
+In this process: the refusals of what items 11a and 11b-i do not serve
+(each names item 11b-ii), the CUDA graph refusal on a gloo CUDA mesh (a
 constructor check, no card needed), and the rank processes' hygiene —
 every worker holds exactly rank 0's live caches after a drained
 ``GraphServer`` closes (``graphserver_leak_check``), a killed worker
@@ -33,6 +33,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import make_serving_mesh, mesh_desc  # noqa: E402
 from repro_torch.serving import GraphServer, LLMEngine  # noqa: E402
+from repro_torch.serving.engine import check_tp_support  # noqa: E402
 
 from test_torch_engine import one_torch_thread  # noqa: E402,F401
 from test_torch_graph import graphserver_leak_check  # noqa: E402,F401
@@ -153,20 +154,48 @@ def _reduced(name, **kw):
     return dataclasses.replace(get_config(name).reduced(), **kw)
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("granite_moe_3b_a800m", {}),                       # MoE FFN
-    ("deepseek_v3_671b", {}),                           # MLA (+ MoE)
-    ("xlstm_1_3b", {}),                                 # state layout
-    ("jamba_1_5_large_398b", {}),                       # hybrid layout
-    ("seamless_m4t_large_v2", {}),                      # encoder-decoder
-    ("minicpm_2b", {"num_heads": 6, "num_kv_heads": 2}),  # heads % tp
-    ("qwen3_32b", {}),                                  # kv heads 2 % 4
-])
+#: what tensor-parallel serving still refuses at tp 4 (item 11b-ii), and
+#: the words of each refusal.  Item 11b-i serves the MoE FFN, the
+#: recurrent mixers and the state and hybrid layouts: the cases of
+#: granite and jamba keep refusing for their reduced configs' 2 kv
+#: heads, and xlstm's for 6 mLSTM heads (reduced xlstm itself is
+#: served at tp 4)
+REFUSED = [
+    ("granite_moe_3b_a800m", {}, "num_kv_heads 2"),     # kv heads 2 % 4
+    ("deepseek_v3_671b", {}, "MLA"),                    # MLA (+ MoE)
+    ("xlstm_1_3b", {"num_heads": 6, "d_model": 192},
+     "mLSTM heads 6"),                                  # mLSTM heads % tp
+    ("jamba_1_5_large_398b", {}, "num_kv_heads 2"),     # kv heads 2 % 4
+    ("seamless_m4t_large_v2", {}, "encoder-decoder"),   # encoder-decoder
+    ("minicpm_2b", {"num_heads": 6, "num_kv_heads": 2},
+     "num_heads 6"),                                    # heads % tp
+    ("qwen3_32b", {}, "num_kv_heads 2"),                # kv heads 2 % 4
+    ("jamba_1_5_large_398b", {"num_kv_heads": 4, "d_model": 66,
+                              "ssm_expand": 1},
+     "Mamba d_inner 66"),                               # d_inner % tp
+    ("granite_moe_3b_a800m", {"num_kv_heads": 4, "num_experts": 6},
+     "padded experts 6"),                               # experts % tp
+    ("xlstm_1_3b", {"block_pattern": ("slstm",), "d_model": 66},
+     "sLSTM gate block"),                               # sLSTM blocks % tp
+    ("xlstm_1_3b", {"block_pattern": ("mlstm",), "d_model": 68},
+     "mLSTM dk 34"),                                    # mLSTM dk % tp
+]
+
+
+@pytest.mark.parametrize("name,kw", [(n, kw) for n, kw, _ in REFUSED])
 def test_tp_refuses_what_11a_does_not_serve(name, kw):
     cfg = _reduced(name, **kw)
     with pytest.raises(NotImplementedError, match="item 11b"):
         LLMEngine(cfg, max_len=32, device="cpu",
                   mesh=make_serving_mesh(4, devices=["cpu"] * 4))
+
+
+@pytest.mark.parametrize("name,kw,what", REFUSED)
+def test_tp_refusal_names_what_waits(name, kw, what):
+    """Each refusal names what it refuses and item 11b-ii."""
+    with pytest.raises(NotImplementedError) as e:
+        check_tp_support(_reduced(name, **kw), 4)
+    assert what in str(e.value) and "item 11b-ii" in str(e.value)
 
 
 def test_cuda_gloo_mesh_refuses_cuda_graphs():
@@ -191,8 +220,8 @@ def test_graphserver_on_a_mesh_leaves_no_worker_cache():
     """A drained GraphServer over a 2-rank engine (the leak check runs at
     its close): its tokens are the unsharded engine's, every worker holds
     exactly rank 0's live caches while the server lives and none once
-    it is gone, the state layouts refuse at tp 2 (item 11b), and close
-    stops the workers."""
+    it is gone, the state layouts' extend is served at tp 2 (item
+    11b-i), and close stops the workers."""
     prompts = [np.random.RandomState(s).randint(0, 256, 7).astype(np.int32)
                for s in range(3)]
     base = LLMEngine(ATTN, max_len=32, device="cpu")
@@ -200,8 +229,7 @@ def test_graphserver_on_a_mesh_leaves_no_worker_cache():
     engine = LLMEngine(ATTN, max_len=32, device="cpu",
                        mesh=make_serving_mesh(2, devices=["cpu", "cpu"]))
     try:
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            engine.check_extend_support("state")
+        assert engine.check_extend_support("state") is None
         with GraphServer(engine, num_slots=2, max_new_tokens=5,
                          backend="paged", block_size=8,
                          chunk_size=4) as srv:

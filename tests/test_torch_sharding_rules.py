@@ -31,6 +31,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import flatten, logical_axes  # noqa: E402
 from repro_torch.sharding.rules import (RULES, _kv_cache_axes,  # noqa: E402
                                         cache_specs, local_shape,
+                                        local_tree, param_parts,
                                         param_specs, resolve_spec,
                                         shard_state_dict)
 
@@ -187,16 +188,45 @@ MINICPM = dataclasses.replace(
     num_heads=4, num_kv_heads=4, head_dim=16, vocab_size=200)
 
 
+GRANITE = dataclasses.replace(
+    get_config("granite_moe_3b_a800m").reduced(), d_model=64, num_heads=4,
+    num_kv_heads=4, head_dim=16, vocab_size=256)
+JAMBA = dataclasses.replace(
+    get_config("jamba_1_5_large_398b").reduced(), d_model=64,
+    num_kv_heads=4, vocab_size=256)
+XLSTM = dataclasses.replace(
+    get_config("xlstm_1_3b").reduced(), num_layers=2, d_model=64,
+    vocab_size=256, block_pattern=("mlstm", "slstm"))
+#: the fused projections (``ParamSpec.parts``): each rank holds its
+#: slice of every block of the last axis
+FUSED = {"mamba": ("in_proj",), "mlstm": ("up_proj",),
+         "slstm": ("w_x", "b", "w_h")}
+
+
+def _whole(pieces, dim, blocks):
+    """The ranks' ``pieces`` put back together: along ``dim``, or, for a
+    fused last axis of ``blocks``, block by block."""
+    if blocks is None or dim != pieces[0].dim() - 1:
+        return torch.cat(pieces, dim)
+    tp = len(pieces)
+    cut = [p.split([n // tp for n in blocks], dim) for p in pieces]
+    return torch.cat([torch.cat([c[i] for c in cut], dim)
+                      for i in range(len(blocks))], dim)
+
+
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("cfg", [QWEN, MINICPM], ids=["qwen3", "minicpm"])
+@pytest.mark.parametrize("cfg", [QWEN, MINICPM, GRANITE, JAMBA, XLSTM],
+                         ids=["qwen3", "minicpm", "granite", "jamba",
+                              "xlstm"])
 def test_slices_concatenate_to_the_unsharded_model(cfg, tp):
     """``shard_state_dict``'s slices, and the weights each rank's
     ``Model`` draws from the seed, concatenate bitwise to the unsharded
-    ``Model(seed)``'s state_dict; the norms and qk-norm scales are whole
-    on every rank."""
+    ``Model(seed)``'s state_dict (a fused projection block by block);
+    the norms and qk-norm scales are whole on every rank."""
     full = Model(cfg, device="cpu", seed=5).state_dict()
     mesh = make_serving_mesh(tp, devices=["cpu"] * tp)
     specs = flatten(param_specs(tf.model_template(cfg), mesh))
+    blocks = param_parts(tf.model_template(cfg))
     parts = [shard_state_dict(full, tf.model_template(cfg), mesh, r)
              for r in range(tp)]
     drawn = [Model(cfg, device="cpu", seed=5, mesh=mesh,
@@ -213,9 +243,43 @@ def test_slices_concatenate_to_the_unsharded_model(cfg, tp):
             assert all(torch.equal(p[path], t) for p in parts), path
             continue
         (dim,) = dims
-        assert torch.equal(torch.cat([p[path] for p in parts], dim), t), path
-    assert "model" in specs["blocks.l0.ffn.w_down"]
+        assert torch.equal(_whole([p[path] for p in parts], dim,
+                                  blocks[path]), t), path
     assert "model" in specs["embed.embedding"]
+    if cfg is not XLSTM:                    # xLSTM blocks have no FFN
+        assert "model" in specs["blocks.l0.ffn.w_down"]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("kind", sorted(FUSED))
+def test_fused_projections_cut_block_by_block(kind, tp):
+    """Mamba's ``in_proj`` [x | z], mLSTM's ``up_proj`` [xm | z] (xm by
+    head: the rank's dk of each) and the sLSTM's gate columns: rank r
+    holds slice r of each block, in order."""
+    cfg = JAMBA if kind == "mamba" else XLSTM
+    path = {"mamba": "blocks.l1.mixer", "mlstm": "blocks.l0.mixer",
+            "slstm": "blocks.l1.mixer"}[kind]
+    full = Model(cfg, device="cpu", seed=5).state_dict()
+    mesh = make_serving_mesh(tp, devices=["cpu"] * tp)
+    d, H = cfg.d_model, cfg.num_heads
+    di, hd = 2 * d, 2 * d // H
+    want_blocks = {
+        ("mamba", "in_proj"): (cfg.d_inner, cfg.d_inner),
+        ("mlstm", "up_proj"): (hd,) * H + (di,),
+        # reduced xlstm: 2 sLSTM heads of 32, gate blocks of 32 x gcd(2,
+        # 4) = 64 = d_model, so the rank's channels are d's slice r
+        ("slstm", "w_x"): (d,) * 4, ("slstm", "b"): (d,) * 4,
+        ("slstm", "w_h"): (d,) * 2}
+    blocks = param_parts(tf.model_template(cfg))
+    for r in range(tp):
+        rank = shard_state_dict(full, tf.model_template(cfg), mesh, r)
+        for leaf in FUSED[kind]:
+            key = f"{path}.{leaf}"
+            assert blocks[key] == want_blocks[kind, leaf]
+            t = full[key]
+            cols = [b.narrow(-1, r * (b.shape[-1] // tp), b.shape[-1] // tp)
+                    for b in t.split(list(blocks[key]), -1)]
+            assert torch.equal(rank[key], torch.cat(cols, -1)), key
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -233,3 +297,38 @@ def test_rank_caches_hold_their_kv_heads(tp):
             assert a.shape[-2] * tp == w.shape[-2] == cfg.num_kv_heads
     assert np.prod(model.params["blocks"]["l0"]["mixer"]["wq"].shape) * tp \
         == np.prod(full.params["blocks"]["l0"]["mixer"]["wq"].shape)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("cfg,layout", [(XLSTM, "slot"), (JAMBA, "hybrid"),
+                                        (GRANITE, "paged")],
+                         ids=["xlstm-state", "jamba-hybrid", "granite-paged"])
+def test_rank_mixer_caches_are_local_tree_shapes(cfg, layout, tp):
+    """A rank's caches, recurrent state slabs among them, have the shapes
+    ``local_tree(cache_specs(...))`` gives: Mamba's conv and h on
+    d_inner, mLSTM's C and n on dk and its m on heads, the sLSTM's state
+    on d_model, attention K/V on kv heads."""
+    mesh = make_serving_mesh(tp, devices=["cpu"] * tp)
+    model = Model(cfg, device="cpu", seed=0, mesh=mesh, rank=tp - 1)
+    cache, abstract = {
+        "slot": (lambda: model.new_cache(3, 16),
+                 lambda: tf.abstract_cache(cfg, 3, 16)),
+        "hybrid": (lambda: model.new_hybrid_cache(3, 9, 8),
+                   lambda: tf.abstract_hybrid_cache(cfg, 3, 9, 8)),
+        "paged": (lambda: model.new_paged_cache(9, 8),
+                  lambda: tf.abstract_paged_cache(cfg, 9, 8)),
+    }[layout]
+    got = {p: tuple(a.shape) for p, a in flatten(cache()).items()}
+    want = {p: tuple(a.shape) for p, a in
+            flatten(local_tree(abstract(), mesh)).items()}
+    assert got == want
+    full = {p: tuple(a.shape) for p, a in flatten(abstract()).items()}
+    for path, shape in got.items():
+        key = path.rsplit(".", 1)[1]
+        sharded = [i for i, (a, b) in enumerate(zip(shape, full[path]))
+                   if a != b]
+        assert len(sharded) == 1 and shape[sharded[0]] * tp == \
+            full[path][sharded[0]], (path, shape, full[path])
+        if cfg is XLSTM:
+            assert sharded[0] == {"C": 3, "n": 3 if len(shape) == 4 else 2,
+                                  "m": 2, "c": 2, "h": 2}[key], path

@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Run chosen phases of ``chip_smoke.py`` alone on one card: a quicker
+loop than the whole script while a phase is being written.
+
+    python3 tools/chip_phases.py kernels,tp_moe,tp_hybrid,tp_state,tp_mixers_f32
+
+``kernels`` holds K2, K4, K5 and K3 against their plain versions at one
+rank's heads under tensor-parallel serving (granite_moe_3b_a800m's 12
+over 4 kv heads and jamba's 32 over 4 at tp 2, and granite's 256-row
+rank chunk), in bf16 and f32, each row alone bitwise its row of the
+batch; the other names are ``chip_smoke.py``'s tensor-parallel phases
+of item 11b-i, run in the order given, their engines sharing one
+``WorkerPool``.  Builds the kernels first (``phase_build``).  Prints the
+phases' JSON lines, then the card's name and power limit; exits
+non-zero without a card or at the first failed check.
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+PHASES = {"tp_moe": cs.phase_tp_moe, "tp_hybrid": cs.phase_tp_hybrid,
+          "tp_state": cs.phase_tp_state}
+
+
+def rank_kernels(torch) -> None:
+    """``phase_kernels``' checks at the item 11b-i per-rank shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def record(name, dtype, case, a, b, tol):
+        err, ok = cs.close(a, b, tol)
+        cs.emit({"phase": "kernel_vs_plain", "kernel": name, "dtype": dtype,
+                 "case": case, "max_abs_err": err, "tol": tol, "ok": ok})
+        cs.check(ok, f"{name} {dtype} {case}: max abs err {err}")
+
+    shapes = [s for s in cs.TP_HEADS if s[0].startswith(("granite", "jamba"))]
+    for dtype in ("bfloat16", "float32"):
+        for shape in shapes:
+            cs.check_paged_kernels(torch, dev, g, dtype, shape, record)
+            cs.check_flash_shape(torch, dev, g, dtype, shape, record,
+                                 rows=cs.SERVE_CHUNK + 64,
+                                 offsets=(cs.SERVE_CHUNK,), batch=2)
+        cs.check_flash_shape(torch, dev, g, dtype, shapes[0], record,
+                             rows=cs.SERVE_CHUNK, offsets=(), batch=1)
+    for shape in shapes:
+        cs.check_window_independence(torch, dev, g, shape)
+
+
+def main(argv) -> int:
+    names = argv[0].split(",") if argv else ["kernels", *PHASES,
+                                             "tp_mixers_f32"]
+    unknown = set(names) - {"kernels", "tp_mixers_f32", *PHASES}
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}")
+    torch = cs.setup()
+    smi = cs.phase_build(torch)
+    from repro_torch.sharding.group import WorkerPool
+    cs.TP_POOL = WorkerPool()
+    try:
+        for name in names:
+            if name == "kernels":
+                rank_kernels(torch)
+            elif name == "tp_mixers_f32":
+                cs.phase_tp_mixers_f32(torch)
+            else:
+                PHASES[name](torch, smi)
+    finally:
+        cs.TP_POOL.close()
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
