@@ -509,11 +509,14 @@ TP_GEMMS = {"minicpm tp2 q": (2304, 1152), "minicpm tp2 o": (1152, 2304),
             "qwen3 tp4 logits": (5120, 37984)}
 #: one rank's heads under tensor-parallel serving: minicpm_2b's 36 MHA
 #: heads at tp 2, qwen3_32b's 64 over 8 kv heads at tp 2 and tp 4,
-#: granite_moe_3b_a800m's 24 over 8 and jamba's 64 over 8 at tp 2
+#: granite_moe_3b_a800m's 24 over 8, jamba's 64 over 8 and
+#: seamless_m4t_large_v2's 16 over 16 at tp 2 (minicpm_2b's at tp 8 are
+#: its 36 whole, DECODE_SHAPES[0])
 TP_HEADS = (("minicpm_2b tp2", 18, 18, 64), ("qwen3_32b tp2", 32, 4, 128),
             ("qwen3_32b tp4", 16, 2, 128),
             ("granite_moe_3b_a800m tp2", 12, 4, 64),
-            ("jamba_1_5_large_398b tp2", 32, 4, 128))
+            ("jamba_1_5_large_398b tp2", 32, 4, 128),
+            ("seamless_m4t_large_v2 tp2", 8, 8, 64))
 #: granite_moe_3b_a800m's attention shape: 3 query heads per kv head
 GRANITE = DECODE_SHAPES[3]
 #: the stub models' attention shapes
@@ -1049,14 +1052,18 @@ def expected_serve_launches(cfg, stats, attend: str):
     """Launches the schedule in ``stats`` implies: every forward pass
     runs ``schedule(cfg)``'s norms; every prefill or extend call one K3
     per attention layer; every decode or verify tick, and every decode
-    or verify call of a replay, one ``attend`` per attention layer."""
+    or verify call of a replay, one ``attend`` per attention layer (none
+    where ``attend`` is None: K/V on head_dim or on the sequence decode
+    in plain PyTorch)."""
     from repro_torch.kernels import build
     norms, attn = schedule(cfg)
     pre = stats["prefill_calls"]
     ticks = stats["decode_steps"] + stats["replay_steps"]
     want = {name: 0 for name in build.launches}
     want.update({"rmsnorm": norms * (pre + ticks),
-                 "flash_attention": attn * pre, attend: attn * ticks})
+                 "flash_attention": attn * pre})
+    if attend is not None:
+        want[attend] = attn * ticks
     return want
 
 
@@ -1759,6 +1766,13 @@ class ForcedPreemption:
                     device=be.engine.device).long()
                 rows = leaf[:, pages].reshape(leaf.shape[0], -1,
                                               *leaf.shape[3:])
+                loc = leaf.shape[2]
+                if loc < be.block_size:
+                    # a tensor-parallel rank 0's offsets [0, loc) of
+                    # every block (a leaf cut on the sequence)
+                    at = (self.torch.arange(len(pages))[:, None]
+                          * be.block_size + self.torch.arange(loc)[None])
+                    rows = rows[:, (at.reshape(-1) < n).to(rows.device)]
                 out.append(rows[:, :n].clone())
             else:                                         # [R, N, T, ...]
                 out.append(leaf[:, req.slot, :n].clone())
@@ -2145,8 +2159,11 @@ TP_NEW = 12
 TP_TICKS = 12
 #: depth of the f32 comparison of tp 2 against tp 1 (as xlstm_serve's)
 TP_F32_DEPTH = 8
-#: depth of tp_serve's K4 run, with its forced preemption (cut from 40)
+#: depth of tp_serve's K4 run, with its forced preemption (cut from 40),
+#: and of its K2 run, slot run and ticks (cut from 40 to pay for item
+#: 11b-ii's phases)
 TP_SPLITK_DEPTH = 10
+TP_SERVE_DEPTH = 20
 QWEN_ARCH = "qwen3_32b"
 QWEN_DEPTH = 2
 GQA_MAX_LEN = 512
@@ -2169,17 +2186,17 @@ GQA_RUNS = ((2, ("default", {}, "fused_flash_decode")),
 TP_POOL = None
 
 
-def tp_engine(torch, cfg, tp, max_len, weights=None, **flags):
+def tp_engine(torch, cfg, tp, max_len, weights=None, pool=None, **flags):
     """An engine over ``tp`` ranks on the card (rank 0 here, the others
-    in TP_POOL's workers or spawned), eager: a gloo collective cannot be
-    captured."""
+    in the workers of ``pool``, by default TP_POOL's, or spawned),
+    eager: a gloo collective cannot be captured."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
     return LLMEngine(cfg, weights, max_len=max_len, seed=SEED,
                      flags=RuntimeFlags(cuda_graphs=False, **flags),
                      mesh=make_serving_mesh(tp, devices=[TP_DEVICE] * tp),
-                     pool=TP_POOL)
+                     pool=pool or TP_POOL)
 
 
 def tp_serve(torch, engine, cfg, requests, blocks, attend, **kw):
@@ -2273,11 +2290,12 @@ def tp_ticks(torch, engines, requests, ticks=TP_TICKS, make=None,
 
 
 def phase_tp_serve(torch, smi):
-    """minicpm_2b at full width and depth (bf16, random weights from the
-    seed) on TP ranks of the card: the serve workload's first
-    TP_REQUESTS requests for TP_NEW tokens through the Scheduler on a
-    PagedBackend (chunk 256, speculate 4, prefix sharing, pressure),
-    once with K2 and once, on the first TP_SPLITK_DEPTH layers, with K4
+    """minicpm_2b's first TP_SERVE_DEPTH layers at full width (bf16,
+    random weights from the seed) on TP ranks of the card: the serve
+    workload's first TP_REQUESTS requests for TP_NEW tokens through the
+    Scheduler on a PagedBackend (chunk 256, speculate 4, prefix sharing,
+    pressure), once with K2 and once, on the first TP_SPLITK_DEPTH
+    layers, with K4
     (``fused_split_k``) and one forced preemption of a decoding request: every rank's launches equal to the
     schedule, the tokens bitwise each request served alone, greedy, by
     the same engine (``own_greedy``), the forced victim's K/V (rank 0's heads) replayed
@@ -2286,7 +2304,7 @@ def phase_tp_serve(torch, smi):
     Returns the launch counts of every rank."""
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
-    cfg = minicpm_config()
+    cfg = dataclasses.replace(minicpm_config(), num_layers=TP_SERVE_DEPTH)
     requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
     blocks, four, three = pressure_blocks(requests)
     counts_all = {}
@@ -2570,6 +2588,8 @@ TP_STATE_NEW = 16
 #: sLSTM), and granite's in the f32 check (cut from 32)
 TP_STATE_DEPTH = 8
 TP_MIXER_F32_DEPTH = 8
+#: granite's depth in tp_moe (cut from 32 to pay for item 11b-ii's phases)
+TP_MOE_DEPTH = 16
 #: granite's f32 prompts: few tokens, so that few routing choices can flip
 TP_MIXER_PROMPT = 16
 
@@ -2623,10 +2643,10 @@ def tp_tick_line(phase, ticks, smi, cfg, per_layer):
 
 
 def phase_tp_moe(torch, smi):
-    """granite_moe_3b_a800m at full width and depth (bf16, random weights
-    from the seed) at tp 2 on the card: a rank holds 12 of the 24 heads
-    over 4 of the 8 kv heads, 24 of the 48 padded experts and half the
-    vocabulary.  The serve workload's first TP_REQUESTS requests for
+    """granite_moe_3b_a800m's first TP_MOE_DEPTH layers at full width
+    (bf16, random weights from the seed) at tp 2 on the card: a rank
+    holds 12 of the 24 heads over 4 of the 8 kv heads, 24 of the 48
+    padded experts and half the vocabulary.  The serve workload's first TP_REQUESTS requests for
     TP_NEW tokens through the Scheduler on a roomy PagedBackend of
     TP_MOE_SLOTS slots (chunk 256, speculate 4, prefix sharing) with one
     forced preemption: every rank's launches equal to the schedule, the
@@ -2641,7 +2661,7 @@ def phase_tp_moe(torch, smi):
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine, PagedBackend
     t_phase = time.perf_counter()
-    cfg = moe_config()
+    cfg = dataclasses.replace(moe_config(), num_layers=TP_MOE_DEPTH)
     requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
     blocks = 1 + TP_MOE_SLOTS * SERVE_MAX_LEN // SERVE_BLOCK
     t0 = time.perf_counter()
@@ -4922,6 +4942,362 @@ def phase_encdec_main_path(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel serving of the contractions and of the widths tp does
+# not divide (item 11b-ii): deepseek_v3_671b's MLA at tp 2, minicpm_2b at
+# tp 8 (heads and kv heads whole, K/V on head_dim), seamless_m4t_large_v2
+# at tp 2 through ``generate`` with its encoder's frames
+# ---------------------------------------------------------------------------
+
+#: minicpm_2b at tp 8: its 36 heads and 36 kv heads stay whole on every
+#: rank and K/V lie on head_dim (64 / 8 lanes a rank); depth cut from 40,
+#: the serve workload's first 2 requests
+TP_HD = 8
+TP_HD_DEPTH = 2
+TP_HD_REQUESTS = 2
+#: seamless_m4t_large_v2's depth (encoder and decoder) in tp_encdec's f32
+#: check (cut from 24 each)
+TP_ENCDEC_F32_DEPTH = 4
+
+
+def mla_tick_reduces(kind, ffn):
+    """Rank 0's all-reduces a decode tick of one deepseek layer at tp 2:
+    MLA's gather of every head's absorbed query, its scores (the lora
+    lanes' partials and the rope terms), its latent output's lanes and
+    the heads' output sum; a dense FFN's sum; a MoE FFN's router gather
+    and its experts' sum."""
+    return 4 + (ffn == "dense") + 2 * (ffn == "moe")
+
+
+def phase_tp_mla(torch, smi):
+    """deepseek's two layers at full width in bf16 (random weights from
+    the seed: each rank draws the unsharded model's leaves and keeps its
+    slice) at tp 2 on the card, ~14.7 GB a rank: a rank holds 64 of the
+    128 heads of ``wq_b``, ``wk_b``, ``wv_b`` and ``wo``, the latent
+    projections whole, half the dense FFN, 128 of the 256 experts and
+    half the vocabulary; its caches 256 of ``c_kv``'s 512 lora lanes and
+    8 of every 16-position block's ``k_rope`` offsets.  The serve
+    workload's first TP_REQUESTS requests for TP_NEW tokens through the
+    Scheduler on a roomy PagedBackend of TP_MOE_SLOTS slots (chunk 256,
+    speculate 4, prefix sharing; Hazard 7: a verify tick carries 10
+    tokens) with one forced preemption: every rank's launches equal to
+    the schedule (K1 alone: MLA attends in plain PyTorch), the tokens
+    bitwise each request served alone by the same engine
+    (``own_greedy``), rank 0's latents replayed bitwise, every MoE
+    call's pairs kept by the ranks' plans the unsharded plan's (drops
+    counted a call); a SlotBackend of as many slots gives the same
+    tokens.  Then the eager tick against the unsharded eager tick, and
+    the dense head layer alone in f32 at tp 2 against tp 1
+    (``tp_f32_check``).  Returns the launch counts of every rank."""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine, PagedBackend, SlotBackend
+    t_phase = time.perf_counter()
+    cfg = deepseek_config()
+    requests = serve_requests(cfg.vocab_size)[:TP_REQUESTS]
+    blocks = 1 + TP_MOE_SLOTS * SERVE_MAX_LEN // SERVE_BLOCK
+    t0 = time.perf_counter()
+    engine = tp_engine(torch, cfg, TP, SERVE_MAX_LEN)
+    start_s = time.perf_counter() - t0
+    forced = ForcedPreemption(torch, limit=1)
+    with RouteRecorder() as rec:
+        got, stats, counts, wall, per_rank, want = tp_serve(
+            torch, engine, cfg, requests, 0, "fused_flash_decode",
+            max_new=TP_NEW, hook=forced.install,
+            backend=lambda e: PagedBackend(e, TP_MOE_SLOTS,
+                                           num_blocks=blocks,
+                                           block_size=SERVE_BLOCK))
+    alone = own_greedy(torch, engine, requests, TP_NEW)
+    equal = bitwise_equal(got, alone)
+    served, _ = tp_moe_drops(torch, rec.calls, cfg,
+                             TP_MOE_SLOTS * (SERVE_SPEC + 1))
+    engine.rank_launches(reset=True)
+    slot, _, _, _ = serve(torch, engine, requests, 0, max_new=TP_NEW,
+                          backend=lambda e: SlotBackend(e, TP_MOE_SLOTS))
+    for c in engine.rank_launches():
+        add_counts(counts, c)
+    emit({"phase": "tp_mla", "arch": cfg.name, "tp": TP,
+          "layers": cfg.num_layers, "slots": TP_MOE_SLOTS,
+          "heads_per_rank": cfg.num_heads // TP,
+          "lora_lanes_per_rank": cfg.kv_lora_rank // TP,
+          "rope_offsets_per_block": SERVE_BLOCK // TP,
+          "experts_per_rank": moe_padded(cfg) // TP,
+          "cache_shards": engine.cache_shards(),
+          "engine_start_s": start_s, "seconds": wall,
+          "launches_per_rank": per_rank, "expected_launches": want,
+          "bitwise_equal_to_own_greedy": equal,
+          "slot_bitwise_equal_to_paged": bitwise_equal(slot, got),
+          "forced_preemptions": len(forced.streamed),
+          "victims_streamed_tokens": forced.streamed,
+          "replays_latents_bitwise_rank0": sum(forced.kv_equal),
+          "drops_served": served,
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "extend_prefills", "decode_steps",
+              "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+              "replayed_tokens", "replay_steps", "shared_block_hits",
+              "completed", "admit_seconds", "step_seconds")}})
+    check(stats["completed"] == len(requests) and stats["spec_steps"] > 0,
+          "tp_mla: the run did not complete or verify")
+    check(len(forced.streamed) == 1 and stats["replay_steps"] > 0
+          and forced.kv_equal == [True],
+          "tp_mla: the forced preemption did not replay bitwise")
+    check(served["ranks_keep_the_unsharded_pairs"],
+          "tp_mla: the ranks' plans keep other pairs than the unsharded "
+          "plan")
+    check(equal, "tp_mla: tokens differ from the engine's requests served "
+                 "alone")
+    check(bitwise_equal(slot, got), "tp_mla: slot and paged tokens are not "
+                                    "bitwise equal")
+    check(engine.cache_shards() == TP, "tp_mla: cache_shards is not tp")
+    plain = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    tp_tick_line("tp_mla_tick", tp_ticks(
+        torch, {"tp1_eager": plain, f"tp{TP}_eager": engine},
+        serve_requests(cfg.vocab_size)), smi, cfg, mla_tick_reduces)
+    engine.close()
+    del plain, engine, forced
+    free_card(torch)
+    # the dense head layer alone in f32 (~10 GB whole)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=1)
+    tp_f32_check(torch, "tp_mla_f32", cfg32, requests, SERVE_MAX_LEN,
+                 [p[:SERVE_CHUNK] for p in requests],
+                 {"num_blocks": ROOMY_BLOCKS, "max_new": TP_NEW},
+                 {"new": TP_NEW, "chunk": SERVE_CHUNK})
+    emit({"phase": "tp_mla_done", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def phase_tp_hd(torch, smi):
+    """minicpm_2b's first TP_HD_DEPTH layers at full width (bf16, random
+    weights from the seed) on TP_HD ranks of the card: the ranks do not
+    divide its 36 heads or 36 kv heads, so every rank holds ``wq``,
+    ``wk``, ``wv`` and ``wo`` whole and computes every head, while its
+    caches hold 8 of head_dim's 64 lanes; its FFN columns and vocabulary
+    rows are cut 8 ways.  Prefill and extend run K3 over every head and
+    store the rank's lanes; decode and verify run the plain attention of
+    the head_dim arm (partial scores summed over the ranks, the value
+    contraction local, the output's lanes through their rows of ``wo``):
+    K2 and K4 are not launched.  The serve workload's first
+    TP_HD_REQUESTS requests for TP_NEW tokens through the Scheduler on a
+    PagedBackend
+    (chunk 256, speculate 4, prefix sharing) with one forced preemption:
+    every rank's launches equal to the schedule with no decode kernel,
+    the tokens bitwise each request served alone (``own_greedy``), rank
+    0's lanes of the victim's K/V replayed bitwise.  Then the eager tick
+    against the unsharded eager tick.  The 7 worker ranks start for this
+    phase and stop after it.  Returns the launch counts of every rank."""
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    from repro_torch.sharding.group import WorkerPool
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(minicpm_config(), num_layers=TP_HD_DEPTH)
+    check(cfg.num_heads % TP_HD and cfg.num_kv_heads % TP_HD
+          and cfg.head_dim % TP_HD == 0,
+          "tp_hd: minicpm_2b's heads no longer leave K/V on head_dim")
+    requests = serve_requests(cfg.vocab_size)[:TP_HD_REQUESTS]
+    blocks = 1 + SERVE_SLOTS * SERVE_MAX_LEN // SERVE_BLOCK
+    pool = WorkerPool()
+    t0 = time.perf_counter()
+    engine = tp_engine(torch, cfg, TP_HD, SERVE_MAX_LEN, pool=pool)
+    start_s = time.perf_counter() - t0
+    forced = ForcedPreemption(torch, limit=1)
+    got, stats, counts, wall, per_rank, want = tp_serve(
+        torch, engine, cfg, requests, blocks, None, max_new=TP_NEW,
+        hook=forced.install)
+    equal = bitwise_equal(got, own_greedy(torch, engine, requests, TP_NEW))
+    emit({"phase": "tp_hd", "arch": cfg.name, "tp": TP_HD,
+          "layers": cfg.num_layers, "heads_per_rank": cfg.num_heads,
+          "kv_heads_per_rank": cfg.num_kv_heads,
+          "head_dim_lanes_per_rank": cfg.head_dim // TP_HD,
+          "cache_shards": engine.cache_shards(),
+          "engine_start_s": start_s, "seconds": wall,
+          "launches_per_rank": per_rank, "expected_launches": want,
+          "bitwise_equal_to_own_greedy": equal,
+          "forced_preemptions": len(forced.streamed),
+          "victims_streamed_tokens": forced.streamed,
+          "replays_kv_bitwise_rank0": sum(forced.kv_equal),
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "extend_prefills", "decode_steps",
+              "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+              "replayed_tokens", "replay_steps", "shared_block_hits",
+              "completed", "admit_seconds", "step_seconds")}})
+    check(stats["completed"] == len(requests) and stats["spec_steps"] > 0,
+          "tp_hd: the run did not complete or verify")
+    check(len(forced.streamed) == 1 and stats["replay_steps"] > 0
+          and forced.kv_equal == [True],
+          "tp_hd: the forced preemption did not replay bitwise")
+    check(equal, "tp_hd: tokens differ from the engine's requests served "
+                 "alone")
+    check(engine.cache_shards() == TP_HD, "tp_hd: cache_shards is not tp")
+    plain = LLMEngine(cfg, max_len=SERVE_MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    # a layer: the head_dim arm's scores and its lanes' output sum, and
+    # the FFN's sum
+    tp_tick_line("tp_hd_tick", tp_ticks(
+        torch, {"tp1_eager": plain, f"tp{TP_HD}_eager": engine},
+        serve_requests(cfg.vocab_size)), smi, cfg, lambda k, f: 3)
+    engine.close()
+    pool.close()
+    del plain, engine, forced
+    free_card(torch)
+    emit({"phase": "tp_hd_done", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def greedy_gaps(torch, engine, toks, enc, steps):
+    """An unsharded engine's greedy tokens over ``toks`` [B, S] with the
+    encoder's frames ``enc``, and each step's logits: its prefill with
+    ``enc_embeds``, then ``steps - 1`` decode steps."""
+    x = torch.as_tensor(toks, device=engine.device).long()
+    e = torch.as_tensor(enc, device=engine.device)
+    logits, cache = engine.model.prefill(x, MAX_LEN, flags=engine.flags,
+                                         enc_embeds=e)
+    out, lg = [], []
+    for i in range(steps):
+        lg.append(logits[:, :engine.cfg.vocab_size].float())
+        tok = torch.argmax(lg[-1], -1)
+        out.append(tok)
+        if i + 1 < steps:
+            pos = torch.full((x.shape[0],), x.shape[1] + i,
+                             dtype=torch.int32, device=engine.device)
+            logits, cache = engine.model.decode_step(tok[:, None], cache,
+                                                     pos, flags=engine.flags)
+    return torch.stack(out, 1).cpu().numpy(), lg
+
+
+def phase_tp_encdec(torch, smi):
+    """seamless_m4t_large_v2 at full width and depth (bf16, random
+    weights from the seed) at tp 2 on the card: a rank holds 8 of the
+    16 heads and kv heads of every encoder, decoder and cross attention,
+    half of each FFN and of the vocabulary, and its cross caches 8 kv
+    heads of the 256 frames.  ``generate`` over encdec_main_path's 256
+    stub frames and 16-token prompt for STUB_STEPS tokens: every rank's
+    launches (K1 at every norm, K3 at each decoder layer's prefill, K2
+    at each decode step's) held to the schedule, each row's tokens
+    bitwise that row generated alone; the eager decode step's host ms
+    and all-reduces.  Then TP_ENCDEC_F32_DEPTH encoder and decoder
+    layers in f32 at tp 2 against tp 1: tokens equal where tp 1's top-2
+    gap is wide, first-step logits within F32_MODEL_TOL or no further
+    from an f64 run than tp 1 sits.  Returns the launch counts of every
+    rank."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine
+    t_phase = time.perf_counter()
+    cfg = encdec_config()
+    toks, embeds = stub_inputs(torch, cfg)
+    enc = embeds["enc_embeds"].cpu().numpy()
+    engine = tp_engine(torch, cfg, TP, MAX_LEN)
+    engine.rank_launches(reset=True)
+    coll = engine.collectives
+    c0 = coll.reduce_calls
+    t0 = time.perf_counter()
+    got = engine.generate(toks, STUB_STEPS, enc_embeds=enc)
+    gen_s = time.perf_counter() - t0
+    reduces = coll.reduce_calls - c0
+    per_rank = engine.rank_launches(reset=True)
+    alone = np.concatenate([engine.generate(toks[b:b + 1], STUB_STEPS,
+                                            enc_embeds=enc[b:b + 1])
+                            for b in range(toks.shape[0])])
+    counts = {}
+    for c in per_rank + engine.rank_launches():
+        add_counts(counts, c)
+    norms, attn = schedule(cfg)
+    step_norms = norms + cfg.num_layers
+    want = stub_launches(attn, 2 * cfg.num_encoder_layers + 1 + step_norms,
+                         step_norms, STUB_STEPS - 1)
+    # a decode step: the embedding, each decoder layer's self attention,
+    # cross attention and FFN, the logits
+    want_reduces = (2 + 2 * cfg.num_encoder_layers + 3 * cfg.num_layers
+                    + (STUB_STEPS - 1) * (2 + 3 * cfg.num_layers))
+    emit({"phase": "tp_encdec", "arch": cfg.name, "tp": TP,
+          "heads_per_rank": cfg.num_heads // TP,
+          "kv_heads_per_rank": cfg.num_kv_heads // TP,
+          "encoder_frames": ENC_FRAMES, "prompt": list(toks.shape),
+          "new_tokens": STUB_STEPS, "generate_seconds": gen_s,
+          "all_reduces": reduces, "expected_all_reduces": want_reduces,
+          "launches_per_rank": per_rank,
+          "expected_launches": want, "tokens": got.tolist(),
+          "rows_bitwise_alone": bool(np.array_equal(got, alone)),
+          "cache_shards": engine.cache_shards(), "nvidia_smi": smi})
+    check(all(c == want for c in per_rank),
+          f"tp_encdec: a rank's launches {per_rank} != {want}")
+    check(np.array_equal(got, alone), "tp_encdec: a row's tokens differ "
+                                      "from the row generated alone")
+    check(reduces == want_reduces, f"tp_encdec: {reduces} all-reduces, "
+                                   f"not {want_reduces}")
+    # the eager decode step against the unsharded eager step: lockstep
+    # decode of the two rows after their prefill
+    plain = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    ticks = {}
+    for name, e in (("tp1_eager", plain), (f"tp{TP}_eager", engine)):
+        c = e.collectives
+        r0 = (c.reduce_calls, c.reduce_s) if c else (0, 0.0)
+        t0 = time.perf_counter()
+        e.generate(toks, 2 * STUB_STEPS, enc_embeds=enc)
+        dt = time.perf_counter() - t0
+        ticks[name] = {"generate_ms": dt * 1e3,
+                       "new_tokens": 2 * STUB_STEPS}
+        if c:
+            ticks[name].update({"all_reduces": c.reduce_calls - r0[0],
+                                "all_reduce_ms": (c.reduce_s - r0[1]) * 1e3,
+                                "all_reduce_share": (c.reduce_s - r0[1])
+                                / dt})
+    emit({"phase": "tp_encdec_tick", "nvidia_smi": smi, **ticks})
+    engine.close()
+    del plain, engine
+    free_card(torch)
+
+    # ---- f32 at a cut depth: tp 2 against tp 1 ---------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=TP_ENCDEC_F32_DEPTH,
+                                num_encoder_layers=TP_ENCDEC_F32_DEPTH)
+    one = LLMEngine(cfg32, max_len=MAX_LEN, seed=SEED)
+    tp = tp_engine(torch, cfg32, TP, MAX_LEN)
+    want_tok, lg = greedy_gaps(torch, one, toks, enc, STUB_STEPS)
+    got32 = tp.generate(toks, STUB_STEPS, enc_embeds=enc)
+    compared = mismatches = 0
+    for b in range(toks.shape[0]):
+        for i in range(STUB_STEPS):
+            top2 = torch.topk(lg[i][b], 2).values
+            if float(top2[0] - top2[1]) < TOP2_GAP:
+                break
+            compared += 1
+            if got32[b, i] != want_tok[b, i]:
+                mismatches += 1
+                break
+    w32 = dict(one.model.named_parameters())
+    cfg64 = dataclasses.replace(cfg32, dtype="float64")
+    x64 = LLMEngine(cfg64, {k: v.double() for k, v in w32.items()},
+                    max_len=MAX_LEN, flags=RuntimeFlags(**PLAIN_FLAGS))
+    V = cfg.vocab_size
+    lg1 = one.prefill_logits(toks, enc_embeds=enc)[:, :V]
+    lg2 = tp.prefill_logits(toks, enc_embeds=enc)[:, :V]
+    lg64 = x64.prefill_logits(toks, enc_embeds=enc)[:, :V]
+    err = float(np.abs(lg2 - lg1).max())
+    floor = float(np.abs(lg1 - lg64).max())
+    far = float(np.abs(lg2 - lg64).max())
+    limit = max(F32_MODEL_TOL, floor)
+    emit({"phase": "tp_encdec_f32", "tp": TP,
+          "depth": [cfg32.num_encoder_layers, cfg32.num_layers],
+          "tokens_compared": compared, "mismatches": mismatches,
+          "top2_gap": TOP2_GAP, "logits_tp2_vs_tp1": err,
+          "tp2_vs_f64": far, "tp1_vs_f64": floor, "limit": limit,
+          "logit_scale": float(np.abs(lg64).max())})
+    check(compared > 0 and mismatches == 0,
+          "tp_encdec f32: a tp 2 token differs from tp 1's greedy where the "
+          "top-2 gap is wide")
+    check(err <= F32_MODEL_TOL or far <= limit,
+          f"tp_encdec f32: logits {err} from tp 1's and {far} from the f64 "
+          f"run, beyond {limit}")
+    tp.close()
+    del one, tp, x64, w32
+    free_card(torch)
+    emit({"phase": "tp_encdec_done",
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # training: minicpm_2b at full width and depth, xlstm_1_3b at full width
 # and depth, jamba_1_5_large_398b's first two layers at full width
 # ---------------------------------------------------------------------------
@@ -5913,7 +6289,9 @@ def phase_times(torch):
                         (TP_HEADS[0], (300, 520, 700, 930)),
                         (TP_HEADS[2], (4096,) * 4),
                         (TP_HEADS[3], (300, 520, 700, 930)),
-                        (TP_HEADS[4], (300, 520, 700, 930))):
+                        (TP_HEADS[4], (300, 520, 700, 930)),
+                        # tp_encdec's decode steps: 16 + 8 keys a row
+                        (TP_HEADS[5], (STUB_TOKENS + STUB_STEPS,) * 2)):
         # one rank's heads at S' = 1 only (the run's budget)
         for Sq in (1,) if shape in TP_HEADS else (1, SERVE_SPEC + 1):
             timed = time_paged_kernels(torch, g, shape, keys, Sq)
@@ -6145,8 +6523,8 @@ def main() -> int:
                            "serve_preempt_decode": preempt_tokens["default"]},
                    smi)
     # tensor-parallel serving on the one card, with the engines freed:
-    # minicpm_2b at tp 2 (full depth, bf16; 8 layers in f32), then
-    # granite_moe_3b_a800m (full depth), jamba's first two layers and
+    # minicpm_2b at tp 2 (20 layers, bf16; 8 layers in f32), then
+    # granite_moe_3b_a800m (16 layers), jamba's first two layers and
     # xlstm_1_3b's first layer group at tp 2 (granite's and xlstm's
     # first 8 layers in f32), then qwen3_32b's first two layers at tp 2
     # and tp 4; a mesh's worker processes start once (TP_POOL)
@@ -6161,6 +6539,9 @@ def main() -> int:
     tp_counts.append(phase_tp_state(torch, smi))
     phase_tp_mixers_f32(torch)
     tp_counts.append(phase_tp_gqa(torch, smi))
+    # minicpm_2b at tp 8: K/V on head_dim (item 11b-ii); its 7 workers
+    # start and stop in the phase
+    tp_counts.append(phase_tp_hd(torch, smi))
     TP_POOL.close()
     free_card(torch)
     # granite_moe_3b_a800m
@@ -6193,12 +6574,19 @@ def main() -> int:
     free_card(torch)
     ds_counts.append(phase_mla_serve(torch, smi))
     free_card(torch)
+    # deepseek_v3 and seamless at tp 2 (item 11b-ii) share one worker
+    TP_POOL = WorkerPool()
+    tp_counts.append(phase_tp_mla(torch, smi))
+    free_card(torch)
     # the modality stubs at full width and depth: phi_3_vision_4_2b (patch
     # embeddings before the prompt) and seamless_m4t_large_v2 (the
     # encoder-decoder)
     stub_counts = [phase_vlm_main_path(torch)]
     stub_counts.append(phase_vlm_serve(torch, smi))
     stub_counts.append(phase_encdec_main_path(torch, smi))
+    tp_counts.append(phase_tp_encdec(torch, smi))
+    TP_POOL.close()
+    free_card(torch)
     # training: minicpm_2b at full width and depth, xlstm_1_3b at full
     # width and depth, jamba's first two layers at full width
     train_counts = [phase_train_main_path(torch, smi),

@@ -11,6 +11,17 @@ paged-attention op (K5, ``use_paged_kernel``).  With a kernel flag
 turned off the plain version runs instead, on any device.  Caches are
 written in place.
 
+On a tensor-parallel rank K/V lie on the rank's kv heads, or, where the
+ranks do not divide them, on its lanes of head_dim, or else on its
+positions (:func:`kv_arm`, the rules' ``_kv_cache_axes``).  The query
+heads and ``wo`` are the rank's where the ranks divide the heads, else
+whole.  Prefill and extend compute K/V whole (``wk``/``wv`` are whole
+off the kv-heads arm), attend through K3 on the rank's heads over the
+whole K/V (an extend gathers its prefix whole first) and store the
+rank's slice.  Decode and verify windows on the head_dim and sequence
+arms run the plain attention of :func:`tp_decode`, as JAX runs its
+``_decode_attention_hd_sharded``: K2/K4 fuse only on the kv-heads arm.
+
 The full-sequence arm without a cache (``attention_forward``, the
 training ``forward``'s) dispatches as the JAX ``_seq_attention`` does:
 ``"flash"`` through the flash-attention op (K3, no backward: it runs
@@ -21,17 +32,20 @@ whole sequence.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..kernels import ops
 from ..kernels.ref import (NEG_INF, flash_attention_ref,
-                           fused_flash_decode_ref, gathered_attention, upcast)
+                           fused_flash_decode_ref, gathered_attention,
+                           heads_major, keys_t, two_rows, upcast, values)
+from ..sharding.group import (own_range, placed, rank_block,
+                              tp_reduce_parts)
 from . import paging
 from .chunked_attention import chunked_attention
 from .config import ArchConfig
-from .layers import apply_rope, linear, rms_norm
+from .layers import apply_rope, each_row, linear, rms_norm
 from .params import ParamSpec, Template
 
 
@@ -151,15 +165,17 @@ def prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
                        flags) -> torch.Tensor:
     """Run causal attention over the prompt and write its rotated K and
     its V into positions ``[0, S)`` of ``cache`` ([B, max_len, KV, hd],
-    zero beyond) **in place**.  Returns the attention block's output."""
+    zero beyond; a rank's slice of it) **in place**.  Returns the
+    attention block's output (a rank's part of it, :func:`partial`)."""
     q, k, v = _qkv(params, cfg, x, positions)
     attend = ops.flash_attention if flags.use_flash else flash_attention_ref
-    out = attend(q, k, v, causal=True,
-                 window=cfg.sliding_window)
-    S = x.shape[1]
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
-    return _out_proj(out, params["wo"])
+    arm = kv_arm(cfg, flags.tp)
+    h0 = rank_head0(params, cfg, flags.tp)
+    kh, vh = kv_for_heads(k, v, cfg, h0, q.shape[2])
+    out = attend(q, kh, vh, causal=True, window=cfg.sliding_window)
+    for key, a in (("k", k), ("v", v)):
+        store_rows(cache[key], a, 0, arm, flags.tp)
+    return tp_out_proj(out, params, cfg, arm, flags.tp, h0)
 
 
 def fused_slot_decode(params, cfg: ArchConfig, x: torch.Tensor,
@@ -246,17 +262,295 @@ def prefill_extend_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
 
     x: [B, S'] suffix hidden states at positions ``prefix_len ..
     prefix_len + S' - 1``; prefix_kv: k/v of positions ``0 ..
-    prefix_len - 1`` gathered from the cache.  The suffix queries attend
+    prefix_len - 1`` gathered from the cache (whole, on a rank whose
+    K/V are cut on head_dim or the sequence).  The suffix queries attend
     over prefix ++ suffix through the flash op at ``q_offset =
     prefix_len`` (K3), or its plain version when ``use_flash`` is off;
     both partition the keys at absolute multiples of 128, so the suffix
     rows — and the first generated token — are bitwise equal to a cold
     prefill of the whole prompt.  Returns (the attention block's output,
-    the suffix's rotated K and its V, [B, S', KV, hd])."""
+    the suffix's rotated K and its V, [B, S', KV, hd]: on the head_dim
+    arm the rank's lanes, on the sequence arm every position)."""
     q, k, v = _qkv(params, cfg, x, positions)
     k_full = torch.cat([prefix_kv["k"].to(k.dtype), k], dim=1)
     v_full = torch.cat([prefix_kv["v"].to(v.dtype), v], dim=1)
     attend = ops.flash_attention if flags.use_flash else flash_attention_ref
+    arm = kv_arm(cfg, flags.tp)
+    h0 = rank_head0(params, cfg, flags.tp)
+    k_full, v_full = kv_for_heads(k_full, v_full, cfg, h0, q.shape[2])
     out = attend(q, k_full, v_full, causal=True, window=cfg.sliding_window,
                  q_offset=prefix_len)
-    return _out_proj(out, params["wo"]), {"k": k, "v": v}
+    if arm == "head_dim":
+        lanes = rank_block(cfg.head_dim, flags.tp)
+        k, v = k[..., lanes], v[..., lanes]
+    return tp_out_proj(out, params, cfg, arm, flags.tp, h0), \
+        {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# a tensor-parallel rank: K/V on kv heads, on head_dim or on the sequence
+# ---------------------------------------------------------------------------
+
+def kv_arm(cfg: ArchConfig, tp) -> str:
+    """Where a rank's slice of K/V lies, in the order of the rules'
+    ``_kv_cache_axes``: ``"heads"`` (its kv heads), ``"head_dim"`` (its
+    lanes of every kv head), ``"seq"`` (its positions: a contiguous range
+    of a slot row, its offsets of every block of a paged arena); off a
+    mesh ``"whole"``."""
+    if tp is None:
+        return "whole"
+    if cfg.num_kv_heads % tp.size == 0:
+        return "heads"
+    if cfg.head_dim % tp.size == 0:
+        return "head_dim"
+    return "seq"
+
+
+def partial(params, cfg: ArchConfig, tp) -> bool:
+    """Whether a rank's attention output is its part of a sum over the
+    ranks: its heads (``wo`` cut), or, with the heads whole on the
+    head_dim arm, its lanes of every head through their rows of ``wo``.
+    Otherwise it is the whole output on every rank."""
+    return tp is not None and (params["wo"].shape[0] < cfg.num_heads
+                               or kv_arm(cfg, tp) == "head_dim")
+
+
+def rank_head0(params, cfg: ArchConfig, tp) -> int:
+    """The first of the query heads a rank computes (``wq``'s heads)."""
+    H_l = params["wq"].shape[1]
+    return 0 if tp is None or H_l == cfg.num_heads else tp.rank * H_l
+
+
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, h0: int,
+                 H_l: int):
+    """Whole K/V [B, T, KV, hd] narrowed to the kv heads of the ``H_l``
+    query heads from ``h0``: their groups where the heads cover whole
+    groups, else one kv head a query head.  Untouched where the heads
+    are whole, or the K/V already the rank's kv heads."""
+    KV = k.shape[2]
+    if H_l == cfg.num_heads or KV < cfg.num_kv_heads:
+        return k, v
+    G = cfg.num_heads // KV
+    if H_l % G == 0:
+        sl = slice(h0 // G, (h0 + H_l) // G)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(h0, h0 + H_l, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
+def all_heads(x: torch.Tensor, num_heads: int, h0: int, tp) -> torch.Tensor:
+    """``x`` [B, S, H_l, ...] of the rank's heads from ``h0`` as every
+    head's [B, S, H, ...] (one exact all-reduce); as it is when whole."""
+    if x.shape[2] == num_heads:
+        return x
+    idx = torch.arange(h0, h0 + x.shape[2], device=x.device)
+    return tp_reduce_parts([placed(x, 2, idx, num_heads)], tp)[0]
+
+
+def tp_out_proj(out: torch.Tensor, params, cfg: ArchConfig, arm: str, tp,
+                h0: int) -> torch.Tensor:
+    """The output projection of ``out`` [B, S, H', hd'] (the rank's heads
+    or every head; every lane, or the rank's lanes on the head_dim arm)
+    on the rank's ``wo``: its heads' part of the sum, or with the heads
+    whole its lanes' part on the head_dim arm (:func:`partial`), or the
+    whole output."""
+    wo = params["wo"]
+    H_l, hd = wo.shape[0], wo.shape[1]
+    if arm == "head_dim" and H_l == cfg.num_heads:
+        lanes = rank_block(hd, tp)
+        if out.shape[-1] == hd:
+            out = out[..., lanes]
+        return _out_proj(out, wo[:, lanes])
+    if out.shape[-1] < hd:                       # lanes: gather them whole
+        out = tp_reduce_parts([placed(out, 3, own_range(
+            out.shape[-1], tp, out.device), hd)], tp)[0]
+    if out.shape[2] > H_l:
+        out = out[:, :, h0:h0 + H_l]
+    return _out_proj(out, wo)
+
+
+def rank_slice(a: torch.Tensor, arm: str, tp) -> torch.Tensor:
+    """A rank's slice of whole K/V [..., T, KV, hd] on ``arm``: its lanes
+    (head_dim) or its contiguous range of the T positions (seq); as it
+    is on the kv-heads arm (computed with the rank's ``wk``/``wv``)."""
+    if arm == "head_dim":
+        return a[..., rank_block(a.shape[-1], tp)]
+    if arm == "seq":
+        n = a.shape[-3] // tp.size
+        return a.narrow(-3, tp.rank * n, n)
+    return a
+
+
+def store_rows(leaf: torch.Tensor, new: torch.Tensor, offset: int, arm: str,
+               tp) -> None:
+    """Write whole K/V rows ``new`` [B, S, KV, hd] at positions ``offset
+    ..`` of slot rows ``leaf`` [B, M', KV, hd'] (a rank's slice), in
+    place: the rank's lanes, or on the sequence arm the positions of its
+    contiguous range ``[r M', (r + 1) M')``."""
+    S = new.shape[1]
+    if arm == "head_dim":
+        new = new[..., rank_block(new.shape[-1], tp)]
+    if arm != "seq":
+        leaf[:, offset:offset + S] = new
+        return
+    M = leaf.shape[1]
+    lo = max(offset, tp.rank * M)
+    hi = min(offset + S, (tp.rank + 1) * M)
+    if hi > lo:
+        leaf[:, lo - tp.rank * M:hi - tp.rank * M] = new[:, lo - offset:
+                                                         hi - offset]
+
+
+def write_window(leaves, news, tables: torch.Tensor, pos_s: torch.Tensor,
+                 block: int, seq_tp=None) -> None:
+    """Write a decode or verify window's entries ``news`` ([B, S', ...]
+    each) into ``leaves`` ([NB, block', ...] arenas reached through
+    ``tables`` [B, P], blocks of ``block`` positions) at ``pos_s`` [B,
+    S'], in place, one window position at a time (no index repeats
+    within a write).  Positions at or past the table's end are not
+    written.  With ``seq_tp`` the arenas hold the rank's offsets of
+    every block, ``block' = block / tp``, and only the rank's positions
+    are written; a position not written writes back what its place
+    holds."""
+    T = tables.shape[1] * block
+    loc = leaves[0].shape[1]
+    tables = tables.long()
+    for s in range(pos_s.shape[1]):
+        g = pos_s[:, s]
+        gc = g.clamp(max=T - 1)
+        blk = torch.gather(tables, 1, (gc // block)[:, None])[:, 0]
+        off = gc % block
+        own = g < T
+        if seq_tp is not None:
+            own = own & (off // loc == seq_tp.rank)
+            off = (off - seq_tp.rank * loc).clamp(0, loc - 1)
+        for leaf, new in zip(leaves, news):
+            cur = leaf[blk, off]
+            keep = own.view((-1,) + (1,) * (cur.dim() - 1))
+            leaf[blk, off] = torch.where(keep, new[:, s].to(leaf.dtype), cur)
+
+
+def _row_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for [B, n, M, K] and [B, n, K, N], one row at a time
+    (``each_row``): a row's product has a batch of one's shapes, so its
+    bits do not follow the batch it rides in."""
+    return each_row(lambda x, y: torch.bmm(x[0], y[0])[None], a, b)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[B, KV, G, S, T] products of q [B, S, H, d] and k [B, T, KV, d],
+    in k's dtype, before the scale."""
+    B, S, H, d = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb = heads_major(q.to(k.dtype).reshape(B, S, KV, G, d))
+    s = _row_bmm(qb.view(B, KV, G * S, d), keys_t(k).view(B, KV, d, T))
+    return s.view(B, KV, G, S, T)
+
+
+def _weighted(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, KV, G, S, d] sums of probabilities p [B, KV, G, S, T] over
+    values v [B, T, KV, d]."""
+    B, KV, G, S, T = p.shape
+    d = v.shape[-1]
+    o = _row_bmm(p.reshape(B, KV, G * S, T), values(v).view(B, KV, T, d))
+    return o.view(B, KV, G, S, d)
+
+
+def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos_s: torch.Tensor, head_dim: int, arm: str, tp,
+                      gpos: Optional[torch.Tensor] = None,
+                      total: int = 0) -> torch.Tensor:
+    """Decode attention of every query head q [B, S', H, hd] (rotated)
+    over a rank's slice of the position-ordered K/V [B, T', KV, .],
+    query ``s`` of row ``b`` over positions ``<= pos_s[b, s]``, in f32:
+
+    * ``head_dim``: k and v are the rank's lanes, and so is q from here
+      on.  The partial scores
+      are summed over the ranks in f32 (one all-reduce of the small
+      [B, KV, G, S', T] tensor), the softmax sees whole scores, the value
+      contraction stays local: returns the rank's lanes of the output;
+    * ``seq``: k and v hold the rank's positions ``gpos`` [T'] of
+      ``total``.  The rank's scores are gathered into the whole row (an
+      exact all-reduce) for one softmax, each rank weighs its own values
+      and the parts are summed (one all-reduce): returns the whole
+      output.
+
+    The JAX ``_decode_attention_hd_sharded`` for the first; its
+    arithmetic is ``ref.gathered_attention``'s with the sums split.
+    Returns [B, S', H, .] unrounded."""
+    if arm == "head_dim":
+        q = q[..., rank_block(head_dim, tp)]
+    B, Sq, H, _ = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    one = Sq * G == 1
+    qf = upcast(two_rows(q, 1) if one else q)
+    pos_s = two_rows(pos_s, 1) if one else pos_s
+    kf, vf = upcast(k), upcast(v)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(head_dim), dtype=kf.dtype))
+    s = _scores(qf, kf)
+    if arm == "head_dim":
+        s = tp.all_reduce(s) * scale
+        idx = torch.arange(s.shape[-1], device=q.device)
+    else:
+        s = tp_reduce_parts([placed(s * scale, 4, gpos, total)], tp)[0]
+        idx = torch.arange(total, device=q.device)
+    valid = idx[None, None, :] <= pos_s.long()[:, :, None]   # [B, S', T]
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if arm == "head_dim":
+        o = _weighted(p, vf)
+    else:
+        o = tp.all_reduce(_weighted(p.index_select(-1, gpos), vf))
+    o = o / p.sum(dim=-1)[..., None]
+    Sp = qf.shape[1]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sp, H, -1)[:, :Sq]
+
+
+def seq_positions(tables: torch.Tensor, loc: int, block: int,
+                  tp) -> torch.Tensor:
+    """The absolute positions [P * loc] of a sequence-arm rank's gathered
+    pages (``paging.gather_pages`` of arenas holding the rank's ``loc``
+    offsets of every block of ``block``)."""
+    P = tables.shape[1]
+    page = torch.arange(P, device=tables.device)[:, None] * block
+    off = own_range(loc, tp, tables.device)[None, :]
+    return (page + off).reshape(-1)
+
+
+def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
+              cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+              tables: Optional[torch.Tensor], flags) -> torch.Tensor:
+    """Decode (S' = 1) or verify (S' > 1) a window on a rank whose K/V
+    are cut on head_dim or on the sequence (:func:`kv_arm`), on slot
+    rows (``tables`` None: each row one block of ``max_len``) or a paged
+    arena: the window's rotated K/V land in the rank's slice **in
+    place** (:func:`write_window`), the rank's query heads are gathered
+    into every head's (one all-reduce where they are cut), and every
+    query attends over the rank's slice (:func:`sharded_attention`).
+    Returns the rank's part of the block's output, or the whole
+    (:func:`partial`)."""
+    tp = flags.tp
+    arm = kv_arm(cfg, tp)
+    B, S_q = x.shape[:2]
+    pos_s = pos.long()[:, None] + torch.arange(S_q, device=x.device)
+    q, k, v = _qkv(params, cfg, x, pos_s)
+    if tables is None:
+        tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    loc = cache["k"].shape[1]
+    block = loc * tp.size if arm == "seq" else loc
+    if arm == "head_dim":
+        lanes = rank_block(cfg.head_dim, tp)
+        k, v = k[..., lanes], v[..., lanes]
+    write_window((cache["k"], cache["v"]), (k, v), tables, pos_s, block,
+                 tp if arm == "seq" else None)
+    k_seq = paging.gather_pages(cache["k"], tables)
+    v_seq = paging.gather_pages(cache["v"], tables)
+    h0 = rank_head0(params, cfg, tp)
+    q = all_heads(q, cfg.num_heads, h0, tp)
+    out = sharded_attention(q, k_seq, v_seq, pos_s, cfg.head_dim, arm, tp,
+                            seq_positions(tables, loc, block, tp),
+                            tables.shape[1] * block)
+    return tp_out_proj(out.to(x.dtype), params, cfg, arm, tp, h0)

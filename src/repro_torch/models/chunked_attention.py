@@ -14,7 +14,10 @@ blocks of ``kv_chunk`` at absolute multiples of it (the last padded with
 masked zeros), so a query row's arithmetic depends on its absolute
 position alone, never on ``T``, ``q_offset`` or the number of query
 rows; a suffix's rows at ``q_offset`` are bitwise the full prefill's.
-A single query row is multiplied as two (``two_rows``).
+A single query row is multiplied as two (``two_rows``).  On a
+tensor-parallel rank (``layers.rows_padded``) the batch's rows attend
+one at a time (``layers.each_row``): at one rank's heads the card's
+batched products round a row apart by the batch beside it.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from ..kernels.ref import NEG_INF, heads_major, keys_t, two_rows, upcast, \
     values
+from .layers import each_row, products_padded
 
 #: keys per block: K3's absolute key block
 KV_CHUNK = 128
@@ -37,6 +41,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sits at absolute position ``q_offset + s``; the scale is
     ``1/sqrt(hd)``.  Computes in f32 (f64 for f64 inputs); blocks past
     the last query's position are skipped under ``causal``."""
+    if q.shape[0] > 1 and products_padded():
+        return each_row(lambda a, b, c: chunked_attention(
+            a, b, c, causal=causal, window=window, q_offset=q_offset,
+            kv_chunk=kv_chunk), q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     vd = v.shape[-1]

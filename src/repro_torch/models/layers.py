@@ -24,12 +24,12 @@ from .params import ParamSpec, Template
 ROW_BLOCK = 32
 
 #: set (``rows_padded``): a product of fewer than ROW_BLOCK rows runs as
-#: one of ROW_BLOCK rows
+#: one of ROW_BLOCK rows; ``"all"``: every product runs in such blocks
 _ROWS_PADDED = contextvars.ContextVar("rows_padded", default=False)
 
 
 @contextlib.contextmanager
-def rows_padded(on: bool = True):
+def rows_padded(on=True):
     """In the block (this thread's context only), every ``linear`` of
     fewer than ROW_BLOCK rows runs on the card as one product of
     ROW_BLOCK rows, the rows padded with zeros, so that a decode tick's
@@ -38,12 +38,20 @@ def rows_padded(on: bool = True):
     in bf16 (qwen3_32b's q product at tp 2 and its gate/up at tp 4 round
     rows 1-8 apart from 16's: ``chip_smoke.py`` phase ``gemm_width``,
     ROADMAP Hazard 4).  Prefill chunks keep their row counts, the same in
-    a served run and in its reference."""
+    a served run and in its reference.  ``on="all"`` runs every product
+    in blocks of ROW_BLOCK rows, as ``blocked`` does: a rank's encoder
+    over a batch's frames (``generate``) then rounds each row as
+    alone."""
     token = _ROWS_PADDED.set(on)
     try:
         yield
     finally:
         _ROWS_PADDED.reset(token)
+
+
+def products_padded() -> bool:
+    """Whether this context is in a ``rows_padded`` block."""
+    return bool(_ROWS_PADDED.get())
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -70,7 +78,8 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     K, N = w.shape
     rows = x.reshape(-1, K)
     M = rows.shape[0]
-    blocked = blocked or (M < ROW_BLOCK and _ROWS_PADDED.get())
+    padded = _ROWS_PADDED.get()
+    blocked = blocked or padded == "all" or (M < ROW_BLOCK and padded)
     if rows.device.type == "cpu":
         y = (two_rows(rows, 0) @ w)[:1] if M == 1 else rows @ w
     elif not blocked:

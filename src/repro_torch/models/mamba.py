@@ -29,7 +29,7 @@ from ..kernels.ref import upcast
 from .config import ArchConfig
 from .layers import each_row, linear, remat, softplus
 from .params import DTYPES, ParamSpec, Template
-from ..sharding.group import tp_reduce_parts
+from ..sharding.group import cut, tp_reduce_parts
 
 State = Dict[str, torch.Tensor]
 
@@ -118,7 +118,9 @@ def _mamba_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
     ``_mamba_seq``).  Returns (y [B, L, d], final state).  On a
     tensor-parallel rank the weights, the state and y's ``out_proj``
     product are the rank's channels of ``d_inner`` (the caller sums y
-    over the ranks)."""
+    over the ranks); a d_inner the ranks do not divide is left whole,
+    and the window runs whole on every rank."""
+    tp = cut(tp, params["in_proj"].shape[-1], 2 * cfg.d_inner)
     xz = linear(x, params["in_proj"], blocked=True)
     x_in, z = xz.split(xz.shape[-1] // 2, dim=-1)
     xc = F.silu(_causal_conv(params, x_in, state["conv"]).float()

@@ -1,6 +1,6 @@
 """Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437): the port
 of the JAX package's ``models/mla.py`` (its sequence-parallel prefill is
-ROADMAP Queue 1 item 11c, MLA on a serving mesh item 11b-ii).
+ROADMAP Queue 1 item 11c).
 
 Keys and values are compressed into a latent ``c_kv`` (rank
 ``kv_lora_rank``) plus one shared RoPE key per position, and the caches
@@ -22,6 +22,21 @@ The port's rules, beside the reference's arithmetic:
   ``rms_norm(..., flags.fused_rmsnorm)``: the fused RMSNorm op (K1) on
   the card.  The JAX package calls them plain; the port routes them so
   that K1's plain version runs nowhere on the card's main path.
+* On a tensor-parallel serving mesh a rank holds its heads of
+  ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` (all of them where the ranks
+  do not divide the heads) and the latent projections whole; its cache
+  holds its lanes of ``c_kv``'s lora rank and its positions of
+  ``k_rope`` (a slot row's contiguous range, every block's offsets of a
+  paged arena), each whole where the ranks do not divide it.  Prefill
+  and extend materialise the rank's heads from whole latents (an
+  extend gathers its prefix whole first, one all-reduce) and store the
+  rank's slices.  Decode and verify are absorbed (:func:`tp_decode`):
+  every head's absorbed query is gathered, each rank scores its lora
+  lanes over every position and the rope part over its positions, and
+  one all-reduce adds them in f32, so each score is the sum of the lora
+  rank's partials and the rope term of the rank that holds the
+  position; the latent output is gathered whole and each rank expands
+  its heads through ``wv_b`` and ``wo``.
 * Decode and verify are capturable as CUDA graphs: masks come from
   tensor comparisons and ``torch.where``, cache writes are
   ``index_put_``, and nothing waits for the card.
@@ -33,10 +48,12 @@ from typing import Dict
 import torch
 
 from ..kernels.ref import NEG_INF, two_rows, upcast
+from ..sharding.group import own_range, placed, rank_block, tp_reduce_parts
+from . import attention as attn
 from . import paging
 from .chunked_attention import chunked_attention
 from .config import ArchConfig
-from .layers import apply_rope, linear, rms_norm
+from .layers import apply_rope, each_row, linear, rms_norm
 from .params import DTYPES, ParamSpec, Template
 
 
@@ -152,7 +169,7 @@ def _materialised(params, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
     v = _heads(c_kv, params["wv_b"])
     qh = torch.cat([q_nope, q_rope], dim=-1)
     kh = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        B, T, cfg.num_heads, k_rope.shape[-1])], dim=-1)
+        B, T, k_nope.shape[2], k_rope.shape[-1])], dim=-1)
     out = chunked_attention(qh, kh, v, causal=True,
                             window=cfg.sliding_window, q_offset=q_offset)
     return _out_proj(out, params["wo"])
@@ -175,10 +192,27 @@ def prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
     write its latents into positions ``[0, S)`` of ``cache`` (zero
     beyond) **in place**.  Returns the block's output."""
     y, c_kv, k_rope = mla_forward(params, cfg, x, positions, flags)
+    tp = flags.tp
     S = x.shape[1]
-    cache["c_kv"][:, :S] = c_kv
-    cache["k_rope"][:, :S] = k_rope
+    if tp is None:
+        cache["c_kv"][:, :S] = c_kv
+        cache["k_rope"][:, :S] = k_rope
+        return y
+    # a rank's slices: its lanes of c_kv, its positions of k_rope
+    cache["c_kv"][:, :S] = _lanes(c_kv, cache["c_kv"].shape[-1], tp)
+    kr = cache["k_rope"]
+    M = kr.shape[1]
+    lo, hi = tp.rank * M, min(S, (tp.rank + 1) * M)
+    if hi > lo:
+        kr[:, :hi - lo] = k_rope[:, lo:hi]
     return y
+
+
+def _lanes(c: torch.Tensor, width: int, tp) -> torch.Tensor:
+    """The rank's lanes of whole latents ``c`` [..., r], where its cache
+    holds ``width`` < r of them; ``c`` itself where it holds all."""
+    return c if width == c.shape[-1] else c[..., rank_block(c.shape[-1],
+                                                           tp)]
 
 
 def prefill_extend_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
@@ -189,7 +223,10 @@ def prefill_extend_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
     cached prefix *latents* ++ its own, re-materialised with the same
     products as a cold prefill (a position's K/V do not depend on its
     neighbours), so the suffix rows are bitwise the cold prefill's.
-    Returns (the block's output, the suffix's latents)."""
+    Returns (the block's output, the suffix's latents: on a
+    tensor-parallel rank its lanes of ``c_kv`` and every position of
+    ``k_rope``, which the layout's writer cuts).  ``prefix_kv`` is
+    whole."""
     q_nope, q_rope = _project_q(params, cfg, x, positions, flags)
     c_suf, kr_suf = _project_kv_latent(params, cfg, x, positions, flags)
     c_full = torch.cat([prefix_kv["c_kv"].to(c_suf.dtype), c_suf], dim=1)
@@ -197,6 +234,10 @@ def prefill_extend_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
                         dim=1)
     y = _materialised(params, cfg, q_nope, q_rope, c_full, kr_full,
                       prefix_len)
+    if flags.tp is not None:
+        lanes = cfg.kv_lora_rank // flags.tp.size \
+            if cfg.kv_lora_rank % flags.tp.size == 0 else cfg.kv_lora_rank
+        c_suf = _lanes(c_suf, lanes, flags.tp)
     return y, {"c_kv": c_suf, "k_rope": kr_suf}
 
 
@@ -248,6 +289,8 @@ def slot_decode(params, cfg: ArchConfig, x: torch.Tensor,
     ``idx <= pos + s``.  Window positions at or past ``max_len`` (an
     inactive row's stray window) are not written, as JAX drops such
     writes.  Returns the block's output."""
+    if flags.tp is not None:
+        return tp_decode(params, cfg, x, cache, pos, None, flags)
     B, T, _ = cache["c_kv"].shape
     pos_s, q_nope, q_rope, c_new, kr_new = _window(params, cfg, x, pos,
                                                    flags)
@@ -277,6 +320,8 @@ def paged_decode(params, cfg: ArchConfig, x: torch.Tensor,
     entry is the trash block 0 write there harmlessly; their output is
     unspecified, and window positions past the row's pages write the
     trash block."""
+    if flags.tp is not None:
+        return tp_decode(params, cfg, x, cache, pos, tables, flags)
     bs = cache["c_kv"].shape[1]
     T = tables.shape[1] * bs
     pos_s, q_nope, q_rope, c_new, kr_new = _window(params, cfg, x, pos,
@@ -290,3 +335,81 @@ def paged_decode(params, cfg: ArchConfig, x: torch.Tensor,
     valid = torch.arange(T, device=x.device)[None, None, :] \
         <= pos_s[:, :, None]
     return _absorbed(params, cfg, q_nope, q_rope, c_seq, kr_seq, valid)
+
+
+# ---------------------------------------------------------------------------
+# a tensor-parallel rank: heads, lora lanes and rope positions
+# ---------------------------------------------------------------------------
+
+def partial(params, cfg: ArchConfig, tp) -> bool:
+    """Whether a rank's MLA output is its heads' part of a sum."""
+    return tp is not None and params["wo"].shape[0] < cfg.num_heads
+
+
+def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
+              cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+              tables, flags) -> torch.Tensor:
+    """Absorbed decode or verify of a window on a tensor-parallel rank,
+    over slot rows (``tables`` None: a row is one block of ``max_len``)
+    or a paged arena: the window's latents land in the rank's slices
+    **in place** (``attention.write_window``), then each score is the
+    sum, in f32 over the ranks in rank order, of every rank's lora
+    lanes' product and the rope product of the rank that holds the
+    position.  Returns the rank's heads' part of the block's output (the
+    whole output where the heads are whole)."""
+    tp = flags.tp
+    B, S_q = x.shape[:2]
+    pos_s, q_nope, q_rope, c_new, kr_new = _window(params, cfg, x, pos,
+                                                   flags)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    if tables is None:
+        tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    block = c_kv.shape[1]
+    loc = k_rope.shape[1]
+    r_l = c_kv.shape[-1]
+    attn.write_window((c_kv,), (_lanes(c_new, r_l, tp),), tables, pos_s,
+                      block)
+    attn.write_window((k_rope,), (kr_new,), tables, pos_s, block,
+                      tp if loc < block else None)
+    c_seq = paging.gather_pages(c_kv, tables)                 # [B, T, r_l]
+    kr_seq = paging.gather_pages(k_rope, tables)              # [B, T', rope]
+    T = tables.shape[1] * block
+    H, H_l = cfg.num_heads, q_nope.shape[2]
+    h0 = 0 if H_l == H else tp.rank * H_l
+    q_lat = _per_head(q_nope, params["wk_b"].permute(1, 2, 0))  # [B,S',H_l,r]
+    if H_l < H:
+        idx = torch.arange(h0, h0 + H_l, device=x.device)
+        q_lat, q_rope = tp_reduce_parts(
+            [placed(q_lat, 2, idx, H), placed(q_rope, 2, idx, H)], tp)
+    dt = q_nope.dtype
+    lora_cut = r_l < cfg.kv_lora_rank
+    ql = q_lat[..., rank_block(cfg.kv_lora_rank, tp)] if lora_cut else q_lat
+    lora = _row_bmm(ql.reshape(B, S_q * H, r_l), c_seq.transpose(1, 2))
+    rope = _row_bmm(q_rope.reshape(B, S_q * H, -1), kr_seq.transpose(1, 2))
+    part = upcast(lora) if lora_cut or tp.rank == 0 \
+        else torch.zeros_like(upcast(lora))
+    if loc < block:
+        part = part + placed(upcast(rope), 2, attn.seq_positions(
+            tables, loc, block, tp), T)
+    elif tp.rank == 0:
+        part = part + upcast(rope)
+    scores = tp.all_reduce(part)
+    scores = scores * _scale(cfg, scores.dtype)
+    valid = torch.arange(T, device=x.device)[None, None, :] \
+        <= pos_s[:, :, None]
+    scores = torch.where(valid[:, :, None, :], scores.view(B, S_q, H, T),
+                         NEG_INF)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+    out_lat = _row_bmm(probs.view(B, S_q * H, T), c_seq).view(B, S_q, H, r_l)
+    if lora_cut:
+        out_lat = tp_reduce_parts([placed(out_lat, 3, own_range(
+            r_l, tp, x.device), cfg.kv_lora_rank)], tp)[0]
+    out = _per_head(out_lat[:, :, h0:h0 + H_l],
+                    params["wv_b"].permute(1, 0, 2))         # [B,S',H_l,vd]
+    return _out_proj(out, params["wo"])
+
+
+def _row_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` one row at a time (``each_row``)."""
+    return each_row(torch.bmm, a, b)

@@ -27,7 +27,7 @@ from . import transformer as tf
 from .config import ArchConfig
 from .layers import rows_padded
 from .params import DTYPES, _init_leaf, flatten, unflatten
-from ..sharding.rules import param_parts, param_specs, shard_tensor
+from ..sharding.rules import owned, param_parts, param_specs, shard_tensor
 
 
 class _Node(nn.Module):
@@ -80,8 +80,8 @@ class Model(nn.Module):
         def local(path, t):
             if specs is None:
                 return t
-            return shard_tensor(t, specs[path], self.mesh, rank,
-                                parts[path]).contiguous()
+            return owned(shard_tensor(t, specs[path], self.mesh, rank,
+                                      parts[path]))
 
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)

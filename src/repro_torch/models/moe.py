@@ -25,6 +25,11 @@ other ranks' experts go to the trash row, and the rank's output, its
 experts' terms in ascending expert order, is summed over the ranks by
 the caller.  The pad experts sit on the last ranks (granite's 8 on
 rank 1 at tp 2, on rank 3 at tp 4), which compute them for nothing.
+Padded experts the ranks do not divide are held whole, and the rules
+then cut each expert's FFN width instead (``resolve_spec`` gives the
+model axis to the first dimension that divides): every rank dispatches
+to every expert and its output is its columns' part of the sum.  A
+router or shared expert left whole is computed whole.
 Expert parallelism (``RuntimeFlags(moe_impl="ep")``, ``shard_map`` over
 a mesh in JAX) is not ported (ROADMAP Queue 1 item 11c).
 """
@@ -39,7 +44,7 @@ from .config import ArchConfig
 from .layers import linear, mlp_apply, mlp_template, no_tf32
 from .params import ParamSpec, Template
 from ..kernels.ref import upcast
-from ..sharding.group import gather_blocks
+from ..sharding.group import cut, gather_blocks
 
 EP_REFUSAL = ("expert-parallel MoE (moe_impl='ep'): not yet ported to "
               "repro_torch (ROADMAP Queue 1 item 11c)")
@@ -98,6 +103,7 @@ def route(params, cfg: ArchConfig, xf: torch.Tensor, tp=None
     E_real = cfg.num_experts
     with no_tf32(xf.device):
         logits = linear(upcast(xf), upcast(params["router"]))
+    tp = cut(tp, logits.shape[-1], padded_experts(cfg))
     if tp is not None:
         logits = tp.all_reduce(gather_blocks(logits,
                                              logits.shape[-1] * tp.size, tp))
@@ -185,11 +191,20 @@ def _dispatch_ffn_combine(xl, gl, il, wg, wu, wd, *, cfg: ArchConfig,
     return out
 
 
+def partial_sum(params, cfg: ArchConfig) -> bool:
+    """Whether a rank's MoE output is its part of a sum over the ranks:
+    its experts, or its columns of every expert's FFN, are cut."""
+    E, ff, _ = params["w_down"].shape
+    return E < padded_experts(cfg) or ff < cfg.d_ff
+
+
 def moe_apply(params, cfg: ArchConfig, x: torch.Tensor, flags=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], aux_loss).  On a tensor-parallel
-    rank (``flags.tp``) out is the rank's part of a sum over the ranks:
-    its experts' terms (and its columns of a shared expert)."""
+    rank (``flags.tp``) out is the rank's part of a sum over the ranks
+    (its experts' terms, or its columns of each expert's, and its
+    columns of a shared expert) where :func:`partial_sum` holds, else
+    the whole output."""
     tp = None
     if flags is not None:
         check_moe_impl(flags)
@@ -199,10 +214,19 @@ def moe_apply(params, cfg: ArchConfig, x: torch.Tensor, flags=None
     gates, idx, aux = route(params, cfg, xf, tp)
     E_l = params["w_gate"].shape[0]
     C = capacity(cfg, B * S)
+    experts = cut(tp, E_l, padded_experts(cfg))
     out = _dispatch_ffn_combine(
         xf, gates, idx, params["w_gate"], params["w_up"], params["w_down"],
-        cfg=cfg, e_offset=0 if tp is None else tp.rank * E_l, E_l=E_l,
+        cfg=cfg, e_offset=0 if experts is None else tp.rank * E_l, E_l=E_l,
         C=C).view(B, S, d)
     if cfg.num_shared_experts:
-        out = out + mlp_apply(params["shared"], x)
+        shared = mlp_apply(params["shared"], x)
+        whole = cut(tp, params["shared"]["w_down"].shape[0],
+                    cfg.num_shared_experts * cfg.d_ff) is None
+        if tp is not None and whole == partial_sum(params, cfg):
+            # one of the two is whole: the shared expert's whole output
+            # joins rank 0's part, or its part is summed on its own
+            shared = shared * (tp.rank == 0) if whole \
+                else tp.all_reduce(shared)
+        out = out + shared
     return out, aux.to(torch.float32)

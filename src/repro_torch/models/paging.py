@@ -85,6 +85,28 @@ def valid_mask(total_len: int, pos: torch.Tensor) -> torch.Tensor:
         <= pos.long()[:, None]
 
 
+def prefix_positions(leaf: torch.Tensor, ref: PrefixRef, prefix_len: int,
+                     tp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A tensor-parallel rank's part of positions ``[0, prefix_len)`` of
+    a leaf cut on its positions (a slot row's contiguous range ``[r M',
+    (r + 1) M')``, every block's offsets ``[r bs', (r + 1) bs')`` of a
+    paged arena): (their absolute positions [n], the rows [B, n, ...])."""
+    loc = leaf.shape[1]
+    dev = leaf.device
+    if isinstance(ref, SlotPrefix):
+        lo = tp.rank * loc
+        n = max(0, min(loc, prefix_len - lo))
+        return (torch.arange(lo, lo + n, device=dev),
+                leaf[ref.slots.long(), :n])
+    n_pages = prefix_len // ref.block_size
+    ptbl = ref.block_tables[:, :n_pages].long()
+    B = ptbl.shape[0]
+    pos = (torch.arange(n_pages, device=dev)[:, None] * ref.block_size
+           + tp.rank * loc + torch.arange(loc, device=dev)[None, :])
+    return (pos.reshape(-1),
+            leaf[ptbl].reshape((B, n_pages * loc) + leaf.shape[2:]))
+
+
 def use_fused_decode(cfg, flags) -> bool:
     """Should an attention layer's decode/verify step run through the
     fused flash-decode op?  The one predicate ``attention.py`` consults
@@ -96,11 +118,10 @@ def use_fused_decode(cfg, flags) -> bool:
     On a tensor-parallel mesh (``flags.decode_shards`` > 1) each rank
     runs the op on its slice of the query and kv heads against its
     slice of the arena, which needs the kv heads to divide the ranks
-    (GQA groups then stay rank-local), as in JAX; the engine refuses
-    the other case (K/V on head_dim) until ROADMAP item 11b-ii.  The
-    recurrent layers of the state and hybrid layouts, and the MoE FFN,
-    do not reach this predicate: they run on every mesh item 11b-i
-    serves."""
+    (GQA groups then stay rank-local), as in JAX (docs/SHARDING.md);
+    K/V cut on head_dim or on the sequence decode through the plain
+    ``attention.tp_decode``.  The recurrent layers of the state and
+    hybrid layouts, and the MoE FFN, do not reach this predicate."""
     shards = flags.decode_shards
     return flags.use_fused_decode and (shards == 1
                                        or cfg.num_kv_heads % shards == 0)

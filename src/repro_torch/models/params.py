@@ -94,6 +94,11 @@ def logical_axes(template: Template) -> Dict[str, Any]:
     return tree_map(lambda s: s.axes, template)
 
 
+#: leaves of more elements are drawn in chunks of DRAW_CHUNK
+DRAW_CHUNK_ABOVE = 1 << 30
+DRAW_CHUNK = 1 << 28
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
                device) -> torch.Tensor:
     """The JAX package's init rules; an init it does not know raises."""
@@ -116,9 +121,21 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
         else max(spec.shape[-1], 1)
     std = spec.scale if spec.init == "scaled" \
         else spec.scale / math.sqrt(fan_in)
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(dtype)
+    n = math.prod(spec.shape)
+    if n <= DRAW_CHUNK_ABOVE:
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(dtype)
+    # a leaf of more than 2^30 elements (deepseek_v3's and jamba's
+    # stacked experts) is drawn DRAW_CHUNK elements at a time, so that
+    # its f32 draw is not held whole beside its cast
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, n, DRAW_CHUNK):
+        m = min(DRAW_CHUNK, n - i)
+        flat[i:i + m] = torch.randn(m, generator=gen, dtype=torch.float32,
+                                    device=device).mul_(std)
+    return out
 
 
 def init_params(template: Template, gen: torch.Generator, dtype: str,

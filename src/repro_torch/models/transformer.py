@@ -39,12 +39,13 @@ from .chunked_attention import chunked_attention
 from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
                      lm_head_template, mlp_apply, mlp_template, remat,
-                     rms_norm, rmsnorm_template)
+                     rms_norm, rmsnorm_template, rows_padded)
 from .params import (DTYPES, ParamSpec, Template, flatten, stack_template,
                      tree_map, unflatten)
 from ..kernels.ref import rope_freqs
-from ..sharding.group import tp_reduce
-from ..sharding.rules import local_tree
+from ..sharding.group import (cut, own_range, placed, tp_reduce,
+                              tp_reduce_parts)
+from ..sharding.rules import WHOLE_SEQ, local_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,12 +321,13 @@ def abstract_hybrid_cache(cfg: ArchConfig, num_slots: int, num_blocks: int,
                     else _STATE_CACHES[kind](cfg, num_slots, "meta"))
 
 
-def _zeros(tree, device, mesh=None):
+def _zeros(tree, device, mesh=None, rules=None):
     """The abstract cache ``tree`` materialised with zeros; on a mesh of
     more than one rank, each leaf cut to a rank's shape by the rules'
-    ``cache_specs`` (K/V on their kv heads)."""
+    ``cache_specs`` (K/V on their kv heads, else head_dim, else the
+    sequence; ``rules``: ``WHOLE_SEQ`` keeps every position)."""
     if mesh is not None and mesh.shape["model"] > 1:
-        tree = local_tree(tree, mesh)
+        tree = local_tree(tree, mesh, rules)
     return tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
                                           device=device), tree)
 
@@ -336,9 +338,21 @@ def _mesh(flags: RuntimeFlags):
 
 
 def new_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-              enc_len: int = 0, mesh=None):
+              enc_len: int = 0, mesh=None, rules=None):
     return _zeros(abstract_cache(cfg, batch, max_len, enc_len), device,
-                  mesh)
+                  mesh, rules)
+
+
+def seq_cut(cfg: ArchConfig, path: str, tp) -> bool:
+    """Whether a rank holds a cut of cache leaf ``path``'s positions: MLA's
+    ``k_rope``, and attention K/V on the sequence arm (kv heads and
+    head_dim both undivided).  The lengths they are cut on divide the
+    ranks (``LLMEngine`` checks ``max_len`` and block sizes)."""
+    if tp is None:
+        return False
+    key = path.rsplit(".", 1)[-1]
+    return key == "k_rope" or (key in ("k", "v")
+                               and attn.kv_arm(cfg, tp) == "seq")
 
 
 def new_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
@@ -397,51 +411,105 @@ def cross_kv(params, memory: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def _cross_attention(params, x: torch.Tensor,
-                     memory_kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+                     memory_kv: Dict[str, torch.Tensor],
+                     cfg: Optional[ArchConfig] = None, tp=None
+                     ) -> torch.Tensor:
     """x [B, S, d] attends, with no mask and no RoPE, over the memory
     K/V; in plain PyTorch (``chunked_attention``), as the JAX package
-    attends here outside any Pallas kernel."""
+    attends here outside any Pallas kernel.  On a tensor-parallel rank
+    ``memory_kv`` is the rank's cache slice (``attention.kv_arm``): on
+    the kv-heads arm the rank's heads attend as without a mesh, on the
+    head_dim and sequence arms every head attends through
+    ``attention.sharded_attention``, every position valid.  Returns the
+    rank's part of the output, or the whole (``attention.partial``)."""
     q = attn._proj(x, params["wq"])
-    out = chunked_attention(q, memory_kv["k"], memory_kv["v"], causal=False)
-    return attn._out_proj(out, params["wo"])
+    arm = attn.kv_arm(cfg, tp) if cfg is not None else "whole"
+    if arm in ("whole", "heads"):
+        out = chunked_attention(q, memory_kv["k"], memory_kv["v"],
+                                causal=False)
+        return attn._out_proj(out, params["wo"])
+    h0 = attn.rank_head0(params, cfg, tp)
+    q = attn.all_heads(q, cfg.num_heads, h0, tp)
+    k, v = memory_kv["k"], memory_kv["v"]
+    T = k.shape[1] * (tp.size if arm == "seq" else 1)
+    last = torch.full(q.shape[:2], T - 1, device=x.device)   # all valid
+    out = attn.sharded_attention(q, k, v, last, cfg.head_dim, arm, tp,
+                                 own_range(k.shape[1], tp, x.device), T)
+    return attn.tp_out_proj(out.to(x.dtype), params, cfg, arm, tp, h0)
+
+
+def _mixer_partial(cfg: ArchConfig, kind: str, mp, tp) -> bool:
+    """Whether a rank's mixer output is its part of a sum over the ranks
+    (its output projection contracts a width the rules cut) or the
+    whole output (the width left whole: summing it would count it tp
+    times)."""
+    if tp is None:
+        return False
+    if kind == "attn":
+        return mla_mod.partial(mp, cfg, tp) if cfg.use_mla \
+            else attn.partial(mp, cfg, tp)
+    if kind == "mamba":
+        return mp["out_proj"].shape[0] < cfg.d_inner
+    if kind == "mlstm":
+        return mp["down_proj"].shape[0] < 2 * cfg.d_model
+    return mp["w_x"].shape[-1] < 4 * cfg.d_model             # sLSTM
+
+
+def _ffn_partial(cfg: ArchConfig, ffn_kind: str, fp, tp) -> bool:
+    """Whether a rank's FFN output is its part of a sum over the ranks."""
+    if tp is None:
+        return False
+    if ffn_kind == "moe":
+        return moe_mod.partial_sum(fp, cfg)
+    return fp["w_down"].shape[0] < cfg.dense_d_ff
 
 
 def _block(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
            flags: RuntimeFlags,
            mixer: Callable[[Any, torch.Tensor], torch.Tensor],
-           memory_kv: Optional[Dict[str, torch.Tensor]] = None):
+           memory_kv: Optional[Dict[str, torch.Tensor]] = None,
+           kind: str = "attn"):
     """One pre-norm block: the mixer, then (in a decoder layer given its
     memory K/V) the cross-attention block, then (where the layer has
     one) a SwiGLU or MoE FFN.  Returns (x, the MoE layer's load-balance
     loss, or None for any other layer).  On a tensor-parallel rank the
     mixer's output projection and the FFN's down projection contract
     this rank's heads, mixer channels, FFN columns or experts:
-    ``tp_reduce`` sums them over the ranks before each residual add."""
+    ``tp_reduce`` sums them over the ranks before each residual add.  A
+    block whose width the rules left whole (``kind``'s mixer, the cross
+    attention, the FFN) computes it whole on every rank and is not
+    summed."""
+    tp = flags.tp
     h = rms_norm(params["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
-    x = x + tp_reduce(mixer(params["mixer"], h), flags)
+    x = x + tp_reduce(mixer(params["mixer"], h), flags,
+                      _mixer_partial(cfg, kind, params["mixer"], tp))
     if "cross" in params and memory_kv is not None:
         hc = rms_norm(params["cross_norm"], x, cfg.norm_eps,
                       flags.fused_rmsnorm)
-        x = x + _cross_attention(params["cross"], hc, memory_kv)
+        x = x + tp_reduce(
+            _cross_attention(params["cross"], hc, memory_kv, cfg, tp),
+            flags, tp is not None and attn.partial(params["cross"], cfg, tp))
     if "ffn" not in params:
         return x, None
     h2 = rms_norm(params["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
+    sums = _ffn_partial(cfg, ffn_kind, params["ffn"], tp)
     if ffn_kind == "moe":
         y, aux = moe_mod.moe_apply(params["ffn"], cfg, h2, flags)
-        return x + tp_reduce(y, flags), aux
-    return x + tp_reduce(mlp_apply(params["ffn"], h2), flags), None
+        return x + tp_reduce(y, flags, sums), aux
+    return x + tp_reduce(mlp_apply(params["ffn"], h2), flags, sums), None
 
 
 def layer_apply(params, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
                 flags: RuntimeFlags,
                 mixer: Callable[[Any, torch.Tensor], torch.Tensor],
-                memory_kv: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                memory_kv: Optional[Dict[str, torch.Tensor]] = None,
+                kind: str = "attn") -> torch.Tensor:
     """The serving layer (:func:`_block`): ``mixer(mixer_params, h)`` is
     the mixer of the entry point (prefill, extend, slot, paged or hybrid
     decode), which writes its cache in place.  A MoE layer's
     load-balance loss is dropped: serving has no use for it."""
-    return _block(params, cfg, ffn_kind, x, flags, mixer, memory_kv)[0]
+    return _block(params, cfg, ffn_kind, x, flags, mixer, memory_kv,
+                  kind)[0]
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
@@ -450,11 +518,13 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
     tensor-parallel rank group ``tp`` the head is this rank's vocab
     slice: its columns are masked where they are pad, written into a
     zero buffer of the whole padded vocab and summed over the ranks
-    (exact: one non-zero term a column)."""
+    (exact: one non-zero term a column); a vocabulary the ranks do not
+    divide is whole on every rank."""
     if cfg.tie_embeddings:
         logits = linear(x, params["embed"]["embedding"].t())
     else:
         logits = lm_head_apply(params["lm_head"], x)
+    tp = cut(tp, logits.shape[-1], cfg.padded_vocab)
     off = 0 if tp is None else tp.rank * logits.shape[-1]
     pad = cfg.vocab_size - off
     if pad < logits.shape[-1]:
@@ -465,6 +535,46 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
     full = logits.new_zeros(logits.shape[:-1] + (cfg.padded_vocab,))
     full[..., off:off + logits.shape[-1]] = logits
     return tp.all_reduce(full)
+
+
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
+           flags: RuntimeFlags) -> torch.Tensor:
+    """The tokens' embeddings: vocab-parallel where the rules cut the
+    vocabulary, else whole."""
+    emb = params["embed"]["embedding"]
+    return embed_apply(params["embed"], tokens, DTYPES[cfg.dtype],
+                       cut(flags.tp, emb.shape[0], cfg.padded_vocab))
+
+
+def _whole_prefix(cfg: ArchConfig, arena, ref: paging.PrefixRef,
+                  prefix_len: int, tp) -> Dict[str, torch.Tensor]:
+    """``paging.gather_prefix_kv`` of an attention layer's cache: on a
+    tensor-parallel rank made whole where the rank holds a cut of it.
+    Lanes cut on head_dim (or MLA's lora rank) and positions cut on the
+    sequence (``seq_cut``) go into zeros at their places and are summed
+    over the ranks in one exact all-reduce.  On the kv-heads arm the
+    prefix is the rank's heads and stays as it is."""
+    seq = [k for k in sorted(arena) if seq_cut(cfg, k, tp)]
+    pkv = paging.gather_prefix_kv({k: a for k, a in arena.items()
+                                   if k not in seq}, ref, prefix_len)
+    if tp is None:
+        return pkv
+    # one order on every rank: the all-reduce adds the ranks' buffers
+    # element by element
+    cuts = {}
+    for key in seq:
+        pos, rows = paging.prefix_positions(arena[key], ref, prefix_len, tp)
+        cuts[key] = placed(rows, 1, pos, prefix_len)
+    for key in sorted(pkv):
+        a = pkv[key]
+        if (key == "c_kv" and a.shape[-1] < cfg.kv_lora_rank) or (
+                key in ("k", "v") and attn.kv_arm(cfg, tp) == "head_dim"):
+            n = a.shape[-1]
+            cuts[key] = placed(a, a.dim() - 1, own_range(n, tp, a.device),
+                               n * tp.size)
+    if cuts:
+        pkv.update(zip(cuts, tp_reduce_parts(list(cuts.values()), tp)))
+    return pkv
 
 
 def _run_groups(params, cfg, x, caches, flags, groups, mixer, memory=None):
@@ -483,7 +593,8 @@ def _run_groups(params, cfg, x, caches, flags, groups, mixer, memory=None):
         c = {k: tree["head_layers"] for k, tree in caches.items()}
         x = layer_apply(
             params["head_layers"][name], cfg, ffn, x, flags,
-            lambda mp, h, c=c, n=name, k=kind: mixer(k, mp, h, c, n))
+            lambda mp, h, c=c, n=name, k=kind: mixer(k, mp, h, c, n),
+            kind=kind)
     if not R:
         return x
     groups = groups if groups is not None \
@@ -499,7 +610,7 @@ def _run_groups(params, cfg, x, caches, flags, groups, mixer, memory=None):
             x = layer_apply(
                 lp, cfg, ffn, x, flags,
                 lambda mp, h, n=name, k=kind: mixer(k, mp, h, c, n),
-                memory(lp, c, name) if memory is not None else None)
+                memory(lp, c, name) if memory is not None else None, kind)
     return x
 
 
@@ -530,17 +641,23 @@ def encode(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
     (``chunked_attention``), and a SwiGLU FFN in each layer, then the
     final norm.  Returns the memory [B, T, d].  Its norms take
     ``fused_rmsnorm`` like every other norm of the port (the JAX package
-    calls them plain)."""
+    calls them plain).  On a tensor-parallel rank each layer runs the
+    rank's heads over whole K/V (its kv heads where they are cut) and
+    its FFN columns, summed over the ranks as a decoder layer's are."""
     x = enc_embeds.to(DTYPES[cfg.dtype])
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     enc_cfg = dataclasses.replace(cfg, use_mla=False, num_experts=0,
                                   sliding_window=0)
 
+    tp = flags.tp
+
     def bidirectional(mp, h):
         q, k, v = attn._qkv(mp, enc_cfg, h, positions)
-        return attn._out_proj(chunked_attention(q, k, v, causal=False),
-                              mp["wo"])
+        h0 = attn.rank_head0(mp, enc_cfg, tp)
+        k, v = attn.kv_for_heads(k, v, enc_cfg, h0, q.shape[2])
+        return attn.tp_out_proj(chunked_attention(q, k, v, causal=False),
+                                mp, enc_cfg, attn.kv_arm(enc_cfg, tp), tp, h0)
 
     def layer(x, lp):
         return layer_apply(lp, enc_cfg, "dense", x, flags, bidirectional)
@@ -630,13 +747,17 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     runs without cross attention and its cache holds no ``cross``
     leaves, as in JAX."""
     dt = DTYPES[cfg.dtype]
-    x = embed_apply(params["embed"], tokens, dt, flags.tp)
+    x = _embed(params, cfg, tokens, flags)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dt), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    memory = encode(params, cfg, enc_embeds, flags) \
-        if enc_embeds is not None and cfg.is_encoder_decoder else None
+    memory = None
+    if enc_embeds is not None and cfg.is_encoder_decoder:
+        # a rank's memory path in blocks of 32 rows: each row's memory
+        # and cross K/V the same alone and in a batch
+        with rows_padded("all" if flags.tp is not None else False):
+            memory = encode(params, cfg, enc_embeds, flags)
     cache = new_cache(cfg, B, max_cache_len, x.device,
                       0 if memory is None else memory.shape[1],
                       _mesh(flags))
@@ -644,11 +765,17 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
         for layer in cache.get("blocks", {}).values():
             layer.pop("cross", None)
 
+    cross_arm = attn.kv_arm(cfg, flags.tp)
+
     def cross(lp, c, name):
-        kv = cross_kv(lp["cross"], memory)
+        # the rank's slice lands in the cache, which every step then
+        # attends over alike
+        held = c["cache"][name]["cross"]
+        with rows_padded("all" if flags.tp is not None else False):
+            kv = cross_kv(lp["cross"], memory)
         for k, a in kv.items():
-            c["cache"][name]["cross"][k].copy_(a)
-        return kv
+            held[k].copy_(attn.rank_slice(a, cross_arm, flags.tp))
+        return held
 
     def mixer(kind, mp, h, c, name):
         live = c["cache"][name]["mixer"]
@@ -684,21 +811,26 @@ def prefill_extend(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     state scan* from their slab rows at ``slots`` ([B] int, required for
     such stacks) and emit the state after the last suffix token as
     ``[R, B, ...]`` rows.  ``cache`` is only read.  Returns (last-token
-    logits [B, V], rows).  The suffix's outputs are bitwise those of a
+    logits [B, V], rows).  On a tensor-parallel rank the prefix is
+    gathered whole where the rank holds a cut of it (one all-reduce a
+    layer) and the rows keep every position (``WHOLE_SEQ``): the
+    layout's writer keeps the rank's own.  The suffix's outputs are
+    bitwise those of a
     cold prefill of the whole prompt (row-independent attention,
     chunk-invariant state scans).  An encoder-decoder is refused
     (``check_mixed_extend_support``), as in JAX."""
     check_mixed_extend_support(cfg)
-    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype], flags.tp)
+    x = _embed(params, cfg, tokens, flags)
     B, S_, _ = x.shape
     positions = (prefix_len + torch.arange(S_, device=x.device)).expand(B, S_)
-    rows = new_cache(cfg, B, max_cache_len, x.device, mesh=_mesh(flags))
+    rows = new_cache(cfg, B, max_cache_len, x.device, mesh=_mesh(flags),
+                     rules=WHOLE_SEQ)
 
     def mixer(kind, mp, h, c, name):
         out = c["rows"][name]["mixer"]
         if kind == "attn":
-            pkv = paging.gather_prefix_kv(c["arena"][name]["mixer"],
-                                          prefix_ref, prefix_len)
+            pkv = _whole_prefix(cfg, c["arena"][name]["mixer"],
+                                prefix_ref, prefix_len, flags.tp)
             extend = mla_mod.prefill_extend_into_cache if cfg.use_mla \
                 else attn.prefill_extend_into_cache
             y, kv = extend(mp, cfg, h, positions, pkv, prefix_len, flags)
@@ -754,7 +886,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
 
     A decoder layer whose cache holds ``cross`` memory K/V attends over
     it; it is only read."""
-    x = embed_apply(params["embed"], tokens, DTYPES[cfg.dtype], flags.tp)
+    x = _embed(params, cfg, tokens, flags)
     B, S_q = x.shape[0], x.shape[1]
     pos = cache_pos.to(torch.int32).contiguous()
     if want_state_stacks and stacks is None:
@@ -770,6 +902,13 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
         else:
             def attend(mp, h, c):
                 return mla_mod.slot_decode(mp, cfg, h, c, pos, flags)
+    elif attn.kv_arm(cfg, flags.tp) in ("head_dim", "seq"):
+        # K/V cut on head_dim or on the sequence: the plain attention
+        tables = None if block_tables is None \
+            else block_tables.to(torch.int32).contiguous()
+
+        def attend(mp, h, c):
+            return attn.tp_decode(mp, cfg, h, c, pos, tables, flags)
     elif block_tables is not None:
         tables = block_tables.to(torch.int32).contiguous()
         freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)

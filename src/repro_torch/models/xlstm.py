@@ -39,7 +39,7 @@ from ..kernels.ref import NEG_INF, upcast
 from .config import ArchConfig
 from .layers import each_row, linear, no_tf32, pointwise, remat, softplus
 from .params import ParamSpec, Template
-from ..sharding.group import (block_rows, gather_blocks, rank_block,
+from ..sharding.group import (block_rows, cut, gather_blocks, rank_block,
                               tp_reduce_parts)
 
 State = Dict[str, torch.Tensor]
@@ -185,27 +185,38 @@ def _mlstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
     products, with the rank's m gathered whole beside them (every rank
     then advances m alike), and the readouts' numerators and
     denominators, which the recurrence does not read, once after the
-    window's last token."""
+    window's last token.  A width the rules left whole is computed
+    whole: with dk whole the window runs as without a mesh (m, cut by
+    heads, gathered whole, and y the rank's rows of ``down_proj`` where
+    d_inner is cut); with the heads whole m is whole on every rank."""
     B, S, d = x.shape
     di = 2 * d
     H = cfg.num_heads
-    q, k, v, gi, gf, z = _mlstm_products(params, cfg, x, tp=tp)
-    if tp is not None:
-        heads = rank_block(H, tp)
-        q, k, v, gi, gf, m = tp_reduce_parts(
-            [q, k, v, gi, gf, gather_blocks(state["m"], H, tp)], tp)
-        state = dict(state, m=m)
+    dk_tp = cut(tp, params["wq"].shape[1], di // H)
+    m_tp = cut(tp, state["m"].shape[-1], H)
+    out_tp = cut(tp, params["down_proj"].shape[0], di)
+    q, k, v, gi, gf, z = _mlstm_products(params, cfg, x, tp=dk_tp)
+    sums = [q, k, v, gi, gf] if dk_tp is not None else []
+    if m_tp is not None:
+        sums.append(gather_blocks(state["m"], H, tp))
+    if sums:
+        sums = tp_reduce_parts(sums, tp)
+        if dk_tp is not None:
+            q, k, v, gi, gf = sums[:5]
+        if m_tp is not None:
+            state = dict(state, m=sums[-1])
     li, lf = _mlstm_gates(params, gi, gf)
     # elementwise, so converted for the whole window with the same bits
     qs = q.float() * _inv_sqrt(di // H)
     kf, vf = k.float(), v.float()
-    if tp is not None:
+    if dk_tp is not None:
         dk = rank_block(di // H, tp)
         qs, kf = qs[..., dk], kf[..., dk]
 
     def held(st: State) -> State:
         """The state as this rank holds it (its heads of m)."""
-        return st if tp is None else dict(st, m=st["m"][:, heads])
+        return st if m_tp is None else \
+            dict(st, m=st["m"][:, rank_block(H, tp)])
 
     nums, dens, ms = [], [], []
     with no_tf32(x.device):
@@ -217,13 +228,15 @@ def _mlstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
             ms.append(state["m"])
             _write_stack(stack, t, held(state))
     num, den = torch.stack(nums, dim=1), torch.stack(dens, dim=1)
-    if tp is not None:
+    if dk_tp is not None:
         num, den = tp_reduce_parts([num, den], tp)
     m = torch.stack(ms, dim=1)
     h = num / torch.maximum(den.abs(), pointwise(torch.exp, -m))[..., None]
     h = h.reshape(B, S, di)
-    if tp is not None:
+    if out_tp is not None:
         h = h[..., rank_block(di, tp)]
+        if dk_tp is None:                   # z whole beside a cut d_inner
+            z = z[..., rank_block(di, tp)]
     h = h.to(x.dtype) * F.silu(z.float()).to(x.dtype)
     return linear(h, params["down_proj"], blocked=True), held(state)
 
@@ -402,25 +415,41 @@ def _slstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
     (:func:`slstm_block`), h is gathered whole before every token (one
     all-reduce a token) and y is the product of the rank's channels
     with their rows of the replicated ``out_proj``: the rank's part of a
-    sum over the ranks."""
+    sum over the ranks.  Gate blocks the ranks do not divide are left
+    whole, and the recurrence runs whole on every rank (y whole); a
+    state the rules cut all the same (d_model divided) is the rank's
+    contiguous slice, gathered whole before the window (one all-reduce)
+    and cut again after every position."""
+    d = cfg.d_model
     xg = linear(x, params["w_x"], blocked=True)              # [B, L, 4d]
     # hoisted out of the token loop: the same values, converted once
     w_h = params["w_h"].float()
     b = params["b"].float()
     w_out = params["out_proj"]
-    if tp is not None:
+    gate_tp = cut(tp, xg.shape[-1], 4 * d)
+    state_tp = cut(tp, state["c"].shape[-1], d) if gate_tp is None else None
+    if gate_tp is not None:
         a = slstm_block(cfg)
         w_out = block_rows(w_out, a, tp)
+    if state_tp is not None:
+        keys = list(state)
+        state = dict(zip(keys, tp_reduce_parts(
+            [gather_blocks(state[k], d, tp) for k in keys], tp)))
+
+    def held(st: State) -> State:
+        return st if state_tp is None else \
+            {k: v[:, rank_block(d, tp)] for k, v in st.items()}
+
     hs = []
     with no_tf32(x.device):
         for t in range(x.shape[1]):
-            h_all = None if tp is None else tp_reduce_parts(
+            h_all = None if gate_tp is None else tp_reduce_parts(
                 [gather_blocks(state["h"], a, tp)], tp)[0]
             state = _slstm_step(w_h, b, state, xg[:, t], h_all=h_all)
             hs.append(state["h"])
-            _write_stack(stack, t, state)
+            _write_stack(stack, t, held(state))
     y = linear(torch.stack(hs, dim=1).to(x.dtype), w_out, blocked=True)
-    return y, state
+    return y, held(state)
 
 
 def slstm_window(params, cfg: ArchConfig, x: torch.Tensor, cache: State,

@@ -28,6 +28,7 @@ from ..models.params import flatten, unflatten
 from ..models.transformer import DEFAULT_FLAGS, TRAIN_FLAGS, RuntimeFlags
 from ..optim import make_optimizer
 from ..optim.optimizers import BLOCK, OptState
+from ..sharding.group import own_range, placed, tp_reduce_parts
 
 
 class TrainState(NamedTuple):
@@ -268,8 +269,34 @@ def _scatter_pages(block_size: int, big: torch.Tensor, r: torch.Tensor,
         big[ids] = r.reshape((-1, block_size) + r.shape[1:]).to(big.dtype)
 
 
+def _offsets(block_size: int, loc: int, r: torch.Tensor, ax: int,
+             tp) -> torch.Tensor:
+    """A whole row ``r`` (positions on axis ``ax``) cut to the positions
+    a sequence-cut arena of a tensor-parallel rank holds: its ``loc``
+    offsets ``[rank loc, (rank + 1) loc)`` of every block."""
+    P = r.shape[ax] // block_size
+    pages = r.reshape(r.shape[:ax] + (P, block_size) + r.shape[ax + 1:])
+    return pages.narrow(ax + 1, tp.rank * loc, loc).reshape(
+        r.shape[:ax] + (P * loc,) + r.shape[ax + 1:])
+
+
+def _whole_rows(rows, rows_len: int, tp):
+    """The row leaves of ``rows`` ({path: (ax, leaf)}), those whose
+    positions a tensor-parallel rank holds a contiguous cut of (a
+    prefill's rows, ``rules.cache_specs``) made whole, ``rows_len``
+    long, in one exact all-reduce."""
+    out = {p: r for p, (ax, r) in rows.items()}
+    if tp is None:
+        return out
+    cut = {p: placed(r, ax, own_range(r.shape[ax], tp, r.device), rows_len)
+           for p, (ax, r) in rows.items() if r.shape[ax] < rows_len}
+    if cut:
+        out.update(zip(cut, tp_reduce_parts(list(cut.values()), tp)))
+    return out
+
+
 def _paged_scatter_rows(block_size: int, arena, rows, row: int,
-                        page_ids: torch.Tensor):
+                        page_ids: torch.Tensor, tp=None, only=None):
     """Scatter one prefilled cache row (``[B, S_cache, ...]``, ``S_cache``
     a multiple of ``block_size``) into the paged arena, page by page, in
     place.
@@ -281,26 +308,65 @@ def _paged_scatter_rows(block_size: int, arena, rows, row: int,
     blocks are immutable; redirecting their writes to the trash block
     preserves that).  Every 0 entry writes block 0, so block 0 receives
     duplicate writes whose order ``index_put_`` leaves undefined on
-    CUDA: harmless only because block 0 is never read unmasked."""
+    CUDA: harmless only because block 0 is never read unmasked.
+
+    On a tensor-parallel rank (``tp``) an arena cut on its positions
+    holds its offsets of every block: the row, whole or (a prefill's
+    rows) the rank's contiguous cut gathered whole first, is cut to
+    them.  ``only`` ({path}) limits the write to those leaves."""
     ids = page_ids.long()
-    for ax, big, r in _leaves(arena, rows):
-        _scatter_pages(block_size, big, r.select(ax, row), ax, ids)
+    src = flatten(rows)
+    todo = {path: (slot_batch_axis(path.split(".")), big)
+            for path, big in flatten(arena).items()
+            if only is None or path in only}
+    whole = _whole_rows({path: (ax, src[path].select(ax, row))
+                         for path, (ax, big) in todo.items()},
+                        len(ids) * block_size, tp)
+    for path, (ax, big) in todo.items():
+        r, loc = whole[path], big.shape[ax + 1]     # positions a block holds
+        if loc < block_size:
+            r = _offsets(block_size, loc, r, ax, tp)
+        _scatter_pages(loc, big, r, ax, ids)
     return arena
 
 
-def make_paged_insert(block_size: int):
+def make_paged_insert(block_size: int, tp=None):
     """Build ``insert(arena, rows, row, page_ids)`` — see
-    :func:`_paged_scatter_rows`."""
-    return functools.partial(_paged_scatter_rows, block_size)
+    :func:`_paged_scatter_rows`; ``tp``: a tensor-parallel rank's
+    group."""
+    return functools.partial(_paged_scatter_rows, block_size, tp=tp)
 
 
-def _slot_write_rows(cache, rows, slot: int, offset: int):
+def _write_positions(dst: torch.Tensor, src: torch.Tensor, offset: int,
+                     dim: int, tp) -> None:
+    """Write ``src``, positions ``offset ..`` on ``dim``, into ``dst``
+    holding a tensor-parallel rank's contiguous cut ``[r M, (r + 1) M)``
+    of the positions, in place: the positions that fall in it."""
+    M, S = dst.shape[dim], src.shape[dim]
+    lo = max(offset, tp.rank * M)
+    hi = min(offset + S, (tp.rank + 1) * M)
+    if hi > lo:
+        dst.narrow(dim, lo - tp.rank * M, hi - lo).copy_(
+            src.narrow(dim, lo - offset, hi - lo))
+
+
+def _slot_write_rows(cache, rows, slot: int, offset: int, seq_cut=None,
+                     tp=None):
     """Write batch-1 suffix rows (the suffix unpadded) into slot ``slot``
     at sequence offset ``offset``, in place — the chunked-prefill insert
-    of the contiguous layout."""
-    for ax, big, r in _leaves(cache, rows):
-        r = r.select(ax, 0)
-        big.select(ax, slot).narrow(ax, offset, r.shape[ax]).copy_(r)
+    of the contiguous layout.  On a tensor-parallel rank a leaf
+    ``seq_cut(path)`` names holds the rank's contiguous cut of the
+    positions, and the rows hold every position
+    (:func:`_write_positions`)."""
+    src = flatten(rows)
+    for path, big in flatten(cache).items():
+        ax = slot_batch_axis(path.split("."))
+        r = src[path].select(ax, 0)
+        dst = big.select(ax, slot)
+        if seq_cut is not None and seq_cut(path):
+            _write_positions(dst, r, offset, ax, tp)
+        else:
+            dst.narrow(ax, offset, r.shape[ax]).copy_(r)
     return cache
 
 
@@ -328,7 +394,8 @@ def make_extend_step(model: Model, prefix_len: int,
             ref = paging.PagedPrefix(table_row[None], block_size)
             logits, rows = model.prefill_extend(
                 tokens, cache, ref, prefix_len, max_cache_len, flags=flags)
-            cache = _paged_scatter_rows(block_size, cache, rows, 0, page_ids)
+            cache = _paged_scatter_rows(block_size, cache, rows, 0, page_ids,
+                                        flags.tp)
             return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
         return paged_extend_step
@@ -339,10 +406,20 @@ def make_extend_step(model: Model, prefix_len: int,
         # write touches exactly [slot, prefix_len:prefix_len+S')
         logits, rows = model.prefill_extend(
             tokens, cache, ref, prefix_len, tokens.shape[1], flags=flags)
-        cache = _slot_write_rows(cache, rows, int(slot), prefix_len)
+        cache = _slot_write_rows(cache, rows, int(slot), prefix_len,
+                                 _seq_cut(model, flags), flags.tp)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return slot_extend_step
+
+
+def _seq_cut(model: Model, flags: RuntimeFlags):
+    """The predicate of the cache leaves a rank of ``flags.tp`` holds a
+    cut of the positions of (``transformer.seq_cut``); None off a
+    mesh."""
+    if flags.tp is None:
+        return None
+    return functools.partial(tf.seq_cut, model.cfg, tp=flags.tp)
 
 
 # ---------------------------------------------------------------------------
@@ -390,45 +467,53 @@ def make_state_rewind():
     return rewind
 
 
-def _state_write_rows(model: Model, cache, rows, slot: int, offset: int):
+def _state_write_rows(model: Model, cache, rows, slot: int, offset: int,
+                      seq_cut=None, tp=None):
     """Chunked-prefill write-back on the state layout, in place:
     attention leaves (mixed stacks keep contiguous slot rows there)
     write the batch-1 suffix rows at ``[slot, offset:offset + S')``;
     recurrent leaves overwrite slab row ``slot`` with the state after
-    the chunk — the slab row is the ingest-frontier checkpoint."""
+    the chunk — the slab row is the ingest-frontier checkpoint.  A
+    tensor-parallel rank writes the attention positions it holds, as
+    :func:`_slot_write_rows` does."""
     src = flatten(rows)
     for path, big in flatten(cache).items():
         ax = slot_batch_axis(path.split("."))
         r = src[path].select(ax, 0)
         dst = big.select(ax, slot)
         if model.layer_kind_of_path(path) == "attn":
+            if seq_cut is not None and seq_cut(path):
+                _write_positions(dst, r, offset, ax, tp)
+                continue
             dst = dst.narrow(ax, offset, r.shape[ax])
         dst.copy_(r)
     return cache
 
 
 def _hybrid_scatter_rows(model: Model, block_size: int, arena, rows,
-                         row: int, page_ids: torch.Tensor, slot: int):
+                         row: int, page_ids: torch.Tensor, slot: int,
+                         tp=None):
     """Hybrid-layout cache write, in place: attention leaves scatter the
     row's pages to the ``page_ids`` blocks (see
-    :func:`_paged_scatter_rows`); recurrent leaves copy batch row
-    ``row`` of the prefilled states into slab row ``slot``."""
-    ids = page_ids.long()
+    :func:`_paged_scatter_rows`, ``tp`` as there); recurrent leaves copy
+    batch row ``row`` of the prefilled states into slab row ``slot``."""
     src = flatten(rows)
+    attn = set()
     for path, big in flatten(arena).items():
-        ax = slot_batch_axis(path.split("."))
-        r = src[path].select(ax, row)
         if model.layer_kind_of_path(path) == "attn":
-            _scatter_pages(block_size, big, r, ax, ids)
+            attn.add(path)
         else:
-            big.select(ax, slot).copy_(r)
+            ax = slot_batch_axis(path.split("."))
+            big.select(ax, slot).copy_(src[path].select(ax, row))
+    _paged_scatter_rows(block_size, arena, rows, row, page_ids, tp,
+                        only=attn)
     return arena
 
 
-def make_hybrid_insert(model: Model, block_size: int):
+def make_hybrid_insert(model: Model, block_size: int, tp=None):
     """Build ``insert(arena, rows, row, page_ids, slot)`` — see
     :func:`_hybrid_scatter_rows`."""
-    return functools.partial(_hybrid_scatter_rows, model, block_size)
+    return functools.partial(_hybrid_scatter_rows, model, block_size, tp=tp)
 
 
 def make_state_extend_step(model: Model, prefix_len: int,
@@ -455,7 +540,7 @@ def make_state_extend_step(model: Model, prefix_len: int,
                 tokens, cache, ref, prefix_len, max_cache_len, flags=flags,
                 slots=slot[None])
             cache = _hybrid_scatter_rows(model, block_size, cache, rows, 0,
-                                         page_ids, int(slot))
+                                         page_ids, int(slot), flags.tp)
             return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
         return hybrid_extend_step
@@ -465,7 +550,8 @@ def make_state_extend_step(model: Model, prefix_len: int,
         logits, rows = model.prefill_extend(
             tokens, cache, ref, prefix_len, tokens.shape[1], flags=flags,
             slots=slot[None])
-        cache = _state_write_rows(model, cache, rows, int(slot), prefix_len)
+        cache = _state_write_rows(model, cache, rows, int(slot), prefix_len,
+                                  _seq_cut(model, flags), flags.tp)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return state_extend_step

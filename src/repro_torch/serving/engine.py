@@ -44,10 +44,17 @@ own.  ROADMAP item 11a serves the attention-only decoders so, and item
 (a rank holds its channels of Mamba's d_inner, of mLSTM's dk and of the
 sLSTM's gate blocks, and its slice of each state) on every layout,
 slot, paged, state and hybrid; the state layouts' verify stacks stay on
-each rank under the verify's id for the rewind that names them.  MLA,
-the encoder-decoder, attention heads the ranks do not divide (JAX
-shards such K/V on head_dim) and what the ranks cannot slice are
-refused at tp > 1 (item 11b-ii, :func:`check_tp_support`).
+each rank under the verify's id for the rewind that names them.  Item
+11b-ii serves the rest of what the JAX engine serves on a mesh: a width
+the ranks do not divide is held and computed whole on every rank and
+not summed (``sharding.group.cut``); K/V whose kv heads the ranks do
+not divide lie on head_dim, else on the sequence, and decode through
+partial scores summed over the ranks (``attention.tp_decode``); MLA
+keeps its heads cut, ``c_kv`` on its lora rank and ``k_rope`` on the
+sequence (``mla.tp_decode``); an encoder-decoder's encoder and cross
+attention are served by :meth:`generate`.  Sliding windows (item 12),
+MLA on the state layouts (item 15) and ``moe_impl="ep"`` (item 11c)
+are refused as without a mesh.
 """
 from __future__ import annotations
 
@@ -69,8 +76,7 @@ from ..launch.mesh import mesh_desc
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
 from ..models.params import flatten, tree_map
-from ..models.moe import check_moe_impl, padded_experts
-from ..models.xlstm import slstm_block
+from ..models.moe import check_moe_impl
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
                                   check_mixed_extend_support,
                                   check_paged_support, check_supported)
@@ -89,49 +95,30 @@ from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
 STATE_KINDS = ("state", "hybrid")
 LAYOUTS = ("slot", "paged") + STATE_KINDS
 
-TP_ITEM = "ROADMAP Queue 1 item 11b-ii"
+def cuts_positions(cfg: ArchConfig, tp: int) -> bool:
+    """Whether a rank of ``tp`` holds a cut of some cache's positions:
+    MLA's ``k_rope``, or attention K/V whose kv heads and head_dim the
+    ranks both do not divide (the rules' last arm)."""
+    return tp > 1 and "attn" in cfg.layer_kinds() and (
+        cfg.use_mla or (cfg.num_kv_heads % tp != 0
+                        and cfg.head_dim % tp != 0))
 
 
-def check_tp_support(cfg: ArchConfig, tp: int) -> None:
-    """Raise for what tensor-parallel serving does not run yet at ``tp``
-    ranks (ROADMAP item 11b-ii): MLA, the encoder-decoder, attention
-    heads the ranks do not divide (JAX serves kv heads that do not
-    divide through K/V sharded on head_dim), and widths the ranks cannot
-    slice: FFN columns, padded experts, Mamba's d_inner, mLSTM heads and
-    their dk, the sLSTM's gate blocks, the vocabulary.  A stack with no
-    attention layer has no attention heads to divide (xlstm's heads are
-    its mixers')."""
-    if tp <= 1:
-        return
-    kinds = set(cfg.layer_kinds())
-    ffns = set(cfg.ffn_kinds())
-    what = [name for name, bad in (
-        ("MLA attention", cfg.use_mla),
-        ("the encoder-decoder", cfg.is_encoder_decoder)) if bad]
-    sizes = [("padded_vocab", cfg.padded_vocab)]
-    if "attn" in kinds:
-        sizes += [("attention num_heads", cfg.num_heads),
-                  ("attention num_kv_heads", cfg.num_kv_heads)]
-    if "dense" in ffns and cfg.dense_d_ff:
-        sizes.append(("dense FFN width", cfg.dense_d_ff))
-    if "moe" in ffns and cfg.num_experts:
-        sizes.append(("padded experts", padded_experts(cfg)))
-    if "mamba" in kinds:
-        sizes.append(("Mamba d_inner", cfg.d_inner))
-    if "mlstm" in kinds:
-        sizes += [("mLSTM heads", cfg.num_heads),
-                  ("mLSTM dk", 2 * cfg.d_model // cfg.num_heads)]
-    if "slstm" in kinds:
-        sizes.append((f"sLSTM gate block (d_model / slstm_num_heads x "
-                      f"gcd(slstm_num_heads, 4), {cfg.slstm_num_heads} "
-                      f"heads)", slstm_block(cfg)))
-    what += [f"{name} {n} not divisible by tp={tp}" for name, n in sizes
-             if n % tp]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving at tp={tp} of "
-            f"{'; '.join(what)} is not yet ported to repro_torch "
-            f"({TP_ITEM}); serve it without a mesh")
+def check_tp_support(cfg: ArchConfig, tp: int, max_len: int = 0) -> None:
+    """Raise for what tensor-parallel serving at ``tp`` ranks cannot cut
+    as the rules do.  Every width is served: one the ranks divide is
+    cut, one they do not is held whole on every rank, as JAX's
+    ``resolve_spec`` holds it.  The positions of a cache cut on its
+    sequence (:func:`cuts_positions`) are the one length the port
+    needs the ranks to divide: ``max_len`` here, the block size at
+    :meth:`LLMEngine.new_cache`, the encoder's frames at
+    :meth:`LLMEngine.generate`.  What waits for other items is refused
+    as without a mesh (sliding windows, MLA on the state layouts,
+    ``moe_impl="ep"``)."""
+    if max_len and cuts_positions(cfg, tp) and max_len % tp:
+        raise ValueError(
+            f"{cfg.name} at tp={tp} holds a rank's cut of its caches' "
+            f"positions: max_len {max_len} must be a multiple of {tp}")
 
 
 class CacheTree(dict):
@@ -337,7 +324,7 @@ class LLMEngine:
                                  f"device type")
             device = mesh.devices[rank]
             if self.tp > 1:
-                check_tp_support(cfg, self.tp)
+                check_tp_support(cfg, self.tp, max_len)
                 if types_ == {"cuda"} and flags.cuda_graphs:
                     raise ValueError(
                         "a tensor-parallel mesh on CUDA runs its "
@@ -440,6 +427,13 @@ class LLMEngine:
         mine = sorted(self._mirror.live) if self._mirror is not None \
             else sorted(self._objects)
         return self._gather(mine)
+
+    @_mirrored()
+    def rank_cache_shapes(self, cache) -> List[Dict[str, Tuple[int, ...]]]:
+        """Every rank's shapes of ``cache``'s leaves (by flat path), in
+        rank order."""
+        return self._gather({p: tuple(a.shape)
+                             for p, a in flatten(cache).items()})
 
     def _gather(self, obj) -> List[Any]:
         return [obj] if self.collectives is None \
@@ -581,11 +575,16 @@ class LLMEngine:
     # ------------------------------------------------------------------
     @_mirrored()
     def generate(self, tokens: np.ndarray, max_new_tokens: int = 16,
-                 eos_id: Optional[int] = None) -> np.ndarray:
-        """Greedy-decode a batch. tokens: [B, S] int -> [B, max_new]."""
+                 eos_id: Optional[int] = None,
+                 enc_embeds: Optional[np.ndarray] = None) -> np.ndarray:
+        """Greedy-decode a batch. tokens: [B, S] int -> [B, max_new].
+        ``enc_embeds`` [B, T, d] (an encoder-decoder's stub frames, on
+        the host) are encoded into the memory the decoder attends over;
+        without them the decoder runs without cross attention, as the
+        JAX engine serves it."""
         tokens = self._tokens(tokens)
         B, S = tokens.shape
-        next_tok, cache = self._run_prefill(tokens)
+        next_tok, cache = self._run_prefill(tokens, enc_embeds)
         if self.graphs is not None:
             cache = self._lockstep_cache(B, cache)
         out = [next_tok]
@@ -610,23 +609,41 @@ class LLMEngine:
     # serving API (continuous batching over a CacheBackend)
     # ------------------------------------------------------------------
     @_mirrored("rows")
-    def prefill(self, tokens: np.ndarray) -> Tuple[np.ndarray, Dict]:
+    def prefill(self, tokens: np.ndarray,
+                enc_embeds: Optional[np.ndarray] = None
+                ) -> Tuple[np.ndarray, Dict]:
         """Prefill [B, S] prompts of one length; returns (first tokens
-        [B], cache rows)."""
-        next_tok, cache = self._run_prefill(self._tokens(tokens))
+        [B], cache rows); ``enc_embeds`` as :meth:`generate` takes
+        them."""
+        next_tok, cache = self._run_prefill(self._tokens(tokens),
+                                            enc_embeds)
         return next_tok.cpu().numpy(), cache
 
     @_mirrored()
-    def prefill_logits(self, tokens: np.ndarray) -> np.ndarray:
+    def prefill_logits(self, tokens: np.ndarray,
+                       enc_embeds: Optional[np.ndarray] = None) -> np.ndarray:
         """The last prompt token's logits of a prefill of [B, S] prompts,
-        [B, padded vocab] in f32 on the host (pad columns masked)."""
+        [B, padded vocab] in f32 on the host (pad columns masked);
+        ``enc_embeds`` as :meth:`generate` takes them."""
+        enc = None if enc_embeds is None else torch.as_tensor(
+            np.asarray(enc_embeds), device=self.device)
         logits, _ = self.model.prefill(self._tokens(tokens), self.max_len,
-                                       flags=self.flags)
+                                       flags=self.flags, enc_embeds=enc)
         return logits.float().cpu().numpy()
 
-    def _run_prefill(self, tokens: torch.Tensor):
-        return self._first_call(("prefill", "batch", ""),
-                                lambda: self._prefill(tokens))
+    def _run_prefill(self, tokens: torch.Tensor,
+                     enc_embeds: Optional[np.ndarray] = None):
+        if enc_embeds is None:
+            return self._first_call(("prefill", "batch", ""),
+                                    lambda: self._prefill(tokens))
+        T = np.asarray(enc_embeds).shape[1]
+        if cuts_positions(self.cfg, self.tp) and T % self.tp:
+            raise ValueError(f"{T} encoder frames: the cross caches cut "
+                             f"their positions over tp={self.tp}")
+        enc = torch.as_tensor(np.asarray(enc_embeds), device=self.device)
+        return self._first_call(
+            ("prefill", "batch", "enc"),
+            lambda: self._prefill(tokens, enc_embeds=enc))
 
     def _check_layout(self, kind: str) -> None:
         if kind not in LAYOUTS:
@@ -703,6 +720,12 @@ class LLMEngine:
         the per-layer mix of both (hybrid)."""
         self._check_layout(backend.kind)
         self._check_mla_layout(backend.kind)
+        if backend.kind in ("paged", "hybrid") and cuts_positions(
+                self.cfg, self.tp) and backend.block_size % self.tp:
+            raise ValueError(
+                f"{self.cfg.name} at tp={self.tp} holds a rank's offsets "
+                f"of every block: block_size {backend.block_size} must be "
+                f"a multiple of {self.tp}")
         if backend.kind == "paged":
             check_paged_support(self.cfg)
             self._check_blocks(backend.block_size)
@@ -724,14 +747,20 @@ class LLMEngine:
         """Factor by which one cache block's per-rank bytes shrink under
         the serving mesh, i.e. how many times more blocks the same
         per-rank memory holds; ``GraphServer`` scales its default paged
-        arena by it.  The JAX engine's rule: K/V shard on their kv heads
-        (the constructor refuses, at tp > 1, attention kv heads the ranks
-        do not divide, and MLA, until item 11b-ii), so the paged and
-        hybrid arenas shrink by tp; a stack with no attention layer
-        reports 1, its O(1) state slabs are not the capacity bound."""
-        if self.tp <= 1 or "attn" not in self.cfg.layer_kinds():
+        arena by it.  The JAX engine's rule: K/V shard on their kv heads,
+        or on head_dim where the kv heads do not divide, and MLA's
+        latents on their lora rank: each gives tp where it divides, else
+        1 (K/V on the sequence are not counted); a stack with no
+        attention layer reports 1, its O(1) state slabs are not the
+        capacity bound."""
+        cfg = self.cfg
+        if self.tp <= 1 or "attn" not in cfg.layer_kinds():
             return 1
-        return self.tp
+        if cfg.use_mla:
+            return self.tp if cfg.kv_lora_rank % self.tp == 0 else 1
+        if cfg.num_kv_heads % self.tp == 0 or cfg.head_dim % self.tp == 0:
+            return self.tp
+        return 1
 
     @_mirrored()
     def insert(self, backend, cache, rows, row: int, dst):
@@ -744,11 +773,13 @@ class LLMEngine:
         if backend.kind == "hybrid":
             page_ids, slot = dst
             run = functools.partial(
-                make_hybrid_insert(self.model, backend.block_size),
+                make_hybrid_insert(self.model, backend.block_size,
+                                   self.flags.tp),
                 cache, rows, int(row), self._ints(page_ids), int(slot))
         elif backend.kind == "paged":
-            run = functools.partial(make_paged_insert(backend.block_size),
-                                    cache, rows, int(row), self._ints(dst))
+            run = functools.partial(
+                make_paged_insert(backend.block_size, self.flags.tp),
+                cache, rows, int(row), self._ints(dst))
         else:
             run = functools.partial(self._slot_insert, cache, rows,
                                     int(row), int(dst))

@@ -135,12 +135,40 @@ class Collectives:
                 for o, s in zip(out, sizes)]
 
 
-def tp_reduce(y: torch.Tensor, flags) -> torch.Tensor:
+def tp_reduce(y: torch.Tensor, flags, partial: bool = True) -> torch.Tensor:
     """The partial product ``y`` of a row-parallel weight summed over
     the ranks (the reduction GSPMD inserts after a product that
-    contracts a sharded axis); the identity at one shard."""
+    contracts a sharded axis); the identity at one shard, and where
+    ``partial`` is false: a product over a width ``resolve_spec`` left
+    whole is the whole product on every rank, and summing it would
+    count it tp times."""
     group = getattr(flags, "tp", None)
-    return y if group is None else group.all_reduce(y)
+    return y if group is None or not partial else group.all_reduce(y)
+
+
+def cut(group, local: int, whole: int):
+    """``group`` where this rank holds a cut ``local`` of a width
+    ``whole``; None where the rules left the width whole, which every
+    rank then computes whole, as without a mesh."""
+    return group if group is not None and local < whole else None
+
+
+def placed(x: torch.Tensor, dim: int, index: torch.Tensor,
+           whole: int) -> torch.Tensor:
+    """``x`` written at ``index`` (a [n] long tensor) along ``dim`` of a
+    zero tensor ``whole`` long there: summed over the ranks
+    (:func:`tp_reduce_parts`), each rank's entries at their places —
+    the gather of a cut tensor as an exact sum (one non-zero term an
+    element)."""
+    shape = list(x.shape)
+    shape[dim] = whole
+    return x.new_zeros(shape).index_copy_(dim, index, x)
+
+
+def own_range(n: int, group, device=None) -> torch.Tensor:
+    """The indices ``[rank * n, (rank + 1) * n)`` of the rank's contiguous
+    slice of ``n`` (a [n] long tensor)."""
+    return torch.arange(group.rank * n, (group.rank + 1) * n, device=device)
 
 
 def tp_reduce_parts(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:

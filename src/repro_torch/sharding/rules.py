@@ -62,6 +62,12 @@ RULES: Dict[str, Any] = {
 }
 
 
+#: the rules with the sequence left whole: the rows a chunked prefill
+#: writes hold every position of the chunk on every rank, and each
+#: layout's writer keeps the rank's own (``runtime/steps.py``)
+WHOLE_SEQ: Dict[str, Any] = dict(RULES, seq=None)
+
+
 def _batch_axes(mesh) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
@@ -156,7 +162,7 @@ def _cache_leaf_axes(key: str, shape, scanned: bool, mesh):
     return ((None,) + axes) if scanned else axes
 
 
-def cache_specs(cache, mesh):
+def cache_specs(cache, mesh, rules=None):
     """Walk a cache tree (tensors, ``meta`` ones included) and assign
     each leaf its spec by name; leaves under ``"blocks"`` carry the
     leading ``[R]`` axis."""
@@ -167,7 +173,7 @@ def cache_specs(cache, mesh):
                 out[k] = walk(v, scanned or k == "blocks")
             else:
                 axes = _cache_leaf_axes(k, tuple(v.shape), scanned, mesh)
-                out[k] = resolve_spec(tuple(v.shape), axes, mesh)
+                out[k] = resolve_spec(tuple(v.shape), axes, mesh, rules)
         return out
 
     return walk(cache, False)
@@ -214,12 +220,16 @@ def shard_tensor(t: torch.Tensor, spec: Spec, mesh, rank: int,
     of its consecutive blocks, such as Mamba's ``in_proj`` columns ``[x
     | z]``.  Sharded, the rank takes its slice of each block, in order
     (a copy), where a plain cut would hand it whole blocks: rank r of
-    tp holds ``[x_r | z_r]``, the columns of its channels in both."""
+    tp holds ``[x_r | z_r]``, the columns of its channels in both.  A
+    fused axis with a block the ranks do not divide is left whole, as
+    ``resolve_spec`` leaves a dimension it cannot divide."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         idx, count = _entry_slice(mesh, entry, rank)
         if parts is not None and dim == t.dim() - 1:
+            if any(p % count for p in parts):
+                continue
             t = torch.cat([p.narrow(dim, idx * (p.shape[dim] // count),
                                     p.shape[dim] // count)
                            for p in t.split(list(parts), dim)], dim)
@@ -234,10 +244,12 @@ def param_parts(template) -> Dict[str, Optional[Tuple[int, ...]]]:
     return flatten(tree_map(lambda s: s.parts, template))
 
 
-def local_tree(tree, mesh):
+def local_tree(tree, mesh, rules=None):
     """A cache tree of ``meta`` tensors cut to one rank's shapes by
-    :func:`cache_specs` (the same for every rank)."""
-    specs = flatten(cache_specs(tree, mesh))
+    :func:`cache_specs` (the same for every rank); ``rules`` as
+    :func:`resolve_spec` takes them (``WHOLE_SEQ``: every position
+    kept)."""
+    specs = flatten(cache_specs(tree, mesh, rules))
     flat = flatten(tree)
     out = {path: torch.empty(local_shape(tuple(a.shape), specs[path], mesh),
                              dtype=a.dtype, device=a.device)
@@ -253,6 +265,16 @@ def shard_state_dict(state_dict: Dict[str, torch.Tensor], template, mesh,
     full tensors' bits."""
     specs = flatten(param_specs(template, mesh))
     parts = param_parts(template)
-    return {path: shard_tensor(t, specs[path], mesh, rank,
-                               parts[path]).contiguous()
+    return {path: owned(shard_tensor(t, specs[path], mesh, rank,
+                                     parts[path]))
             for path, t in state_dict.items()}
+
+
+def owned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and holding its own storage: a slice that is a
+    view (a cut of the leading axis) is copied, so that the whole
+    tensor it was cut from can be freed."""
+    t = t.contiguous()
+    if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+        t = t.clone()
+    return t

@@ -10,8 +10,9 @@ parametrised assertions over its JSON verdicts, one per (scenario,
 layout, mesh size), with the ids of ``tests/test_sharded_serving.py``'s
 slot and paged cases.
 
-In this process: the refusals of what items 11a and 11b-i do not serve
-(each names item 11b-ii), the CUDA graph refusal on a gloo CUDA mesh (a
+In this process: the configurations items 11a and 11b-i refused and
+item 11b-ii serves (each builds at tp 4 and its first greedy token is
+the unsharded port's), the CUDA graph refusal on a gloo CUDA mesh (a
 constructor check, no card needed), and the rank processes' hygiene —
 every worker holds exactly rank 0's live caches after a drained
 ``GraphServer`` closes (``graphserver_leak_check``), a killed worker
@@ -154,12 +155,12 @@ def _reduced(name, **kw):
     return dataclasses.replace(get_config(name).reduced(), **kw)
 
 
-#: what tensor-parallel serving still refuses at tp 4 (item 11b-ii), and
-#: the words of each refusal.  Item 11b-i serves the MoE FFN, the
-#: recurrent mixers and the state and hybrid layouts: the cases of
-#: granite and jamba keep refusing for their reduced configs' 2 kv
-#: heads, and xlstm's for 6 mLSTM heads (reduced xlstm itself is
-#: served at tp 4)
+#: what tensor-parallel serving refused at tp 4 until item 11b-ii, and
+#: the words each refusal named: MLA, the encoder-decoder, and every
+#: width the ranks do not divide (granite's, jamba's and qwen3's 2 kv
+#: heads, 6 mLSTM heads, 6 attention heads, Mamba's d_inner 66, 6 padded
+#: experts, the sLSTM's gate block of 66, mLSTM's dk of 34).  Item
+#: 11b-ii serves them all; the cases keep their ids (below)
 REFUSED = [
     ("granite_moe_3b_a800m", {}, "num_kv_heads 2"),     # kv heads 2 % 4
     ("deepseek_v3_671b", {}, "MLA"),                    # MLA (+ MoE)
@@ -182,20 +183,38 @@ REFUSED = [
 ]
 
 
+@pytest.fixture(scope="module")
+def tp4_pool():
+    """One set of four CPU ranks for every case (``WorkerPool``)."""
+    from repro_torch.sharding.group import WorkerPool
+    pool = WorkerPool()
+    yield pool
+    pool.close()
+
+
 @pytest.mark.parametrize("name,kw", [(n, kw) for n, kw, _ in REFUSED])
-def test_tp_refuses_what_11a_does_not_serve(name, kw):
+def test_tp_refuses_what_11a_does_not_serve(name, kw, tp4_pool):
+    """The name is kept, as every test id is (ROADMAP Test rules): each
+    case was refused at tp 4 until item 11b-ii.  It is served now: the
+    engine builds on four CPU ranks and its first greedy token is the
+    unsharded port's."""
     cfg = _reduced(name, **kw)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        LLMEngine(cfg, max_len=32, device="cpu",
-                  mesh=make_serving_mesh(4, devices=["cpu"] * 4))
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 7))
+    want = LLMEngine(cfg, max_len=32, device="cpu").generate(toks, 1)
+    engine = LLMEngine(cfg, max_len=32, device="cpu", pool=tp4_pool,
+                       mesh=make_serving_mesh(4, devices=["cpu"] * 4))
+    try:
+        assert np.array_equal(engine.generate(toks, 1), want)
+    finally:
+        engine.close()
 
 
 @pytest.mark.parametrize("name,kw,what", REFUSED)
 def test_tp_refusal_names_what_waits(name, kw, what):
-    """Each refusal names what it refuses and item 11b-ii."""
-    with pytest.raises(NotImplementedError) as e:
-        check_tp_support(_reduced(name, **kw), 4)
-    assert what in str(e.value) and "item 11b-ii" in str(e.value)
+    """The name is kept (ROADMAP Test rules): each case's refusal named
+    ``what`` and item 11b-ii, which serves it.  ``check_tp_support`` now
+    returns for it at tp 4."""
+    assert check_tp_support(_reduced(name, **kw), 4) is None
 
 
 def test_cuda_gloo_mesh_refuses_cuda_graphs():

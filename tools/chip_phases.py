@@ -3,14 +3,16 @@
 loop than the whole script while a phase is being written.
 
     python3 tools/chip_phases.py kernels,tp_moe,tp_hybrid,tp_state,tp_mixers_f32
+    python3 tools/chip_phases.py kernels,tp_mla,tp_hd,tp_encdec
 
 ``kernels`` holds K2, K4, K5 and K3 against their plain versions at one
 rank's heads under tensor-parallel serving (granite_moe_3b_a800m's 12
-over 4 kv heads and jamba's 32 over 4 at tp 2, and granite's 256-row
-rank chunk), in bf16 and f32, each row alone bitwise its row of the
-batch; the other names are ``chip_smoke.py``'s tensor-parallel phases
-of item 11b-i, run in the order given, their engines sharing one
-``WorkerPool``.  Builds the kernels first (``phase_build``).  Prints the
+over 4 kv heads, jamba's 32 over 4 and seamless_m4t_large_v2's 8 over
+8 at tp 2, and granite's 256-row rank chunk), in bf16 and f32, each row
+alone bitwise its row of the batch; the other names are
+``chip_smoke.py``'s tensor-parallel phases of items 11b-i and 11b-ii,
+run in the order given, their engines sharing one ``WorkerPool``
+(``tp_hd``'s eight ranks have one of their own).  Builds the kernels first (``phase_build``).  Prints the
 phases' JSON lines, then the card's name and power limit; exits
 non-zero without a card or at the first failed check.
 """
@@ -25,7 +27,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 PHASES = {"tp_moe": cs.phase_tp_moe, "tp_hybrid": cs.phase_tp_hybrid,
-          "tp_state": cs.phase_tp_state}
+          "tp_state": cs.phase_tp_state, "tp_mla": cs.phase_tp_mla,
+          "tp_hd": cs.phase_tp_hd, "tp_encdec": cs.phase_tp_encdec}
 
 
 def rank_kernels(torch) -> None:
@@ -39,7 +42,8 @@ def rank_kernels(torch) -> None:
                  "case": case, "max_abs_err": err, "tol": tol, "ok": ok})
         cs.check(ok, f"{name} {dtype} {case}: max abs err {err}")
 
-    shapes = [s for s in cs.TP_HEADS if s[0].startswith(("granite", "jamba"))]
+    shapes = [s for s in cs.TP_HEADS
+              if s[0].startswith(("granite", "jamba", "seamless"))]
     for dtype in ("bfloat16", "float32"):
         for shape in shapes:
             cs.check_paged_kernels(torch, dev, g, dtype, shape, record)
@@ -53,8 +57,9 @@ def rank_kernels(torch) -> None:
 
 
 def main(argv) -> int:
-    names = argv[0].split(",") if argv else ["kernels", *PHASES,
-                                             "tp_mixers_f32"]
+    names = argv[0].split(",") if argv else [
+        "kernels", "tp_moe", "tp_hybrid", "tp_state", "tp_mixers_f32",
+        "tp_mla", "tp_hd", "tp_encdec"]
     unknown = set(names) - {"kernels", "tp_mixers_f32", *PHASES}
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
