@@ -9,7 +9,10 @@ PyTorch version on the card in bf16 and f32 (K1 at every served width,
 512 to 8192, at 1, 4, 5, 256 and 1024 rows, each row's bits the same
 at every row count and alone; K3 also at qwen3_32b's and
 stablelm_12b's head shapes, its suffixes bitwise equal to the full
-prefill's rows; K2, K4 and K5 at minicpm_2b's, qwen3_32b's and
+prefill's rows, and its window branch at deepseek_7b's 32 heads of 128
+(window 8192 over 8704 rows) and qwen3_32b's (window 1000, not a
+multiple of the 128-key block), each row alone bitwise equal to its row
+of the batch; K2, K4 and K5 at minicpm_2b's, qwen3_32b's and
 stablelm_12b's, windows of 1 and 5 queries, each row alone bitwise equal
 to its row of the batch; K2 and K4's 5-query window bitwise equal to
 five single-query calls), reads whether cuBLAS rows depend on the
@@ -62,6 +65,20 @@ path (``mla_main_path``), the serve workload through the Scheduler
 captured against eager with its drops counted, slot against paged,
 forced preemptions replayed, the captured tick against its bounds and an
 f32 engine against per-request greedy (``mla_serve``, ``mla_tick``),
+the same requests on the hybrid and state layouts (MLA's latents
+paged, and in slot rows) bitwise the paged layout's tokens, and with
+speculation at 2 slots, hybrid bitwise paged (``mla_layouts``), then the
+sliding windows: ``deepseek_7b`` at full width and depth (30 layers,
+d_model 4096, 32 heads of 128) with the window of 8192 that JAX's dry
+run serves ``long_500k`` with, three requests of 8176-9000 tokens
+through the Scheduler on 2 slots with one forced preemption (K1 and
+K3's window branch launches held to the schedule, no decode kernel:
+windowed decode is the plain gather path, as in JAX; tokens bitwise
+each request's ``generate`` alone, the victim's K/V bitwise what it
+held, against a teacher-forced plain forward under the top-2 rule; the
+captured tick bitwise the eager one beside its bytes bound; the
+9000-token prefill's ms: ``window_main_path``) and deepseek_v3's dense
+head layer at that window over an 8300-token prompt (``mla_window``),
 then the modality stubs at full width and depth:
 ``phi_3_vision_4_2b`` (32 layers, d_model 3072, 32 heads of 96) through
 ``make_prefill_step`` over 576 patch embeddings and 16 tokens, lockstep
@@ -308,6 +325,10 @@ def phase_kernels(torch):
         for shape, rows, offsets in STUB_PREFILLS:
             check_flash_shape(torch, dev, g, dtype, shape, record,
                               rows=rows, offsets=offsets, batch=2)
+        # K3's window branch (item 12)
+        for shape, rows, window in WINDOW_PREFILLS:
+            check_flash_shape(torch, dev, g, dtype, shape, record,
+                              rows=rows, offsets=(), batch=2, window=window)
         # K2: 4 rows, max_len 512, page 8, windows of 1 and 4
         B, KV, hd, page = 4, 36, 64, 8
         P = MAX_LEN // page
@@ -442,11 +463,13 @@ STUB_PREFILLS = ((("phi_3_vision_4_2b", 32, 32, 96), 592, (50, 576)),
 
 
 def check_flash_shape(torch, dev, g, dtype, shape, record,
-                      rows=PREFILL_ROWS, offsets=PREFILL_OFFSETS, batch=1):
+                      rows=PREFILL_ROWS, offsets=PREFILL_OFFSETS, batch=1,
+                      window=0):
     """K3 at ``shape`` = (name, H, KV, hd): a causal prefill of ``batch``
-    x ``rows`` rows against its plain version, and its suffixes at
-    ``offsets`` against theirs and bitwise against the full rows; with
-    two or more rows, each row alone bitwise its row of the batch."""
+    x ``rows`` rows (with the sliding ``window`` mask where given)
+    against its plain version, and its suffixes at ``offsets`` against
+    theirs and bitwise against the full rows; with two or more rows,
+    each row alone bitwise its row of the batch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     name, H, KV, hd = shape
@@ -458,25 +481,41 @@ def check_flash_shape(torch, dev, g, dtype, shape, record,
         return torch.randn(*shp, device=dev, generator=g).to(dt)
 
     q, k, v = rand(B, S, H, hd), rand(B, S, KV, hd), rand(B, S, KV, hd)
-    full = flash_attention_cuda(q, k, v)
-    case = f"{name} [{B},{S},{H},{hd}] kv {KV} causal"
+    full = flash_attention_cuda(q, k, v, window=window)
+    case = f"{name} [{B},{S},{H},{hd}] kv {KV} causal" + (
+        f" window {window}" if window else "")
     record("flash_attention", dtype, case, full,
-           ref.flash_attention_ref(q, k, v), tol)
+           ref.flash_attention_ref(q, k, v, window=window), tol)
     for off in offsets:
         suf = flash_attention_cuda(q[:, off:].contiguous(), k, v,
-                                   q_offset=off)
+                                   q_offset=off, window=window)
         record("flash_attention", dtype, f"{case} q_offset={off}", suf,
-               ref.flash_attention_ref(q[:, off:], k, v, q_offset=off), tol)
+               ref.flash_attention_ref(q[:, off:], k, v, q_offset=off,
+                                       window=window), tol)
         check(torch.equal(suf, full[:, off:]),
               f"flash_attention {name}: suffix at q_offset={off} is not "
               f"bitwise equal to the full prefill's rows")
     for b in range(B if B > 1 else 0):
         alone = flash_attention_cuda(*(t[b:b + 1].contiguous()
-                                       for t in (q, k, v)))
+                                       for t in (q, k, v)), window=window)
         check(torch.equal(alone, full[b:b + 1]),
               f"flash_attention {name}: row {b} alone is not bitwise "
               f"equal to row {b} of the batch")
 
+
+#: deepseek_7b's bf16 products (K x N), which window_main_path serves a
+#: row of alone (``generate``) and in a batch of 2: q/k/v/o, gate and up,
+#: down, the untied logits
+WINDOW_GEMMS = {"deepseek_7b qkvo": (4096, 4096),
+                "deepseek_7b gate_up": (4096, 11008),
+                "deepseek_7b down": (11008, 4096),
+                "deepseek_7b logits": (4096, 102400)}
+#: (shape, rows, window) of K3's window cases, two rows each:
+#: deepseek_7b's heads at the window of 8192 over a prompt past it, and
+#: qwen3_32b's GQA at a window of 1000, not a multiple of the 128-key
+#: block
+WINDOW_PREFILLS = ((("deepseek_7b", 32, 32, 128), 8704, 8192),
+                   (("qwen3_32b", 64, 8, 128), 2304, 1000))
 
 #: (name, H, KV, hd) of the attention shapes K2, K4 and K5 are held at:
 #: minicpm_2b's (the served path), qwen3_32b's (GQA, wide heads: a
@@ -712,7 +751,8 @@ def phase_gemm_width(torch):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for name, (K, N) in list(shapes.items()) + (
-                list(TP_GEMMS.items()) if dtype == "bfloat16" else []):
+                list(TP_GEMMS.items()) + list(WINDOW_GEMMS.items())
+                if dtype == "bfloat16" else []):
             x = torch.randn(32, K, device=dev, generator=g).to(dt)
             if name in ("logits", "minicpm tp2 logits"):   # tied: the embedding's transpose
                 w = torch.randn(N, K, device=dev, generator=g).to(dt).t()
@@ -4475,6 +4515,8 @@ def phase_mla_serve(torch, smi):
           "speculate_k": 0, "bitwise_equal": equal})
     check(equal == len(requests), "mla_serve_layouts: paged and slot "
                                   "tokens are not bitwise equal")
+    add_counts(counts_all, phase_mla_layouts(torch, cap, requests,
+                                             layouts["paged"]))
 
     # ---- forced preemptions mid-decode, replayed through the decode step -
     forced = ForcedPreemption(torch)
@@ -4545,6 +4587,365 @@ def phase_mla_tick(torch, engine, requests, smi):
           "bound_bytes_hit_experts": hit_bytes,
           "bound_ms_hit_experts": hit_bytes / HBM_BPS * 1e3,
           "nvidia_smi": smi})
+
+
+# ---------------------------------------------------------------------------
+# phase 7b — sliding windows (ROADMAP item 12): deepseek_7b at window 8192
+# at full width and depth, deepseek_v3's MLA with the window; and MLA on
+# the state and hybrid layouts (item 15)
+# ---------------------------------------------------------------------------
+
+WINDOW_ARCH = "deepseek_7b"
+#: the window JAX's dry run serves ``long_500k`` with (``LONG_WINDOW``),
+#: which deepseek_7b's config names
+LONG_WINDOW = 8192
+#: the window phase's requests: one whose decode crosses the window, two
+#: past it at prefill; the positions limit holds the longest with its
+#: new tokens (the slot rows hold the window's 8192)
+WINDOW_PROMPTS = (8176, 8704, 9000)
+WINDOW_NEW = 32
+WINDOW_MAX_LEN = 9216
+WINDOW_SLOTS = 2
+#: decode ticks read for the captured-against-eager check and the times
+WINDOW_TICKS = 12
+#: the top-2 gap, relative to the logits' scale, above which a served
+#: token must be the teacher-forced plain forward's (bf16 rounds the
+#: decode path and the plain forward at different points)
+WINDOW_TOP2 = 0.1
+#: deepseek_v3's windowed phase: its dense head layer, one prompt past
+#: the window
+MLA_WINDOW_PROMPT = 8300
+MLA_WINDOW_NEW = 16
+#: mla_layouts' speculative runs: 2 slots of 1 + 3 tokens make verify
+#: ticks of 8, within every expert's 8 rows (Hazard 7)
+MLA_SPEC_SLOTS = 2
+MLA_SPEC = 3
+
+
+def window_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(WINDOW_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+          == (30, 4096, 32, 32, 128, 11008, 102400),
+          f"{WINDOW_ARCH} is not at full width")
+    return dataclasses.replace(cfg, sliding_window=LONG_WINDOW)
+
+
+def teacher_forced(torch, engine, prompt, tokens, rel=WINDOW_TOP2):
+    """Tokens served after ``prompt`` against a teacher-forced forward
+    over ``prompt`` ++ ``tokens[:-1]`` on the plain path (the plain
+    chunked attention with the window mask, the plain RMSNorm: no
+    kernel launches): equal wherever the forward's top-2 gap exceeds
+    ``rel`` of its logits' scale (``top2_agree``)."""
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import RuntimeFlags
+    flags = RuntimeFlags(**PLAIN_FLAGS, remat="none")
+    seq = np.concatenate([prompt, tokens[:-1]]).astype(np.int64)
+    before = dict(build.launches)
+    with torch.no_grad():
+        logits = engine.model.forward(
+            torch.as_tensor(seq[None], device=engine.device),
+            flags=flags)[0]
+    check(dict(build.launches) == before, "the plain forward launched a "
+                                          "kernel")
+    lg = logits[0, prompt.size - 1:, :engine.cfg.vocab_size].float()
+    del logits
+    scale = float(lg.abs().max())
+    agree, n = top2_agree(torch.argmax(lg, -1), tokens, lg, rel * scale)
+    same = int((torch.argmax(lg, -1).cpu()
+                == torch.as_tensor(tokens).long()).sum())
+    return {"tokens": int(tokens.size), "argmax_equal": same,
+            "gap_limit": rel * scale, "tokens_compared": n,
+            "tokens_agree": agree, "logit_scale": scale,
+            "ok": agree and bool(torch.isfinite(lg).all())}
+
+
+def window_ticks(torch, engines, requests, ticks=WINDOW_TICKS):
+    """Decode ticks of WINDOW_SLOTS rows (``requests`` prefilled and
+    inserted, past the window) on each engine's slot layout, the engines
+    in turns: 3 of warm-up, then ``ticks`` read.  Returns ({engine: the
+    median and min wall ms}, {engine: the ticks' tokens}, {engine: the
+    cache})."""
+    import numpy as np
+    from repro_torch.serving import SlotBackend
+    state = {}
+    for name, e in engines.items():
+        be = SlotBackend(e, WINDOW_SLOTS)
+        cache = e.new_cache(be)
+        last = np.zeros(WINDOW_SLOTS, np.int32)
+        pos = np.zeros(WINDOW_SLOTS, np.int32)
+        for slot, p in enumerate(requests):
+            first, rows = e.prefill(p[None])
+            cache = e.insert(be, cache, rows, 0, slot)
+            last[slot], pos[slot] = first[0], p.size
+        state[name] = [be, cache, last, pos, [], []]
+    active = np.ones(WINDOW_SLOTS, bool)
+    for i in range(3 + ticks):
+        for name, e in engines.items():
+            be, cache, last, pos, toks, times = state[name]
+            t0 = time.perf_counter()
+            tok, cache = e.decode(be, cache, last, pos, active)
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            state[name][1:4] = [cache, tok, pos + 1]
+    ms = {name: {"ms_median": statistics.median(st[5]),
+                 "ms_min": min(st[5])} for name, st in state.items()}
+    return (ms, {name: np.stack(st[4]) for name, st in state.items()},
+            {name: st[1] for name, st in state.items()})
+
+
+def window_tick_bytes(engine, positions):
+    """A windowed decode tick's bytes bound: every weight once
+    (``tick_weight_bytes``) and each row's live slots' K and V once,
+    every layer."""
+    cfg = engine.cfg
+    per_slot = 2 * cfg.num_kv_heads * cfg.head_dim * 2 * cfg.num_layers
+    live = sum(min(int(p) + 1, cfg.sliding_window) for p in positions)
+    return tick_weight_bytes(engine, len(positions)) + live * per_slot
+
+
+def phase_window_main_path(torch, smi):
+    """deepseek_7b at full width and depth (30 layers, d 4096, 32 heads
+    of 128, MHA, bf16, random weights from the seed) with the window
+    8192: the Scheduler on a SlotBackend of WINDOW_SLOTS slots (no
+    chunking, no speculation, as JAX serves a window) serves
+    WINDOW_PROMPTS with one forced preemption replayed through the
+    decode step: K1 and K3 (its window branch) launches held to the
+    schedule and no decode kernel (windowed decode is the plain gather
+    path, as in JAX), each request's tokens bitwise the engine's own
+    ``generate`` of it alone and the victim's K/V bitwise what it held,
+    and each against a teacher-forced plain forward (``teacher_forced``);
+    then the captured decode tick bitwise the eager one's tokens and
+    cache, both times beside the tick's bytes bound, and the prefill of
+    the longest prompt.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.models.transformer import RuntimeFlags
+    from repro_torch.serving import LLMEngine, SlotBackend
+    cfg = window_config()
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, max_len=WINDOW_MAX_LEN, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 11)
+    requests = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                for n in WINDOW_PROMPTS]
+    forced = ForcedPreemption(torch, limit=1)
+    got, stats, counts, wall = serve(
+        torch, engine, requests, 0, speculate_k=0, chunk=None,
+        max_new=WINDOW_NEW, hook=forced.install,
+        backend=lambda e: SlotBackend(e, WINDOW_SLOTS))
+    want = expected_serve_launches(cfg, stats, None)
+    kv_equal, victims = forced.kv_equal, forced.streamed
+    del forced                   # it holds the scheduler and its cache
+    alone = [engine.generate(p[None], WINDOW_NEW)[0] for p in requests]
+    equal = sum(bool(np.array_equal(got[i], a)) for i, a in enumerate(alone))
+    cache_rows = abstract_rows(cfg, WINDOW_MAX_LEN)
+    emit({"phase": "window_main_path", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "window": cfg.sliding_window,
+          "max_len": WINDOW_MAX_LEN, "cache_rows": cache_rows,
+          "prompts": list(WINDOW_PROMPTS), "new": WINDOW_NEW,
+          "slots": WINDOW_SLOTS, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in engine.model.parameters()),
+          "init_seconds": init_s, "serve_seconds": wall,
+          "launches": counts, "expected_launches": want,
+          "victims_streamed_tokens": victims,
+          "replays_kv_bitwise": sum(kv_equal),
+          "bitwise_equal_to_generate_alone": equal,
+          "stats": {k: stats[k] for k in (
+              "prefill_calls", "decode_steps", "preemptions",
+              "replayed_tokens", "replay_steps", "completed",
+              "admit_seconds", "step_seconds")}})
+    check(cache_rows == LONG_WINDOW, f"window_main_path: slot rows of "
+                                     f"{cache_rows}, not the window's")
+    check(counts == want, f"window_main_path: launch counts {counts} != "
+                          f"{want}")
+    check(stats["completed"] == len(requests), "window_main_path: not "
+                                               "every request completed")
+    check(stats["preemptions"] == 1 and stats["replay_steps"] > 0
+          and kv_equal == [True], "window_main_path: the forced "
+          "preemption's replay did not restore the victim's K/V bitwise")
+    check(equal == len(requests), "window_main_path: served tokens differ "
+                                  "from generate alone")
+    for i, p in enumerate(requests):
+        r = teacher_forced(torch, engine, p, got[i])
+        emit({"phase": "window_vs_plain_forward", "request": i,
+              "prompt": int(p.size), "rel_gap": WINDOW_TOP2, **r})
+        check(r["ok"], f"window_vs_plain_forward {i}: {r}")
+
+    # ---- the captured tick against the eager one ----------------------
+    eager = LLMEngine(cfg, dict(engine.model.named_parameters()),
+                      max_len=WINDOW_MAX_LEN,
+                      flags=RuntimeFlags(cuda_graphs=False))
+    pair = [requests[0], requests[2]]
+    ms, toks, caches = window_ticks(torch, {"captured": engine,
+                                            "eager": eager}, pair)
+    same_cache = all(torch.equal(a, b) for a, b in zip(
+        flatten_leaves(caches["captured"]), flatten_leaves(caches["eager"])))
+    positions = [p.size + 3 + WINDOW_TICKS // 2 for p in pair]
+    nbytes = window_tick_bytes(engine, positions)
+    bound_ms = nbytes / HBM_BPS * 1e3
+    graphs = [g for key, g in (engine.graphs.steps.items()
+                               if engine.graphs is not None else ())
+              if key[:2] == ("decode", "slot") and key[3] == WINDOW_SLOTS]
+    graph_ms = cuda_ms(torch, graphs[-1].graph.replay, reps=5,
+                       profile=False)[0] if graphs else None
+    del eager, caches
+    free_card(torch)
+    long = requests[2][None]
+    engine.prefill(long)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(long)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "window_tick", "slots": WINDOW_SLOTS,
+          "rows_at": positions, "ticks": WINDOW_TICKS, **{
+              f"{name}_{k}": v for name, r in ms.items()
+              for k, v in r.items()},
+          "captured_graph_device_ms": graph_ms,
+          "captured_bitwise_eager": bool(np.array_equal(
+              toks["captured"], toks["eager"])) and same_cache,
+          "bound_bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+          "captured_over_bound": ms["captured"]["ms_median"] / bound_ms,
+          "prefill_tokens": int(long.shape[1]), "prefill_ms": prefill_ms,
+          "nvidia_smi": smi})
+    check(bool(np.array_equal(toks["captured"], toks["eager"]))
+          and same_cache, "window_tick: the captured tick's tokens or "
+                          "cache differ from the eager tick's")
+    del engine
+    free_card(torch)
+    return counts
+
+
+def abstract_rows(cfg, max_len):
+    """The positions a slot row of the model's attention layers holds
+    (its abstract cache: nothing is allocated)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import flatten
+    rows = {a.shape[-3 if path.endswith((".k", ".v")) else -2]
+            for path, a in flatten(tf.abstract_cache(cfg, 1, max_len)).items()
+            if path.endswith((".mixer.k", ".mixer.c_kv"))}
+    check(len(rows) == 1, f"{cfg.name}: slot rows {rows}")
+    return rows.pop()
+
+
+def flatten_leaves(tree):
+    from repro_torch.models.params import flatten
+    return [a for _, a in sorted(flatten(tree).items())]
+
+
+def phase_mla_window(torch, smi):
+    """deepseek_v3_671b at full width, cut to its dense head layer (no
+    MoE, so no capacity drop: Hazard 7), with the window 8192: one
+    prompt of MLA_WINDOW_PROMPT tokens (past the window at prefill) and
+    MLA_WINDOW_NEW new tokens through the Scheduler on a one-slot
+    SlotBackend: K1 launches held to the schedule (MLA attends in plain
+    PyTorch, as in JAX), the tokens bitwise ``generate``'s and against a
+    teacher-forced plain forward (``teacher_forced``).  Returns the
+    launch counts."""
+    import numpy as np
+    from repro_torch.serving import LLMEngine, SlotBackend
+    cfg = dataclasses.replace(deepseek_config(), num_layers=1,
+                              sliding_window=LONG_WINDOW)
+    check(list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+          == [("attn", "dense")], "mla_window: not the dense head layer")
+    max_len = MLA_WINDOW_PROMPT + MLA_WINDOW_NEW + 4
+    engine = LLMEngine(cfg, max_len=max_len, seed=SEED)
+    prompt = np.random.RandomState(SEED + 12).randint(
+        0, cfg.vocab_size, MLA_WINDOW_PROMPT).astype(np.int32)
+    got, stats, counts, wall = serve(
+        torch, engine, [prompt], 0, speculate_k=0, chunk=None,
+        max_new=MLA_WINDOW_NEW, backend=lambda e: SlotBackend(e, 1))
+    want = expected_serve_launches(cfg, stats, None)
+    alone = engine.generate(prompt[None], MLA_WINDOW_NEW)[0]
+    r = teacher_forced(torch, engine, prompt, got[0])
+    rows = abstract_rows(cfg, max_len)
+    emit({"phase": "mla_window", "arch": cfg.name, "layers": 1,
+          "window": cfg.sliding_window, "prompt": int(prompt.size),
+          "new": MLA_WINDOW_NEW, "latent_rows": rows,
+          "seconds": wall, "launches": counts, "expected_launches": want,
+          "bitwise_equal_to_generate": bool(np.array_equal(got[0], alone)),
+          "rel_gap": WINDOW_TOP2, **r, "nvidia_smi": smi})
+    check(rows == LONG_WINDOW, "mla_window: latent rows are not the "
+                               "window's")
+    check(counts == want, f"mla_window: launch counts {counts} != {want}")
+    check(np.array_equal(got[0], alone), "mla_window: served tokens differ "
+                                         "from generate")
+    check(r["ok"], f"mla_window against the plain forward: {r}")
+    del engine
+    free_card(torch)
+    return counts
+
+
+def phase_mla_layouts(torch, engine, requests, paged):
+    """deepseek's two layers at full width on the layouts of item 15:
+    mla_serve's requests (SERVE_SLOTS slots, chunk 256, no speculation,
+    no prefix sharing, a roomy arena) on a HybridBackend (the latents
+    paged, ``mla.paged_decode``) and a StateBackend (slot rows of
+    latents), each bitwise the paged layout's tokens ``paged``; then
+    the first four requests at MLA_SPEC_SLOTS slots with speculation
+    MLA_SPEC (verify ticks within every expert's rows, Hazard 7) on a
+    paged and a hybrid arena (the verify window and its rewind),
+    bitwise.  K1 launches held to the schedule.  Returns the launch
+    counts."""
+    import numpy as np
+    from repro_torch.serving import HybridBackend, PagedBackend, StateBackend
+    cfg = engine.cfg
+    counts_all = {}
+    runs = {
+        "hybrid": lambda e: HybridBackend(e, SERVE_SLOTS,
+                                          num_blocks=ROOMY_BLOCKS,
+                                          block_size=SERVE_BLOCK),
+        "state": lambda e: StateBackend(e, SERVE_SLOTS)}
+    for kind, make in runs.items():
+        got, stats, counts, wall = serve(torch, engine, requests, 0,
+                                         backend=make, speculate_k=0)
+        want = expected_serve_launches(cfg, stats, None)
+        equal = sum(bool(np.array_equal(got[i], paged[i])) for i in paged)
+        emit({"phase": "mla_layouts", "layout": kind, "slots": SERVE_SLOTS,
+              "speculate_k": 0, "seconds": wall, "launches": counts,
+              "expected_launches": want, "bitwise_equal_to_paged": equal,
+              "requests": len(requests)})
+        check(counts == want, f"mla_layouts {kind}: launch counts {counts} "
+                              f"!= {want}")
+        check(stats["completed"] == len(requests)
+              and stats["preemptions"] == 0,
+              f"mla_layouts {kind}: a request did not complete or was "
+              f"preempted")
+        check(equal == len(requests), f"mla_layouts {kind}: tokens differ "
+                                      f"from the paged layout's")
+        add_counts(counts_all, counts)
+    spec = {}
+    for kind, make in (
+            ("paged", lambda e: PagedBackend(
+                e, MLA_SPEC_SLOTS, num_blocks=ROOMY_BLOCKS,
+                block_size=SERVE_BLOCK, prefix_sharing=False)),
+            ("hybrid", lambda e: HybridBackend(
+                e, MLA_SPEC_SLOTS, num_blocks=ROOMY_BLOCKS,
+                block_size=SERVE_BLOCK))):
+        got, stats, counts, wall = serve(torch, engine, requests[:4], 0,
+                                         backend=make, speculate_k=MLA_SPEC)
+        check(counts == expected_serve_launches(cfg, stats, None),
+              f"mla_layouts spec {kind}: launch counts {counts}")
+        check(stats["spec_steps"] > 0 and stats["completed"] == 4,
+              f"mla_layouts spec {kind}: no verify tick, or not complete")
+        spec[kind] = (got, stats)
+        add_counts(counts_all, counts)
+    equal = sum(bool(np.array_equal(spec["hybrid"][0][i], spec["paged"][0][i]))
+                for i in range(4))
+    emit({"phase": "mla_layouts", "layout": "hybrid against paged",
+          "slots": MLA_SPEC_SLOTS, "speculate_k": MLA_SPEC,
+          "bitwise_equal": equal, "requests": 4,
+          "stats": {kind: {k: st[k] for k in (
+              "spec_steps", "spec_drafted", "spec_accepted", "decode_steps")}
+              for kind, (_, st) in spec.items()}})
+    check(equal == 4, "mla_layouts: hybrid tokens with speculation differ "
+                      "from the paged layout's")
+    return counts_all
 
 
 # ---------------------------------------------------------------------------
@@ -6170,12 +6571,17 @@ def cuda_ms(torch, fn, reps=REPS, queue=True, profile=True):
     return device_ms, host_ms, sum(per.values()) if per else None, queued
 
 
-def measure(torch, kernel, plain, library, profile=True):
+def measure(torch, kernel, plain, library, profile=True, plain_queue=True):
     """Device and host times of the kernel, its plain version and the
-    library call (``None``: there is none); ``profile`` as ``cuda_ms``."""
+    library call (``None``: there is none); ``profile`` as ``cuda_ms``.
+    ``plain_queue`` False reads the plain version's synchronised wall
+    time alone, over 5 calls (a call of ~100 ms queues no better, and
+    the sleep ahead of 30 queued ones would cost seconds)."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        dev, wall, prof, queued = (cuda_ms(torch, fn, profile=profile)
+        kw = {"queue": False, "reps": 5} \
+            if key == "plain_" and not plain_queue else {}
+        dev, wall, prof, queued = (cuda_ms(torch, fn, profile=profile, **kw)
                                    if fn is not None else (None,) * 4)
         out[key + "ms"], out[key + "host_ms"] = dev, wall
         out[key + "profiler_ms"], out[key + "queued"] = prof, queued
@@ -6320,33 +6726,43 @@ FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                ("serve chunk minicpm_2b tp2", 1, SERVE_CHUNK, 18, 18, 64,
                 2 * SERVE_CHUNK),
                ("serve chunk granite_moe_3b_a800m tp2", 1, SERVE_CHUNK, 12,
-                4, 64, 2 * SERVE_CHUNK))
+                4, 64, 2 * SERVE_CHUNK),
+               # the window branch (item 12): deepseek_7b's 32 heads of
+               # 128 over a prompt past its window of 8192
+               ("prefill deepseek_7b window 8192", 1, 8704, 32, 32, 128, 0,
+                LONG_WINDOW))
 
 
 def time_flash_shapes(torch, g):
     """K3 at FLASH_TIMED beside its plain version and SDPA: with an
-    explicit boolean mask where q_offset > 0, ``is_causal`` otherwise.
-    The bound counts q, k, v read and the output written once, and 4 hd
-    operations per (query row, visible key, head).  CUDA events alone,
-    as ``time_paged_kernels``."""
+    explicit boolean mask where q_offset > 0 or a window is set (the
+    same mask), ``is_causal`` otherwise.  The bound counts q, k, v read
+    and the output written once, and 4 hd operations per (query row,
+    visible key, head): under a window only the keys it leaves.  CUDA
+    events alone, as ``time_paged_kernels``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     dev = torch.device("cuda")
     bf = torch.bfloat16
     rows = []
-    for name, B, S, H, KV, hd, off in FLASH_TIMED:
+    for name, B, S, H, KV, hd, off, *win in FLASH_TIMED:
+        window = win[0] if win else 0
         T = off + S
         q = torch.randn(B, S, H, hd, device=dev, generator=g).to(bf)
         k, v = (torch.randn(B, T, KV, hd, device=dev, generator=g).to(bf)
                 for _ in range(2))
-        pairs = B * H * (S * (off + 1) + S * (S - 1) // 2)
+        pairs = B * H * sum(min(off + s + 1, window or off + s + 1)
+                            for s in range(S))
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if off:
+        if off or window:
             idx = torch.arange(T, device=dev)
-            mask = idx[None, :] <= off + torch.arange(S, device=dev)[:, None]
+            at = off + torch.arange(S, device=dev)[:, None]
+            mask = idx[None, :] <= at
+            if window:
+                mask = mask & (idx[None, :] > at - window)
 
             def library():
                 return F.scaled_dot_product_attention(
@@ -6357,13 +6773,15 @@ def time_flash_shapes(torch, g):
                     qt, kt, vt, is_causal=True, enable_gqa=KV != H)
         rows.append({
             "case": name, "shape": [B, S, H, hd], "kv_heads": KV,
-            "keys": T, "q_offset": off,
-            **measure(torch, lambda: flash_attention_cuda(q, k, v,
-                                                          q_offset=off),
-                      lambda: ref.flash_attention_ref(q, k, v, q_offset=off),
-                      library, profile=False),
-            "library_note": "SDPA, explicit boolean mask" if off
-                            else "SDPA, is_causal",
+            "keys": T, "q_offset": off, "window": window,
+            "visible_pairs": pairs,
+            **measure(torch, lambda: flash_attention_cuda(
+                q, k, v, q_offset=off, window=window),
+                lambda: ref.flash_attention_ref(q, k, v, q_offset=off,
+                                                window=window),
+                library, profile=False, plain_queue=not window),
+            "library_note": "SDPA, explicit boolean mask"
+                            if off or window else "SDPA, is_causal",
             "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
@@ -6574,6 +6992,10 @@ def main() -> int:
     free_card(torch)
     ds_counts.append(phase_mla_serve(torch, smi))
     free_card(torch)
+    # sliding windows (item 12): deepseek_7b at window 8192 at full width
+    # and depth, deepseek_v3's dense head layer with the window
+    ds_counts.append(phase_window_main_path(torch, smi))
+    ds_counts.append(phase_mla_window(torch, smi))
     # deepseek_v3 and seamless at tp 2 (item 11b-ii) share one worker
     TP_POOL = WorkerPool()
     tp_counts.append(phase_tp_mla(torch, smi))

@@ -1,8 +1,9 @@
-"""GQA attention with RoPE and optional qk-norm (qwen3), over a KV cache
-in one of two layouts: contiguous slot rows ``[B, max_len, KV, hd]`` or
-a paged block-pool arena ``[num_blocks, block_size, KV, hd]`` reached
-through block tables (block 0 is the trash block).  Plain functions on
-tensors in the JAX package's layouts: ``wq`` is [d, H, hd].
+"""GQA attention with RoPE, optional qk-norm (qwen3) and sliding
+windows, over a KV cache in one of two layouts: contiguous slot rows
+``[B, max_len, KV, hd]`` or a paged block-pool arena ``[num_blocks,
+block_size, KV, hd]`` reached through block tables (block 0 is the
+trash block).  Plain functions on tensors in the JAX package's layouts:
+``wq`` is [d, H, hd].
 
 Prefill and the extend suffix run the flash-attention op (K3), decode
 and verify windows the fused flash-decode op (K2, or K4 with
@@ -10,6 +11,17 @@ and verify windows the fused flash-decode op (K2, or K4 with
 paged-attention op (K5, ``use_paged_kernel``).  With a kernel flag
 turned off the plain version runs instead, on any device.  Caches are
 written in place.
+
+A layer with a sliding window keeps slot rows of ``min(max_len,
+window)`` positions that wrap: position ``p`` lives in slot ``p %
+size`` (:func:`cache_len`).  Prefill attends through K3's window mask
+and keeps the prompt's last ``size`` positions so rotated; decode runs
+the JAX package's gather path in plain PyTorch (:func:`window_decode`):
+the new K/V land at ``pos % size`` and the query attends over every
+slot below ``min(pos + 1, size)``.  The softmax over slots does not
+depend on their order, so no position-ordered view is needed.  As in
+JAX, windowed layers take neither the fused decode ops nor a speculative
+verify window, and have no paged layout.
 
 On a tensor-parallel rank K/V lie on the rank's kv heads, or, where the
 ranks do not divide them, on its lanes of head_dim, or else on its
@@ -69,9 +81,22 @@ def attention_template(cfg: ArchConfig) -> Template:
     return t
 
 
+#: the JAX package's refusal of a verify window over a sliding window
+WINDOW_VERIFY = ("multi-token (speculative) decode does not support "
+                 "sliding-window attention")
+
+
+def cache_len(cfg: ArchConfig, max_len: int) -> int:
+    """The positions a slot row of an attention layer holds: the window's
+    ``min(max_len, window)`` where the layer has one, else ``max_len``
+    (the JAX ``init_kv_cache`` and MLA's ``_cache_size``)."""
+    w = cfg.sliding_window or 0
+    return min(max_len, w) if w else max_len
+
+
 def kv_cache_shape(cfg: ArchConfig, batch: int,
                    max_len: int) -> Tuple[int, ...]:
-    return (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return (batch, cache_len(cfg, max_len), cfg.num_kv_heads, cfg.head_dim)
 
 
 def paged_kv_cache_shape(cfg: ArchConfig, num_blocks: int,
@@ -160,22 +185,87 @@ def attention_forward(params, cfg: ArchConfig, x: torch.Tensor,
     return _out_proj(seq_attention(q, k, v, cfg, impl), params["wo"])
 
 
+def window_rows(a: torch.Tensor, size: int) -> torch.Tensor:
+    """A prompt's rows ``a`` [B, S, ...] as a cache row of ``size``
+    positions keeps them from slot 0 on: all of them where ``S < size``
+    (the rest of the row stays zero), else the last ``size`` rotated so
+    that position ``p`` sits in slot ``p % size`` (the JAX prefill's
+    ``jnp.roll``; the identity at ``S == size``)."""
+    S = a.shape[1]
+    if S < size:
+        return a
+    return torch.roll(a[:, S - size:], (S - size) % size, dims=1)
+
+
 def prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
                        positions: torch.Tensor, cache: Dict[str, torch.Tensor],
                        flags) -> torch.Tensor:
-    """Run causal attention over the prompt and write its rotated K and
-    its V into positions ``[0, S)`` of ``cache`` ([B, max_len, KV, hd],
-    zero beyond; a rank's slice of it) **in place**.  Returns the
-    attention block's output (a rank's part of it, :func:`partial`)."""
+    """Run causal attention over the prompt (with the layer's window
+    mask) and write its rotated K and its V into ``cache`` ([B, size,
+    KV, hd]; a rank's slice of it) **in place**: positions ``[0, S)``,
+    zero beyond, or past a window's ``size`` the last ``size`` positions
+    wrapped (:func:`window_rows`).  Returns the attention block's output
+    (a rank's part of it, :func:`partial`)."""
     q, k, v = _qkv(params, cfg, x, positions)
     attend = ops.flash_attention if flags.use_flash else flash_attention_ref
     arm = kv_arm(cfg, flags.tp)
     h0 = rank_head0(params, cfg, flags.tp)
     kh, vh = kv_for_heads(k, v, cfg, h0, q.shape[2])
     out = attend(q, kh, vh, causal=True, window=cfg.sliding_window)
+    size = cache["k"].shape[1] * (flags.tp.size if arm == "seq" else 1)
     for key, a in (("k", k), ("v", v)):
-        store_rows(cache[key], a, 0, arm, flags.tp)
+        store_rows(cache[key], window_rows(a, size), 0, arm, flags.tp)
     return tp_out_proj(out, params, cfg, arm, flags.tp, h0)
+
+
+def window_slots(pos_s: torch.Tensor, size: int) -> torch.Tensor:
+    """The slots [B, S'] of a windowed row of ``size`` that positions
+    ``pos_s`` are written to: ``pos % size``.  A negative position (a
+    stray row of a replay call, ``SlotBackend._stray_position``) maps to
+    ``size``, which no write reaches: every slot of a row past its
+    window holds a position the row still reads."""
+    return torch.where(pos_s >= 0, pos_s % size, size)
+
+
+def window_valid(pos_s: torch.Tensor, size: int) -> torch.Tensor:
+    """[B, S', size] the slots a query at position ``pos_s`` [B, S']
+    sees in its windowed row: those below ``min(pos + 1, size)`` (JAX's
+    wraparound mask; none for a negative position)."""
+    idx = torch.arange(size, device=pos_s.device)
+    return idx < torch.clamp(pos_s + 1, max=size)[..., None]
+
+
+def causal_valid(pos_s: torch.Tensor, total: int) -> torch.Tensor:
+    """[B, S', total] the positions of a position-ordered row a query at
+    ``pos_s`` [B, S'] sees: ``idx <= pos``."""
+    return torch.arange(total, device=pos_s.device) <= pos_s[..., None]
+
+
+def window_decode(params, cfg: ArchConfig, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                  flags) -> torch.Tensor:
+    """Decode one token of a windowed layer against its slot rows [B,
+    size, KV, hd], the JAX gather path in plain PyTorch on every device
+    (JAX runs windowed layers outside its fused decode kernel): the
+    rotated K and V land at slot ``pos % size`` **in place**
+    (:func:`window_slots`), and the query attends over the slots below
+    ``min(pos + 1, size)``, each row on its own (``layers.each_row``),
+    so a row's bits do not depend on the batch.  Every mask and index
+    is computed on the device, so the step captures as a CUDA graph.  A
+    verify window is refused, as in JAX.  Returns the attention block's
+    output (on a kv-heads rank its heads' part)."""
+    B, S_q = x.shape[:2]
+    if S_q > 1:
+        raise ValueError(WINDOW_VERIFY)
+    pos_s = pos.long()[:, None]
+    q, k, v = _qkv(params, cfg, x, pos_s)
+    size = cache["k"].shape[1]
+    write_window((cache["k"], cache["v"]), (k, v), row_tables(B, x.device),
+                 window_slots(pos_s, size), size)
+    out = each_row(lambda q_, k_, v_, m_: sharded_attention(
+        q_, k_, v_, m_, cfg.head_dim, "whole", None),
+        q, cache["k"], cache["v"], window_valid(pos_s, size))
+    return _out_proj(out.to(x.dtype), params["wo"])
 
 
 def fused_slot_decode(params, cfg: ArchConfig, x: torch.Tensor,
@@ -458,23 +548,26 @@ def _weighted(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pos_s: torch.Tensor, head_dim: int, arm: str, tp,
+                      valid: torch.Tensor, head_dim: int, arm: str, tp,
                       gpos: Optional[torch.Tensor] = None,
                       total: int = 0) -> torch.Tensor:
     """Decode attention of every query head q [B, S', H, hd] (rotated)
-    over a rank's slice of the position-ordered K/V [B, T', KV, .],
-    query ``s`` of row ``b`` over positions ``<= pos_s[b, s]``, in f32:
+    over a rank's slice of the K/V [B, T', KV, .] of a row, query ``s``
+    of row ``b`` over the places ``valid[b, s]`` [B, S', T] marks (the
+    row's positions ``<= pos``, or a windowed row's live slots), in f32:
 
     * ``head_dim``: k and v are the rank's lanes, and so is q from here
       on.  The partial scores
       are summed over the ranks in f32 (one all-reduce of the small
       [B, KV, G, S', T] tensor), the softmax sees whole scores, the value
       contraction stays local: returns the rank's lanes of the output;
-    * ``seq``: k and v hold the rank's positions ``gpos`` [T'] of
+    * ``seq``: k and v hold the rank's places ``gpos`` [T'] of
       ``total``.  The rank's scores are gathered into the whole row (an
       exact all-reduce) for one softmax, each rank weighs its own values
       and the parts are summed (one all-reduce): returns the whole
-      output.
+      output;
+    * ``whole`` (or ``heads``): k and v are whole (the rank's kv heads,
+      with q the rank's query heads): no collective.
 
     The JAX ``_decode_attention_hd_sharded`` for the first; its
     arithmetic is ``ref.gathered_attention``'s with the sums split.
@@ -486,27 +579,32 @@ def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // KV
     one = Sq * G == 1
     qf = upcast(two_rows(q, 1) if one else q)
-    pos_s = two_rows(pos_s, 1) if one else pos_s
+    valid = two_rows(valid, 1) if one else valid
     kf, vf = upcast(k), upcast(v)
     scale = 1.0 / torch.sqrt(torch.tensor(float(head_dim), dtype=kf.dtype))
     s = _scores(qf, kf)
     if arm == "head_dim":
         s = tp.all_reduce(s) * scale
-        idx = torch.arange(s.shape[-1], device=q.device)
-    else:
+    elif arm == "seq":
         s = tp_reduce_parts([placed(s * scale, 4, gpos, total)], tp)[0]
-        idx = torch.arange(total, device=q.device)
-    valid = idx[None, None, :] <= pos_s.long()[:, :, None]   # [B, S', T]
+    else:
+        s = s * scale
     s = torch.where(valid[:, None, None], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    if arm == "head_dim":
-        o = _weighted(p, vf)
-    else:
+    if arm == "seq":
         o = tp.all_reduce(_weighted(p.index_select(-1, gpos), vf))
+    else:
+        o = _weighted(p, vf)
     o = o / p.sum(dim=-1)[..., None]
     Sp = qf.shape[1]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sp, H, -1)[:, :Sq]
+
+
+def row_tables(B: int, device) -> torch.Tensor:
+    """Block tables [B, 1] presenting ``B`` slot rows as an arena of one
+    block a row."""
+    return torch.arange(B, dtype=torch.int32, device=device)[:, None]
 
 
 def seq_positions(tables: torch.Tensor, loc: int, block: int,
@@ -525,32 +623,39 @@ def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
               tables: Optional[torch.Tensor], flags) -> torch.Tensor:
     """Decode (S' = 1) or verify (S' > 1) a window on a rank whose K/V
     are cut on head_dim or on the sequence (:func:`kv_arm`), on slot
-    rows (``tables`` None: each row one block of ``max_len``) or a paged
-    arena: the window's rotated K/V land in the rank's slice **in
-    place** (:func:`write_window`), the rank's query heads are gathered
-    into every head's (one all-reduce where they are cut), and every
-    query attends over the rank's slice (:func:`sharded_attention`).
-    Returns the rank's part of the block's output, or the whole
-    (:func:`partial`)."""
+    rows (``tables`` None: each row one block of its ``size``) or a
+    paged arena: the window's rotated K/V land in the rank's slice **in
+    place** (:func:`write_window`; a windowed row at ``pos % size``),
+    the rank's query heads are gathered into every head's (one
+    all-reduce where they are cut), and every query attends over the
+    rank's slice (:func:`sharded_attention`) under the causal mask, or a
+    windowed row's slot mask (the softmax does not depend on the slots'
+    order).  Returns the rank's part of the block's output, or the
+    whole (:func:`partial`)."""
     tp = flags.tp
     arm = kv_arm(cfg, tp)
     B, S_q = x.shape[:2]
+    if cfg.sliding_window and S_q > 1:
+        raise ValueError(WINDOW_VERIFY)
     pos_s = pos.long()[:, None] + torch.arange(S_q, device=x.device)
     q, k, v = _qkv(params, cfg, x, pos_s)
     if tables is None:
-        tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+        tables = row_tables(B, x.device)
     loc = cache["k"].shape[1]
     block = loc * tp.size if arm == "seq" else loc
+    T = tables.shape[1] * block
     if arm == "head_dim":
         lanes = rank_block(cfg.head_dim, tp)
         k, v = k[..., lanes], v[..., lanes]
-    write_window((cache["k"], cache["v"]), (k, v), tables, pos_s, block,
+    wpos = window_slots(pos_s, T) if cfg.sliding_window else pos_s
+    write_window((cache["k"], cache["v"]), (k, v), tables, wpos, block,
                  tp if arm == "seq" else None)
     k_seq = paging.gather_pages(cache["k"], tables)
     v_seq = paging.gather_pages(cache["v"], tables)
     h0 = rank_head0(params, cfg, tp)
     q = all_heads(q, cfg.num_heads, h0, tp)
-    out = sharded_attention(q, k_seq, v_seq, pos_s, cfg.head_dim, arm, tp,
-                            seq_positions(tables, loc, block, tp),
-                            tables.shape[1] * block)
+    valid = window_valid(pos_s, T) if cfg.sliding_window \
+        else causal_valid(pos_s, T)
+    out = sharded_attention(q, k_seq, v_seq, valid, cfg.head_dim, arm, tp,
+                            seq_positions(tables, loc, block, tp), T)
     return tp_out_proj(out.to(x.dtype), params, cfg, arm, tp, h0)

@@ -5,11 +5,17 @@ ROADMAP Queue 1 item 11c).
 Keys and values are compressed into a latent ``c_kv`` (rank
 ``kv_lora_rank``) plus one shared RoPE key per position, and the caches
 hold only those: ``c_kv`` ``[B, max_len, r]`` and ``k_rope`` ``[B,
-max_len, rope]`` in slot rows, ``[num_blocks, block_size, ...]`` arenas
-on the paged layout.  Prefill and extend materialise per-head K/V from
-the latents and attend through ``chunked_attention``; decode and verify
-windows use weight absorption: the queries go into latent space and
-attend over the latents themselves.  Caches are written in place.
+max_len, rope]`` in slot rows (on the slot and state layouts),
+``[num_blocks, block_size, ...]`` arenas on the paged and hybrid
+layouts.  Prefill and extend materialise per-head K/V from the latents
+and attend through ``chunked_attention``; decode and verify windows use
+weight absorption: the queries go into latent space and attend over the
+latents themselves.  Caches are written in place.  With a sliding
+window the slot rows hold ``min(max_len, window)`` positions that wrap,
+as a GQA layer's do (``attention.cache_len``): prefill keeps the last
+of them rotated, decode writes at ``pos % size`` and masks the slots
+below ``min(pos + 1, size)``, and a verify window is refused, as in
+JAX.
 
 The port's rules, beside the reference's arithmetic:
 
@@ -88,9 +94,10 @@ def _latents(cfg: ArchConfig, lead) -> Dict[str, torch.Tensor]:
 
 
 def abstract_mla_cache(cfg: ArchConfig, batch: int, max_len: int):
-    """Slot rows of latents (the JAX ``abstract_mla_cache``; sliding
-    windows are refused by ``check_supported``)."""
-    return _latents(cfg, (batch, max_len))
+    """Slot rows of latents (the JAX ``abstract_mla_cache``): ``max_len``
+    positions, or a sliding window's ``min(max_len, window)``, which
+    wrap as a GQA layer's do (``attention.cache_len``)."""
+    return _latents(cfg, (batch, attn.cache_len(cfg, max_len)))
 
 
 def abstract_paged_mla_cache(cfg: ArchConfig, num_blocks: int,
@@ -188,12 +195,17 @@ def mla_forward(params, cfg: ArchConfig, x: torch.Tensor,
 def prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,
                        positions: torch.Tensor,
                        cache: Dict[str, torch.Tensor], flags) -> torch.Tensor:
-    """The JAX ``mla_prefill_into_cache``: attend over the prompt and
-    write its latents into positions ``[0, S)`` of ``cache`` (zero
-    beyond) **in place**.  Returns the block's output."""
+    """The JAX ``mla_prefill_into_cache``: attend over the prompt (with
+    the layer's window mask) and write its latents into ``cache`` **in
+    place**: positions ``[0, S)``, zero beyond, or past a window's
+    ``size`` the last ``size`` positions wrapped to slot ``p % size``
+    (``attention.window_rows``).  Returns the block's output."""
     y, c_kv, k_rope = mla_forward(params, cfg, x, positions, flags)
     tp = flags.tp
-    S = x.shape[1]
+    size = cache["c_kv"].shape[1]
+    c_kv, k_rope = attn.window_rows(c_kv, size), attn.window_rows(k_rope,
+                                                                  size)
+    S = c_kv.shape[1]
     if tp is None:
         cache["c_kv"][:, :S] = c_kv
         cache["k_rope"][:, :S] = k_rope
@@ -280,32 +292,46 @@ def _window(params, cfg: ArchConfig, x, pos: torch.Tensor, flags):
     return pos_s, q_nope, q_rope, c_new, kr_new
 
 
+def _slots(cfg: ArchConfig, pos_s: torch.Tensor, T: int):
+    """(the places [B, S'] a window's latents are written to, the places
+    [B, S', T] each query sees) in slot rows of ``T``: the positions
+    themselves and ``idx <= pos + s``, or in a windowed row slot ``pos %
+    T`` and the slots below ``min(pos + 1, T)`` (``attention.
+    window_slots``, ``window_valid``).  A verify window over a sliding
+    window is refused, as in JAX."""
+    if not cfg.sliding_window:
+        return pos_s, attn.causal_valid(pos_s, T)
+    if pos_s.shape[1] > 1:
+        raise ValueError(attn.WINDOW_VERIFY)
+    return attn.window_slots(pos_s, T), attn.window_valid(pos_s, T)
+
+
 def slot_decode(params, cfg: ArchConfig, x: torch.Tensor,
                 cache: Dict[str, torch.Tensor], pos: torch.Tensor,
                 flags) -> torch.Tensor:
     """Decode (S' = 1) or verify (S' > 1) a window against slot rows
-    ``[B, max_len, ...]``: the window's latents land at ``pos .. pos +
-    S' - 1`` of each row **in place** and query ``s`` attends over
-    ``idx <= pos + s``.  Window positions at or past ``max_len`` (an
-    inactive row's stray window) are not written, as JAX drops such
-    writes.  Returns the block's output."""
+    ``[B, size, ...]``: the window's latents land at ``pos .. pos + S' -
+    1`` of each row (a windowed row's at ``pos % size``) **in place**
+    and query ``s`` attends over ``idx <= pos + s`` (:func:`_slots`).
+    Window positions at or past ``size`` (an inactive row's stray
+    window) are not written, as JAX drops such writes.  Returns the
+    block's output."""
     if flags.tp is not None:
         return tp_decode(params, cfg, x, cache, pos, None, flags)
     B, T, _ = cache["c_kv"].shape
     pos_s, q_nope, q_rope, c_new, kr_new = _window(params, cfg, x, pos,
                                                    flags)
+    wpos, valid = _slots(cfg, pos_s, T)
     rows = torch.arange(B, device=x.device)
     for s in range(x.shape[1]):
         # one write per row, so no index repeats within a write; a
         # position past the row writes back what its last slot holds
-        idx = pos_s[:, s].clamp(max=T - 1)
-        keep = (pos_s[:, s] < T)[:, None]
+        idx = wpos[:, s].clamp(max=T - 1)
+        keep = (wpos[:, s] < T)[:, None]
         for key, new in (("c_kv", c_new), ("k_rope", kr_new)):
             leaf = cache[key]
             leaf[rows, idx] = torch.where(keep, new[:, s].to(leaf.dtype),
                                           leaf[rows, idx])
-    valid = torch.arange(T, device=x.device)[None, None, :] \
-        <= pos_s[:, :, None]
     return _absorbed(params, cfg, q_nope, q_rope, cache["c_kv"],
                      cache["k_rope"], valid)
 
@@ -332,9 +358,8 @@ def paged_decode(params, cfg: ArchConfig, x: torch.Tensor,
     paging.scatter_token(cache["k_rope"], blk, off, kr_new)
     c_seq = paging.gather_pages(cache["c_kv"], tables)
     kr_seq = paging.gather_pages(cache["k_rope"], tables)
-    valid = torch.arange(T, device=x.device)[None, None, :] \
-        <= pos_s[:, :, None]
-    return _absorbed(params, cfg, q_nope, q_rope, c_seq, kr_seq, valid)
+    return _absorbed(params, cfg, q_nope, q_rope, c_seq, kr_seq,
+                     attn.causal_valid(pos_s, T))
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +375,10 @@ def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
               cache: Dict[str, torch.Tensor], pos: torch.Tensor,
               tables, flags) -> torch.Tensor:
     """Absorbed decode or verify of a window on a tensor-parallel rank,
-    over slot rows (``tables`` None: a row is one block of ``max_len``)
-    or a paged arena: the window's latents land in the rank's slices
-    **in place** (``attention.write_window``), then each score is the
+    over slot rows (``tables`` None: a row is one block of its slots) or
+    a paged arena: the window's latents land in the rank's slices **in
+    place** (``attention.write_window``; a windowed row's at ``pos %
+    size``, :func:`_slots`), then each score is the
     sum, in f32 over the ranks in rank order, of every rank's lora
     lanes' product and the rope product of the rank that holds the
     position.  Returns the rank's heads' part of the block's output (the
@@ -363,17 +389,18 @@ def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
                                                    flags)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     if tables is None:
-        tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+        tables = attn.row_tables(B, x.device)
     block = c_kv.shape[1]
     loc = k_rope.shape[1]
     r_l = c_kv.shape[-1]
-    attn.write_window((c_kv,), (_lanes(c_new, r_l, tp),), tables, pos_s,
+    T = tables.shape[1] * block
+    wpos, valid = _slots(cfg, pos_s, T)
+    attn.write_window((c_kv,), (_lanes(c_new, r_l, tp),), tables, wpos,
                       block)
-    attn.write_window((k_rope,), (kr_new,), tables, pos_s, block,
+    attn.write_window((k_rope,), (kr_new,), tables, wpos, block,
                       tp if loc < block else None)
     c_seq = paging.gather_pages(c_kv, tables)                 # [B, T, r_l]
     kr_seq = paging.gather_pages(k_rope, tables)              # [B, T', rope]
-    T = tables.shape[1] * block
     H, H_l = cfg.num_heads, q_nope.shape[2]
     h0 = 0 if H_l == H else tp.rank * H_l
     q_lat = _per_head(q_nope, params["wk_b"].permute(1, 2, 0))  # [B,S',H_l,r]
@@ -395,8 +422,6 @@ def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
         part = part + upcast(rope)
     scores = tp.all_reduce(part)
     scores = scores * _scale(cfg, scores.dtype)
-    valid = torch.arange(T, device=x.device)[None, None, :] \
-        <= pos_s[:, :, None]
     scores = torch.where(valid[:, :, None, :], scores.view(B, S_q, H, T),
                          NEG_INF)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))

@@ -111,9 +111,11 @@ def use_fused_decode(cfg, flags) -> bool:
     """Should an attention layer's decode/verify step run through the
     fused flash-decode op?  The one predicate ``attention.py`` consults
     before deciding whether to rotate q/k outside the kernel: the fused
-    path wants them un-rotated.  (Sliding-window layers, whose JAX path
-    keeps the wraparound slot layout, are refused by ``check_supported``
-    until they are ported.)
+    path wants them un-rotated.  Sliding-window layers never do, as in
+    JAX: they keep the wraparound slot layout, whose positions are not
+    monotone in the row, so no position-ordered arena view exists, and
+    they decode through the plain ``attention.window_decode`` (or
+    ``attention.tp_decode`` on a head_dim or sequence rank).
 
     On a tensor-parallel mesh (``flags.decode_shards`` > 1) each rank
     runs the op on its slice of the query and kv heads against its
@@ -123,8 +125,8 @@ def use_fused_decode(cfg, flags) -> bool:
     ``attention.tp_decode``.  The recurrent layers of the state and
     hybrid layouts, and the MoE FFN, do not reach this predicate."""
     shards = flags.decode_shards
-    return flags.use_fused_decode and (shards == 1
-                                       or cfg.num_kv_heads % shards == 0)
+    return (flags.use_fused_decode and not cfg.sliding_window
+            and (shards == 1 or cfg.num_kv_heads % shards == 0))
 
 
 def fused_page_size(max_len: int, preferred: int = 8) -> int:

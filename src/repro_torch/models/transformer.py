@@ -97,27 +97,22 @@ DEFAULT_FLAGS = RuntimeFlags()
 TRAIN_FLAGS = RuntimeFlags(use_flash=False, fused_rmsnorm=False)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for architectures this slice of the port does not run,
-    naming the ROADMAP item that will port them.  Nothing falls back.
-    (Sequence-parallel mLSTM and expert-parallel MoE come with item
-    11c: ``moe_impl="ep"`` is refused by ``moe.check_moe_impl``.  What JAX
-    refuses of an encoder-decoder is refused where JAX refuses it:
-    :func:`check_paged_support`, :func:`check_hybrid_support`,
-    :func:`check_mixed_extend_support` and the Scheduler.)"""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: not yet ported to repro_torch (sliding-window "
-            f"attention: ROADMAP Queue 1 item 12)")
-
-
 def check_paged_support(cfg: ArchConfig) -> None:
     """The paged KV cache pages attention K/V; recurrent mixers keep
-    O(1) state, which the state and hybrid layouts hold, and cross
-    attention keeps its memory in slot rows."""
+    O(1) state, which the state and hybrid layouts hold, cross attention
+    keeps its memory in slot rows, and a sliding window's rows wrap,
+    which block paging cannot hold: each refused with JAX's message.
+    (Every architecture is served on some layout; what JAX refuses of
+    one is refused where JAX refuses it: here, in
+    :func:`check_hybrid_support` and :func:`check_mixed_extend_support`,
+    in the engine's ``check_spec_support`` and in the Scheduler.)"""
     if cfg.is_encoder_decoder:
         raise ValueError("paged KV cache: encoder-decoder models are "
                          "not supported")
+    if cfg.sliding_window:
+        raise ValueError("paged KV cache: sliding-window attention is "
+                         "not supported (the window's rotating slot "
+                         "layout conflicts with block paging)")
     bad = sorted({k for k in cfg.layer_kinds() if k != "attn"})
     if bad:
         raise ValueError(f"paged KV cache: recurrent layer kinds {bad} "
@@ -131,6 +126,10 @@ def check_hybrid_support(cfg: ArchConfig) -> None:
     if cfg.is_encoder_decoder:
         raise ValueError("hybrid cache: encoder-decoder models are not "
                          "supported")
+    if cfg.sliding_window:
+        raise ValueError("hybrid cache: sliding-window attention is not "
+                         "supported (the window's rotating slot layout "
+                         "conflicts with block paging)")
 
 
 def check_mixed_extend_support(cfg: ArchConfig) -> None:
@@ -139,6 +138,10 @@ def check_mixed_extend_support(cfg: ArchConfig) -> None:
     if cfg.is_encoder_decoder:
         raise ValueError("prefix extend: encoder-decoder models are not "
                          "supported")
+    if cfg.sliding_window and "attn" in cfg.layer_kinds():
+        raise ValueError("prefix extend: sliding-window attention is not "
+                         "supported (the rotating slot layout has no "
+                         "stable prefix rows)")
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +214,6 @@ def layer_template(cfg: ArchConfig, kind: str, ffn_kind: str,
 
 
 def model_template(cfg: ArchConfig) -> Template:
-    check_supported(cfg)
     d, V = cfg.d_model, cfg.padded_vocab
     t: Template = {"embed": embed_template(V, d),
                    "final_norm": rmsnorm_template(d)}
@@ -288,9 +290,11 @@ def _stacked(cfg: ArchConfig, layer: Callable[[str], Dict],
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int,
                    enc_len: int = 0):
     """The cache ``prefill`` returns, and the slot and state layouts'
-    cache: ``[R, batch, max_len, KV, hd]`` per attention k/v leaf (MLA:
-    ``c_kv`` and ``k_rope`` rows), the ``[R, batch, ...]`` state of each
-    recurrent layer (f32, Mamba's conv tail in the model dtype), and an
+    cache: ``[R, batch, size, KV, hd]`` per attention k/v leaf (MLA:
+    ``c_kv`` and ``k_rope`` rows), ``size`` being ``max_len`` or a
+    sliding window's ``min(max_len, window)``, the ``[R, batch, ...]``
+    state of each recurrent layer (f32, Mamba's conv tail in the model
+    dtype), and an
     encoder-decoder's cross-attention memory K/V ``[R, batch, enc_len,
     KV, hd]``."""
     cross = _kv(cfg, (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)) \
@@ -432,8 +436,9 @@ def _cross_attention(params, x: torch.Tensor,
     q = attn.all_heads(q, cfg.num_heads, h0, tp)
     k, v = memory_kv["k"], memory_kv["v"]
     T = k.shape[1] * (tp.size if arm == "seq" else 1)
-    last = torch.full(q.shape[:2], T - 1, device=x.device)   # all valid
-    out = attn.sharded_attention(q, k, v, last, cfg.head_dim, arm, tp,
+    every = torch.ones(q.shape[:2] + (T,), dtype=torch.bool,
+                       device=x.device)
+    out = attn.sharded_attention(q, k, v, every, cfg.head_dim, arm, tp,
                                  own_range(k.shape[1], tp, x.device), T)
     return attn.tp_out_proj(out.to(x.dtype), params, cfg, arm, tp, h0)
 
@@ -916,6 +921,10 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
         def attend(mp, h, c):
             return attn.paged_decode(mp, cfg, h, c, pos, tables, freqs,
                                      flags)
+    elif cfg.sliding_window:
+        # wrapping slot rows: the plain gather path, as in JAX
+        def attend(mp, h, c):
+            return attn.window_decode(mp, cfg, h, c, pos, flags)
     else:
         freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, x.device)
         max_len = _slot_max_len(cfg, cache)

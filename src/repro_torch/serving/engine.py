@@ -52,9 +52,17 @@ not divide lie on head_dim, else on the sequence, and decode through
 partial scores summed over the ranks (``attention.tp_decode``); MLA
 keeps its heads cut, ``c_kv`` on its lora rank and ``k_rope`` on the
 sequence (``mla.tp_decode``); an encoder-decoder's encoder and cross
-attention are served by :meth:`generate`.  Sliding windows (item 12),
-MLA on the state layouts (item 15) and ``moe_impl="ep"`` (item 11c)
-are refused as without a mesh.
+attention are served by :meth:`generate`.  ``moe_impl="ep"`` (item
+11c) is refused as without a mesh.
+
+Sliding-window attention (ROADMAP item 12) is served on the slot and
+state layouts, at every tp arm: wrapping slot rows of ``min(max_len,
+window)`` positions (``models/attention.py``), decoded by the plain
+gather path as in JAX.  What JAX refuses of a window is refused with
+JAX's exception and message: the paged and hybrid layouts, prefix and
+chunked extend, and speculative verify.  MLA (item 15) is served on
+every layout: slot rows of latents on the slot and state layouts, a
+paged latent arena on the paged and hybrid ones.
 """
 from __future__ import annotations
 
@@ -73,13 +81,14 @@ from ..core import tracer as trace_mod
 from ..core.metrics import MetricsRegistry, NullRegistry
 from ..kernels import build
 from ..launch.mesh import mesh_desc
+from ..models.attention import cache_len
 from ..models.config import ArchConfig
 from ..models.model import Model, resolve_device
 from ..models.params import flatten, tree_map
 from ..models.moe import check_moe_impl
 from ..models.transformer import (DEFAULT_FLAGS, RuntimeFlags,
                                   check_mixed_extend_support,
-                                  check_paged_support, check_supported)
+                                  check_paged_support)
 from ..runtime.graphs import StepGraphs
 from ..sharding import group as tp_group
 from ..runtime.steps import (kernel_path, make_decode_step, make_extend_step,
@@ -110,15 +119,18 @@ def check_tp_support(cfg: ArchConfig, tp: int, max_len: int = 0) -> None:
     cut, one they do not is held whole on every rank, as JAX's
     ``resolve_spec`` holds it.  The positions of a cache cut on its
     sequence (:func:`cuts_positions`) are the one length the port
-    needs the ranks to divide: ``max_len`` here, the block size at
+    needs the ranks to divide: a slot row's length here (``max_len``,
+    or a sliding window's ``min(max_len, window)``), the block size at
     :meth:`LLMEngine.new_cache`, the encoder's frames at
-    :meth:`LLMEngine.generate`.  What waits for other items is refused
-    as without a mesh (sliding windows, MLA on the state layouts,
-    ``moe_impl="ep"``)."""
-    if max_len and cuts_positions(cfg, tp) and max_len % tp:
+    :meth:`LLMEngine.generate`.  What waits for another item is refused
+    as without a mesh (``moe_impl="ep"``)."""
+    size = cache_len(cfg, max_len)
+    if max_len and cuts_positions(cfg, tp) and size % tp:
+        rows = f"max_len {max_len}" if size == max_len else \
+            f"its window's slot rows of {size}"
         raise ValueError(
             f"{cfg.name} at tp={tp} holds a rank's cut of its caches' "
-            f"positions: max_len {max_len} must be a multiple of {tp}")
+            f"positions: {rows} must be a multiple of {tp}")
 
 
 class CacheTree(dict):
@@ -308,7 +320,6 @@ class LLMEngine:
         pool's idle workers for the mesh, where it has some, and
         :meth:`close` hands its workers back to it.
         ``_collectives`` is a worker's own group (``_run_worker``)."""
-        check_supported(cfg)
         check_moe_impl(flags)
         self.cfg = cfg
         self.max_len = max_len
@@ -651,18 +662,14 @@ class LLMEngine:
                              f"of {LAYOUTS})")
 
     def _check_mla_layout(self, kind: str) -> None:
-        """MLA's latent cache is served on the slot and paged layouts;
-        on the state and hybrid layouts it is refused until ROADMAP
-        Queue 1 item 15.  As in JAX, the paged kernel (K5) reads GQA K/V
-        only, so ``use_paged_kernel`` is refused with MLA."""
+        """MLA's latent cache is served on every layout: slot rows on the
+        slot and state layouts, a paged latent arena on the paged and
+        hybrid ones.  As in JAX, the paged kernel (K5) reads GQA K/V
+        only, so ``use_paged_kernel`` is refused with MLA on a paged
+        arena."""
         if not self.cfg.use_mla:
             return
-        if kind in STATE_KINDS:
-            raise NotImplementedError(
-                f"{self.cfg.name}: MLA on the {kind!r} layout is not yet "
-                f"ported to repro_torch (ROADMAP Queue 1 item 15); serve "
-                f"it on the slot or paged layout")
-        if kind == "paged" and self.flags.use_paged_kernel:
+        if kind in ("paged", "hybrid") and self.flags.use_paged_kernel:
             raise ValueError("use_paged_kernel covers GQA/MHA/MQA only; "
                              "MLA paged decode uses the latent-gather "
                              "path (drop the flag)")
@@ -681,8 +688,8 @@ class LLMEngine:
         *continue the sequential state scan* of recurrent layers from
         their slab rows (docs/STATE_CACHE.md), and keep the limits of
         every layout (``check_mixed_extend_support``).  Both refuse an
-        encoder-decoder, as in JAX; sliding windows are refused at
-        construction by ``check_supported``."""
+        encoder-decoder and a sliding window over attention layers (its
+        wrapping rows hold no stable prefix), as in JAX."""
         self._check_layout(backend_kind)
         self._check_mla_layout(backend_kind)
         if backend_kind in STATE_KINDS:
@@ -698,12 +705,18 @@ class LLMEngine:
         recurrent state has no rollback) and refuse an encoder-decoder,
         as in JAX (``check_paged_support``); the state and hybrid layouts
         verify recurrent layers through the window pass with state
-        stacks and a rewind.  The single-query paged kernel (K5) cannot
-        express a window, so ``use_paged_kernel`` without
-        ``use_fused_decode`` is rejected, as in JAX."""
+        stacks and a rewind.  Neither has a sliding-window mask for a
+        verify window: the paged arena refuses the window, the state
+        layouts refuse it here, as in JAX.  The single-query paged
+        kernel (K5) cannot express a window, so ``use_paged_kernel``
+        without ``use_fused_decode`` is rejected, as in JAX."""
         self._check_layout(backend_kind)
         self._check_mla_layout(backend_kind)
-        if backend_kind not in STATE_KINDS:
+        if backend_kind in STATE_KINDS:
+            if self.cfg.sliding_window and "attn" in self.cfg.layer_kinds():
+                raise ValueError("speculative decode has no "
+                                 "sliding-window mask")
+        else:
             check_paged_support(self.cfg)
         if self.flags.use_paged_kernel and not self.flags.use_fused_decode:
             raise ValueError("speculative decode reads paged K/V through "

@@ -367,7 +367,13 @@ class SlotBackend(CacheBackend):
         """The last position of a row: no row ever reads K/V there that
         it did not write itself in the same step (a request's K/V ends
         at ``max_len - 2``; a window writes before it reads), and
-        window positions past the row are not written."""
+        window positions past the row are not written.  A sliding
+        window's rows wrap, and every slot of a row past its window
+        holds a position the row still reads, so there the stray rows
+        sit at -1, where the windowed decode writes nothing
+        (``attention.window_slots``)."""
+        if self.engine.cfg.sliding_window:
+            return -1
         return self.engine.max_len - 1
 
     def decode(self, last_tokens, positions, active) -> np.ndarray:

@@ -286,18 +286,26 @@ def test_unsupported_configs_raise(name):
 
 
 def test_sliding_window_and_other_layouts_raise():
-    """Sliding-window attention stays refused, on a dense stack and on
-    the hybrid one, naming its ROADMAP item.  The state and hybrid
-    layouts are served since ROADMAP Queue 1 item 7: on a dense stack
-    they build and extend and speculate, while the paged layout refuses
-    a recurrent stack and an unknown layout is refused outright."""
-    for name in ("minicpm_2b", "jamba_1_5_large_398b"):
+    """Sliding-window attention is served since ROADMAP Queue 1 item 12,
+    and refused where JAX refuses it: a windowed dense stack builds its
+    engine, and its paged arena, a windowed hybrid stack's hybrid arena
+    and extend on the state layout raise JAX's errors.  The state and
+    hybrid layouts are served since ROADMAP Queue 1 item 7: on a dense
+    stack they build and extend and speculate, while the paged layout
+    refuses a recurrent stack and an unknown layout is refused
+    outright."""
+    for name, kind in (("minicpm_2b", "paged"),
+                       ("jamba_1_5_large_398b", "hybrid")):
         cfg = dataclasses.replace(get_config(name).reduced(),
                                   sliding_window=16)
-        with pytest.raises(NotImplementedError,
-                           match="sliding-window attention: ROADMAP "
-                                 "Queue 1 item 12"):
-            LLMEngine(cfg, max_len=16, device="cpu")
+        windowed = LLMEngine(cfg, max_len=16, device="cpu")
+        with pytest.raises(ValueError, match="sliding-window attention "
+                                             "is not supported"):
+            windowed.new_cache(types.SimpleNamespace(
+                kind=kind, num_slots=2, num_blocks=5, block_size=8))
+        with pytest.raises(ValueError, match="prefix extend: "
+                                             "sliding-window"):
+            windowed.check_extend_support("state")
     engine = LLMEngine(get_config("minicpm_2b").reduced(), max_len=16,
                        device="cpu")
     for kind in ("slot", "paged", "state", "hybrid"):

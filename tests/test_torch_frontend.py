@@ -503,13 +503,18 @@ class TestGraphFrontDoor:
             GraphServer(engine, num_slots=2, backend="ring")
 
     def test_sliding_window_names_its_own_item(self):
-        """Sliding-window attention does not come with the graph half:
-        the engine refuses it and names the ROADMAP item of its own."""
+        """Sliding-window attention came with its own ROADMAP item (12):
+        the engine serves it, and the server refuses what JAX refuses of
+        it (the paged arena, speculation) while it is being constructed,
+        in the caller's thread."""
         cfg = dataclasses.replace(small_cfgs()[0], sliding_window=16)
-        with pytest.raises(NotImplementedError,
-                           match="sliding-window attention: ROADMAP "
-                                 "Queue 1 item 12"):
-            LLMEngine(cfg, max_len=16, device="cpu")
+        engine = LLMEngine(cfg, max_len=16, device="cpu")
+        with pytest.raises(GraphError, match="sliding-window attention "
+                                             "is not supported"):
+            GraphServer(engine, num_slots=2, backend="paged",
+                        num_blocks=9, block_size=8)
+        with pytest.raises(ValueError, match="sliding-window"):
+            GraphServer(engine, num_slots=2, speculate_k=2)
 
 
 class TestAsyncFrontend:

@@ -575,27 +575,27 @@ def test_kernel_path_is_fallback_for_mla():
 
 
 def test_refusals():
-    """As in JAX, ``use_paged_kernel`` with MLA is refused; MLA on the
-    state and hybrid layouts is refused, naming its ROADMAP item; and
-    the expert-parallel MoE stays refused."""
+    """As in JAX, ``use_paged_kernel`` with MLA is refused on a paged
+    arena (the paged and hybrid layouts); MLA is served on the state and
+    hybrid layouts since ROADMAP Queue 1 item 15
+    (``test_torch_mla_layouts.py``); and the expert-parallel MoE stays
+    refused."""
     cfg, _ = _cfgs()
     engine = LLMEngine(cfg, max_len=16, device="cpu",
                        flags=RuntimeFlags(use_paged_kernel=True))
-    with pytest.raises(ValueError, match="use_paged_kernel covers"):
-        engine.new_cache(types.SimpleNamespace(kind="paged", num_slots=2,
-                                               num_blocks=9, block_size=4))
+    for kind in ("paged", "hybrid"):
+        with pytest.raises(ValueError, match="use_paged_kernel covers"):
+            engine.new_cache(types.SimpleNamespace(
+                kind=kind, num_slots=2, num_blocks=9, block_size=4))
     engine = LLMEngine(cfg, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        Scheduler(StateBackend(engine, 2))
+    assert Scheduler(StateBackend(engine, 2)).backend.kind == "state"
     for kind in ("state", "hybrid"):
-        for check in (engine.check_extend_support,
-                      engine.check_spec_support,
-                      lambda k: engine.new_cache(types.SimpleNamespace(
-                          kind=k, num_slots=2, num_blocks=9,
-                          block_size=4))):
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 15"):
-                check(kind)
+        engine.check_extend_support(kind)
+        engine.check_spec_support(kind)
+        cache = engine.new_cache(types.SimpleNamespace(
+            kind=kind, num_slots=2, num_blocks=9, block_size=4))
+        assert cache["head_layers"]["layer0"]["mixer"]["c_kv"].shape[:2] \
+            == ((2, 16) if kind == "state" else (9, 4))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         LLMEngine(cfg, max_len=16, device="cpu",
                   flags=RuntimeFlags(moe_impl="ep"))

@@ -4,6 +4,7 @@ loop than the whole script while a phase is being written.
 
     python3 tools/chip_phases.py kernels,tp_moe,tp_hybrid,tp_state,tp_mixers_f32
     python3 tools/chip_phases.py kernels,tp_mla,tp_hd,tp_encdec
+    python3 tools/chip_phases.py window_kernels,window_main_path,mla_window,mla_layouts
 
 ``kernels`` holds K2, K4, K5 and K3 against their plain versions at one
 rank's heads under tensor-parallel serving (granite_moe_3b_a800m's 12
@@ -12,7 +13,14 @@ over 4 kv heads, jamba's 32 over 4 and seamless_m4t_large_v2's 8 over
 alone bitwise its row of the batch; the other names are
 ``chip_smoke.py``'s tensor-parallel phases of items 11b-i and 11b-ii,
 run in the order given, their engines sharing one ``WorkerPool``
-(``tp_hd``'s eight ranks have one of their own).  Builds the kernels first (``phase_build``).  Prints the
+(``tp_hd``'s eight ranks have one of their own).  The phases of ROADMAP
+items 12 and 15: ``window_kernels`` holds K3's window branch
+(``WINDOW_PREFILLS``, bf16 and f32, each row alone bitwise) and times it
+beside its plain version and SDPA with the same boolean mask;
+``window_main_path`` and ``mla_window`` are ``chip_smoke.py``'s;
+``mla_layouts`` builds deepseek_v3_671b's two layers and serves
+``mla_serve``'s requests on a roomy paged arena first, the reference
+that ``chip_smoke.py`` takes from ``mla_serve``.  Builds the kernels first (``phase_build``).  Prints the
 phases' JSON lines, then the card's name and power limit; exits
 non-zero without a card or at the first failed check.
 """
@@ -56,11 +64,50 @@ def rank_kernels(torch) -> None:
         cs.check_window_independence(torch, dev, g, shape)
 
 
+def window_kernels(torch) -> None:
+    """K3's window cases of ``phase_kernels``, and its windowed time."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def record(name, dtype, case, a, b, tol):
+        err, ok = cs.close(a, b, tol)
+        cs.emit({"phase": "kernel_vs_plain", "kernel": name, "dtype": dtype,
+                 "case": case, "max_abs_err": err, "tol": tol, "ok": ok})
+        cs.check(ok, f"{name} {dtype} {case}: max abs err {err}")
+
+    for dtype in ("bfloat16", "float32"):
+        for shape, rows, window in cs.WINDOW_PREFILLS:
+            cs.check_flash_shape(torch, dev, g, dtype, shape, record,
+                                 rows=rows, offsets=(), batch=2,
+                                 window=window)
+    cs.FLASH_TIMED = tuple(t for t in cs.FLASH_TIMED if len(t) > 7)
+    for r in cs.time_flash_shapes(torch, g):
+        cs.emit({"phase": "times", "kernel": "flash_attention", **r})
+
+
+def mla_layouts(torch, smi) -> None:
+    """``phase_mla_layouts`` on its own engine, against its own paged
+    reference (mla_serve's layout run)."""
+    from repro_torch.serving import LLMEngine
+    cfg = cs.deepseek_config()
+    requests = cs.serve_requests(cfg.vocab_size)
+    engine = LLMEngine(cfg, max_len=cs.SERVE_MAX_LEN, seed=cs.SEED)
+    paged, _, _, _ = cs.serve(torch, engine, requests, cs.ROOMY_BLOCKS,
+                              prefix_sharing=False, speculate_k=0)
+    cs.phase_mla_layouts(torch, engine, requests, paged)
+
+
+WINDOW_PHASES = {"window_main_path": cs.phase_window_main_path,
+                 "mla_window": cs.phase_mla_window,
+                 "mla_layouts": mla_layouts}
+
+
 def main(argv) -> int:
     names = argv[0].split(",") if argv else [
         "kernels", "tp_moe", "tp_hybrid", "tp_state", "tp_mixers_f32",
         "tp_mla", "tp_hd", "tp_encdec"]
-    unknown = set(names) - {"kernels", "tp_mixers_f32", *PHASES}
+    unknown = set(names) - {"kernels", "tp_mixers_f32", "window_kernels",
+                            *PHASES, *WINDOW_PHASES}
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
     torch = cs.setup()
@@ -71,6 +118,11 @@ def main(argv) -> int:
         for name in names:
             if name == "kernels":
                 rank_kernels(torch)
+            elif name == "window_kernels":
+                window_kernels(torch)
+            elif name in WINDOW_PHASES:
+                WINDOW_PHASES[name](torch, smi)
+                cs.free_card(torch)
             elif name == "tp_mixers_f32":
                 cs.phase_tp_mixers_f32(torch)
             else:
