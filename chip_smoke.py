@@ -2203,7 +2203,7 @@ TP_F32_DEPTH = 8
 #: and of its K2 run, slot run and ticks (cut from 40 to pay for item
 #: 11b-ii's phases)
 TP_SPLITK_DEPTH = 10
-TP_SERVE_DEPTH = 20
+TP_SERVE_DEPTH = 10
 QWEN_ARCH = "qwen3_32b"
 QWEN_DEPTH = 2
 GQA_MAX_LEN = 512
@@ -3009,8 +3009,8 @@ class RouteRecorder:
         from repro_torch.models import moe
         route = self._route = moe.route
 
-        def recorded(params, cfg, xf, *rest):
-            out = route(params, cfg, xf, *rest)
+        def recorded(params, cfg, xf, *rest, **kw):
+            out = route(params, cfg, xf, *rest, **kw)
             if self.keep(xf.shape[0]):
                 self.calls.append(out[1].clone())
             return out
@@ -5358,6 +5358,9 @@ TP_HD_REQUESTS = 2
 #: seamless_m4t_large_v2's depth (encoder and decoder) in tp_encdec's f32
 #: check (cut from 24 each)
 TP_ENCDEC_F32_DEPTH = 4
+#: tp_encdec's encoder and decoder layers (cut from 24 + 24 to fit the
+#: run's time limit)
+TP_ENCDEC_DEPTH = 12
 
 
 def mla_tick_reduces(kind, ffn):
@@ -5466,7 +5469,7 @@ def phase_tp_mla(torch, smi):
     return counts
 
 
-def phase_tp_hd(torch, smi):
+def phase_tp_hd(torch, smi, pool=None):
     """minicpm_2b's first TP_HD_DEPTH layers at full width (bf16, random
     weights from the seed) on TP_HD ranks of the card: the ranks do not
     divide its 36 heads or 36 kv heads, so every rank holds ``wq``,
@@ -5484,7 +5487,9 @@ def phase_tp_hd(torch, smi):
     the tokens bitwise each request served alone (``own_greedy``), rank
     0's lanes of the victim's K/V replayed bitwise.  Then the eager tick
     against the unsharded eager tick.  The 7 worker ranks start for this
-    phase and stop after it.  Returns the launch counts of every rank."""
+    phase and stop after it, or go back to ``pool`` (the next phase's
+    8-rank training mesh takes them).  Returns the launch counts of every
+    rank."""
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
     from repro_torch.sharding.group import WorkerPool
@@ -5495,7 +5500,8 @@ def phase_tp_hd(torch, smi):
           "tp_hd: minicpm_2b's heads no longer leave K/V on head_dim")
     requests = serve_requests(cfg.vocab_size)[:TP_HD_REQUESTS]
     blocks = 1 + SERVE_SLOTS * SERVE_MAX_LEN // SERVE_BLOCK
-    pool = WorkerPool()
+    own = pool is None
+    pool = pool or WorkerPool()
     t0 = time.perf_counter()
     engine = tp_engine(torch, cfg, TP_HD, SERVE_MAX_LEN, pool=pool)
     start_s = time.perf_counter() - t0
@@ -5536,7 +5542,8 @@ def phase_tp_hd(torch, smi):
         torch, {"tp1_eager": plain, f"tp{TP_HD}_eager": engine},
         serve_requests(cfg.vocab_size)), smi, cfg, lambda k, f: 3)
     engine.close()
-    pool.close()
+    if own:
+        pool.close()
     del plain, engine, forced
     free_card(torch)
     emit({"phase": "tp_hd_done", "seconds": time.perf_counter() - t_phase})
@@ -5565,8 +5572,9 @@ def greedy_gaps(torch, engine, toks, enc, steps):
 
 
 def phase_tp_encdec(torch, smi):
-    """seamless_m4t_large_v2 at full width and depth (bf16, random
-    weights from the seed) at tp 2 on the card: a rank holds 8 of the
+    """seamless_m4t_large_v2 at full width, its first TP_ENCDEC_DEPTH
+    encoder and decoder layers (bf16, random weights from the seed) at
+    tp 2 on the card: a rank holds 8 of the
     16 heads and kv heads of every encoder, decoder and cross attention,
     half of each FFN and of the vocabulary, and its cross caches 8 kv
     heads of the 256 frames.  ``generate`` over encdec_main_path's 256
@@ -5583,7 +5591,8 @@ def phase_tp_encdec(torch, smi):
     from repro_torch.models.transformer import RuntimeFlags
     from repro_torch.serving import LLMEngine
     t_phase = time.perf_counter()
-    cfg = encdec_config()
+    cfg = dataclasses.replace(encdec_config(), num_layers=TP_ENCDEC_DEPTH,
+                              num_encoder_layers=TP_ENCDEC_DEPTH)
     toks, embeds = stub_inputs(torch, cfg)
     enc = embeds["enc_embeds"].cpu().numpy()
     engine = tp_engine(torch, cfg, TP, MAX_LEN)
@@ -5963,7 +5972,7 @@ def fit_one_batch(torch, model, cfg, shape):
     return losses, state, step
 
 
-def _step_on(torch, model, schedule, batch):
+def _step_on(torch, model, schedule, batch, flags=None):
     """One train step of ``model`` from a fresh optimizer state on
     ``batch`` (moved to the model's device), in true f32 on the card,
     each gradient its backward accumulates copied out as it is made (a
@@ -5973,7 +5982,9 @@ def _step_on(torch, model, schedule, batch):
     from repro_torch.models.layers import no_tf32
     from repro_torch.models.params import flatten
     from repro_torch.runtime.steps import make_train_step
-    step, init = make_train_step(model, schedule=schedule)
+    from repro_torch.models.transformer import TRAIN_FLAGS
+    step, init = make_train_step(model, schedule=schedule,
+                                 flags=flags or TRAIN_FLAGS)
     batch = {k: v.to(model.device) for k, v in batch.items()}
     leaves, grads = flatten(model.params), {}
 
@@ -6145,13 +6156,26 @@ def checkpoint_roundtrip(torch, step, state, cfg, shape):
             "next_loss": [want, got], "next_loss_bitwise": want == got}
 
 
+#: the launcher's run: steps and batch (cut from 8 x 256 to fit the
+#: run's time limit).  Its rc is 0 where the mean loss of the last five
+#: steps is below the first five's: at 20 steps of 8 x 256 the loss fell
+#: 12.17 -> 12.08 on an H100, against a spread of ~0.01 of a mean of
+#: five 4 x 256 batches
+LAUNCHER_STEPS = 20
+LAUNCHER_SHAPE = (4, 256)
+
+
 def train_launcher(torch):
-    """``python -m repro_torch.launch.train`` on minicpm_2b at full width
-    in a subprocess: its rc, last lines and wall seconds."""
+    """``python -m repro_torch.launch.train --host-mesh`` on minicpm_2b at
+    full width and depth in a subprocess: on the one card
+    ``make_host_mesh()`` is a 1 x 1 mesh, which trains the unsharded step
+    (the run without the flag takes the same path past the mesh).  Its
+    rc, last lines and wall seconds."""
     import os
-    B, S = TRAIN_SHAPE[TRAIN_ARCH]
+    B, S = LAUNCHER_SHAPE
     argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            TRAIN_ARCH, "--steps", "20", "--batch", str(B), "--seq", str(S)]
+            TRAIN_ARCH, "--steps", str(LAUNCHER_STEPS), "--batch", str(B),
+            "--seq", str(S), "--host-mesh"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     r = subprocess.run(argv, capture_output=True, text=True, env=env,
@@ -6420,6 +6444,447 @@ def phase_train_hybrid(torch, smi):
     del model, state
     free_card(torch)
     return {}
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh (ROADMAP item 11c-i): ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+MESH_DEVICE = "cuda:0"
+#: minicpm_2b on a (data 2, model 2) mesh: depth (cut from 40), batch,
+#: steps
+TRAIN_MESH_DEPTH = 4
+TRAIN_MESH_SHAPE = (4, 256)
+TRAIN_MESH_STEPS = 3
+#: the f32 checks: one mesh step at depth 2 against the unsharded step
+MESH_F32_DEPTH = 2
+MESH_F32_SHAPE = (2, 64)
+#: the same mesh step in f64 against the unsharded f64 step: relative,
+#: and of a param leaf's largest.  Not f64's rounding: the CE runs in
+#: f32 in both (as JAX's casts the logits to f32), and the grad norm sums
+#: f32 squares, in another order on the mesh
+MESH_F64_TOL = 1e-6
+#: minicpm_2b's 36 heads do not divide 8 model ranks: the sequence arm
+TRAIN_SEQ_RANKS = 8
+#: granite_moe_3b_a800m on (data 2, model 2): depth (cut from 32) and two
+#: batches, one a branch of JAX's expert parallelism: 4 x 256 = 1024
+#: tokens > 16 x 48 (``_moe_ep``, each data shard its own capacity) and
+#: 2 x 256 = 512 <= 768 (``_moe_ep_decode``, the global capacity)
+TRAIN_EP_DEPTH = 4
+TRAIN_EP_SHAPES = ((4, 256), (2, 256))
+TRAIN_EP_F32_SHAPE = (4, 256)
+#: the training meshes' workers, shared by their phases
+TRAIN_POOL = None
+
+
+def training_mesh(shape):
+    """A ("data", "model") training mesh of ranks on the one card."""
+    from repro_torch.launch.mesh import TrainingMesh
+    return TrainingMesh((MESH_DEVICE,) * math.prod(shape),
+                        ("data", "model"), tuple(shape))
+
+
+def mesh_flags(shape, ep=False):
+    """JAX's production flags at this mesh's sizes."""
+    kw = {"batch_axes": ("data",), "batch_divisor": shape[0],
+          "model_size": shape[1]}
+    if ep:
+        kw["moe_impl"] = "ep"
+    return kw
+
+
+def mesh_traffic(reports):
+    """Every rank's collective calls, bytes received and host seconds by
+    axis line, and their sums over the ranks."""
+    total = {}
+    for r in reports:
+        for line, t in r["traffic"].items():
+            acc = total.setdefault(line, {"calls": 0, "bytes": 0,
+                                          "seconds": 0.0})
+            for k in acc:
+                acc[k] += t[k]
+    return {"rank0": reports[0]["traffic"], "sum_over_ranks": total}
+
+
+def mesh_drops(reports):
+    """Dropped (token, expert) pairs a MoE layer, summed over the ranks of
+    model index 0 (the model ranks of a batch shard see one token set)."""
+    layers = sorted(reports[0]["drops"])
+    return [sum(r["drops"][k] for r in reports if r["coords"]["model"] == 0)
+            for k in layers]
+
+
+def mesh_trainer(torch, cfg, shape, flags_kw, schedule, pool=None):
+    """``make_train_step`` on a mesh of ranks on the card (a Model of
+    ``cfg`` drawn from the seed on rank 0, the ranks drawing their slices
+    from the same seed): (step, trainer, rank 0's state, the model,
+    start seconds)."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import TRAIN_FLAGS
+    from repro_torch.runtime.steps import make_train_step
+    model = Model(cfg, device=DEVICE, seed=SEED)
+    t0 = time.perf_counter()
+    step, init = make_train_step(
+        model, schedule=schedule, mesh=training_mesh(shape),
+        flags=dataclasses.replace(TRAIN_FLAGS, **flags_kw),
+        pool=pool or TRAIN_POOL)
+    state = init(seed=SEED)
+    sync(torch)
+    return step, step.trainer, state, model, time.perf_counter() - t0
+
+
+def drawn_alike(torch, trainer, state, model):
+    """The ranks' slices of the seed's draw gathered whole equal the
+    unsharded model's weights, bitwise."""
+    from repro_torch.models.params import flatten
+    whole = flatten(trainer.gather_state(state, params_only=True).params)
+    return all(torch.equal(whole[k], v.detach().cpu())
+               for k, v in flatten(model.params).items())
+
+
+def mesh_steps(torch, step, trainer, state, cfg, shapes):
+    """One bf16 step a batch (``shapes``, batches 0 ..) with every rank's
+    counters reset first: per step its ms (rank 0's host clock around the
+    step, which ends at the ranks' barrier), loss, aux, grad norm, each
+    rank's peak memory, whether every rank's gradient slices were
+    finite, the collectives by axis, and the MoE drops a layer.
+    Returns (state, [step lines], rank 0's kernel launches)."""
+    from repro_torch.kernels import build
+    trainer.report(reset=True)
+    zero_launches()
+    out = []
+    for i, shape in enumerate(shapes):
+        batch = train_batch(torch, cfg, i, shape)
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        reports = trainer.report(reset=True)
+        line = {"shape": list(shape), "step_ms": ms, "loss": loss,
+                "aux": float(m["aux"]), "grad_norm": float(m["grad_norm"]),
+                "grads_finite": all(r["grads_finite"] for r in reports),
+                "peak_gb_per_rank": [
+                    r["max_memory_allocated"] / 2 ** 30
+                    if r["max_memory_allocated"] is not None else None
+                    for r in reports],
+                "collectives": mesh_traffic(reports)}
+        if reports[0]["drops"]:
+            line["drops_per_layer"] = mesh_drops(reports)
+        out.append(line)
+    return state, out, dict(build.launches)
+
+
+def unsharded_step(torch, cfg, shape, flags_kw):
+    """The same bf16 step without a mesh (the flags' ``moe_impl="ep"``
+    there is ``moe.ep_plain``): the ms of the second of two steps on
+    batches 0 and 1 (the first warms up) and the peak memory."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import TRAIN_FLAGS
+    from repro_torch.runtime.steps import make_train_step
+    model = Model(cfg, device=DEVICE, seed=SEED)
+    step, init = make_train_step(
+        model, schedule=launcher_schedule(cfg, 2),
+        flags=dataclasses.replace(TRAIN_FLAGS, **flags_kw))
+    state = init(model.params)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, train_batch(torch, cfg, 0, shape))
+    sync(torch)
+    t0 = time.perf_counter()
+    state, m = step(state, train_batch(torch, cfg, 1, shape))
+    loss = float(m["loss"])
+    sync(torch)
+    out = {"shape": list(shape), "step_ms": (time.perf_counter() - t0) * 1e3,
+           "loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30
+           if DEVICE == "cuda" else None}
+    del model, state, step
+    free_card(torch)
+    return out
+
+
+def mesh_checkpoint(torch, trainer, state):
+    """The ranks' checkpoint of the params (``save_from_mesh``) against
+    the unsharded save of the gathered params: every file byte for
+    byte."""
+    import shutil
+    from repro_torch.checkpoint import save_checkpoint, save_from_mesh
+    directory = ROOT / "build" / "mesh_checkpoint"
+    shutil.rmtree(directory, ignore_errors=True)
+    step = int(state.opt.step)
+    t0 = time.perf_counter()
+    a = Path(save_from_mesh(str(directory / "mesh"), step, trainer, state,
+                            params_only=True))
+    save_s = time.perf_counter() - t0
+    whole = trainer.gather_state(state, params_only=True)
+    b = Path(save_checkpoint(str(directory / "plain"), step, whole.params))
+    names = sorted(f.name for f in a.iterdir())
+    equal = names == sorted(f.name for f in b.iterdir()) and all(
+        (a / n).read_bytes() == (b / n).read_bytes() for n in names)
+    nbytes = sum((a / n).stat().st_size for n in names)
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"files": len(names), "bytes": nbytes, "save_s": save_s,
+            "byte_for_byte": equal}
+
+
+def mesh_vs_plain(torch, cfg, depth, shape, mesh_shape, flags_kw,
+                  pool=None, f64=True):
+    """One f32 step at full width and ``depth`` layers on a mesh of ranks
+    on the card against the port's unsharded step on the card, on the
+    same weights (the seed's) and batch, by ``train_card_vs_cpu``'s
+    rule: loss and grad norm within TRAIN_CPU_TOL relative or no further
+    from the f64 step than twice the unsharded one; every updated param
+    leaf within TRAIN_CPU_TOL of the unsharded leaf's scale wherever the
+    f64 gradient exceeds 1e-3 of the leaf's largest, or no further from
+    the f64 leaf than twice the unsharded one (or than TRAIN_CPU_TOL);
+    the grad norm may also sit within twice the unsharded step's f32
+    floor (its gradient leaves' largest distance from the f64 step's, by
+    the norm, at least TRAIN_GRAD_NEAR) of the f64 step, since minicpm's
+    saturated softmax puts its embedding gradient 1.3e-3 to 1.9e-3 from
+    f64 in any f32 arithmetic.  With ``f64`` the same mesh step in f64 is
+    the unsharded f64 step's function: loss, grad norm and every updated
+    leaf within MESH_F64_TOL.
+    With ``moe_impl="ep"`` the unsharded step's MoE layers run
+    ``moe.ep_plain`` (the mesh's function), and the dropped pairs a layer
+    of the mesh must equal ``ep_plain``'s (read from a no-grad forward of
+    the unsharded model) and are printed beside the unsharded gather's.
+    All products run in true f32."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import no_tf32
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+    from repro_torch.models.transformer import TRAIN_FLAGS
+    cfg32 = dataclasses.replace(cfg, num_layers=depth, dtype="float32")
+    schedule = launcher_schedule(cfg32, TRAIN_STEPS)
+    batch = train_batch(torch, cfg32, 0, shape, device="cpu")
+    flags = dataclasses.replace(TRAIN_FLAGS, **flags_kw)
+    card = Model(cfg32, device=DEVICE, seed=SEED)
+    w = {k: v.detach().cpu().clone() for k, v in card.named_parameters()}
+    out = {"depth": depth, "shape": list(shape),
+           "mesh": {"data": mesh_shape[0], "model": mesh_shape[1]},
+           "flags": flags_kw, "tol": TRAIN_CPU_TOL}
+    if flags.moe_impl == "ep":
+        with RouteRecorder() as rec, torch.no_grad():
+            card.forward(batch["tokens"].to(DEVICE), flags=flags)
+        B, S = shape
+        out["drops_ep_plain"] = [moe.ep_dropped(cfg32, i, B, S,
+                                                flags.batch_divisor)
+                                 for i in rec.calls]
+        out["drops_gather"] = [moe.ep_dropped(cfg32, i, B, S, 1)
+                               for i in rec.calls]
+    pp, pm, plain_s, pg = _step_on(torch, card, schedule, batch, flags)
+    del card
+    free_card(torch)
+    xp, xm, _, xg = _step_on(torch, Model(
+        dataclasses.replace(cfg32, dtype="float64"), device=DEVICE,
+        params={k: v.double() for k, v in w.items()}), schedule, batch,
+        flags)
+    del w
+    free_card(torch)
+    keep = {k: g.abs() > 1e-3 * g.abs().max() for k, g in xg.items()}
+    # the unsharded f32 step's gradient leaves from the f64 step's, by the
+    # norm: the f32 floor of this model at this batch
+    floor = max(float((pg[k] - x).norm()) / max(float(x.norm()), 1e-30)
+                for k, x in xg.items())
+    del pg
+    runs = {}
+    for dt in ("float32", "float64") if f64 else ("float32",):
+        c = dataclasses.replace(cfg32, dtype=dt)
+        step, trainer, state, model, start_s = mesh_trainer(
+            torch, c, mesh_shape, flags_kw, schedule, pool)
+        del model
+        free_card(torch)
+        trainer.record_drops(flags.moe_impl == "ep")
+        tb = {k: v.to(DEVICE) if v.dtype == torch.long
+              else v.to(DEVICE, getattr(torch, dt)) for k, v in batch.items()}
+        with no_tf32(torch.device(DEVICE)):
+            sync(torch)
+            t0 = time.perf_counter()
+            state, m = step(state, tb)
+            sync(torch)
+            mesh_s = time.perf_counter() - t0
+        reports = trainer.report()
+        mp = {k: v.to(DEVICE).double() for k, v in flatten(
+            trainer.gather_state(state, params_only=True).params).items()}
+        trainer.close()
+        del state
+        runs[dt] = ({k: float(v) for k, v in m.items()}, mp, reports,
+                    start_s, mesh_s)
+        free_card(torch)
+    mm, mp, reports, start_s, mesh_s = runs["float32"]
+    x64 = runs.get("float64")
+    out.update({"mesh_start_s": start_s, "mesh_step_s": mesh_s,
+                "mesh_f64_step_s": x64[4] if x64 else None,
+                "plain_step_s": plain_s,
+                "grads_finite": all(r["grads_finite"] for r in reports),
+                "plain_grad_floor": floor})
+    ok = out["grads_finite"]
+    for k in ("loss", "grad_norm"):
+        x = xm[k]
+        out[k] = {"mesh": mm[k], "plain": pm[k], "f64": x,
+                  "mesh_f64": x64[0][k] if x64 else None}
+        # the f32 rule, or a grad norm within twice the unsharded step's
+        # gradient floor of the f64 one (a norm's error is its leaves')
+        ok = ok and (_agree(mm[k], pm[k], x, TRAIN_CPU_TOL) or (
+            k == "grad_norm" and abs(mm[k] - x) <= 2 * max(
+                floor, TRAIN_GRAD_NEAR) * abs(x)))
+        # the mesh's f64 step is the unsharded f64 step's function
+        ok = ok and (not x64 or abs(x64[0][k] - x) <= MESH_F64_TOL * abs(x))
+    pbad, pworst, pwhere = _leaves_agree(mp, pp, xp, TRAIN_CPU_TOL,
+                                         TRAIN_CPU_TOL, keep)
+    out.update({"params_rel": pworst, "params_worst_leaf": pwhere,
+                "params_disagree": pbad})
+    ok = ok and not pbad
+    if x64:
+        xbad, xworst, xwhere = _leaves_agree(x64[1], xp, xp, MESH_F64_TOL,
+                                             MESH_F64_TOL, keep)
+        out.update({"f64_params_rel": xworst, "f64_params_worst_leaf": xwhere,
+                    "f64_params_disagree": xbad})
+        ok = ok and not xbad
+    if flags.moe_impl == "ep":
+        out["drops_mesh"] = mesh_drops(reports)
+        if x64:
+            out["drops_mesh_f64"] = mesh_drops(x64[2])
+        ok = ok and out["drops_mesh"] == out["drops_ep_plain"]
+    out["ok"] = ok
+    del mp, pp, xp, xg, runs
+    free_card(torch)
+    return out
+
+
+def phase_train_mesh(torch, smi):
+    """minicpm_2b at full width, its depth cut to TRAIN_MESH_DEPTH, on a
+    (data 2, model 2) mesh of 4 ranks sharing the card: each holds 18 of
+    the 36 heads, 2880 of the FFN's 5760 columns, half the vocabulary and
+    half of every ``embed`` row set (ZeRO).  The ranks draw their slices
+    from the seed (gathered whole they are the unsharded model's bits);
+    AdamW with WSD as the launcher builds it, TRAIN_MESH_STEPS steps on
+    batches of 4 x 256 (2 rows a data rank): finite losses, every rank's
+    gradient slices finite, no kernel launched, step ms, each rank's
+    peak memory and the collectives by axis; the ranks' checkpoint of
+    the params byte for byte the unsharded save of the gathered params;
+    then one f32 step at depth MESH_F32_DEPTH against the unsharded
+    step (``mesh_vs_plain``, without its f64 mesh step)."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(minicpm_config(), num_layers=TRAIN_MESH_DEPTH)
+    shape = (2, 2)
+    step, trainer, state, model, start_s = mesh_trainer(
+        torch, cfg, shape, mesh_flags(shape),
+        launcher_schedule(cfg, TRAIN_MESH_STEPS))
+    params = sum(p.numel() for p in model.parameters())
+    drawn = drawn_alike(torch, trainer, state, model)
+    del model
+    free_card(torch)
+    state, steps, counts = mesh_steps(
+        torch, step, trainer, state, cfg,
+        [TRAIN_MESH_SHAPE] * TRAIN_MESH_STEPS)
+    ck = mesh_checkpoint(torch, trainer, state)
+    shapes = trainer.report()[0]["shapes"]
+    trainer.close()
+    del state
+    free_card(torch)
+    plain = unsharded_step(torch, cfg, TRAIN_MESH_SHAPE, mesh_flags(shape))
+    emit({"phase": "train_mesh", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": params,
+          "mesh": {"data": 2, "model": 2}, "flags": mesh_flags(shape),
+          "rank_shapes": {k: shapes[k] for k in (
+              "params.embed.embedding", "params.blocks.l0.mixer.wq",
+              "params.blocks.l0.ffn.w_gate", "m.blocks.l0.mixer.wo")},
+          "start_s": start_s, "drawn_bitwise": drawn, "steps": steps,
+          "unsharded": plain, "launches": counts, "checkpoint": ck,
+          "nvidia_smi": smi})
+    check(drawn, "train_mesh: the ranks' draw is not the model's")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              and s["grads_finite"] for s in steps),
+          "train_mesh: a loss, grad norm or gradient slice is not finite")
+    check(not any(counts.values()), f"train_mesh: kernels launched: "
+                                    f"{counts}")
+    check(ck["byte_for_byte"], "train_mesh: the mesh checkpoint is not the "
+                               "unsharded save")
+    # the f64 mesh step runs in train_ep (the head arm, ZeRO on data, the
+    # vocabulary) and train_mesh_seq (the sequence arm, the dense FFN)
+    cmp = mesh_vs_plain(torch, minicpm_config(), MESH_F32_DEPTH,
+                        MESH_F32_SHAPE, shape, mesh_flags(shape), f64=False)
+    emit({"phase": "train_mesh_f32", "arch": cfg.name, **cmp})
+    check(cmp["ok"], "train_mesh: the f32 mesh step disagrees with the "
+                     "unsharded step")
+    emit({"phase": "train_mesh_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
+def phase_train_mesh_seq(torch, smi, pool=None):
+    """minicpm_2b at full width, depth 2, on (data 1, model 8): 36 heads
+    do not divide 8 ranks, so attention takes the sequence arm (each
+    rank its 8 of 64 query rows against the whole K/V); one f32 step
+    against the unsharded step (``mesh_vs_plain``).  ``pool``: tp_hd's
+    workers, which the 8-rank mesh takes over."""
+    t_phase = time.perf_counter()
+    cfg = minicpm_config()
+    check(cfg.num_heads % TRAIN_SEQ_RANKS and cfg.num_kv_heads
+          % TRAIN_SEQ_RANKS, "train_mesh_seq: the heads divide the ranks")
+    shape = (1, TRAIN_SEQ_RANKS)
+    cmp = mesh_vs_plain(torch, cfg, MESH_F32_DEPTH, MESH_F32_SHAPE, shape,
+                        mesh_flags(shape), pool=pool)
+    emit({"phase": "train_mesh_seq", "arch": cfg.name, "arm": "seq",
+          "nvidia_smi": smi, **cmp,
+          "seconds": time.perf_counter() - t_phase})
+    check(cmp["ok"], "train_mesh_seq: the f32 mesh step disagrees with the "
+                     "unsharded step")
+
+
+def phase_train_ep(torch, smi):
+    """granite_moe_3b_a800m at full width, depth TRAIN_EP_DEPTH, on (data
+    2, model 2) with ``moe_impl="ep"``: each model rank holds 24 of the
+    48 padded experts, each data rank half of ``d_model`` in every expert
+    weight.  A bf16 step on each of TRAIN_EP_SHAPES (JAX's ``_moe_ep``,
+    then ``_moe_ep_decode``), with its drops a layer, step ms, each
+    rank's peak memory and the collectives; then one f32 step at depth
+    2 against the unsharded step with ``moe.ep_plain`` in its MoE layers,
+    the drops a layer equal to ``ep_plain``'s."""
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(moe_config(), num_layers=TRAIN_EP_DEPTH)
+    shape = (2, 2)
+    flags_kw = mesh_flags(shape, ep=True)
+    step, trainer, state, model, start_s = mesh_trainer(
+        torch, cfg, shape, flags_kw,
+        launcher_schedule(cfg, len(TRAIN_EP_SHAPES)))
+    params = sum(p.numel() for p in model.parameters())
+    del model
+    free_card(torch)
+    trainer.record_drops(True)
+    state, steps, counts = mesh_steps(torch, step, trainer, state, cfg,
+                                      TRAIN_EP_SHAPES)
+    trainer.close()
+    del state
+    free_card(torch)
+    for line in steps:
+        B, S = line["shape"]
+        n = moe.ep_shards(cfg, B, S, shape[0])
+        line["branch"] = "_moe_ep" if n > 1 else "_moe_ep_decode"
+        line["capacity"] = moe.capacity(cfg, B * S // n)
+        line["unsharded"] = unsharded_step(torch, cfg, tuple(line["shape"]),
+                                           flags_kw)
+    emit({"phase": "train_ep", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": params,
+          "mesh": {"data": 2, "model": 2}, "flags": flags_kw,
+          "experts_per_rank": moe.padded_experts(cfg) // shape[1],
+          "start_s": start_s, "steps": steps, "launches": counts,
+          "nvidia_smi": smi})
+    check([s["branch"] for s in steps] == ["_moe_ep", "_moe_ep_decode"],
+          "train_ep: the batches do not take JAX's two branches")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              and s["grads_finite"] for s in steps),
+          "train_ep: a loss, grad norm or gradient slice is not finite")
+    check(not any(counts.values()), f"train_ep: kernels launched: {counts}")
+    cmp = mesh_vs_plain(torch, moe_config(), MESH_F32_DEPTH,
+                        TRAIN_EP_F32_SHAPE, shape, flags_kw)
+    emit({"phase": "train_ep_f32", "arch": cfg.name, **cmp})
+    check(cmp["ok"], "train_ep: the f32 mesh step disagrees with the "
+                     "unsharded step with ep_plain, or drops apart")
+    emit({"phase": "train_ep_done",
+          "seconds": time.perf_counter() - t_phase})
 
 
 def time_recurrent_updates(torch):
@@ -6958,8 +7423,12 @@ def main() -> int:
     phase_tp_mixers_f32(torch)
     tp_counts.append(phase_tp_gqa(torch, smi))
     # minicpm_2b at tp 8: K/V on head_dim (item 11b-ii); its 7 workers
-    # start and stop in the phase
-    tp_counts.append(phase_tp_hd(torch, smi))
+    # start for the phase, and then train minicpm_2b's two layers on a
+    # (data 1, model 8) mesh (item 11c-i: the sequence arm)
+    hd_pool = WorkerPool()
+    tp_counts.append(phase_tp_hd(torch, smi, hd_pool))
+    phase_train_mesh_seq(torch, smi, hd_pool)
+    hd_pool.close()
     TP_POOL.close()
     free_card(torch)
     # granite_moe_3b_a800m
@@ -7014,6 +7483,15 @@ def main() -> int:
     train_counts = [phase_train_main_path(torch, smi),
                     phase_train_recurrent(torch, smi),
                     phase_train_hybrid(torch, smi)]
+    # training on a (data 2, model 2) mesh of ranks on the card (item
+    # 11c-i): minicpm_2b's first 4 layers, granite_moe_3b_a800m's first 4
+    # with expert parallelism; one worker start-up for both
+    global TRAIN_POOL
+    TRAIN_POOL = WorkerPool()
+    phase_train_mesh(torch, smi)
+    phase_train_ep(torch, smi)
+    TRAIN_POOL.close()
+    free_card(torch)
     times = phase_times(torch)
     kernels = []
     for name, (src, replaces) in SOURCES.items():

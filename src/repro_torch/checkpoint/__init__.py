@@ -1,3 +1,4 @@
-from .store import latest_step, load_checkpoint, save_checkpoint
+from .store import latest_step, load_checkpoint, save_checkpoint, save_from_mesh
 
-__all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]
+__all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
+           "save_from_mesh"]

@@ -7,7 +7,8 @@ Layout:  ``<dir>/step_<n>/index.msgpack`` + ``<dir>/step_<n>/leaf_<i>.npy``
 NamedTuple's fields as ``.name``, a tuple's items by index, ``None``
 holding none), each leaf keyed by its ``/``-joined path
 (``.params/blocks/l0/mixer/wq``), bf16 stored as its uint16 bits.
-Atomic via rename of a temp directory.  Leaves are written and read
+Atomic via rename of a temp directory.  A training mesh's state is
+gathered to rank 0 first (:func:`save_from_mesh`).  Leaves are written and read
 by a pool of ``IO_THREADS`` threads (a device-to-host copy and a file
 write overlap another leaf's).  The index is packed by ``msgpack``, as
 the JAX package packs it.
@@ -117,6 +118,19 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> str:
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def save_from_mesh(directory: str, step: int, trainer, state,
+                   params_only: bool = False) -> str:
+    """Save a training mesh's ``TrainState`` (``trainer``: the
+    ``MeshTrainer`` of ``make_train_step(..., mesh=)``, ``state`` rank
+    0's): every rank's slices are gathered to rank 0 and placed by their
+    specs, and the whole state (or its params) is written as
+    :func:`save_checkpoint` writes it: byte for byte the unsharded save
+    of the same state."""
+    whole = trainer.gather_state(state, params_only)
+    return save_checkpoint(directory, step,
+                           whole.params if params_only else whole)
 
 
 def load_checkpoint(directory: str, step: Optional[int], like: Any) -> Any:

@@ -1,4 +1,5 @@
-"""The serving mesh: the JAX package's ``launch/mesh.py`` serving half.
+"""The meshes of the JAX package's ``launch/mesh.py``: serving and
+training.
 
 A :class:`ServingMesh` is a ``(1, tp)`` ``("data", "model")`` mesh over
 an explicit list of torch devices, one per rank.  It is a description:
@@ -6,6 +7,13 @@ the ranks are processes that :class:`~repro_torch.serving.LLMEngine`
 starts (``sharding/group.py``), rank ``r`` on ``devices[r]``.  Two ranks
 may share a card (``devices=["cuda:0", "cuda:0"]``): the collectives are
 gloo, which stages CUDA tensors through the host.
+
+A :class:`TrainingMesh` has JAX's training shapes and axis names
+(:func:`make_host_mesh`, :func:`make_production_mesh`): ``(n/mp, mp)``
+over ``("data", "model")``, ``(16, 16)``, or ``(2, 16, 16)`` over
+``("pod", "data", "model")``, rank ``r`` at the row-major coordinates
+of ``r`` (as JAX lays a mesh's devices out) on ``devices[r]``.
+``runtime.steps.make_train_step(..., mesh=)`` starts its ranks.
 """
 from __future__ import annotations
 
@@ -35,6 +43,74 @@ class ServingMesh:
     @property
     def platform(self) -> str:
         return ",".join(sorted({torch.device(d).type for d in self.devices}))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingMesh:
+    devices: Tuple[str, ...]            # rank r runs on devices[r]
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]              # one per axis name
+    timeout_s: float = DEFAULT_TIMEOUT_S
+
+    def __post_init__(self):
+        n = 1
+        for s in self.sizes:
+            n *= s
+        if n != len(self.devices) or len(self.sizes) != len(self.axis_names):
+            raise ValueError(f"a {self.sizes} mesh over {self.axis_names} "
+                             f"needs {n} devices, got {len(self.devices)}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def platform(self) -> str:
+        return ",".join(sorted({torch.device(d).type for d in self.devices}))
+
+
+def _devices(devices: Optional[Sequence]) -> Tuple[str, ...]:
+    """``devices`` as torch device strings; ``None`` means every visible
+    CUDA card, one rank each."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [f"cuda:{i}" for i in range(n)]
+    return tuple(str(torch.device(d)) for d in devices)
+
+
+def make_host_mesh(model_parallel: int = 1, *,
+                   devices: Optional[Sequence] = None,
+                   timeout_s: float = DEFAULT_TIMEOUT_S) -> TrainingMesh:
+    """A small ``(n/mp, mp)`` ``("data", "model")`` training mesh over the
+    ``n`` entries of ``devices`` (every visible card by default); ``mp``
+    falls back to 1 where it does not divide ``n``, as in JAX."""
+    devs = _devices(devices)
+    if not devs:
+        raise ValueError("make_host_mesh needs at least one device (pass "
+                         "devices=[\"cpu\"] to train on the CPU)")
+    n = len(devs)
+    mp = model_parallel if n % model_parallel == 0 else 1
+    return TrainingMesh(devs, ("data", "model"), (n // mp, mp), timeout_s)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None,
+                         timeout_s: float = DEFAULT_TIMEOUT_S
+                         ) -> TrainingMesh:
+    """JAX's production mesh: ``(16, 16)`` over ``("data", "model")``, or
+    ``(2, 16, 16)`` over ``("pod", "data", "model")``, on the first 256 or
+    512 entries of ``devices``; fewer raise ``ValueError`` with the count
+    needed, as ``jax.make_mesh`` fails."""
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for s in sizes:
+        need *= s
+    devs = _devices(devices)
+    if len(devs) < need:
+        raise ValueError(f"the production mesh {sizes} over {axes} needs "
+                         f"{need} devices, have {len(devs)}")
+    return TrainingMesh(devs[:need], axes, sizes, timeout_s)
 
 
 def make_serving_mesh(model_parallel: int = 0, *,

@@ -659,3 +659,80 @@ def tp_decode(params, cfg: ArchConfig, x: torch.Tensor,
     out = sharded_attention(q, k_seq, v_seq, valid, cfg.head_dim, arm, tp,
                             seq_positions(tables, loc, block, tp), T)
     return tp_out_proj(out.to(x.dtype), params, cfg, arm, tp, h0)
+
+
+# ---------------------------------------------------------------------------
+# a training rank (ROADMAP item 11c-i): the arms of the JAX
+# ``sequence_parallel_attention`` under autograd
+# ---------------------------------------------------------------------------
+
+def mesh_attention(params, cfg: ArchConfig, x: torch.Tensor,
+                   positions: Optional[torch.Tensor], flags, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The attention block of a training rank (``flags.train``): x [B, S,
+    d], the same on every rank of the model line, in; the block's whole
+    output out, the same on every rank.  The arm is the JAX
+    ``sequence_parallel_attention``'s (``chunked_attention.sp_arm``):
+
+    * ``"heads"``: the rank's heads' q/k/v (the rules cut ``wq``, ``wk``,
+      ``wv`` and ``wo`` on them), their attention, and the rank's part
+      of the output projection summed over the line;
+    * ``"seq"``: the rank's ``S/mp`` query rows against K/V of every
+      position, projected by whole weights (a weight the rules cut on its
+      heads is gathered first), the rows' outputs gathered over the line;
+    * ``"whole"``: everything whole on every rank (cut weights gathered).
+
+    Inside the first two the ranks compute parts: x, a weight left whole
+    and ``memory`` enter through ``line_enter`` (their gradients summed
+    over the line), a gathered weight's gradient is reduce-scattered.
+    ``memory`` [B, T, d] (a decoder's cross attention over the encoder's
+    output) gives K/V without RoPE, and q has none either; otherwise q and
+    K rotate at ``positions`` [B, S] and qk-norm applies where ``cfg``
+    has it.  ``window`` defaults to the layer's sliding window."""
+    from ..sharding.group import line_enter, line_gather, line_sum
+    from .chunked_attention import sequence_parallel_attention, sp_arm
+    line = flags.train.model
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    S = x.shape[1]
+    arm = sp_arm(H, KV, S, line.size)
+    window = cfg.sliding_window if window is None else window
+    parallel = arm != "whole"
+
+    def whole(w):
+        return line_enter(w, line) if parallel else w
+
+    def weight(w, dim, heads):
+        if w.shape[dim] < heads:                    # the rank's heads
+            return w if arm == "heads" else \
+                line_gather(w, line, dim, summed=parallel)
+        return whole(w)
+
+    wq, wk, wv = (weight(params[n], 1, h) for n, h in
+                  (("wq", H), ("wk", KV), ("wv", KV)))
+    wo = weight(params["wo"], 0, H)
+    xin = line_enter(x, line) if parallel else x
+    src = xin if memory is None else \
+        (line_enter(memory, line) if parallel else memory)
+    rows = slice(None)
+    if arm == "seq":
+        n = S // line.size
+        rows = slice(line.index * n, (line.index + 1) * n)
+    q = _proj(xin[:, rows], wq)
+    k, v = _proj(src, wk), _proj(src, wv)
+    if memory is None:
+        if cfg.qk_norm:
+            q = rms_norm({"scale": whole(params["q_norm"]["scale"])}, q,
+                         cfg.norm_eps)
+            k = rms_norm({"scale": whole(params["k_norm"]["scale"])}, k,
+                         cfg.norm_eps)
+        q = apply_rope(q, positions[:, rows], cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = sequence_parallel_attention(q, k, v, causal=causal, window=window,
+                                      flags=flags, arm=arm)
+    y = _out_proj(out, wo)
+    if arm == "heads":
+        return line_sum(y, line)
+    if arm == "seq":
+        return line_gather(y, line, 1, summed=False)
+    return y

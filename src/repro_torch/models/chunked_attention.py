@@ -18,8 +18,14 @@ A single query row is multiplied as two (``two_rows``).  On a
 tensor-parallel rank (``layers.rows_padded``) the batch's rows attend
 one at a time (``layers.each_row``): at one rank's heads the card's
 batched products round a row apart by the batch beside it.
+
+On a training mesh (ROADMAP item 11c-i) ``sequence_parallel_attention``
+runs the JAX function's two strategies, by heads or by query rows
+(:func:`sp_arm`); MLA's sequence-parallel branch waits for item 11c-ii.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
@@ -85,8 +91,50 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, vd).to(q.dtype)
 
 
-def sequence_parallel_attention(*args, **kwargs):
-    """The JAX package's model-axis-parallel attention: not ported."""
-    raise NotImplementedError(
-        "sequence-parallel attention is not yet ported to repro_torch: "
-        "ROADMAP Queue 1 item 11c")
+def sp_arm(H: int, KV: int, S: int, mp: int) -> str:
+    """The strategy of the JAX ``sequence_parallel_attention`` for ``H``
+    query heads over ``KV`` kv heads and ``S`` query rows on a model axis
+    of ``mp``: ``"heads"`` where the heads divide it (each rank its own
+    query and kv heads, no attention collective), else ``"seq"`` where
+    the rows do (each rank its ``S/mp`` query rows against the whole
+    K/V), else ``"whole"`` (plain ``chunked_attention``)."""
+    if mp > 1 and H % mp == 0 and KV % mp == 0 \
+            and (H // mp) % (KV // mp) == 0:
+        return "heads"
+    if mp <= 1 or S % mp != 0:
+        return "whole"
+    return "seq"
+
+
+#: the arm of every call of :func:`sequence_parallel_attention` in this
+#: process (a reading for the tests)
+ARMS: collections.Counter = collections.Counter()
+
+
+def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool,
+                                window: int, flags, arm: str = "whole"
+                                ) -> torch.Tensor:
+    """The JAX package's model-axis-parallel attention on a training rank
+    (``flags.train``, its group): the body of each of its two
+    ``shard_map`` strategies, on what the rank holds on ``arm``
+    (:func:`sp_arm` of the whole shapes, which ``attention.mesh_attention``
+    lays the rank's q/k/v out for).
+
+    * ``"heads"``: q [B, S, H/mp, hd] and k/v [B, T, KV/mp, hd], the
+      rank's heads; their attention, as without a mesh.
+    * ``"seq"``: q [B, S/mp, H, hd], the rank's query rows, against the
+      whole k/v [B, T, KV, hd], at ``q_offset = index * S/mp`` (the
+      causal mask and the window shifted to match; the keys in their
+      blocks at absolute multiples, so a row's arithmetic is the whole
+      call's).
+    * ``"whole"`` (or no training group): ``chunked_attention`` of the
+      whole.
+
+    Returns the rank's rows or heads of the output."""
+    ARMS[arm] += 1
+    off = 0
+    if arm == "seq" and flags is not None and flags.train is not None:
+        off = flags.train.model.index * q.shape[1]
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)

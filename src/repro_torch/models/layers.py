@@ -214,6 +214,17 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     return linear(h, params["w_down"])
 
 
+def mesh_mlp(params, x: torch.Tensor, d_ff: int, line) -> torch.Tensor:
+    """The SwiGLU MLP on a training rank: where the rules cut its ``mlp``
+    columns over ``line`` (the model line), x enters the column-parallel
+    region (``line_enter``) and the rank's partial output of ``w_down``
+    is summed over the line (``line_sum``); else it is computed whole."""
+    from ..sharding.group import line_enter, line_sum
+    if params["w_down"].shape[0] == d_ff:
+        return mlp_apply(params, x)
+    return line_sum(mlp_apply(params, line_enter(x, line)), line)
+
+
 # ---------------------------------------------------------------------------
 # Embeddings / LM head
 # ---------------------------------------------------------------------------
@@ -239,6 +250,24 @@ def embed_apply(params, tokens: torch.Tensor, dtype,
     x = torch.where(inside, emb[local.clamp(0, rows - 1)],
                     torch.zeros((), dtype=emb.dtype, device=emb.device))
     return tp.all_reduce(x.to(dtype))
+
+
+def mesh_embed(emb: torch.Tensor, tokens: torch.Tensor, dtype,
+               line) -> torch.Tensor:
+    """The tokens' embeddings on a training rank from ``emb``, its rows
+    of the vocabulary where the rules cut them over ``line`` (the model
+    line): its ids looked up, zeros for the others, summed over the line
+    under autograd (exact; each rank's gradient lands on its rows);
+    ``line`` None: the whole vocabulary."""
+    from ..sharding.group import line_sum
+    rows = emb.shape[0]
+    if line is None or line.size == 1:
+        return emb[tokens].to(dtype)
+    local = tokens - line.index * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    x = torch.where(inside, emb[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return line_sum(x.to(dtype), line)
 
 
 def lm_head_template(d: int, vocab: int) -> Template:

@@ -1,6 +1,7 @@
 """Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437): the port
-of the JAX package's ``models/mla.py`` (its sequence-parallel prefill is
-ROADMAP Queue 1 item 11c).
+of the JAX package's ``models/mla.py``.  Its sequence-parallel training
+branch, on a training mesh, is ROADMAP Queue 1 item 11c-ii: until then
+a training mesh refuses MLA (``transformer.check_mesh_support``).
 
 Keys and values are compressed into a latent ``c_kv`` (rank
 ``kv_lora_rank``) plus one shared RoPE key per position, and the caches

@@ -25,7 +25,8 @@ keeps recurrent layers in slabs of ``num_slots`` rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,13 +39,14 @@ from . import xlstm as xl
 from .chunked_attention import chunked_attention
 from .config import ArchConfig
 from .layers import (embed_apply, embed_template, linear, lm_head_apply,
-                     lm_head_template, mlp_apply, mlp_template, remat,
-                     rms_norm, rmsnorm_template, rows_padded)
+                     lm_head_template, mesh_embed, mesh_mlp, mlp_apply,
+                     mlp_template, remat, rms_norm, rmsnorm_template,
+                     rows_padded)
 from .params import (DTYPES, ParamSpec, Template, flatten, stack_template,
                      tree_map, unflatten)
 from ..kernels.ref import rope_freqs
-from ..sharding.group import (cut, own_range, placed, tp_reduce,
-                              tp_reduce_parts)
+from ..sharding.group import (cut, line_enter, line_gather, own_range,
+                              placed, tp_reduce, tp_reduce_parts)
 from ..sharding.rules import WHOLE_SEQ, local_tree
 
 
@@ -58,8 +60,11 @@ class RuntimeFlags:
     is the port's own: the counterpart of the JAX engine's ``jax.jit``
     of its steps.  ``decode_shards`` and ``tp`` are the JAX
     ``decode_shards`` and ``decode_mesh``: the engine sets them when it
-    serves on a mesh of more than one rank (the training sharding
-    flags wait for ROADMAP item 11c)."""
+    serves on a mesh of more than one rank.  ``batch_axes``,
+    ``batch_divisor``, ``model_axis`` and ``model_size`` are JAX's
+    training sharding flags, and ``train`` the training rank's group:
+    ``runtime.steps.make_train_step(mesh=...)`` sets it on every rank
+    (ROADMAP item 11c-i)."""
     use_flash: bool = True           # flash-attention op for prefill/extend
     fused_rmsnorm: bool = True       # fused RMSNorm op for the layer norms
     use_fused_decode: bool = True    # fused flash-decode op for decode/verify
@@ -74,8 +79,9 @@ class RuntimeFlags:
     # host launch per op, for an A/B comparison.  No effect on the CPU
     cuda_graphs: bool = True
     # MoE implementation: "gather" (the global sort-based dispatch,
-    # ``models/moe.py``); "ep" (expert parallelism over a mesh) is refused
-    # until ROADMAP Queue 1 item 11c
+    # ``models/moe.py``) or "ep" (expert parallelism: JAX's ``_moe_ep`` and
+    # ``_moe_ep_decode`` on a training mesh, ``moe.ep_plain`` without
+    # one); "ep" needs model_size > 1 or batch_axes, as JAX's needs a mesh
     moe_impl: str = "gather"
     # ``forward``'s full-sequence attention without the flash op:
     # "chunked" | "naive" ("flash" wins where use_flash is set)
@@ -89,6 +95,15 @@ class RuntimeFlags:
     # weights and caches a step is given are this rank's slices
     decode_shards: int = 1
     tp: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # training on a mesh: the batch dimension's mesh axes and their size,
+    # the model axis and its size (JAX's flags), and the rank's group
+    # (``sharding/group.py``'s ``TrainGroup``): the weights ``forward`` is
+    # given are the rank's slices, the batch its rows
+    batch_axes: Tuple[str, ...] = ()
+    batch_divisor: int = 1
+    model_axis: str = "model"
+    model_size: int = 1
+    train: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 DEFAULT_FLAGS = RuntimeFlags()
@@ -688,7 +703,12 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     flag on, a kernel op raises under autograd (``ops.no_backward``) and
     runs under ``torch.no_grad``.  With ``remat="group"`` and grad on,
     each layer group (and each encoder layer) runs under an activation
-    checkpoint, and the recurrent mixers checkpoint their chunks."""
+    checkpoint, and the recurrent mixers checkpoint their chunks.
+
+    On a training rank (``flags.train``) it is :func:`mesh_forward`."""
+    if flags.train is not None:
+        return mesh_forward(params, cfg, tokens, prefix_embeds, enc_embeds,
+                            flags)
     dt = DTYPES[cfg.dtype]
     x = embed_apply(params["embed"], tokens, dt)
     if prefix_embeds is not None:
@@ -735,6 +755,185 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             else group(x, aux, gp)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, flags.fused_rmsnorm)
     return _logits(params, cfg, x), aux, x
+
+
+# ---------------------------------------------------------------------------
+# forward on a training mesh (ROADMAP item 11c-i)
+# ---------------------------------------------------------------------------
+
+#: what a training mesh refuses until ROADMAP item 11c-ii
+MESH_WAITS = "not yet ported to repro_torch (ROADMAP Queue 1 item 11c-ii)"
+
+
+def check_mesh_support(cfg: ArchConfig, optimizer: Optional[str] = None
+                       ) -> None:
+    """Raise for what a training mesh does not run yet: the recurrent
+    mixers and Mamba under autograd on the model axis, MLA's
+    sequence-parallel branch, the MTP head and Adafactor, each naming
+    ROADMAP item 11c-ii (xlstm_1_3b, jamba_1_5_large_398b and
+    deepseek_v3_671b)."""
+    from ..sharding.rules import ADAFACTOR_REFUSAL
+    kinds = sorted({k for k in cfg.layer_kinds() if k != "attn"})
+    if kinds:
+        raise NotImplementedError(f"the {kinds} mixers on a training mesh "
+                                  f"(mlstm_apply_sp, the mixers under "
+                                  f"autograd on the model axis): "
+                                  f"{MESH_WAITS}")
+    if cfg.use_mla:
+        raise NotImplementedError(f"MLA's sequence-parallel branch on a "
+                                  f"training mesh: {MESH_WAITS}")
+    if cfg.mtp_depth:
+        raise NotImplementedError(f"the MTP head on a training mesh: "
+                                  f"{MESH_WAITS}")
+    if (optimizer or cfg.optimizer) == "adafactor":
+        raise NotImplementedError(ADAFACTOR_REFUSAL)
+
+
+def zero_gather(train, tree, prefix: str, stacked: bool = False):
+    """The rank's leaves of ``tree`` (params under ``prefix``, a flat
+    path of the template) gathered whole over the data line on each
+    dimension the rules cut on ``data`` (ZeRO; a reduce-scatter of the
+    gradient backward).  ``stacked``: the leaves are one group's slice
+    of ``[R, ...]`` leaves, whose specs lead with the ``layers`` axis.
+    Cuts on the model axis are kept."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}"
+        if isinstance(v, dict):
+            out[k] = zero_gather(train, v, path, stacked)
+            continue
+        spec = train.specs[path][1:] if stacked else train.specs[path]
+        for dim, entry in enumerate(spec):
+            if entry == "data":
+                v = line_gather(v, train.data, dim)
+        out[k] = v
+    return out
+
+
+def mesh_block(lp, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
+               positions: torch.Tensor, flags: RuntimeFlags,
+               memory: Optional[torch.Tensor] = None):
+    """One pre-norm block of attention layers on a training rank, its
+    weights gathered over data: the attention (``attention.
+    mesh_attention``), the cross attention over ``memory`` where the
+    layer has one, the dense FFN (``layers.mesh_mlp``) or the MoE FFN
+    (``moe.mesh_moe``).  x in and out: the same on every rank of the
+    model line.  Returns (x, the MoE layer's load-balance loss or
+    None)."""
+    eps, fused = cfg.norm_eps, flags.fused_rmsnorm
+    h = rms_norm(lp["norm1"], x, eps, fused)
+    x = x + attn.mesh_attention(lp["mixer"], cfg, h, positions, flags)
+    if "cross" in lp and memory is not None:
+        hc = rms_norm(lp["cross_norm"], x, eps, fused)
+        x = x + attn.mesh_attention(
+            lp["cross"], dataclasses.replace(cfg, qk_norm=False), hc, None,
+            flags, causal=False, window=0, memory=memory)
+    if "ffn" not in lp:
+        return x, None
+    h2 = rms_norm(lp["norm2"], x, eps, fused)
+    if ffn_kind == "moe":
+        y, aux = moe_mod.moe_apply(lp["ffn"], cfg, h2, flags)
+        return x + y, aux
+    return x + mesh_mlp(lp["ffn"], h2, cfg.dense_d_ff, flags.train.model), \
+        None
+
+
+def mesh_encode(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
+                flags: RuntimeFlags) -> torch.Tensor:
+    """:func:`encode` on a training rank: each layer's weights gathered
+    over data as it runs (under the layer's activation checkpoint), its
+    bidirectional attention through ``mesh_attention``."""
+    g = flags.train
+    x = enc_embeds.to(DTYPES[cfg.dtype])
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    enc_cfg = dataclasses.replace(cfg, use_mla=False, num_experts=0,
+                                  sliding_window=0)
+
+    def layer(x, local):
+        lp = zero_gather(g, local, "encoder.blocks", stacked=True)
+        h = rms_norm(lp["norm1"], x, cfg.norm_eps, flags.fused_rmsnorm)
+        x = x + attn.mesh_attention(lp["mixer"], enc_cfg, h, positions,
+                                    flags, causal=False, window=0)
+        h2 = rms_norm(lp["norm2"], x, cfg.norm_eps, flags.fused_rmsnorm)
+        return x + mesh_mlp(lp["ffn"], h2, cfg.dense_d_ff, g.model)
+
+    enc = params["encoder"]
+    for lp in unstack_groups(enc["blocks"], cfg.num_encoder_layers):
+        x = remat(layer, x, lp) if flags.remat != "none" else layer(x, lp)
+    norm = zero_gather(g, enc["final_norm"], "encoder.final_norm")
+    return rms_norm(norm, x, cfg.norm_eps, flags.fused_rmsnorm)
+
+
+def mesh_forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None,
+                 enc_embeds: Optional[torch.Tensor] = None,
+                 flags: RuntimeFlags = DEFAULT_FLAGS):
+    """:func:`forward` on a training rank (``flags.train``, its group):
+    ``params`` are the rank's slices of the leaves
+    (``sharding.rules.train_state_specs``), the inputs its rows of the
+    batch.  Each layer's weights are gathered over the data line as the
+    layer runs, inside its group's activation checkpoint (so the
+    backward gathers them again, and reduce-scatters their gradients),
+    never all at once; the embedding, the final norm and the LM head
+    are gathered once.  The attention heads or query rows, the FFN's
+    ``mlp`` columns, the experts and the vocabulary run on the model
+    line through the autograd collectives of ``sharding/group.py``.
+    Returns (the rank's logits [B_l, S, V/mp] (its vocabulary columns,
+    the pad columns masked; all of them where the rules leave the
+    vocabulary whole), the summed load-balance loss of the global batch,
+    the final hidden states [B_l, S, d])."""
+    check_mesh_support(cfg)
+    g = flags.train
+    dt = DTYPES[cfg.dtype]
+    emb = zero_gather(g, params["embed"], "embed")["embedding"]
+    vocab = g.model if emb.shape[0] < cfg.padded_vocab else None
+    x = mesh_embed(emb, tokens, dt, vocab)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    memory = mesh_encode(params, cfg, enc_embeds, flags) \
+        if enc_embeds is not None and cfg.is_encoder_decoder else None
+    head, pattern, R = group_structure(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(lp, ffn, x, aux, path, r=None):
+        # the layer's name for the rank's records (``moe.mesh_moe``)
+        g.layer = path if r is None else f"{path}.{r}"
+        lp = zero_gather(g, lp, path, stacked=r is not None)
+        x, a = mesh_block(lp, cfg, ffn, x, positions, flags,
+                          memory if "cross" in lp else None)
+        return x, aux + a if a is not None else aux
+
+    for i, (_, ffn) in enumerate(head):
+        x, aux = layer(params["head_layers"][f"layer{i}"], ffn, x, aux,
+                       f"head_layers.layer{i}")
+
+    def group(x, aux, gp, r):
+        for j, (_, ffn) in enumerate(pattern):
+            x, aux = layer(gp[f"l{j}"], ffn, x, aux, f"blocks.l{j}", r)
+        return x, aux
+
+    slices = {path: a.unbind(0) for path, a in
+              flatten(params.get("blocks", {})).items()}
+    for r in range(R):
+        gp = unflatten({path: a[r] for path, a in slices.items()})
+        fn = functools.partial(group, r=r)
+        x, aux = remat(fn, x, aux, gp) if flags.remat != "none" \
+            else fn(x, aux, gp)
+    norm = zero_gather(g, params["final_norm"], "final_norm")
+    x = rms_norm(norm, x, cfg.norm_eps, flags.fused_rmsnorm)
+    w = emb.t() if cfg.tie_embeddings else \
+        zero_gather(g, params["lm_head"], "lm_head")["w"]
+    vocab = g.model if w.shape[-1] < cfg.padded_vocab else None
+    logits = linear(line_enter(x, vocab), w)
+    off = 0 if vocab is None else vocab.index * w.shape[-1]
+    pad = cfg.vocab_size - off
+    if pad < logits.shape[-1]:
+        # mask pad columns so softmax mass stays on the real vocab
+        logits[..., max(pad, 0):] = -1e30
+    return logits, aux, x
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,

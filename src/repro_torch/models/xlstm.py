@@ -25,7 +25,9 @@ the (C, n, m) state carried across chunks, one activation checkpoint a
 chunk) and the sLSTM's two-level checkpointed scan (``slstm_apply``:
 one checkpoint per outer chunk of 64 tokens).  Their products are plain
 (unblocked): the serving row rule has no place under autograd.  The
-sequence-parallel ``mlstm_apply_sp`` waits for ROADMAP Queue 1 item 11c.
+sequence-parallel ``mlstm_apply_sp``, and the mixers under autograd on a
+training mesh's model axis, wait for ROADMAP Queue 1 item 11c-ii (a
+training mesh refuses them: ``transformer.check_mesh_support``).
 """
 from __future__ import annotations
 

@@ -58,7 +58,7 @@ def _square_sum(g: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(model: Model, *, schedule: Callable,
                     flags: RuntimeFlags = TRAIN_FLAGS,
-                    optimizer: Optional[str] = None):
+                    optimizer: Optional[str] = None, mesh=None, pool=None):
     """The JAX ``make_train_step``: ``(train_step, init_state)``.
 
     ``train_step(state, batch) -> (state, metrics)``: the loss of
@@ -78,8 +78,34 @@ def make_train_step(model: Model, *, schedule: Callable,
 
     ``flags`` defaults to the plain path (``TRAIN_FLAGS``): the kernels
     have no backward, so kernel flags raise at the first kernel op
-    (``ops.no_backward``); nothing falls back."""
+    (``ops.no_backward``); nothing falls back.
+
+    ``mesh`` (``launch/mesh.py``'s ``make_host_mesh`` or
+    ``make_production_mesh``) trains on its ranks (``runtime/
+    train_mesh.py``): rank 0 is this process and starts the others (or
+    takes ``pool``'s, a ``sharding.group.WorkerPool``).  Then
+    ``init_state(params)`` cuts a whole tree into every rank's slices,
+    ``init_state(seed=s)`` has each rank draw them as ``Model(cfg,
+    seed=s)`` does, and both return rank 0's; ``train_step(state,
+    batch)`` takes the whole batch and returns rank 0's state and the
+    global metrics; ``train_step.trainer`` (a ``MeshTrainer``) reads
+    every rank (``report``), gathers the whole state (``gather_state``)
+    and stops the ranks (``close``).  A mesh of one rank is the
+    unsharded step.  The flags take JAX's training flags (``moe_impl=
+    "ep"``, ``batch_axes``, ``batch_divisor``, ``model_size``)."""
     cfg = model.cfg
+    if mesh is not None:
+        from .train_mesh import MeshTrainer, check_mesh_flags
+        check_mesh_flags(cfg, flags, mesh, optimizer or cfg.optimizer)
+        if len(mesh.devices) > 1:
+            trainer = MeshTrainer(model, schedule, flags,
+                                  optimizer or cfg.optimizer, mesh, pool)
+
+            def mesh_step(state, batch):
+                return trainer.train_step(state, batch)
+
+            mesh_step.trainer = trainer
+            return mesh_step, trainer.init_state
     opt_init, opt_update = make_optimizer(optimizer or cfg.optimizer)
 
     def loss_fn(params, batch):

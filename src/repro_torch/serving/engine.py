@@ -52,8 +52,10 @@ not divide lie on head_dim, else on the sequence, and decode through
 partial scores summed over the ranks (``attention.tp_decode``); MLA
 keeps its heads cut, ``c_kv`` on its lora rank and ``k_rope`` on the
 sequence (``mla.tp_decode``); an encoder-decoder's encoder and cross
-attention are served by :meth:`generate`.  ``moe_impl="ep"`` (item
-11c) is refused as without a mesh.
+attention are served by :meth:`generate`.  Serving runs the gather MoE:
+``moe_impl="ep"`` is a training mesh's (item 11c-i,
+``runtime.steps.make_train_step(mesh=...)``), and flags that name no
+mesh are refused as without one.
 
 Sliding-window attention (ROADMAP item 12) is served on the slot and
 state layouts, at every tp arm: wrapping slot rows of ``min(max_len,
@@ -122,8 +124,7 @@ def check_tp_support(cfg: ArchConfig, tp: int, max_len: int = 0) -> None:
     needs the ranks to divide: a slot row's length here (``max_len``,
     or a sliding window's ``min(max_len, window)``), the block size at
     :meth:`LLMEngine.new_cache`, the encoder's frames at
-    :meth:`LLMEngine.generate`.  What waits for another item is refused
-    as without a mesh (``moe_impl="ep"``)."""
+    :meth:`LLMEngine.generate`."""
     size = cache_len(cfg, max_len)
     if max_len and cuts_positions(cfg, tp) and size % tp:
         rows = f"max_len {max_len}" if size == max_len else \

@@ -66,10 +66,11 @@ def _gloo(store, rank: int, size: int, timeout: datetime.timedelta):
 
 class Collectives:
     """One rank's side of the mesh's groups.  ``reduce_calls`` and
-    ``reduce_s`` count :meth:`all_reduce` calls and their host time."""
+    ``reduce_s`` count :meth:`all_reduce` calls and their host time.
+    A training mesh's ranks hold a :class:`TrainGroup` beside it."""
 
     def __init__(self, mesh, rank: int, store):
-        self.mesh, self.rank, self.size = mesh, rank, mesh.tp
+        self.mesh, self.rank, self.size = mesh, rank, len(mesh.devices)
         timeout = datetime.timedelta(seconds=mesh.timeout_s)
         self.ctrl = _gloo(dist.PrefixStore("ctrl", store), rank, self.size,
                           IDLE_TIMEOUT)
@@ -118,6 +119,17 @@ class Collectives:
             payload = torch.empty(int(n), dtype=torch.uint8)
         self.ctrl.broadcast([payload], opts).wait()
         return obj if self.rank == 0 else pickle.loads(payload.numpy())
+
+    def gather_tensor(self, t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``t`` (one shape and dtype on every rank) on rank 0,
+        in rank order, as CPU tensors; None on the others."""
+        host = t.detach().to("cpu").contiguous()
+        opts = dist.GatherOptions()
+        opts.rootRank = 0
+        out = [[torch.empty_like(host) for _ in range(self.size)]] \
+            if self.rank == 0 else []
+        self.data.gather(out, [host], opts).wait()
+        return out[0] if self.rank == 0 else None
 
     def all_gather(self, obj: Any) -> List[Any]:
         """Every rank's ``obj``, in rank order, on every rank."""
@@ -214,6 +226,250 @@ def gather_blocks(x: torch.Tensor, block: int, group) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# a training mesh: a group per axis line, collectives with a backward
+# ---------------------------------------------------------------------------
+
+def mesh_coords(mesh, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each mesh axis (row-major over
+    ``mesh.axis_names``, as JAX lays a mesh's devices out)."""
+    out = {}
+    for name in reversed(tuple(mesh.axis_names)):
+        n = mesh.shape[name]
+        out[name] = rank % n
+        rank //= n
+    return out
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu").contiguous()
+
+
+class Line:
+    """The ranks of a training mesh that differ from this one only on
+    ``axes`` (the ``model`` line, the ``data`` line, the batch line over
+    ``("pod", "data")``), in rank order, and this rank's gloo group over
+    them.  Every sum adds the members' parts in rank order, element by
+    element, so a result's bits do not depend on timing or on the tensor
+    beside it.  A line of one rank makes no call.  ``calls``, ``bytes``
+    (what this rank receives) and ``seconds`` (host time) count its
+    traffic."""
+
+    def __init__(self, name: str, members: List[int], rank: int, store,
+                 timeout: datetime.timedelta):
+        self.name, self.members = name, members
+        self.size, self.index = len(members), members.index(rank)
+        self.pg = None
+        if self.size > 1:
+            self.pg = _gloo(dist.PrefixStore(f"line/{name}/{members[0]}",
+                                             store),
+                            self.index, self.size, timeout)
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+    def _count(self, t0: float, nbytes: int) -> None:
+        self.calls += 1
+        self.bytes += int(nbytes)
+        self.seconds += time.perf_counter() - t0
+
+    def _parts(self, host: torch.Tensor) -> List[torch.Tensor]:
+        parts = [torch.empty_like(host) for _ in range(self.size)]
+        self.pg.allgather([parts], [host]).wait()
+        return parts
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the line in rank order, in place."""
+        if self.size == 1:
+            return t
+        t0 = time.perf_counter()
+        parts = self._parts(_host(t))
+        total = parts[0]
+        for part in parts[1:]:
+            total += part
+        t.copy_(total)
+        self._count(t0, (self.size - 1) * total.numel() * total.element_size())
+        return t
+
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the line, in place."""
+        if self.size == 1:
+            return t
+        t0 = time.perf_counter()
+        parts = self._parts(_host(t))
+        t.copy_(torch.stack(parts).amax(0))
+        self._count(t0, (self.size - 1) * t.numel() * t.element_size())
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The members' ``t`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return t
+        t0 = time.perf_counter()
+        out = torch.cat(self._parts(_host(t)), dim).to(t.device)
+        self._count(t0, (self.size - 1) * t.numel() * t.element_size())
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` (the ``index``-th of ``size``)
+        of ``t`` summed over the line in rank order: each member sends
+        every other its slice (one all-to-all), and each adds the slices
+        it receives in rank order."""
+        if self.size == 1:
+            return t
+        t0 = time.perf_counter()
+        host = _host(t.movedim(dim, 0))
+        out = torch.empty_like(host)
+        self.pg.alltoall_base(out, host, [], [],
+                              dist.AllToAllOptions()).wait()
+        parts = out.chunk(self.size)
+        total = parts[0].clone()
+        for part in parts[1:]:
+            total += part
+        self._count(t0, (self.size - 1) * total.numel()
+                    * total.element_size())
+        return total.to(t.device).movedim(0, dim)
+
+
+#: each training rank's lines: (name, the axes its members differ on)
+LINES = (("model", ("model",)), ("data", ("data",)), ("pod", ("pod",)),
+         ("batch", ("pod", "data")))
+
+
+class TrainGroup:
+    """One rank's side of a training mesh (``launch/mesh.py``'s
+    :class:`~repro_torch.launch.mesh.TrainingMesh`, over the devices of
+    its :class:`Collectives`, which carry rank 0's commands): its
+    coordinates and a :class:`Line` per axis line, on the store under
+    ``tag`` (a trainer's own, so that a pool's workers build new lines
+    for each).  The autograd collectives below take its lines.  The
+    train step sets ``specs`` (each param leaf's spec by flat path) and
+    ``split`` (whether the rank holds its rows of the batch or all of
+    them); ``drops``, a dict, makes the MoE layers record their dropped
+    pairs under the running ``layer``'s name."""
+
+    def __init__(self, coll: "Collectives", mesh, tag: str):
+        rank = coll.rank
+        self.mesh, self.rank, self.coll = mesh, rank, coll
+        self.coords = mesh_coords(mesh, rank)
+        n = len(mesh.devices)
+        every = [mesh_coords(mesh, r) for r in range(n)]
+        timeout = datetime.timedelta(seconds=mesh.timeout_s)
+        store = dist.PrefixStore(f"train/{tag}", coll.store)
+        self.lines: Dict[str, Line] = {}
+        for name, axes in LINES:
+            members = [r for r in range(n)
+                       if all(every[r][a] == self.coords[a]
+                              for a in mesh.axis_names if a not in axes)]
+            self.lines[name] = Line(name, members, rank, store, timeout)
+        self.specs: Dict[str, Tuple] = {}
+        self.split = False
+        self.drops: Optional[Dict[str, int]] = None
+        self.layer: Optional[str] = None
+
+    @property
+    def model(self) -> Line:
+        return self.lines["model"]
+
+    @property
+    def data(self) -> Line:
+        return self.lines["data"]
+
+    @property
+    def pod(self) -> Line:
+        return self.lines["pod"]
+
+    @property
+    def batch(self) -> Line:
+        return self.lines["batch"]
+
+    def traffic(self, reset: bool = False) -> Dict[str, Dict[str, float]]:
+        """Each line's calls, bytes received and host seconds since the
+        last reset."""
+        out = {name: {"calls": ln.calls, "bytes": ln.bytes,
+                      "seconds": ln.seconds}
+               for name, ln in self.lines.items() if ln.size > 1}
+        if reset:
+            for ln in self.lines.values():
+                ln.reset()
+        return out
+
+
+class _Sum(torch.autograd.Function):
+    """The sum of the line's partials; the identity backward (what
+    follows is computed alike on every rank of the line)."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        return line.all_reduce(x.detach().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity forward; the backward sums the gradient over the line
+    (each rank used the input for its own part)."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.line = line
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.line.all_reduce(g.contiguous().clone()), None
+
+
+class _Gather(torch.autograd.Function):
+    """The members' slices concatenated along ``dim``; the backward keeps
+    this rank's slice of the gradient, summed over the line first where
+    ``summed`` (each rank used the whole for its own part), as it is
+    otherwise (what follows is computed alike on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, line, dim, summed):
+        ctx.line, ctx.dim, ctx.summed, ctx.n = line, dim, summed, x.shape[dim]
+        return line.all_gather(x.detach(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        line, dim = ctx.line, ctx.dim
+        if ctx.summed:
+            g = line.reduce_scatter(g.contiguous(), dim)
+        else:
+            g = g.narrow(dim, line.index * ctx.n, ctx.n)
+        return g, None, None, None
+
+
+def _one(line: Optional[Line]) -> bool:
+    return line is None or line.size == 1
+
+
+def line_sum(x: torch.Tensor, line: Optional[Line]) -> torch.Tensor:
+    """A row-parallel partial summed over ``line``: an all-reduce
+    forward, the identity backward."""
+    return x if _one(line) else _Sum.apply(x, line)
+
+
+def line_enter(x: torch.Tensor, line: Optional[Line]) -> torch.Tensor:
+    """``x`` at the entry of a column-parallel region: the identity
+    forward, an all-reduce of its gradient backward."""
+    return x if _one(line) else _Enter.apply(x, line)
+
+
+def line_gather(x: torch.Tensor, line: Optional[Line], dim: int,
+                summed: bool = True) -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` over ``line``.  Backward: this
+    rank's slice of the gradient summed over the line (a reduce-scatter:
+    ZeRO's gather of a data-sharded weight, or activations each rank
+    then uses for its own part), or with ``summed=False`` its slice
+    alone (activations that every rank then uses alike)."""
+    return x if _one(line) else _Gather.apply(x, line, dim, summed)
+
+
+# ---------------------------------------------------------------------------
 # rank 0: start the workers
 # ---------------------------------------------------------------------------
 
@@ -228,7 +484,8 @@ class Workers:
         back at :meth:`close`."""
         timeout = datetime.timedelta(seconds=mesh.timeout_s)
         self.mesh, self.pool, self.coll = mesh, pool, None
-        self.store = dist.TCPStore(HOST, 0, mesh.tp, True, timeout=timeout,
+        self.store = dist.TCPStore(HOST, 0, len(mesh.devices), True,
+                                   timeout=timeout,
                                    wait_for_workers=False)
         ctx = mp.get_context("spawn")
         self.errors = ctx.SimpleQueue()
@@ -236,15 +493,16 @@ class Workers:
             target=_worker_main, daemon=True, name=f"tp-rank{r}",
             args=(r, mesh, self.store.port, target, payload, self.errors,
                   os.getpid()))
-            for r in range(1, mesh.tp)]
+            for r in range(1, len(mesh.devices))]
         for p in self.procs:
             p.start()
 
-    def reuse(self, payload: Any) -> None:
-        """Send the idle workers the next engine's payload (they run
-        ``target`` on it while rank 0 builds its own part)."""
+    def reuse(self, target: Callable, payload: Any) -> None:
+        """Send the idle workers the next engine's (or trainer's) target
+        and payload (they run ``target`` on it while rank 0 builds its
+        own part)."""
         self.coll.reduce_calls, self.coll.reduce_s = 0, 0.0
-        self.coll.broadcast(payload)
+        self.coll.broadcast((target, payload))
 
     def join(self) -> Collectives:
         """Rank 0's side of the groups, once every worker has joined."""
@@ -325,7 +583,7 @@ class WorkerPool:
         while idle:
             workers = idle.pop()
             if all(p.is_alive() for p in workers.procs):
-                workers.reuse(payload)
+                workers.reuse(target, payload)
                 return workers
             workers.kill()
         return Workers(mesh, target, payload, pool=self)
@@ -367,7 +625,8 @@ def _worker_main(rank: int, mesh, port: int, target: Callable, payload: Any,
     _watch_parent(parent)
     try:
         timeout = datetime.timedelta(seconds=mesh.timeout_s)
-        store = dist.TCPStore(HOST, port, mesh.tp, False, timeout=timeout)
+        store = dist.TCPStore(HOST, port, len(mesh.devices), False,
+                              timeout=timeout)
         coll = Collectives(mesh, rank, store)
         while payload is not None:
             target(coll, payload)
@@ -375,8 +634,11 @@ def _worker_main(rank: int, mesh, port: int, target: Callable, payload: Any,
             gc.collect()
             if torch.cuda.is_available() and torch.cuda.is_initialized():
                 torch.cuda.empty_cache()
-            # the next engine's payload from rank 0, or None: exit
-            payload = coll.broadcast()
+            # the next engine's target and payload from rank 0, or None:
+            # exit
+            nxt = coll.broadcast()
+            if nxt is not None:
+                target, payload = nxt
     except BaseException:           # noqa: BLE001 - reported, then exit
         errors.put((rank, traceback.format_exc()))
         os._exit(1)

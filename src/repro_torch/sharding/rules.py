@@ -6,7 +6,8 @@ tuple of names, or ``None`` (replicated) — with trailing ``None``
 entries trimmed, as JAX trims a ``PartitionSpec``.  Meshes are read
 duck-typed: ``mesh.shape`` maps axis names to sizes and
 ``mesh.axis_names`` lists them (``launch/mesh.py``'s
-:class:`~repro_torch.launch.mesh.ServingMesh`, or any stand-in).
+:class:`~repro_torch.launch.mesh.ServingMesh` or
+:class:`~repro_torch.launch.mesh.TrainingMesh`, or any stand-in).
 
 ``resolve_spec`` is deliberately defensive: a logical axis is only mapped
 to a mesh axis if the dimension is divisible by the axis size and the
@@ -19,9 +20,13 @@ Rule summary (single-pod mesh ("data","model"); multi-pod adds "pod"):
   the sequence (``_kv_cache_axes``)
 
 On top of the specs, :func:`local_shape` and :func:`shard_tensor` give a
-rank's slice (of a fused projection, its slice of each block), and
+rank's slice (of a fused projection, its slice of each block),
+:func:`place` puts the ranks' slices back together, and
 :func:`shard_state_dict` cuts a full ``state_dict`` into one rank's
-weights.
+weights.  A training mesh's state follows :func:`train_state_specs`
+(a rank's shapes: :func:`local_train_state_shapes`; its slices of a
+whole state: :func:`local_train_state`) and its batch
+:func:`batch_specs`.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models.params import flatten, tree_map, unflatten
+from .group import mesh_coords
 
 Spec = Tuple[Any, ...]
 
@@ -116,6 +122,105 @@ def param_specs(template, mesh, rules=None):
                     template)
 
 
+#: a training mesh's refusal of what waits for ROADMAP item 11c-ii
+ADAFACTOR_REFUSAL = ("Adafactor on a training mesh: its factored row and "
+                     "column means and its update RMS clip reduce across "
+                     "shards; not yet ported to repro_torch (ROADMAP "
+                     "Queue 1 item 11c-ii)")
+
+
+def train_state_specs(template, mesh, optimizer: str, rules=None):
+    """The specs of a ``TrainState(params, OptState(step, m, v))`` (the
+    JAX ``train_state_specs``): AdamW's ``m`` and ``v`` inherit each
+    param's spec (ZeRO through ``embed→data``) and ``step`` is
+    replicated.  Adafactor raises (:data:`ADAFACTOR_REFUSAL`)."""
+    from ..optim.optimizers import OptState
+    from ..runtime.steps import TrainState
+    if optimizer == "adafactor":
+        raise NotImplementedError(ADAFACTOR_REFUSAL)
+    pspec = param_specs(template, mesh, rules)
+    return TrainState(pspec, OptState((), pspec, pspec))
+
+
+def batch_specs(batch_shapes: Dict[str, Tuple[int, ...]], mesh):
+    """Each batch entry's spec (the JAX ``batch_specs``): its leading
+    dimension on the batch axes (``("pod", "data")`` or ``("data",)``)
+    where they divide it, else whole."""
+    return {name: resolve_spec(tuple(shape),
+                               ("batch",) + (None,) * (len(shape) - 1), mesh)
+            for name, shape in batch_shapes.items()}
+
+
+def local_train_state_shapes(template, mesh, optimizer: str,
+                             rules=None) -> Dict[str, Tuple[int, ...]]:
+    """A rank's shape of every leaf of a ``TrainState`` under
+    :func:`train_state_specs`, by its flat path (``params.<path>``,
+    ``m.<path>``, ``v.<path>``, ``step``): the same for every rank."""
+    specs = train_state_specs(template, mesh, optimizer, rules)
+    shapes = flatten(tree_map(lambda s: s.shape, template))
+    out = {"step": ()}
+    for tree in ("params", "m", "v"):
+        spec = flatten(specs.params)
+        out.update({f"{tree}.{k}": local_shape(v, spec[k], mesh)
+                    for k, v in shapes.items()})
+    return out
+
+
+def local_train_state(state, template, mesh, rank: int, rules=None):
+    """Rank ``rank``'s ``TrainState`` of a whole one (AdamW): every
+    params, m and v leaf cut by its spec (:func:`shard_tensor`, a fused
+    projection block by block), copies that own their storage; the step
+    kept."""
+    from ..optim.optimizers import OptState
+    from ..runtime.steps import TrainState
+    specs = flatten(param_specs(template, mesh, rules))
+    parts = param_parts(template)
+
+    def cut(tree):
+        return unflatten({k: owned(shard_tensor(v, specs[k], mesh, rank,
+                                                parts[k]))
+                          for k, v in flatten(tree).items()})
+    return TrainState(cut(state.params),
+                      OptState(state.opt.step.clone(), cut(state.opt.m),
+                               cut(state.opt.v)))
+
+
+def place(parts, spec: Spec, mesh, fused: Optional[Tuple[int, ...]] = None
+          ) -> torch.Tensor:
+    """The whole tensor from every rank's slice (``parts[r]``, rank
+    order) under ``spec``: the inverse of :func:`shard_tensor`, exact."""
+    first = parts[0]
+    shape = list(first.shape)
+    spec = tuple(spec) + (None,) * (first.dim() - len(spec))
+    for dim, entry in enumerate(spec):
+        shape[dim] *= _axis_size(mesh, entry)
+    out = first.new_empty(shape)
+    for r, part in enumerate(parts):
+        view = out
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            idx, count = _entry_slice(mesh, entry, r)
+            if fused is not None and dim == first.dim() - 1:
+                if any(p % count for p in fused):
+                    continue
+                blocks = []
+                start = 0
+                for p in fused:
+                    blocks.append((start + idx * (p // count), p // count))
+                    start += p
+                chunks = part.split([n for _, n in blocks], dim)
+                for (at, n), c in zip(blocks, chunks):
+                    view.narrow(dim, at, n).copy_(c)
+                view = None
+                break
+            n = view.shape[dim] // count
+            view = view.narrow(dim, idx * n, n)
+        if view is not None:
+            view.copy_(part)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # decode-cache specs
 # ---------------------------------------------------------------------------
@@ -183,22 +288,11 @@ def cache_specs(cache, mesh, rules=None):
 # a rank's slice
 # ---------------------------------------------------------------------------
 
-def _coords(mesh, rank: int) -> Dict[str, int]:
-    """Rank ``rank``'s coordinate on each mesh axis (row-major over
-    ``mesh.axis_names``, as JAX lays a mesh's devices out)."""
-    out = {}
-    for name in reversed(tuple(mesh.axis_names)):
-        n = mesh.shape[name]
-        out[name] = rank % n
-        rank //= n
-    return out
-
-
 def _entry_slice(mesh, entry, rank: int) -> Tuple[int, int]:
     """(index, count) of rank ``rank``'s part of a dimension whose spec
     entry is ``entry``: mixed radix over the entry's axes, the first
     axis major."""
-    coords = _coords(mesh, rank)
+    coords = mesh_coords(mesh, rank)
     idx, count = 0, 1
     for a in _names(entry):
         idx = idx * mesh.shape[a] + coords[a]

@@ -141,9 +141,21 @@ def test_chunked_attention_matches_jax(S, T, q_offset):
 
 
 def test_sequence_parallel_attention_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        sequence_parallel_attention(None, None, None, causal=True, window=0,
-                                    flags=None)
+    """``sequence_parallel_attention`` is ported (ROADMAP item 11c-i):
+    without a training group it is ``chunked_attention``; MLA's
+    sequence-parallel branch stays refused on a training mesh, naming
+    item 11c-ii."""
+    from repro_torch.models.transformer import check_mesh_support
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.as_tensor(rng.randn(2, 24, 4, 16), dtype=torch.float32)
+               for _ in range(3))
+    assert torch.equal(
+        sequence_parallel_attention(q, k, v, causal=True, window=0,
+                                    flags=None),
+        chunked_attention(q, k, v, causal=True))
+    with pytest.raises(NotImplementedError,
+                       match="MLA.*Queue 1 item 11c-ii"):
+        check_mesh_support(get_config("deepseek_v3_671b").reduced())
 
 
 def test_prefill_matches_jax(layer):

@@ -709,6 +709,9 @@ def test_launcher_prints_jax_lines(arch_name, steps, tmp_path):
 
 
 def test_launcher_refuses_multi_pod():
+    """``--multi-pod`` builds the (2, 16, 16) production mesh, which needs
+    512 devices: with fewer it raises ``make_production_mesh``'s
+    ``ValueError``, as ``jax.make_mesh`` fails."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="needs 512 devices"):
         train.main(["--device", "cpu", "--reduced", "--multi-pod"])
