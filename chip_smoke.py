@@ -179,7 +179,7 @@ GEN_NEW = 8
 GROUPS = (14, 18)             # serving: two prefill groups of 2 rows
 TICKS = 16                    # serving decode ticks (slot 3 idle for half)
 VERIFY_WIDTH = 4
-REPS = 30                     # timed calls per kernel and method
+REPS = 10                     # timed calls per kernel and method
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores
@@ -2062,7 +2062,7 @@ def phase_f2(torch):
 # ---------------------------------------------------------------------------
 
 #: decode ticks read per engine and layout, in turns (cut from 120)
-TICK_READS = 60
+TICK_READS = 12
 
 
 def phase_captured(torch, captured, smi):
@@ -2135,7 +2135,7 @@ def phase_captured(torch, captured, smi):
 
 
 def interleaved_ticks(torch, engines, requests, kind, ticks=TICK_READS,
-                      profiled=5):
+                      profiled=3):
     """Scheduler decode ticks (4 active slots, no speculation, the first
     four serve requests) on ``kind``'s layout, one for each engine in
     turns: 3 of warm-up, then ``ticks`` read.  Per engine: the tick's
@@ -2202,8 +2202,8 @@ TP_F32_DEPTH = 8
 #: depth of tp_serve's K4 run, with its forced preemption (cut from 40),
 #: and of its K2 run, slot run and ticks (cut from 40 to pay for item
 #: 11b-ii's phases)
-TP_SPLITK_DEPTH = 10
-TP_SERVE_DEPTH = 10
+TP_SPLITK_DEPTH = 6
+TP_SERVE_DEPTH = 6
 QWEN_ARCH = "qwen3_32b"
 QWEN_DEPTH = 2
 GQA_MAX_LEN = 512
@@ -2627,9 +2627,9 @@ TP_STATE_NEW = 16
 #: xlstm_1_3b's depth at tp (cut from 48: one layer group, 7 mLSTM + 1
 #: sLSTM), and granite's in the f32 check (cut from 32)
 TP_STATE_DEPTH = 8
-TP_MIXER_F32_DEPTH = 8
+TP_MIXER_F32_DEPTH = 4
 #: granite's depth in tp_moe (cut from 32 to pay for item 11b-ii's phases)
-TP_MOE_DEPTH = 16
+TP_MOE_DEPTH = 8
 #: granite's f32 prompts: few tokens, so that few routing choices can flip
 TP_MIXER_PROMPT = 16
 
@@ -3573,7 +3573,10 @@ XLSTM_F32_DEPTH = 8
 #: depth of xlstm_serve's forced preemptions (cut from 48)
 XLSTM_PREEMPT_DEPTH = 8
 #: depth of xlstm_serve's captured-against-eager run (cut from 48)
-XLSTM_SERVE_DEPTH = 24
+XLSTM_SERVE_DEPTH = 12
+#: depth of xlstm_serve's ticks and of train_recurrent's bf16 step (cut
+#: from 48 to three layer groups: the script's time limit)
+XLSTM_TICK_DEPTH = 24
 STATE_CHUNK = 32
 STATE_NEW = 24
 STATE_PROMPT = (48, 96)
@@ -3874,8 +3877,9 @@ def phase_xlstm_serve(torch, smi):
     """The xlstm serve workload through the Scheduler on a StateBackend
     at full width (bf16): on the first XLSTM_SERVE_DEPTH layers, captured
     steps against eager ones on the same weights (tokens bitwise,
-    launches equal to the schedule, slabs back to 0); at full depth, the
-    decode and the verify tick against their bounds (``state_ticks``); on the first XLSTM_PREEMPT_DEPTH layers,
+    launches equal to the schedule, slabs back to 0); on the first
+    XLSTM_TICK_DEPTH layers, the decode and the verify tick against their
+    bounds (``state_ticks``); on the first XLSTM_PREEMPT_DEPTH layers,
     PREEMPTIONS requests preempted after streaming tokens
     (``ForcedPreemption``), once with speculation off (replayed through
     the masked decode) and once on (verify windows and the rewind of
@@ -3929,8 +3933,10 @@ def phase_xlstm_serve(torch, smi):
                                   "from eager")
     del eager, cap_s
     free_card(torch)
-    # the ticks and the f32 check at full depth
-    cap = LLMEngine(cfg, max_len=STATE_MAX_LEN, seed=SEED)
+    # the ticks on the first XLSTM_TICK_DEPTH layers, and the f32 check's
+    # weights
+    cap = LLMEngine(dataclasses.replace(cfg, num_layers=XLSTM_TICK_DEPTH),
+                    max_len=STATE_MAX_LEN, seed=SEED)
 
     # ---- the ticks against their bounds ---------------------------------
     for spec in (0, SERVE_SPEC):
@@ -3980,7 +3986,7 @@ def phase_xlstm_serve(torch, smi):
     return counts_all
 
 
-def state_ticks(torch, engine, requests, spec, ticks=20, profiled=5):
+def state_ticks(torch, engine, requests, spec, ticks=12, profiled=2):
     """The captured tick of the StateBackend at 4 active slots (the first
     four xlstm requests): decode (``spec`` 0) or a verify window of
     1 + ``spec`` with the stacks and a rewind per row.  3 ticks of
@@ -4223,7 +4229,7 @@ def phase_hybrid_serve(torch, smi):
     return counts_all
 
 
-def layout_ticks(torch, engine, requests, make, ticks=40, profiled=5):
+def layout_ticks(torch, engine, requests, make, ticks=20, profiled=3):
     """The captured decode tick at 4 active slots (the first four
     requests, no speculation) on ``make(engine)``'s layout: 3 of warm-up,
     ``ticks`` read; median, p10, p90 wall ms, the captured graph's device
@@ -4963,6 +4969,9 @@ STUB_ROWS = 2
 STUB_TOKENS = 16
 STUB_STEPS = 8
 ENC_FRAMES = 256
+#: seamless_m4t_large_v2's encoder and decoder depth in encdec_main_path
+#: (cut from 24 each: the script's time limit)
+ENCDEC_DEPTH = 12
 
 
 def vlm_config():
@@ -5245,7 +5254,8 @@ def phase_vlm_serve(torch, smi):
 
 
 def phase_encdec_main_path(torch, smi):
-    """seamless_m4t_large_v2 at full width and depth in bf16 (random
+    """seamless_m4t_large_v2 at full width, ENCDEC_DEPTH encoder and
+    decoder layers, in bf16 (random
     weights from the seed): ``make_prefill_step`` over 256 frame
     embeddings (the encoder: K1 at its norms, its bidirectional
     attention in plain PyTorch) and a 16-token decoder prompt (K3), then
@@ -5262,7 +5272,8 @@ def phase_encdec_main_path(torch, smi):
     from repro_torch.models.params import flatten
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     from repro_torch.serving import LLMEngine
-    cfg = encdec_config()
+    cfg = dataclasses.replace(encdec_config(), num_layers=ENCDEC_DEPTH,
+                              num_encoder_layers=ENCDEC_DEPTH)
     t0 = time.perf_counter()
     engine = LLMEngine(cfg, max_len=MAX_LEN, seed=SEED)
     torch.cuda.synchronize()
@@ -5972,13 +5983,15 @@ def fit_one_batch(torch, model, cfg, shape):
     return losses, state, step
 
 
-def _step_on(torch, model, schedule, batch, flags=None):
+def _step_on(torch, model, schedule, batch, flags=None, on_grad=None):
     """One train step of ``model`` from a fresh optimizer state on
     ``batch`` (moved to the model's device), in true f32 on the card,
-    each gradient its backward accumulates copied out as it is made (a
-    hook a leaf): (the updated params, the metrics as floats, the step's
-    seconds, the gradients), tensors in f64 on DEVICE, where the
-    comparisons run; a leaf autograd never reached reads as zeros."""
+    each gradient its backward accumulates read as it is made (a hook a
+    leaf): (the state after the step, the metrics as floats, the step's
+    seconds, the gradients in f64 on DEVICE, where the comparisons run;
+    a leaf autograd never reached reads as zeros).  ``on_grad(path,
+    gradient)`` instead: called with each gradient, none kept (a
+    full-width model's, which the card cannot hold twice over)."""
     from repro_torch.models.layers import no_tf32
     from repro_torch.models.params import flatten
     from repro_torch.runtime.steps import make_train_step
@@ -5990,7 +6003,10 @@ def _step_on(torch, model, schedule, batch, flags=None):
 
     def keep(k):
         def hook(p):
-            grads[k] = p.grad.detach().to(DEVICE).double()
+            if on_grad is not None:
+                on_grad(k, p.grad.detach())
+            else:
+                grads[k] = p.grad.detach().to(DEVICE).double()
         return hook
     hooks = [p.requires_grad_(True).register_post_accumulate_grad_hook(
         keep(k)) for k, p in leaves.items()]
@@ -6002,12 +6018,18 @@ def _step_on(torch, model, schedule, batch, flags=None):
         seconds = time.perf_counter() - t0
     for h in hooks:
         h.remove()
-    for k, p in leaves.items():
-        grads.setdefault(k, torch.zeros(p.shape, dtype=torch.float64,
-                                        device=DEVICE))
-    params = {k: v.detach().to(DEVICE).double()
-              for k, v in flatten(state.params).items()}
-    return params, {k: float(v) for k, v in m.items()}, seconds, grads
+    if on_grad is None:
+        for k, p in leaves.items():
+            grads.setdefault(k, torch.zeros(p.shape, dtype=torch.float64,
+                                            device=DEVICE))
+    return state, {k: float(v) for k, v in m.items()}, seconds, grads
+
+
+def _params64(torch, params):
+    """Each leaf of a param tree in f64 on DEVICE."""
+    from repro_torch.models.params import flatten
+    return {k: v.detach().to(DEVICE, torch.float64)
+            for k, v in flatten(params).items()}
 
 
 def _agree(a, b, x, tol):
@@ -6024,16 +6046,22 @@ def _leaves_agree(card, cpu, f64, tol, near, keep=None):
     leaf than twice the CPU's or than ``near``, each distance the norm
     of the difference over the f64 leaf's norm (floored at 1e-6 of the
     tree's, for a leaf whose exact value is zero).  ``keep`` (a mask a
-    leaf) limits a leaf to those elements.  Returns (the leaves that
-    disagree, the largest direct distance and its leaf)."""
-    floor = 1e-6 * math.sqrt(sum(float((v * v).sum()) for v in f64.values()))
+    leaf) limits a leaf to those elements.  The trees may sit on the
+    host in any dtype: each leaf is compared on the card in f64.
+    Returns (the leaves that disagree, the largest direct distance and
+    its leaf)."""
+    def on(t):
+        return t.to(DEVICE).double()
+    floor = 1e-6 * math.sqrt(sum(float((on(v) ** 2).sum())
+                                 for v in f64.values()))
     bad, worst, where = [], 0.0, None
     for k, x in f64.items():
-        a, b = card[k], cpu[k]
+        a, b, x = on(card[k]), on(cpu[k]), on(x)
         if keep is not None:
-            if not keep[k].any():
+            m = keep[k].to(DEVICE)
+            if not m.any():
                 continue
-            a, b, x = a[keep[k]], b[keep[k]], x[keep[k]]
+            a, b, x = a[m], b[m], x[m]
         d = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         if d > worst:
             worst, where = d, k
@@ -6081,15 +6109,20 @@ def card_vs_cpu(torch, cfg, depth, shape, pattern=None, w_h_scale=None):
         del card
         card = Model(cfg32, device=DEVICE,
                      params={k: v.clone() for k, v in w.items()})
-    cp, cm, card_s, cg = _step_on(torch, card, schedule, batch)
-    del card
+    st, cm, card_s, cg = _step_on(torch, card, schedule, batch)
+    cp = _params64(torch, st.params)
+    del card, st
     free_card(torch)
-    xp, xm, _, xg = _step_on(torch, Model(
+    st, xm, _, xg = _step_on(torch, Model(
         dataclasses.replace(cfg32, dtype="float64"), device=DEVICE,
         params={k: v.double() for k, v in w.items()}), schedule, batch)
+    xp = _params64(torch, st.params)
+    del st
     free_card(torch)
-    pp, pm, cpu_s, pg = _step_on(torch, Model(cfg32, device="cpu",
+    st, pm, cpu_s, pg = _step_on(torch, Model(cfg32, device="cpu",
                                               params=w), schedule, batch)
+    pp = _params64(torch, st.params)
+    del st
     out = {"depth": depth, "layer_kinds": cfg32.layer_kinds(),
            "shape": list(shape), "w_h_scale": w_h_scale,
            "card_step_s": card_s, "cpu_step_s": cpu_s,
@@ -6161,7 +6194,7 @@ def checkpoint_roundtrip(torch, step, state, cfg, shape):
 #: steps is below the first five's: at 20 steps of 8 x 256 the loss fell
 #: 12.17 -> 12.08 on an H100, against a spread of ~0.01 of a mean of
 #: five 4 x 256 batches
-LAUNCHER_STEPS = 20
+LAUNCHER_STEPS = 12
 LAUNCHER_SHAPE = (4, 256)
 
 
@@ -6359,8 +6392,8 @@ def phase_train_recurrent(torch, smi):
     cosine schedule, batches of 2 x 512 (two mLSTM chunks of 256, so the
     state carries between chunks): the chunkwise ``forward``'s
     last-position logits against the token-by-token serving ``prefill``
-    in f32 over one layer group (7 mLSTM + 1 sLSTM); one train step at
-    full depth (48 layers), timed; the train steps and
+    in f32 over one layer group (7 mLSTM + 1 sLSTM); one train step on
+    the first XLSTM_TICK_DEPTH layers, timed; the train steps and
     their numbers, FIT_STEPS steps on one batch and one f32 step on the
     card against the CPU on the first XLSTM_TRAIN_DEPTH layers, where
     the reference's gradient is finite; one f32 step of an mLSTM +
@@ -6376,7 +6409,8 @@ def phase_train_recurrent(torch, smi):
           "launches": counts, **fwd})
     check(fwd["ok"], "xlstm: the chunkwise forward disagrees with the "
                      "token-by-token prefill")
-    full_depth_steps(torch, smi, cfg, XLSTM_ARCH, "train_recurrent")
+    full_depth_steps(torch, smi, dataclasses.replace(
+        cfg, num_layers=XLSTM_TICK_DEPTH), XLSTM_ARCH, "train_recurrent")
     cut = dataclasses.replace(cfg, num_layers=XLSTM_TRAIN_DEPTH)
     model, state, _ = train_steps(torch, smi, cut, XLSTM_ARCH,
                                   "train_recurrent_depth2")
@@ -6453,11 +6487,12 @@ def phase_train_hybrid(torch, smi):
 MESH_DEVICE = "cuda:0"
 #: minicpm_2b on a (data 2, model 2) mesh: depth (cut from 40), batch,
 #: steps
-TRAIN_MESH_DEPTH = 4
+TRAIN_MESH_DEPTH = 2
 TRAIN_MESH_SHAPE = (4, 256)
-TRAIN_MESH_STEPS = 3
-#: the f32 checks: one mesh step at depth 2 against the unsharded step
-MESH_F32_DEPTH = 2
+TRAIN_MESH_STEPS = 1
+#: the f32 checks: one mesh step at this depth and batch against the
+#: unsharded step
+MESH_F32_DEPTH = 1
 MESH_F32_SHAPE = (2, 64)
 #: the same mesh step in f64 against the unsharded f64 step: relative,
 #: and of a param leaf's largest.  Not f64's rounding: the CE runs in
@@ -6470,7 +6505,7 @@ TRAIN_SEQ_RANKS = 8
 #: batches, one a branch of JAX's expert parallelism: 4 x 256 = 1024
 #: tokens > 16 x 48 (``_moe_ep``, each data shard its own capacity) and
 #: 2 x 256 = 512 <= 768 (``_moe_ep_decode``, the global capacity)
-TRAIN_EP_DEPTH = 4
+TRAIN_EP_DEPTH = 2
 TRAIN_EP_SHAPES = ((4, 256), (2, 256))
 TRAIN_EP_F32_SHAPE = (4, 256)
 #: the training meshes' workers, shared by their phases
@@ -6515,22 +6550,27 @@ def mesh_drops(reports):
 
 
 def mesh_trainer(torch, cfg, shape, flags_kw, schedule, pool=None):
-    """``make_train_step`` on a mesh of ranks on the card (a Model of
-    ``cfg`` drawn from the seed on rank 0, the ranks drawing their slices
-    from the same seed): (step, trainer, rank 0's state, the model,
-    start seconds)."""
-    from repro_torch.models.model import Model
+    """``make_train_step`` of ``cfg`` on a mesh of ranks on the card, the
+    ranks drawing their slices from the seed (no whole model is built):
+    (step, trainer, rank 0's state, start seconds)."""
     from repro_torch.models.transformer import TRAIN_FLAGS
     from repro_torch.runtime.steps import make_train_step
-    model = Model(cfg, device=DEVICE, seed=SEED)
     t0 = time.perf_counter()
     step, init = make_train_step(
-        model, schedule=schedule, mesh=training_mesh(shape),
+        cfg, schedule=schedule, mesh=training_mesh(shape),
         flags=dataclasses.replace(TRAIN_FLAGS, **flags_kw),
         pool=pool or TRAIN_POOL)
     state = init(seed=SEED)
     sync(torch)
-    return step, step.trainer, state, model, time.perf_counter() - t0
+    return step, step.trainer, state, time.perf_counter() - t0
+
+
+def param_count(cfg):
+    """The number of parameters of ``cfg``'s model, from its template."""
+    from repro_torch.models.params import flatten
+    from repro_torch.models.transformer import model_template
+    return sum(math.prod(s.shape)
+               for s in flatten(model_template(cfg)).values())
 
 
 def drawn_alike(torch, trainer, state, model):
@@ -6545,10 +6585,11 @@ def drawn_alike(torch, trainer, state, model):
 def mesh_steps(torch, step, trainer, state, cfg, shapes):
     """One bf16 step a batch (``shapes``, batches 0 ..) with every rank's
     counters reset first: per step its ms (rank 0's host clock around the
-    step, which ends at the ranks' barrier), loss, aux, grad norm, each
-    rank's peak memory, whether every rank's gradient slices were
-    finite, the collectives by axis, and the MoE drops a layer.
-    Returns (state, [step lines], rank 0's kernel launches)."""
+    step, which ends at the ranks' barrier), loss (and an MTP head's),
+    aux, grad norm, each rank's peak memory, whether every rank's
+    gradient slices were finite, the collectives by axis, and the MoE
+    drops a layer.  Returns (state, [step lines], rank 0's kernel
+    launches)."""
     from repro_torch.kernels import build
     trainer.report(reset=True)
     zero_launches()
@@ -6570,38 +6611,12 @@ def mesh_steps(torch, step, trainer, state, cfg, shapes):
                     if r["max_memory_allocated"] is not None else None
                     for r in reports],
                 "collectives": mesh_traffic(reports)}
+        if "mtp_loss" in m:
+            line["mtp_loss"] = float(m["mtp_loss"])
         if reports[0]["drops"]:
             line["drops_per_layer"] = mesh_drops(reports)
         out.append(line)
     return state, out, dict(build.launches)
-
-
-def unsharded_step(torch, cfg, shape, flags_kw):
-    """The same bf16 step without a mesh (the flags' ``moe_impl="ep"``
-    there is ``moe.ep_plain``): the ms of the second of two steps on
-    batches 0 and 1 (the first warms up) and the peak memory."""
-    from repro_torch.models.model import Model
-    from repro_torch.models.transformer import TRAIN_FLAGS
-    from repro_torch.runtime.steps import make_train_step
-    model = Model(cfg, device=DEVICE, seed=SEED)
-    step, init = make_train_step(
-        model, schedule=launcher_schedule(cfg, 2),
-        flags=dataclasses.replace(TRAIN_FLAGS, **flags_kw))
-    state = init(model.params)
-    if DEVICE == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    state, _ = step(state, train_batch(torch, cfg, 0, shape))
-    sync(torch)
-    t0 = time.perf_counter()
-    state, m = step(state, train_batch(torch, cfg, 1, shape))
-    loss = float(m["loss"])
-    sync(torch)
-    out = {"shape": list(shape), "step_ms": (time.perf_counter() - t0) * 1e3,
-           "loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30
-           if DEVICE == "cuda" else None}
-    del model, state, step
-    free_card(torch)
-    return out
 
 
 def mesh_checkpoint(torch, trainer, state):
@@ -6628,72 +6643,198 @@ def mesh_checkpoint(torch, trainer, state):
             "byte_for_byte": equal}
 
 
+#: a gradient leaf whose f64 elements all sit below this share of the
+#: tree's largest is rounding noise, and is not compared
+NOISE_GRAD = 1e-12
+
+
+def _update_sums(torch, cfg, params):
+    """Each leaf's change from the seed's draw (``Model(cfg, seed=SEED)``'s,
+    drawn again leaf by leaf on the card): the sum of its squares, its
+    dot product with the draw (``Rank.update_sums``' reading) and the
+    draw's sum of squares, in f64."""
+    from repro_torch.models.params import DTYPES, _init_leaf, flatten
+    from repro_torch.models.transformer import model_template
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    flat, out = flatten(params), {}
+    for k, spec in flatten(model_template(cfg)).items():
+        p0 = _init_leaf(spec, gen, DTYPES[cfg.dtype], DEVICE).double()
+        d = flat[k].detach().double().sub_(p0)
+        sq = float(torch.linalg.vector_norm(d)) ** 2
+        out[k] = [sq, float(d.mul_(p0).sum()),
+                  float(torch.linalg.vector_norm(p0)) ** 2]
+        del p0, d
+    return out
+
+
+#: a leaf whose unsharded f32 gradient sits further than this from the
+#: f64 one (by the norm) is held by the f64 step alone where only its
+#: update sums are read: the f32 rule cannot tell the mesh's rounding
+#: from the unsharded step's there (jamba's embedding and attention
+#: leaves, 0.6-2.2 from f64 under a softmax its init saturates)
+F32_USABLE = 1e-2
+#: an updated param is rounded to f32 by the optimizers (their update
+#: in f32 arithmetic, as JAX's), also in an f64 step: two such steps'
+#: changes may part by up to an f32 ulp of the param in each element,
+#: so their update sums by up to this share of the root of the change's
+#: and the start's sums of squares (the sum of squares) or of the
+#: start's (the dot product)
+F32_ROUNDING = 2.0 ** -22
+
+
+def _sums_agree(mesh, plain, f64, tol, skip):
+    """Leaf by leaf (but ``skip``), the mesh's update sums against the
+    unsharded step's: each within ``tol`` of its scale (the sum of
+    squares of the unsharded change; for the dot product, the root of
+    that times the start's) and F32_ROUNDING's allowance, or, given the
+    f64 step's (``f64``), no further from them than twice the unsharded
+    step's.  Returns (the leaves that disagree, the largest distance
+    over the scale and its leaf)."""
+    bad, worst, where = set(), 0.0, None
+    for k, (sq, dot, start) in plain.items():
+        if k in skip:
+            continue
+        scale = (max(sq, 1e-300), max(math.sqrt(sq * start), 1e-300))
+        rounding = F32_ROUNDING * math.sqrt(sq * start), \
+            F32_ROUNDING * start
+        for i in range(2):
+            diff = abs(mesh[k][i] - plain[k][i])
+            if diff / scale[i] > worst:
+                worst, where = diff / scale[i], k
+            if diff > tol * scale[i] + rounding[i] and (
+                    f64 is None or abs(mesh[k][i] - f64[k][i])
+                    > 2 * abs(plain[k][i] - f64[k][i])):
+                bad.add(k)
+    return sorted(bad), worst, where
+
+
 def mesh_vs_plain(torch, cfg, depth, shape, mesh_shape, flags_kw,
-                  pool=None, f64=True):
-    """One f32 step at full width and ``depth`` layers on a mesh of ranks
-    on the card against the port's unsharded step on the card, on the
-    same weights (the seed's) and batch, by ``train_card_vs_cpu``'s
-    rule: loss and grad norm within TRAIN_CPU_TOL relative or no further
-    from the f64 step than twice the unsharded one; every updated param
-    leaf within TRAIN_CPU_TOL of the unsharded leaf's scale wherever the
-    f64 gradient exceeds 1e-3 of the leaf's largest, or no further from
-    the f64 leaf than twice the unsharded one (or than TRAIN_CPU_TOL);
-    the grad norm may also sit within twice the unsharded step's f32
-    floor (its gradient leaves' largest distance from the f64 step's, by
-    the norm, at least TRAIN_GRAD_NEAR) of the f64 step, since minicpm's
+                  pool=None, dtypes=("float32", "float64"), wide=False):
+    """A step at full width and ``depth`` layers on a mesh of ranks on
+    the card against the port's unsharded step on the card, on the same
+    weights (the seed's) and batch, in each of ``dtypes``.  In f32 by
+    ``train_card_vs_cpu``'s rule: loss and grad norm (and an MTP head's
+    loss) within TRAIN_CPU_TOL relative or no further from the f64 step
+    than twice the unsharded one; every updated param leaf within
+    TRAIN_CPU_TOL of the unsharded leaf's scale wherever the f64
+    gradient exceeds 1e-3 of the leaf's largest, or no further from the
+    f64 leaf than twice the unsharded one (or than TRAIN_CPU_TOL); the
+    grad norm may also sit within twice the unsharded step's f32 floor
+    (its gradient leaves' largest distance from the f64 step's, by the
+    norm, at least TRAIN_GRAD_NEAR) of the f64 step, since minicpm's
     saturated softmax puts its embedding gradient 1.3e-3 to 1.9e-3 from
-    f64 in any f32 arithmetic.  With ``f64`` the same mesh step in f64 is
-    the unsharded f64 step's function: loss, grad norm and every updated
-    leaf within MESH_F64_TOL.
+    f64 in any f32 arithmetic.  In f64 the mesh step is the unsharded
+    f64 step's function: loss, grad norm and every updated leaf within
+    MESH_F64_TOL.  Adafactor's factored state after the step is held by
+    the same rules as the params (in f64 every factor within
+    MESH_F64_TOL).  A leaf whose f64 gradient is rounding noise
+    (NOISE_GRAD) is neither compared nor read into the floor.
+
+    ``wide`` (a full-width model whose params would take minutes to
+    gather through gloo): each param leaf is held by its update sums
+    instead of element by element (``Rank.update_sums``: the change's sum of squares and its
+    dot product with the draw, over the ranks' distinct slices, no
+    gather), by the same rules of that leaf's scale (``_sums_agree``);
+    and in f32 a second mesh step on the batch must lower the loss.
     With ``moe_impl="ep"`` the unsharded step's MoE layers run
     ``moe.ep_plain`` (the mesh's function), and the dropped pairs a layer
     of the mesh must equal ``ep_plain``'s (read from a no-grad forward of
     the unsharded model) and are printed beside the unsharded gather's.
-    All products run in true f32."""
+    Both unsharded steps start from the seed's draw in their dtype, as
+    the ranks' do.  All products run in true f32."""
     from repro_torch.models import moe
     from repro_torch.models.layers import no_tf32
     from repro_torch.models.model import Model
     from repro_torch.models.params import flatten
     from repro_torch.models.transformer import TRAIN_FLAGS
+    from repro_torch.sharding.rules import state_leaves
     cfg32 = dataclasses.replace(cfg, num_layers=depth, dtype="float32")
+    cfg64 = dataclasses.replace(cfg32, dtype="float64")
     schedule = launcher_schedule(cfg32, TRAIN_STEPS)
     batch = train_batch(torch, cfg32, 0, shape, device="cpu")
     flags = dataclasses.replace(TRAIN_FLAGS, **flags_kw)
-    card = Model(cfg32, device=DEVICE, seed=SEED)
-    w = {k: v.detach().cpu().clone() for k, v in card.named_parameters()}
+    ada = cfg32.optimizer == "adafactor"
+    f32 = "float32" in dtypes
     out = {"depth": depth, "shape": list(shape),
            "mesh": {"data": mesh_shape[0], "model": mesh_shape[1]},
-           "flags": flags_kw, "tol": TRAIN_CPU_TOL}
-    if flags.moe_impl == "ep":
-        with RouteRecorder() as rec, torch.no_grad():
-            card.forward(batch["tokens"].to(DEVICE), flags=flags)
-        B, S = shape
-        out["drops_ep_plain"] = [moe.ep_dropped(cfg32, i, B, S,
-                                                flags.batch_divisor)
-                                 for i in rec.calls]
-        out["drops_gather"] = [moe.ep_dropped(cfg32, i, B, S, 1)
-                               for i in rec.calls]
-    pp, pm, plain_s, pg = _step_on(torch, card, schedule, batch, flags)
-    del card
+           "flags": flags_kw, "tol": TRAIN_CPU_TOL, "dtypes": list(dtypes),
+           "optimizer": cfg32.optimizer, "wide": wide}
+
+    def results(c, state):
+        """The updated params (their update sums where ``wide``, else on
+        the host) and Adafactor's state on the host."""
+        params = _update_sums(torch, c, state.params) if wide else {
+            k: v.detach().cpu() for k, v in flatten(state.params).items()}
+        return params, {k: v.detach().cpu() for k, v in
+                        state_leaves(state.opt).items()} if ada else None
+
+    # the unsharded f64 step first, on the seed's draw (as the ranks draw
+    # it): its gradients stay on the card (its own tensors, no copy) for
+    # the masks and the f32 step's floor
+    seconds = {}
+    t_part = time.perf_counter()
+    st, xm, _, xg = _step_on(torch, Model(cfg64, device=DEVICE, seed=SEED),
+                             schedule, batch, flags)
+    xp, xv = results(cfg64, st)
+    del st
     free_card(torch)
-    xp, xm, _, xg = _step_on(torch, Model(
-        dataclasses.replace(cfg32, dtype="float64"), device=DEVICE,
-        params={k: v.double() for k, v in w.items()}), schedule, batch,
-        flags)
-    del w
+    keep, noise = {}, set()
+    top = max(float(x.abs().max()) for x in xg.values())
+    for k, x in xg.items():
+        keep[k] = (x.abs() > 1e-3 * x.abs().max()).cpu()
+        if float(x.abs().max()) <= NOISE_GRAD * top:
+            # a gradient that is rounding noise in f64 (the mLSTM's
+            # input-gate bias: a shift of every log input gate cancels in
+            # the normalised readout); Adam's first step is its sign
+            keep[k].zero_()
+            noise.add(k)
+    floor, gap, far = [0.0], [], {}
+    seconds["plain_float64"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    if f32:
+        card = Model(cfg32, device=DEVICE, seed=SEED)
+        if flags.moe_impl == "ep":
+            with RouteRecorder() as rec, torch.no_grad():
+                card.forward(batch["tokens"].to(DEVICE), flags=flags)
+            B, S = shape
+            out["drops_ep_plain"] = [moe.ep_dropped(cfg32, i, B, S,
+                                                    flags.batch_divisor)
+                                     for i in rec.calls]
+            out["drops_gather"] = [moe.ep_dropped(cfg32, i, B, S, 1)
+                                   for i in rec.calls]
+
+        def read(k, g):
+            # the unsharded f32 step's gradient leaves from the f64
+            # step's, by the norm: the f32 floor of this model at this
+            # batch; and the leaves whose squared norms part the two
+            # grad norms most
+            if k in noise:
+                return
+            x = xg[k]
+            xn = float(torch.linalg.vector_norm(x))
+            gn = float(torch.linalg.vector_norm(g, dtype=torch.float64))
+            far[k] = float(torch.linalg.vector_norm(g - x)) / max(xn, 1e-30)
+            floor[0] = max(floor[0], far[k])
+            gap.append((abs(gn * gn - xn * xn), k, gn, xn))
+        st, pm, plain_s, _ = _step_on(torch, card, schedule, batch, flags,
+                                      on_grad=read)
+        pp, pv = results(cfg32, st)
+        del st, card
+        out["grad_gap_leaves"] = [
+            {"leaf": k, "sq_norm_gap": d, "norm": {"f32": a, "f64": b}}
+            for d, k, a, b in sorted(gap, reverse=True)[:3]]
+    floor = floor[0]
+    del xg
     free_card(torch)
-    keep = {k: g.abs() > 1e-3 * g.abs().max() for k, g in xg.items()}
-    # the unsharded f32 step's gradient leaves from the f64 step's, by the
-    # norm: the f32 floor of this model at this batch
-    floor = max(float((pg[k] - x).norm()) / max(float(x.norm()), 1e-30)
-                for k, x in xg.items())
-    del pg
-    runs = {}
-    for dt in ("float32", "float64") if f64 else ("float32",):
+    if f32:
+        seconds["plain_float32"] = time.perf_counter() - t_part
+    ok = True
+    metrics = [k for k in ("loss", "grad_norm", "mtp_loss") if k in xm]
+    for dt in dtypes:
+        t_part = time.perf_counter()
         c = dataclasses.replace(cfg32, dtype=dt)
-        step, trainer, state, model, start_s = mesh_trainer(
+        step, trainer, state, start_s = mesh_trainer(
             torch, c, mesh_shape, flags_kw, schedule, pool)
-        del model
         free_card(torch)
         trainer.record_drops(flags.moe_impl == "ep")
         tb = {k: v.to(DEVICE) if v.dtype == torch.long
@@ -6705,50 +6846,98 @@ def mesh_vs_plain(torch, cfg, depth, shape, mesh_shape, flags_kw,
             sync(torch)
             mesh_s = time.perf_counter() - t0
         reports = trainer.report()
-        mp = {k: v.to(DEVICE).double() for k, v in flatten(
-            trainer.gather_state(state, params_only=True).params).items()}
+        mp = trainer.update_sums(SEED) if wide else None
+        whole = trainer.gather_state(state, params_only=not ada,
+                                     opt_only=wide) \
+            if ada or not wide else None
+        if wide and dt == "float32":
+            state, m2 = step(state, tb)
+            out["loss_second_step"] = float(m2["loss"])
+            ok = ok and out["loss_second_step"] < float(m["loss"])
         trainer.close()
-        del state
-        runs[dt] = ({k: float(v) for k, v in m.items()}, mp, reports,
-                    start_s, mesh_s)
+        # rank 0's slices go with its trainer, before the next one draws
+        del state, step, trainer
         free_card(torch)
-    mm, mp, reports, start_s, mesh_s = runs["float32"]
-    x64 = runs.get("float64")
-    out.update({"mesh_start_s": start_s, "mesh_step_s": mesh_s,
-                "mesh_f64_step_s": x64[4] if x64 else None,
-                "plain_step_s": plain_s,
-                "grads_finite": all(r["grads_finite"] for r in reports),
-                "plain_grad_floor": floor})
-    ok = out["grads_finite"]
-    for k in ("loss", "grad_norm"):
-        x = xm[k]
-        out[k] = {"mesh": mm[k], "plain": pm[k], "f64": x,
-                  "mesh_f64": x64[0][k] if x64 else None}
-        # the f32 rule, or a grad norm within twice the unsharded step's
-        # gradient floor of the f64 one (a norm's error is its leaves')
-        ok = ok and (_agree(mm[k], pm[k], x, TRAIN_CPU_TOL) or (
-            k == "grad_norm" and abs(mm[k] - x) <= 2 * max(
-                floor, TRAIN_GRAD_NEAR) * abs(x)))
-        # the mesh's f64 step is the unsharded f64 step's function
-        ok = ok and (not x64 or abs(x64[0][k] - x) <= MESH_F64_TOL * abs(x))
-    pbad, pworst, pwhere = _leaves_agree(mp, pp, xp, TRAIN_CPU_TOL,
-                                         TRAIN_CPU_TOL, keep)
-    out.update({"params_rel": pworst, "params_worst_leaf": pwhere,
-                "params_disagree": pbad})
-    ok = ok and not pbad
-    if x64:
-        xbad, xworst, xwhere = _leaves_agree(x64[1], xp, xp, MESH_F64_TOL,
-                                             MESH_F64_TOL, keep)
-        out.update({"f64_params_rel": xworst, "f64_params_worst_leaf": xwhere,
-                    "f64_params_disagree": xbad})
-        ok = ok and not xbad
-    if flags.moe_impl == "ep":
-        out["drops_mesh"] = mesh_drops(reports)
-        if x64:
-            out["drops_mesh_f64"] = mesh_drops(x64[2])
-        ok = ok and out["drops_mesh"] == out["drops_ep_plain"]
-    out["ok"] = ok
-    del mp, pp, xp, xg, runs
+        mm = {k: float(v) for k, v in m.items()}
+        seconds[f"mesh_{dt}"] = time.perf_counter() - t_part
+        if not wide:
+            mp = flatten(whole.params)
+        mv = state_leaves(whole.opt) if ada else None
+        del whole
+        for k in metrics:
+            out.setdefault(k, {"f64": xm[k]})
+        if dt == "float32":
+            out.update({"mesh_start_s": start_s, "mesh_step_s": mesh_s,
+                        "grads_finite": all(r["grads_finite"]
+                                            for r in reports)})
+            ok = ok and out["grads_finite"]
+            for k in metrics:
+                x = xm[k]
+                out[k].update({"mesh": mm[k], "plain": pm[k]})
+                # the f32 rule, or a grad norm within twice the unsharded
+                # step's gradient floor of the f64 one (a norm's error is
+                # its leaves')
+                ok = ok and (_agree(mm[k], pm[k], x, TRAIN_CPU_TOL) or (
+                    k == "grad_norm" and abs(mm[k] - x) <= 2 * max(
+                        floor, TRAIN_GRAD_NEAR) * abs(x)))
+            if wide:
+                unusable = {k for k, d in far.items() if d > F32_USABLE}
+                out["f32_unusable_leaves"] = sorted(unusable)
+                pbad, pworst, pwhere = _sums_agree(mp, pp, xp, TRAIN_CPU_TOL,
+                                                   noise | unusable)
+            else:
+                pbad, pworst, pwhere = _leaves_agree(
+                    mp, pp, xp, TRAIN_CPU_TOL, TRAIN_CPU_TOL, keep)
+            out.update({"params_rel": pworst, "params_worst_leaf": pwhere,
+                        "params_disagree": pbad})
+            ok = ok and not pbad
+            if ada:
+                vbad, vworst, vwhere = _leaves_agree(mv, pv, xv,
+                                                     TRAIN_CPU_TOL,
+                                                     TRAIN_CPU_TOL)
+                out.update({"moments_rel": vworst,
+                            "moments_worst_leaf": vwhere,
+                            "moments_disagree": vbad})
+                ok = ok and not vbad
+            if flags.moe_impl == "ep":
+                out["drops_mesh"] = mesh_drops(reports)
+                ok = ok and out["drops_mesh"] == out["drops_ep_plain"]
+        else:
+            out.update({"mesh_f64_start_s": start_s,
+                        "mesh_f64_step_s": mesh_s})
+            if not f32:
+                ok = ok and all(r["grads_finite"] for r in reports)
+            for k in metrics:
+                out[k]["mesh_f64"] = mm[k]
+                # the mesh's f64 step is the unsharded f64 step's function
+                ok = ok and abs(mm[k] - xm[k]) <= MESH_F64_TOL * abs(xm[k])
+            if wide:
+                xbad, xworst, xwhere = _sums_agree(mp, xp, None,
+                                                   MESH_F64_TOL, noise)
+            else:
+                xbad, xworst, xwhere = _leaves_agree(
+                    mp, xp, xp, MESH_F64_TOL, MESH_F64_TOL, keep)
+            out.update({"f64_params_rel": xworst,
+                        "f64_params_worst_leaf": xwhere,
+                        "f64_params_disagree": xbad})
+            ok = ok and not xbad
+            if ada:
+                vbad, vworst, vwhere = _leaves_agree(mv, xv, xv,
+                                                     MESH_F64_TOL,
+                                                     MESH_F64_TOL)
+                out.update({"f64_moments_rel": vworst,
+                            "f64_moments_worst_leaf": vwhere,
+                            "f64_moments_disagree": vbad})
+                ok = ok and not vbad
+            if flags.moe_impl == "ep":
+                out["drops_mesh_f64"] = mesh_drops(reports)
+        del mp, mv
+    out.update({"plain_step_s": plain_s if f32 else None,
+                "plain_grad_floor": floor if f32 else None,
+                "seconds": seconds, "ok": ok})
+    del xp
+    if f32:
+        del pp
     free_card(torch)
     return out
 
@@ -6764,14 +6953,17 @@ def phase_train_mesh(torch, smi):
     gradient slices finite, no kernel launched, step ms, each rank's
     peak memory and the collectives by axis; the ranks' checkpoint of
     the params byte for byte the unsharded save of the gathered params;
-    then one f32 step at depth MESH_F32_DEPTH against the unsharded
-    step (``mesh_vs_plain``, without its f64 mesh step)."""
+    then one f32 step at depth MESH_F32_DEPTH on the same mesh against
+    the unsharded step (``mesh_vs_plain`` in f32: attention on the head
+    arm and the dense FFN on its columns, both under ZeRO)."""
+    from repro_torch.models.model import Model
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(minicpm_config(), num_layers=TRAIN_MESH_DEPTH)
     shape = (2, 2)
-    step, trainer, state, model, start_s = mesh_trainer(
+    step, trainer, state, start_s = mesh_trainer(
         torch, cfg, shape, mesh_flags(shape),
         launcher_schedule(cfg, TRAIN_MESH_STEPS))
+    model = Model(cfg, device=DEVICE, seed=SEED)
     params = sum(p.numel() for p in model.parameters())
     drawn = drawn_alike(torch, trainer, state, model)
     del model
@@ -6784,7 +6976,6 @@ def phase_train_mesh(torch, smi):
     trainer.close()
     del state
     free_card(torch)
-    plain = unsharded_step(torch, cfg, TRAIN_MESH_SHAPE, mesh_flags(shape))
     emit({"phase": "train_mesh", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "params": params,
           "mesh": {"data": 2, "model": 2}, "flags": mesh_flags(shape),
@@ -6792,7 +6983,7 @@ def phase_train_mesh(torch, smi):
               "params.embed.embedding", "params.blocks.l0.mixer.wq",
               "params.blocks.l0.ffn.w_gate", "m.blocks.l0.mixer.wo")},
           "start_s": start_s, "drawn_bitwise": drawn, "steps": steps,
-          "unsharded": plain, "launches": counts, "checkpoint": ck,
+          "launches": counts, "checkpoint": ck,
           "nvidia_smi": smi})
     check(drawn, "train_mesh: the ranks' draw is not the model's")
     check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
@@ -6802,10 +6993,9 @@ def phase_train_mesh(torch, smi):
                                     f"{counts}")
     check(ck["byte_for_byte"], "train_mesh: the mesh checkpoint is not the "
                                "unsharded save")
-    # the f64 mesh step runs in train_ep (the head arm, ZeRO on data, the
-    # vocabulary) and train_mesh_seq (the sequence arm, the dense FFN)
     cmp = mesh_vs_plain(torch, minicpm_config(), MESH_F32_DEPTH,
-                        MESH_F32_SHAPE, shape, mesh_flags(shape), f64=False)
+                        MESH_F32_SHAPE, shape, mesh_flags(shape),
+                        dtypes=("float32",))
     emit({"phase": "train_mesh_f32", "arch": cfg.name, **cmp})
     check(cmp["ok"], "train_mesh: the f32 mesh step disagrees with the "
                      "unsharded step")
@@ -6814,10 +7004,11 @@ def phase_train_mesh(torch, smi):
 
 
 def phase_train_mesh_seq(torch, smi, pool=None):
-    """minicpm_2b at full width, depth 2, on (data 1, model 8): 36 heads
-    do not divide 8 ranks, so attention takes the sequence arm (each
-    rank its 8 of 64 query rows against the whole K/V); one f32 step
-    against the unsharded step (``mesh_vs_plain``).  ``pool``: tp_hd's
+    """minicpm_2b at full width, depth MESH_F32_DEPTH, on (data 1, model
+    8): 36 heads do not divide 8 ranks, so attention takes the sequence
+    arm (each rank its 8 of 64 query rows against the whole K/V); one
+    f32 step against the unsharded step (``mesh_vs_plain`` in f32; an f64
+    step of 8 ranks costs ~12 s of the script's time limit).  ``pool``: tp_hd's
     workers, which the 8-rank mesh takes over."""
     t_phase = time.perf_counter()
     cfg = minicpm_config()
@@ -6825,7 +7016,7 @@ def phase_train_mesh_seq(torch, smi, pool=None):
           % TRAIN_SEQ_RANKS, "train_mesh_seq: the heads divide the ranks")
     shape = (1, TRAIN_SEQ_RANKS)
     cmp = mesh_vs_plain(torch, cfg, MESH_F32_DEPTH, MESH_F32_SHAPE, shape,
-                        mesh_flags(shape), pool=pool)
+                        mesh_flags(shape), pool=pool, dtypes=("float32",))
     emit({"phase": "train_mesh_seq", "arch": cfg.name, "arm": "seq",
           "nvidia_smi": smi, **cmp,
           "seconds": time.perf_counter() - t_phase})
@@ -6839,20 +7030,18 @@ def phase_train_ep(torch, smi):
     48 padded experts, each data rank half of ``d_model`` in every expert
     weight.  A bf16 step on each of TRAIN_EP_SHAPES (JAX's ``_moe_ep``,
     then ``_moe_ep_decode``), with its drops a layer, step ms, each
-    rank's peak memory and the collectives; then one f32 step at depth
-    2 against the unsharded step with ``moe.ep_plain`` in its MoE layers,
-    the drops a layer equal to ``ep_plain``'s."""
+    rank's peak memory and the collectives; then f32 and f64 steps at
+    depth MESH_F32_DEPTH against the unsharded step with ``moe.ep_plain``
+    in its MoE layers, the drops a layer equal to ``ep_plain``'s."""
     from repro_torch.models import moe
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(moe_config(), num_layers=TRAIN_EP_DEPTH)
     shape = (2, 2)
     flags_kw = mesh_flags(shape, ep=True)
-    step, trainer, state, model, start_s = mesh_trainer(
+    step, trainer, state, start_s = mesh_trainer(
         torch, cfg, shape, flags_kw,
         launcher_schedule(cfg, len(TRAIN_EP_SHAPES)))
-    params = sum(p.numel() for p in model.parameters())
-    del model
-    free_card(torch)
+    params = param_count(cfg)
     trainer.record_drops(True)
     state, steps, counts = mesh_steps(torch, step, trainer, state, cfg,
                                       TRAIN_EP_SHAPES)
@@ -6864,8 +7053,6 @@ def phase_train_ep(torch, smi):
         n = moe.ep_shards(cfg, B, S, shape[0])
         line["branch"] = "_moe_ep" if n > 1 else "_moe_ep_decode"
         line["capacity"] = moe.capacity(cfg, B * S // n)
-        line["unsharded"] = unsharded_step(torch, cfg, tuple(line["shape"]),
-                                           flags_kw)
     emit({"phase": "train_ep", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "params": params,
           "mesh": {"data": 2, "model": 2}, "flags": flags_kw,
@@ -6885,6 +7072,178 @@ def phase_train_ep(torch, smi):
                      "unsharded step with ep_plain, or drops apart")
     emit({"phase": "train_ep_done",
           "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh, second half (ROADMAP item 11c-ii): the recurrent
+# mixers, MLA and its MTP head, Adafactor
+# ---------------------------------------------------------------------------
+
+#: the sequence-parallel mLSTM: one xlstm_1_3b mLSTM layer at full width
+#: on (data 1, model 2), 1 x 8192 tokens (JAX's dispatch threshold,
+#: ``xlstm.SP_TOKENS``)
+TRAIN_SP_MESH = (1, 2)
+TRAIN_SP_SHAPE = (1, 8192)
+#: jamba_1_5_large_398b and deepseek_v3_671b with Adafactor: one bf16
+#: step of TRAIN_WIDE_SHAPE (jamba's on (data 2, model 2), 18-27 s of
+#: ZeRO gathers through gloo; deepseek_v3's on TRAIN_WIDE_CHECK_MESH),
+#: then the f32 and f64 checks at TRAIN_WIDE_F32_SHAPE on
+#: TRAIN_WIDE_CHECK_MESH
+TRAIN_WIDE_MESH = (2, 2)
+TRAIN_WIDE_SHAPE = (2, 256)
+TRAIN_WIDE_F32_SHAPE = (2, 64)
+#: the checks' mesh, (data 1, model 4): on (2, 2) four ranks' f64 slices,
+#: gradients and ZeRO gathers of the whole vocabulary's embedding and
+#: head exceed the card's 80 GB, and an f32 step there takes ~33 s
+TRAIN_WIDE_CHECK_MESH = (1, 4)
+#: deepseek_v3's checks on (data 1, model 2): four ranks each drawing the
+#: f64 embedding whole (7.4 GB) before cutting it ran the card out of
+#: memory
+TRAIN_MLA_CHECK_MESH = (1, 2)
+
+
+def xlstm_sp_config():
+    """xlstm_1_3b at full width, depth 48 cut to one mLSTM layer."""
+    cfg = dataclasses.replace(xlstm_config(), num_layers=1,
+                              block_pattern=("mlstm",))
+    check(cfg.layer_kinds() == ("mlstm",), "xlstm: not one mLSTM layer")
+    return cfg
+
+
+def jamba_dense_config():
+    """jamba_1_5_large_398b at full width, its first two layers with the
+    FFN pattern cut to dense: attention + dense FFN, Mamba + dense FFN."""
+    cfg = dataclasses.replace(jamba_config(), ffn_pattern=("dense",))
+    check(list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+          == [("attn", "dense"), ("mamba", "dense")],
+          "jamba: not attention + dense, Mamba + dense")
+    return cfg
+
+
+def deepseek_head_config():
+    """deepseek_v3_671b at full width, depth 61 cut to its dense head
+    layer (MLA + dense FFN), with its MTP head."""
+    cfg = dataclasses.replace(deepseek_config(), num_layers=1)
+    check(list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
+          == [("attn", "dense")] and cfg.mtp_depth == 1 and cfg.use_mla
+          and cfg.optimizer == "adafactor",
+          "deepseek_v3: not its dense head layer with the MTP head")
+    return cfg
+
+
+def phase_train_mesh_sp(torch, smi):
+    """One xlstm_1_3b mLSTM layer at full width on (data 1, model 2) over
+    1 x 8192 tokens: it takes ``mlstm_apply_sp`` (each rank scans its
+    4096 rows, the segment summaries are gathered and folded, each
+    rescans from its prefix): a bf16 step finite, no kernel launched,
+    then an f64 mesh step against the unsharded f64 step at that size
+    (``mesh_vs_plain``, ``wide``: metrics and every leaf's update sums
+    within MESH_F64_TOL).  (The mLSTM + sLSTM pair's ``dk`` arm and the
+    sLSTM whole on every rank are held on the CPU, in f64 against the
+    unsharded layer: at 8192 tokens the sLSTM's token loop took 35-49 s
+    a step here.)"""
+    from repro_torch.models import xlstm as xl
+    t_phase = time.perf_counter()
+    cfg = xlstm_sp_config()
+    shape = TRAIN_SP_MESH
+    step, trainer, state, start_s = mesh_trainer(
+        torch, cfg, shape, mesh_flags(shape), launcher_schedule(cfg, 1))
+    xl.ARMS.clear()
+    state, steps, counts = mesh_steps(torch, step, trainer, state, cfg,
+                                      [TRAIN_SP_SHAPE])
+    arms = dict(xl.ARMS)
+    trainer.close()
+    del state
+    free_card(torch)
+    emit({"phase": "train_mesh_sp", "arch": cfg.name,
+          "layers": list(cfg.layer_kinds()), "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "mesh": {"data": shape[0], "model": shape[1]},
+          "flags": mesh_flags(shape), "mlstm_arms": arms,
+          "start_s": start_s, "steps": steps, "launches": counts,
+          "nvidia_smi": smi})
+    check(arms == {"sp": 2}, f"train_mesh_sp: the mLSTM's arms {arms}, not "
+                             f"mlstm_apply_sp (forward and recompute)")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              and s["grads_finite"] for s in steps),
+          "train_mesh_sp: a loss, grad norm or gradient slice is not finite")
+    check(not any(counts.values()), f"train_mesh_sp: kernels launched: "
+                                    f"{counts}")
+    xl.ARMS.clear()
+    cmp = mesh_vs_plain(torch, cfg, cfg.num_layers, TRAIN_SP_SHAPE, shape,
+                        mesh_flags(shape), dtypes=("float64",), wide=True)
+    emit({"phase": "train_mesh_sp_vs_plain", "arch": cfg.name,
+          "mlstm_arms": dict(xl.ARMS), **cmp})
+    check(cmp["ok"], "train_mesh_sp: the f64 mesh step disagrees with the "
+                     "unsharded step")
+    check(set(xl.ARMS) == {"sp"}, f"train_mesh_sp: the mesh steps took "
+                                  f"{dict(xl.ARMS)}")
+    emit({"phase": "train_mesh_sp_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
+def _train_wide(torch, smi, cfg, phase, shape, check_shape):
+    """A full-width Adafactor model on a mesh of ``shape``: the ranks draw
+    their slices from the seed; one bf16 step of TRAIN_WIDE_SHAPE (its
+    loss, gradient slices and grad norm finite, no kernel launched, step
+    ms, peak memory and collectives a rank), the head arm taken; then
+    the f32 and f64 checks at TRAIN_WIDE_F32_SHAPE on a mesh of
+    ``check_shape`` (``mesh_vs_plain``, ``wide``: the metrics, the MTP
+    loss where there is one, every leaf's update sums and Adafactor's
+    factors), a second f32 step on the batch lowering its loss."""
+    from repro_torch.models import chunked_attention as ca
+    t_phase = time.perf_counter()
+    step, trainer, state, start_s = mesh_trainer(
+        torch, cfg, shape, mesh_flags(shape), launcher_schedule(cfg, 1))
+    ca.ARMS.clear()
+    state, steps, counts = mesh_steps(torch, step, trainer, state, cfg,
+                                      [TRAIN_WIDE_SHAPE])
+    arms = dict(ca.ARMS)
+    shapes = trainer.report()[0]["shapes"]
+    trainer.close()
+    del state
+    free_card(torch)
+    emit({"phase": phase, "arch": cfg.name,
+          "layers": list(zip(cfg.layer_kinds(), cfg.ffn_kinds())),
+          "mtp_depth": cfg.mtp_depth, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "optimizer": cfg.optimizer,
+          "mesh": {"data": shape[0], "model": shape[1]},
+          "flags": mesh_flags(shape), "attention_arms": arms,
+          "start_s": start_s, "steps": steps, "launches": counts,
+          "factor_shapes": {k: v for k, v in shapes.items()
+                            if k.endswith((".0", ".1")) and "embed" in k},
+          "nvidia_smi": smi})
+    check(set(arms) == {"heads"}, f"{phase}: attention arms {arms}, not "
+                                  f"heads")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              and s["grads_finite"] and math.isfinite(s.get("mtp_loss", 0))
+              for s in steps),
+          f"{phase}: a loss, grad norm or gradient slice is not finite")
+    check(not any(counts.values()), f"{phase}: kernels launched: {counts}")
+    cmp = mesh_vs_plain(torch, cfg, cfg.num_layers, TRAIN_WIDE_F32_SHAPE,
+                        check_shape, mesh_flags(check_shape), wide=True)
+    emit({"phase": f"{phase}_vs_plain", "arch": cfg.name, **cmp})
+    check(cmp["ok"], f"{phase}: the f32 or f64 mesh step disagrees with the "
+                     f"unsharded step, or the loss did not fall")
+    emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t_phase})
+
+
+def phase_train_mesh_hybrid(torch, smi):
+    """jamba_1_5_large_398b at full width, its first two layers with
+    dense FFNs (attention, then Mamba on its channels of d_inner), with
+    Adafactor: the bf16 step on (data 2, model 2), ZeRO over data
+    (``_train_wide``)."""
+    _train_wide(torch, smi, jamba_dense_config(), "train_mesh_hybrid",
+                TRAIN_WIDE_MESH, TRAIN_WIDE_CHECK_MESH)
+
+
+def phase_train_mesh_mla(torch, smi):
+    """deepseek_v3_671b at full width, its dense head layer (MLA on the
+    heads arm) and its MTP head, with Adafactor (``_train_wide``): the
+    bf16 step on TRAIN_WIDE_CHECK_MESH (32 of the 128 heads a rank; on
+    (2, 2) its ZeRO gathers take 22-35 s a step), the MTP loss finite,
+    and in f64 the unsharded step's, the checks on TRAIN_MLA_CHECK_MESH."""
+    _train_wide(torch, smi, deepseek_head_config(), "train_mesh_mla",
+                TRAIN_WIDE_CHECK_MESH, TRAIN_MLA_CHECK_MESH)
 
 
 def time_recurrent_updates(torch):
@@ -7429,7 +7788,9 @@ def main() -> int:
     tp_counts.append(phase_tp_hd(torch, smi, hd_pool))
     phase_train_mesh_seq(torch, smi, hd_pool)
     hd_pool.close()
-    TP_POOL.close()
+    # TP_POOL's idle workers (one of tp 2, three of tp 4) hold no engine,
+    # only their CUDA contexts: they stay for tp_mla, tp_encdec and the
+    # training meshes, which take them instead of starting their own
     free_card(torch)
     # granite_moe_3b_a800m
     free_card(torch)
@@ -7466,7 +7827,6 @@ def main() -> int:
     ds_counts.append(phase_window_main_path(torch, smi))
     ds_counts.append(phase_mla_window(torch, smi))
     # deepseek_v3 and seamless at tp 2 (item 11b-ii) share one worker
-    TP_POOL = WorkerPool()
     tp_counts.append(phase_tp_mla(torch, smi))
     free_card(torch)
     # the modality stubs at full width and depth: phi_3_vision_4_2b (patch
@@ -7476,21 +7836,28 @@ def main() -> int:
     stub_counts.append(phase_vlm_serve(torch, smi))
     stub_counts.append(phase_encdec_main_path(torch, smi))
     tp_counts.append(phase_tp_encdec(torch, smi))
+    free_card(torch)
+    # training on a (data 2, model 2) mesh of ranks on the card (item
+    # 11c-i): minicpm_2b's first 2 layers, granite_moe_3b_a800m's first 2
+    # with expert parallelism; then (item 11c-ii) xlstm_1_3b's
+    # sequence-parallel mLSTM layer, jamba's two layers and
+    # deepseek_v3_671b's head layer and MTP head with Adafactor; all on
+    # TP_POOL's workers, which then stop: the single-card training below
+    # (jamba's ~59 GB) wants the memory their CUDA contexts hold
+    global TRAIN_POOL
+    TRAIN_POOL = TP_POOL
+    phase_train_mesh(torch, smi)
+    phase_train_ep(torch, smi)
+    phase_train_mesh_sp(torch, smi)
+    phase_train_mesh_hybrid(torch, smi)
+    phase_train_mesh_mla(torch, smi)
     TP_POOL.close()
     free_card(torch)
     # training: minicpm_2b at full width and depth, xlstm_1_3b at full
-    # width and depth, jamba's first two layers at full width
+    # width, jamba's first two layers at full width
     train_counts = [phase_train_main_path(torch, smi),
                     phase_train_recurrent(torch, smi),
                     phase_train_hybrid(torch, smi)]
-    # training on a (data 2, model 2) mesh of ranks on the card (item
-    # 11c-i): minicpm_2b's first 4 layers, granite_moe_3b_a800m's first 4
-    # with expert parallelism; one worker start-up for both
-    global TRAIN_POOL
-    TRAIN_POOL = WorkerPool()
-    phase_train_mesh(torch, smi)
-    phase_train_ep(torch, smi)
-    TRAIN_POOL.close()
     free_card(torch)
     times = phase_times(torch)
     kernels = []

@@ -19,9 +19,10 @@ tensor-parallel rank (``layers.rows_padded``) the batch's rows attend
 one at a time (``layers.each_row``): at one rank's heads the card's
 batched products round a row apart by the batch beside it.
 
-On a training mesh (ROADMAP item 11c-i) ``sequence_parallel_attention``
-runs the JAX function's two strategies, by heads or by query rows
-(:func:`sp_arm`); MLA's sequence-parallel branch waits for item 11c-ii.
+On a training mesh ``sequence_parallel_attention`` runs the JAX
+function's two strategies, by heads or by query rows (:func:`sp_arm`),
+for GQA attention (``attention.mesh_attention``) and MLA
+(``mla.mesh_forward``).
 """
 from __future__ import annotations
 

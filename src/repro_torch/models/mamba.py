@@ -16,7 +16,12 @@ inclusive scan of ``_scan_combine`` in log depth (Hillis-Steele, where
 JAX has ``lax.associative_scan``; the two reassociate the products
 differently, so they agree to rounding, not bitwise) under one
 activation checkpoint a chunk.  Its products are plain: the serving
-rule of blocked rows has no place under autograd.
+rule of blocked rows has no place under autograd.  On a training mesh
+it runs the serving cut under autograd (``line``, the model line): each
+rank its channels of ``d_inner`` (its ``in_proj`` and ``dt_proj``
+columns, its conv, ``dt_bias``, ``A_log`` and ``D`` channels, its slice
+of the scan), the products that contract the cut channels (``x_proj``'s
+and ``out_proj``'s) summed over the line.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from ..kernels.ref import upcast
 from .config import ArchConfig
 from .layers import each_row, linear, remat, softplus
 from .params import DTYPES, ParamSpec, Template
-from ..sharding.group import cut, tp_reduce_parts
+from ..sharding.group import (cut, line_enter, line_reduce, line_sum,
+                              tp_reduce_parts)
 
 State = Dict[str, torch.Tensor]
 
@@ -77,13 +83,14 @@ def _causal_conv(params, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_inputs(params, cfg: ArchConfig, xc: torch.Tensor,
-                blocked: bool = True, tp=None):
+                blocked: bool = True, tp=None, line=None):
     """xc: [B, L, di] (post conv + silu).  Returns (dt [B, L, di] f32,
     B [B, L, ds], C [B, L, ds] f32, A [di, ds] f32): the JAX
     ``_ssm_params`` before the per-token ``a`` and ``b``.  On a
     tensor-parallel rank (``tp``, its group) di is the rank's channels:
     ``x_proj`` contracts them, so its product is summed over the ranks
-    (one all-reduce a window) before it is split."""
+    (one all-reduce a window) before it is split; on a training rank
+    (``line``) under autograd, its gradient summed back."""
     dtr, ds = cfg.ssm_dt_rank, cfg.ssm_state_dim
     # the serving form in f32; the training form in the accumulation
     # dtype (f32, or f64 for an f64 run)
@@ -91,6 +98,7 @@ def _ssm_inputs(params, cfg: ArchConfig, xc: torch.Tensor,
     proj = linear(xc, params["x_proj"], blocked=blocked)
     if tp is not None:
         proj, = tp_reduce_parts([proj], tp)
+    proj = line_reduce(proj, line)
     dt_raw, Bmat, Cmat = proj.split([dtr, ds, ds], dim=-1)
     dt = softplus(acc(linear(dt_raw, params["dt_proj"], blocked=blocked))
                   + acc(params["dt_bias"]))
@@ -188,10 +196,10 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def _chunk_step(params, cfg: ArchConfig, h0: torch.Tensor,
-                xc: torch.Tensor):
+                xc: torch.Tensor, line=None):
     """One chunk xc [B, L, di] from the state h0 [B, di, ds]: (y [B, L,
     di] f32, the state after the chunk)."""
-    dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc, blocked=False)
+    dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc, blocked=False, line=line)
     a = torch.exp(dt[..., None] * A)                         # [B,L,di,ds]
     b = dt[..., None] * upcast(Bm[:, :, None, :]) * upcast(xc[..., None])
     A_cum, B_cum = associative_scan(a, b)
@@ -200,12 +208,18 @@ def _chunk_step(params, cfg: ArchConfig, h0: torch.Tensor,
     return y, h[:, -1]
 
 
-def mamba_apply(params, cfg: ArchConfig, x: torch.Tensor
+def mamba_apply(params, cfg: ArchConfig, x: torch.Tensor, line=None
                 ) -> Tuple[torch.Tensor, None]:
     """Full sequence (training): x [B, S, d] -> ([B, S, d], None), the
-    chunked scan with one activation checkpoint a chunk."""
+    chunked scan with one activation checkpoint a chunk.  ``line``: a
+    training rank's model line, over which the rules cut ``d_inner``
+    (where they leave it whole, the layer runs whole on every rank): x
+    enters the channel-parallel region, and ``out_proj``'s partial
+    product is summed over the line."""
     B, S, d = x.shape
-    di = cfg.d_inner
+    line = cut(line, params["in_proj"].shape[-1], 2 * cfg.d_inner)
+    x = line_enter(x, line)
+    di = params["in_proj"].shape[-1] // 2
     xz = linear(x, params["in_proj"])
     x_in, z = xz.split(di, dim=-1)
     tail = x_in.new_zeros((B, cfg.ssm_conv_width - 1, di))
@@ -217,9 +231,10 @@ def mamba_apply(params, cfg: ArchConfig, x: torch.Tensor
                     dtype=upcast(x[:0]).dtype, device=x.device)
     ys = []
     for c0 in range(0, S + pad, chunk):
-        y_c, h = remat(_chunk_step, params, cfg, h, xcp[:, c0:c0 + chunk])
+        y_c, h = remat(_chunk_step, params, cfg, h, xcp[:, c0:c0 + chunk],
+                       line)
         ys.append(y_c)
     y = torch.cat(ys, dim=1)[:, :S].to(x.dtype)
     y = y + params["D"].to(x.dtype) * xc
     y = y * F.silu(upcast(z)).to(x.dtype)
-    return linear(y, params["out_proj"]), None
+    return line_sum(linear(y, params["out_proj"]), line), None

@@ -1,7 +1,6 @@
 """Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437): the port
-of the JAX package's ``models/mla.py``.  Its sequence-parallel training
-branch, on a training mesh, is ROADMAP Queue 1 item 11c-ii: until then
-a training mesh refuses MLA (``transformer.check_mesh_support``).
+of the JAX package's ``models/mla.py``, with its sequence-parallel
+training branch on a training mesh (:func:`mesh_forward`).
 
 Keys and values are compressed into a latent ``c_kv`` (rank
 ``kv_lora_rank``) plus one shared RoPE key per position, and the caches
@@ -191,6 +190,72 @@ def mla_forward(params, cfg: ArchConfig, x: torch.Tensor,
     c_kv, k_rope = _project_kv_latent(params, cfg, x, positions, flags)
     y = _materialised(params, cfg, q_nope, q_rope, c_kv, k_rope, 0)
     return y, c_kv, k_rope
+
+
+def mesh_forward(params, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, flags) -> torch.Tensor:
+    """The prefill arm on a training rank (``flags.train``; the JAX
+    ``mla_apply``'s branch through ``sequence_parallel_attention``): x
+    [B, S, d], the same on every rank of the model line, in; the block's
+    whole output out.  Per-head K/V are made from whole latents (the
+    latent projections and norms whole on every rank), with KV = H, and
+    the arm is ``chunked_attention.sp_arm(H, H, S, mp)``'s:
+
+    * ``"heads"``: the rank's heads of ``wq_b``, ``wk_b``, ``wv_b`` and
+      ``wo`` (the rules cut them), their attention, and the rank's part
+      of the output projection summed over the line;
+    * ``"seq"``: the rank's ``S/mp`` query rows against K/V of every
+      position, the head-cut weights gathered, the rows' outputs
+      gathered over the line;
+    * ``"whole"``: everything whole on every rank.
+
+    In the first two x and the whole weights enter through
+    ``line_enter`` (their gradients summed over the line), a gathered
+    weight's gradient is reduce-scattered."""
+    from ..sharding.group import line_enter, line_gather, line_sum
+    from .chunked_attention import sequence_parallel_attention, sp_arm
+    line = flags.train.model
+    H, S = cfg.num_heads, x.shape[1]
+    arm = sp_arm(H, H, S, line.size)
+    parallel = arm != "whole"
+
+    def whole(w):
+        return line_enter(w, line) if parallel else w
+
+    def weight(name, dim):
+        w = params[name]
+        if w.shape[dim] < H:                        # the rank's heads
+            return w if arm == "heads" else \
+                line_gather(w, line, dim, summed=parallel)
+        return whole(w)
+
+    p = {"wq_a": whole(params["wq_a"]), "wkv_a": whole(params["wkv_a"]),
+         "q_a_norm": {"scale": whole(params["q_a_norm"]["scale"])},
+         "kv_a_norm": {"scale": whole(params["kv_a_norm"]["scale"])},
+         "wq_b": weight("wq_b", 1), "wk_b": weight("wk_b", 1),
+         "wv_b": weight("wv_b", 1), "wo": weight("wo", 0)}
+    xin = whole(x)
+    rows = slice(None)
+    if arm == "seq":
+        n = S // line.size
+        rows = slice(line.index * n, (line.index + 1) * n)
+    q_nope, q_rope = _project_q(p, cfg, xin[:, rows], positions[:, rows],
+                                flags)
+    c_kv, k_rope = _project_kv_latent(p, cfg, xin, positions, flags)
+    B, T, _ = c_kv.shape
+    k_nope, v = _heads(c_kv, p["wk_b"]), _heads(c_kv, p["wv_b"])
+    qh = torch.cat([q_nope, q_rope], dim=-1)
+    kh = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, T, k_nope.shape[2], k_rope.shape[-1])], dim=-1)
+    out = sequence_parallel_attention(qh, kh, v, causal=True,
+                                      window=cfg.sliding_window,
+                                      flags=flags, arm=arm)
+    y = _out_proj(out, p["wo"])
+    if arm == "heads":
+        return line_sum(y, line)
+    if arm == "seq":
+        return line_gather(y, line, 1, summed=False)
+    return y
 
 
 def prefill_into_cache(params, cfg: ArchConfig, x: torch.Tensor,

@@ -761,34 +761,6 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 # forward on a training mesh (ROADMAP item 11c-i)
 # ---------------------------------------------------------------------------
 
-#: what a training mesh refuses until ROADMAP item 11c-ii
-MESH_WAITS = "not yet ported to repro_torch (ROADMAP Queue 1 item 11c-ii)"
-
-
-def check_mesh_support(cfg: ArchConfig, optimizer: Optional[str] = None
-                       ) -> None:
-    """Raise for what a training mesh does not run yet: the recurrent
-    mixers and Mamba under autograd on the model axis, MLA's
-    sequence-parallel branch, the MTP head and Adafactor, each naming
-    ROADMAP item 11c-ii (xlstm_1_3b, jamba_1_5_large_398b and
-    deepseek_v3_671b)."""
-    from ..sharding.rules import ADAFACTOR_REFUSAL
-    kinds = sorted({k for k in cfg.layer_kinds() if k != "attn"})
-    if kinds:
-        raise NotImplementedError(f"the {kinds} mixers on a training mesh "
-                                  f"(mlstm_apply_sp, the mixers under "
-                                  f"autograd on the model axis): "
-                                  f"{MESH_WAITS}")
-    if cfg.use_mla:
-        raise NotImplementedError(f"MLA's sequence-parallel branch on a "
-                                  f"training mesh: {MESH_WAITS}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"the MTP head on a training mesh: "
-                                  f"{MESH_WAITS}")
-    if (optimizer or cfg.optimizer) == "adafactor":
-        raise NotImplementedError(ADAFACTOR_REFUSAL)
-
-
 def zero_gather(train, tree, prefix: str, stacked: bool = False):
     """The rank's leaves of ``tree`` (params under ``prefix``, a flat
     path of the template) gathered whole over the data line on each
@@ -810,19 +782,65 @@ def zero_gather(train, tree, prefix: str, stacked: bool = False):
     return out
 
 
-def mesh_block(lp, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
-               positions: torch.Tensor, flags: RuntimeFlags,
-               memory: Optional[torch.Tensor] = None):
-    """One pre-norm block of attention layers on a training rank, its
-    weights gathered over data: the attention (``attention.
-    mesh_attention``), the cross attention over ``memory`` where the
-    layer has one, the dense FFN (``layers.mesh_mlp``) or the MoE FFN
-    (``moe.mesh_moe``).  x in and out: the same on every rank of the
+def model_whole(train, tree, prefix: str, stacked: bool = False,
+                parallel: bool = True):
+    """The rank's leaves of ``tree`` (as :func:`zero_gather` takes them,
+    gathered over data) whole on the model line: a leaf the rules cut on
+    ``model`` all-gathered along that dimension (a fused axis block by
+    block), every other leaf as it is.  ``parallel``: the ranks then
+    compute different parts (their rows of the sequence), so a gathered
+    leaf's gradient is reduce-scattered and a whole leaf's summed over
+    the line (``line_enter``); else they compute alike, and a gathered
+    leaf's gradient is the rank's slice."""
+    line = train.model
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}"
+        if isinstance(v, dict):
+            out[k] = model_whole(train, v, path, stacked, parallel)
+            continue
+        spec = train.specs[path][1:] if stacked else train.specs[path]
+        dims = [d for d, e in enumerate(spec) if e == "model"]
+        for dim in dims:
+            parts = train.parts[path] if dim == v.dim() - 1 else None
+            v = line_gather(v, line, dim, summed=parallel, parts=parts)
+        out[k] = v if dims or not parallel else line_enter(v, line)
+    return out
+
+
+def mesh_block(lp, cfg: ArchConfig, kind: str, ffn_kind: str,
+               x: torch.Tensor, positions: torch.Tensor, flags: RuntimeFlags,
+               memory: Optional[torch.Tensor] = None, path: str = "",
+               stacked: bool = False):
+    """One pre-norm block on a training rank, its weights gathered over
+    data (``lp``; ``path`` and ``stacked`` name them in the template):
+    the mixer of ``kind`` on the model line — GQA attention
+    (``attention.mesh_attention``), MLA (``mla.mesh_forward``), Mamba on
+    its channels (``mamba.mamba_apply(..., line=)``), the mLSTM's arm
+    (``xlstm.mesh_mlstm``) or the sLSTM whole on every rank (its cut
+    leaves gathered) — the cross attention over ``memory`` where the
+    layer has one, and the dense FFN (``layers.mesh_mlp``) or the MoE
+    FFN (``moe.mesh_moe``).  x in and out: the same on every rank of the
     model line.  Returns (x, the MoE layer's load-balance loss or
     None)."""
     eps, fused = cfg.norm_eps, flags.fused_rmsnorm
+    g = flags.train
     h = rms_norm(lp["norm1"], x, eps, fused)
-    x = x + attn.mesh_attention(lp["mixer"], cfg, h, positions, flags)
+
+    def gathered(parallel):
+        return model_whole(g, lp["mixer"], f"{path}.mixer", stacked,
+                           parallel)
+    if kind == "mamba":
+        y, _ = mam.mamba_apply(lp["mixer"], cfg, h, line=g.model)
+    elif kind == "mlstm":
+        y = xl.mesh_mlstm(lp["mixer"], cfg, h, flags, gathered)
+    elif kind == "slstm":
+        y, _ = xl.slstm_apply(gathered(False), cfg, h)
+    elif cfg.use_mla:
+        y = mla_mod.mesh_forward(lp["mixer"], cfg, h, positions, flags)
+    else:
+        y = attn.mesh_attention(lp["mixer"], cfg, h, positions, flags)
+    x = x + y
     if "cross" in lp and memory is not None:
         hc = rms_norm(lp["cross_norm"], x, eps, fused)
         x = x + attn.mesh_attention(
@@ -834,8 +852,7 @@ def mesh_block(lp, cfg: ArchConfig, ffn_kind: str, x: torch.Tensor,
     if ffn_kind == "moe":
         y, aux = moe_mod.moe_apply(lp["ffn"], cfg, h2, flags)
         return x + y, aux
-    return x + mesh_mlp(lp["ffn"], h2, cfg.dense_d_ff, flags.train.model), \
-        None
+    return x + mesh_mlp(lp["ffn"], h2, cfg.dense_d_ff, g.model), None
 
 
 def mesh_encode(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
@@ -883,7 +900,6 @@ def mesh_forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     the pad columns masked; all of them where the rules leave the
     vocabulary whole), the summed load-balance loss of the global batch,
     the final hidden states [B_l, S, d])."""
-    check_mesh_support(cfg)
     g = flags.train
     dt = DTYPES[cfg.dtype]
     emb = zero_gather(g, params["embed"], "embed")["embedding"]
@@ -898,21 +914,23 @@ def mesh_forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     head, pattern, R = group_structure(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def layer(lp, ffn, x, aux, path, r=None):
+    def layer(lp, kind, ffn, x, aux, path, r=None):
         # the layer's name for the rank's records (``moe.mesh_moe``)
         g.layer = path if r is None else f"{path}.{r}"
         lp = zero_gather(g, lp, path, stacked=r is not None)
-        x, a = mesh_block(lp, cfg, ffn, x, positions, flags,
-                          memory if "cross" in lp else None)
+        x, a = mesh_block(lp, cfg, kind, ffn, x, positions, flags,
+                          memory if "cross" in lp else None, path,
+                          r is not None)
         return x, aux + a if a is not None else aux
 
-    for i, (_, ffn) in enumerate(head):
-        x, aux = layer(params["head_layers"][f"layer{i}"], ffn, x, aux,
-                       f"head_layers.layer{i}")
+    for i, (kind, ffn) in enumerate(head):
+        x, aux = layer(params["head_layers"][f"layer{i}"], kind, ffn, x,
+                       aux, f"head_layers.layer{i}")
 
     def group(x, aux, gp, r):
-        for j, (_, ffn) in enumerate(pattern):
-            x, aux = layer(gp[f"l{j}"], ffn, x, aux, f"blocks.l{j}", r)
+        for j, (kind, ffn) in enumerate(pattern):
+            x, aux = layer(gp[f"l{j}"], kind, ffn, x, aux, f"blocks.l{j}",
+                           r)
         return x, aux
 
     slices = {path: a.unbind(0) for path, a in
@@ -926,6 +944,17 @@ def mesh_forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     x = rms_norm(norm, x, cfg.norm_eps, flags.fused_rmsnorm)
     w = emb.t() if cfg.tie_embeddings else \
         zero_gather(g, params["lm_head"], "lm_head")["w"]
+    if cfg.mtp_depth:
+        # the MTP head's embedding and logits use the same gathers
+        g.vocab = (emb, w)
+    return _mesh_logits(cfg, x, g, w), aux, x
+
+
+def _mesh_logits(cfg: ArchConfig, x: torch.Tensor, g,
+                 w: torch.Tensor) -> torch.Tensor:
+    """The rank's vocabulary columns of the logits of x [B_l, S, d] (all
+    of them where the rules leave the vocabulary whole), the pad columns
+    masked; ``w`` the head [d, V'] gathered over data."""
     vocab = g.model if w.shape[-1] < cfg.padded_vocab else None
     logits = linear(line_enter(x, vocab), w)
     off = 0 if vocab is None else vocab.index * w.shape[-1]
@@ -933,7 +962,42 @@ def mesh_forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     if pad < logits.shape[-1]:
         # mask pad columns so softmax mass stays on the real vocab
         logits[..., max(pad, 0):] = -1e30
-    return logits, aux, x
+    return logits
+
+
+def mesh_mtp_logits(params, cfg: ArchConfig, hidden: torch.Tensor,
+                    tokens: torch.Tensor, flags: RuntimeFlags
+                    ) -> torch.Tensor:
+    """:func:`mtp_logits` on a training rank: the embedding of token t+1
+    from the vocabulary-parallel embedding, ``proj`` and the norm
+    gathered over data, the block through :func:`mesh_block` (MLA and
+    its FFN) under an activation checkpoint, and the rank's vocabulary
+    columns of the logits (as :func:`mesh_forward`'s).  The embedding and
+    the head are the ones :func:`mesh_forward` gathered for this step
+    (``g.vocab``), so each is gathered, and its gradient reduce-scattered,
+    once a step."""
+    g = flags.train
+    dt = DTYPES[cfg.dtype]
+    B, S, d = hidden.shape
+    emb, w = g.vocab
+    nxt = mesh_embed(emb, tokens, dt,
+                     g.model if emb.shape[0] < cfg.padded_vocab else None)
+    nxt = torch.cat([nxt[:, 1:], nxt.new_zeros((B, 1, d))], dim=1)
+    mtp = zero_gather(g, {k: params["mtp"][k] for k in ("proj", "norm")},
+                      "mtp")
+    h = linear(torch.cat([hidden.to(dt), nxt], dim=-1), mtp["proj"])
+    h = rms_norm(mtp["norm"], h, cfg.norm_eps, flags.fused_rmsnorm)
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    block = params["mtp"]["block"]
+    ffn = "moe" if "router" in block.get("ffn", {}) else "dense"
+
+    def run(h, block):
+        g.layer = "mtp.block"
+        lp = zero_gather(g, block, "mtp.block")
+        return mesh_block(lp, cfg, "attn", ffn, h, positions, flags,
+                          path="mtp.block")[0]
+    h = remat(run, h, block) if flags.remat != "none" else run(h, block)
+    return _mesh_logits(cfg, h, g, w)
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -24,13 +24,29 @@ The training forms are the JAX package's: the chunkwise-parallel mLSTM
 the (C, n, m) state carried across chunks, one activation checkpoint a
 chunk) and the sLSTM's two-level checkpointed scan (``slstm_apply``:
 one checkpoint per outer chunk of 64 tokens).  Their products are plain
-(unblocked): the serving row rule has no place under autograd.  The
-sequence-parallel ``mlstm_apply_sp``, and the mixers under autograd on a
-training mesh's model axis, wait for ROADMAP Queue 1 item 11c-ii (a
-training mesh refuses them: ``transformer.check_mesh_support``).
+(unblocked): the serving row rule has no place under autograd.
+
+On a training mesh's model line (``transformer.mesh_block``) the mLSTM
+runs one of three arms, counted in :data:`ARMS`:
+
+* ``"sp"``, JAX's dispatch at ``SP_TOKENS`` tokens or more with
+  ``model_size > 1`` (:func:`mlstm_apply_sp`): each rank scans its
+  ``S/mp`` rows from a zero state, the ranks' segment summaries are
+  gathered and folded in rank order, and each rescans its rows from the
+  prefix; the weights whole on every rank;
+* ``"dk"`` below it: the serving ``dk`` cut under autograd
+  (``mlstm_apply(..., line=)``): q, k, v and the gates summed over the
+  line, each rank's chunks over its ``dk`` rows of C and n, the
+  readout's numerator and denominator summed, ``down_proj``'s rows
+  summed;
+* ``"whole"`` where the rules leave ``dk`` whole.
+
+The sLSTM runs whole on every rank of the line (its cut leaves gathered
+on entry): cutting its gate columns would gather h every token.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Dict, Optional, Tuple
 
@@ -41,7 +57,8 @@ from ..kernels.ref import NEG_INF, upcast
 from .config import ArchConfig
 from .layers import each_row, linear, no_tf32, pointwise, remat, softplus
 from .params import ParamSpec, Template
-from ..sharding.group import (block_rows, cut, gather_blocks, rank_block,
+from ..sharding.group import (block_rows, cut, gather_blocks, line_enter,
+                              line_gather, line_reduce, line_sum, rank_block,
                               tp_reduce_parts)
 
 State = Dict[str, torch.Tensor]
@@ -264,11 +281,14 @@ def mlstm_decode(params, cfg: ArchConfig, x: torch.Tensor, cache: State,
     return _mlstm_seq(params, cfg, x, cache, tp=tp)
 
 
-def _mlstm_chunk(C0, n0, m0, q, k, v, li, lf, hd: int):
+def _mlstm_chunk(C0, n0, m0, q, k, v, li, lf, hd: int, parts: bool = False):
     """One chunk of the chunkwise-parallel mLSTM (the JAX
     ``_mlstm_chunk``): from the state (C0 [B,H,hd,hd], n0 [B,H,hd], m0
     [B,H]) over q, k, v [B,L,H,hd] and the log gates li, lf [B,L,H];
-    returns (C, n, m after the chunk, h [B,L,H,hd] f32)."""
+    returns (C, n, m after the chunk, h [B,L,H,hd] f32).  ``parts``:
+    q, k, C0 and n0 hold a rank's ``dk`` rows, and it returns (C, n, m,
+    the readout's numerator [B,L,H,hd] and denominator [B,L,H], the
+    rank's parts of sums over dk, and the floor exp(-m) [B,L,H])."""
     L = q.shape[1]
     F_t = torch.cumsum(lf, dim=1).transpose(1, 2)           # [B,H,L]
     li_t = li.transpose(1, 2)
@@ -289,7 +309,10 @@ def _mlstm_chunk(C0, n0, m0, q, k, v, li, lf, hd: int):
            + inter_w * torch.einsum("bthd,bhd->bth", qf, n0))
     # stabilised denominator floor: max(|den|, exp(-m)) (paper eq. 19)
     floor = torch.exp(-m).transpose(1, 2)
-    h = num / torch.maximum(den.abs(), floor)[..., None]
+    if parts:
+        out = (num, den, floor)
+    else:
+        out = (num / torch.maximum(den.abs(), floor)[..., None],)
     # ---- the state at the end of the chunk
     decay_s = F_t[..., -1:] - F_t + li_t                     # [B,H,L]
     m_next = torch.maximum(F_t[..., -1] + m0, decay_s.amax(-1))
@@ -298,22 +321,53 @@ def _mlstm_chunk(C0, n0, m0, q, k, v, li, lf, hd: int):
     C = (w0[..., None, None] * C0
          + torch.einsum("bhs,bshd,bshe->bhde", w_s, kf, vf))
     n = w0[..., None] * n0 + torch.einsum("bhs,bshd->bhd", w_s, kf)
-    return C, n, m_next, h
+    return (C, n, m_next) + out
+
+
+def _dk_inputs(params, cfg: ArchConfig, x: torch.Tensor, line):
+    """q, k, v, the log gates and z of a rank that holds its ``dk`` slice
+    of each head of ``xm`` (``up_proj``'s columns, ``wq``/``wk``/``wv``'s
+    rows) over the model ``line``: the products' parts summed over the
+    line in one all-reduce (both ways: each rank then runs its own dk
+    rows), q and k cut to the rank's dk rows; z is the rank's slice."""
+    H = cfg.num_heads
+    hd = 2 * cfg.d_model // H
+    # the gate weights and biases are whole, and each rank runs its own
+    # part with them (the weights' rows of each head's block, the gates
+    # its dk rows' readout): their gradients summed over the line
+    entered = dict(params, **{n: line_enter(params[n], line) for n in (
+        "w_igate", "w_fgate", "b_igate", "b_fgate")})
+    q, k, v, gi, gf, z = _mlstm_products(entered, cfg, x, False, tp=line)
+    pack = line_reduce(torch.cat([q, k, v, gi[..., None], gf[..., None]],
+                                 dim=-1), line)
+    q, k, v, gi, gf = pack.split([hd, hd, hd, 1, 1], dim=-1)
+    li, lf = _mlstm_gates(entered, gi[..., 0], gf[..., 0], blocked=False)
+    dk = rank_block(hd, line)
+    return q[..., dk], k[..., dk], v, li, lf, z
 
 
 def mlstm_apply(params, cfg: ArchConfig, x: torch.Tensor,
-                initial_state: Optional[State] = None
+                initial_state: Optional[State] = None, line=None
                 ) -> Tuple[torch.Tensor, State]:
     """Full sequence (training, the JAX ``_mlstm_forward``): x [B, S, d]
     -> (y [B, S, d], the state after it), in chunks of ``mlstm_chunk``
     with one activation checkpoint a chunk.  Padded positions have the
     input gate closed (li = NEG_INF) and the forget gate open (lf = 0),
-    so they touch neither the outputs nor the state."""
+    so they touch neither the outputs nor the state.
+
+    ``line``: a training rank's model line, over which the rules cut
+    ``dk`` (the ``"dk"`` arm; the state returned is then the rank's dk
+    rows of C and n, and ``initial_state`` is not taken)."""
     B, S, d = x.shape
     di = 2 * d
     H = cfg.num_heads
     hd = di // H
-    q, k, v, li, lf, z = _mlstm_qkv_gates(params, cfg, x, blocked=False)
+    line = cut(line, params["wq"].shape[1], hd)
+    if line is None:
+        q, k, v, li, lf, z = _mlstm_qkv_gates(params, cfg, x, blocked=False)
+    else:
+        q, k, v, li, lf, z = _dk_inputs(params, cfg, line_enter(x, line),
+                                        line)
     L = min(cfg.mlstm_chunk, S)
     pad = -S % L
     if pad:
@@ -322,15 +376,116 @@ def mlstm_apply(params, cfg: ArchConfig, x: torch.Tensor,
         lf = F.pad(lf, (0, 0, 0, pad))
     st = initial_state or mlstm_cache(cfg, B, x.device)
     C, n, m = (st[k].to(li.dtype) for k in ("C", "n", "m"))
-    hs = []
+    if line is not None:
+        C, n = C[:, :, :q.shape[-1]], n[:, :, :q.shape[-1]]
+    outs = []
     for c0 in range(0, S + pad, L):
         c = slice(c0, c0 + L)
-        C, n, m, h = remat(_mlstm_chunk, C, n, m, q[:, c], k[:, c], v[:, c],
-                           li[:, c], lf[:, c], hd)
-        hs.append(h)
-    h = torch.cat(hs, dim=1)[:, :S].reshape(B, S, di).to(x.dtype)
-    h = h * F.silu(upcast(z)).to(x.dtype)
-    return linear(h, params["down_proj"]), {"C": C, "n": n, "m": m}
+        C, n, m, *out = remat(_mlstm_chunk, C, n, m, q[:, c], k[:, c],
+                              v[:, c], li[:, c], lf[:, c], hd,
+                              line is not None)
+        outs.append(out)
+    if line is None:
+        h = torch.cat([o[0] for o in outs], dim=1)[:, :S]
+    else:
+        num, den, floor = (torch.cat([o[i] for o in outs], dim=1)[:, :S]
+                           for i in range(3))
+        nd = line_reduce(torch.cat([num, den[..., None]], dim=-1), line)
+        num, den = nd[..., :hd], nd[..., hd]
+        h = num / torch.maximum(den.abs(), floor)[..., None]
+    h = h.reshape(B, S, di)
+    if line is not None:
+        h = h[..., rank_block(di, line)]
+    h = h.to(x.dtype) * F.silu(upcast(z)).to(x.dtype)
+    y = line_sum(linear(h, params["down_proj"]), line)
+    return y, {"C": C, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# the mLSTM on a training mesh's model line
+# ---------------------------------------------------------------------------
+
+#: the sequence length from which a model axis of more than one rank
+#: scans the sequence in parallel (JAX's dispatch,
+#: ``transformer.layer_apply``'s ``use_sp``)
+SP_TOKENS = 8192
+
+#: the arm of every mLSTM layer a training rank of this process ran
+#: (``"sp"``, ``"dk"``, ``"whole"``: a reading for the tests)
+ARMS: collections.Counter = collections.Counter()
+
+
+def mesh_mlstm(params, cfg: ArchConfig, x: torch.Tensor, flags,
+               gathered) -> torch.Tensor:
+    """The mLSTM layer on a training rank (``flags.train``): x [B, S, d],
+    the same on every rank of the model line, in; the output, the same
+    on every rank, out.  ``params`` are the rank's slices (gathered over
+    data); ``gathered(parallel)`` gives them whole on the line (the
+    gradient of a cut leaf reduce-scattered and of a whole one summed
+    where ``parallel``, else kept as this rank's slice)."""
+    line = flags.train.model
+    S, mp = x.shape[1], flags.model_size
+    if mp > 1 and S >= SP_TOKENS and S % mp == 0 and S // mp >= 2:
+        ARMS["sp"] += 1
+        return mlstm_apply_sp(gathered(True), cfg, x, line)
+    if cut(line, params["wq"].shape[1], 2 * cfg.d_model // cfg.num_heads):
+        ARMS["dk"] += 1
+        return mlstm_apply(params, cfg, x, line=line)[0]
+    ARMS["whole"] += 1
+    return mlstm_apply(gathered(False), cfg, x)[0]
+
+
+def _combine_states(left: State, right: State) -> State:
+    """The summary of two consecutive segments (the JAX
+    ``_combine_states``): each (C, n, m, F) with (C, n) stabilised by
+    exp(m) and F the segment's total log-forget; ``left`` first."""
+    m_new = torch.maximum(left["m"] + right["F"], right["m"])
+    wl = torch.exp(left["m"] + right["F"] - m_new)
+    wr = torch.exp(right["m"] - m_new)
+    return {"C": wl[..., None, None] * left["C"]
+            + wr[..., None, None] * right["C"],
+            "n": wl[..., None] * left["n"] + wr[..., None] * right["n"],
+            "m": m_new, "F": left["F"] + right["F"]}
+
+
+def mlstm_apply_sp(params, cfg: ArchConfig, x: torch.Tensor, line
+                   ) -> torch.Tensor:
+    """The sequence-parallel mLSTM (the JAX ``mlstm_apply_sp``'s body)
+    over the model ``line``: x [B, S, d], the same on every rank, in
+    (its gradient summed over the line); the rank scans its ``S/mp``
+    rows from a zero state (pass 1), keeping the segment's total
+    log-forget, gathers every rank's (C, n, m, F) summary, folds those
+    of lower rank in rank order from a zero summary (as JAX does:
+    every segment combined, the later ones discarded), and rescans its
+    rows from that prefix (pass 2).  ``params`` whole.  Returns y [B,
+    S, d], the ranks' rows gathered."""
+    B, S, d = x.shape
+    di = 2 * d
+    n = S // line.size
+    x = line_enter(x, line)[:, line.index * n:(line.index + 1) * n]
+    # pass 1: the segment's total log-forget and its end state from zero
+    xm = linear(x, params["up_proj"][:, :di])
+    _, lf = _mlstm_gates(params, linear(xm, params["w_igate"]),
+                         linear(xm, params["w_fgate"]), blocked=False)
+    _, end = mlstm_apply(params, cfg, x)
+    seg = dict(end, F=lf.sum(dim=1))
+    keys = ("C", "n", "m", "F")
+    flat = torch.cat([seg[k].reshape(B, -1) for k in keys], dim=-1)
+    every = line_gather(flat[None], line, 0)                 # [mp, B, K]
+    sizes = [seg[k][0].numel() for k in keys]
+    prefix = {k: torch.zeros_like(seg[k]) for k in keys}
+    for i in range(line.size):
+        parts = every[i].split(sizes, dim=-1)
+        nxt = _combine_states(prefix, {k: p.reshape(seg[k].shape)
+                                       for k, p in zip(keys, parts)})
+        # only the segments before this rank's, but every one folded on
+        # every rank (as JAX's ``where``), so that the ranks' graphs, and
+        # their collectives backward, are one
+        keep = torch.tensor(i < line.index, device=x.device)
+        prefix = {k: torch.where(keep, nxt[k], prefix[k]) for k in keys}
+    # pass 2: the rows again from the state of every row before them
+    y, _ = mlstm_apply(params, cfg, x, initial_state=prefix)
+    return line_gather(y, line, 1, summed=False)
 
 
 # ---------------------------------------------------------------------------

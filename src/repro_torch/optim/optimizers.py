@@ -15,10 +15,21 @@ with the same tensors and the step advanced.  A leaf of more than
 (AdamW is elementwise; Adafactor's row and column statistics are per
 trailing matrix, and its RMS clip sums over the whole leaf first), so
 the f32 temporaries of a multi-GB leaf stay small.
+
+On a rank of a training mesh (``runtime/train_mesh.py``) the params,
+gradients and state are the rank's slices.  AdamW is elementwise and
+runs on them as they are.  Adafactor's state is laid out by the whole
+leaf's shape (``adafactor_init(params, shapes=)``), and its update takes
+``cuts``: each leaf's whole shape and the lines of ranks that cut each
+of its dimensions (:class:`LeafCut`).  A mean then sums the rank's part
+over the line that cuts the dimension it reduces, and the update-RMS
+clip sums the rank's squares over every line that cuts the leaf, so
+that each rank updates its slices as the whole leaf's update would.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -91,39 +102,74 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 8 and shape[-2] >= 8
 
 
-def adafactor_init(params) -> OptState:
-    def v_init(p):
+class LeafCut(NamedTuple):
+    """A leaf on a rank of a training mesh: its whole shape, and for each
+    of its dimensions the lines of ranks (``sharding.group.Line``) that
+    cut it, in the order of the spec entry's axes (none: whole)."""
+    shape: Tuple[int, ...]
+    lines: Tuple[List[Any], ...]
+
+
+def adafactor_init(params, shapes: Optional[Dict[str, Tuple[int, ...]]]
+                   = None) -> OptState:
+    """Adafactor's zero state.  ``shapes``: each leaf's whole shape by
+    flat path, where ``params`` are a rank's slices: a leaf is factored
+    by its whole shape (a [16, 8] leaf cut to [16, 4] is), and its
+    factors are the slices' row and column statistics."""
+    def v_init(path, p):
         f32 = dict(dtype=torch.float32, device=p.device)
-        if _factored(p.shape):
+        whole = p.shape if shapes is None else shapes[path]
+        if _factored(whole):
             return (torch.zeros(p.shape[:-1], **f32),
                     torch.zeros(p.shape[:-2] + p.shape[-1:], **f32))
         return torch.zeros(p.shape, **f32)
 
-    def tree(t):
-        return {k: tree(v) if isinstance(v, dict) else v_init(v)
-                for k, v in t.items()}
+    def tree(t, prefix=""):
+        return {k: tree(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else v_init(f"{prefix}{k}", v) for k, v in t.items()}
     return OptState(torch.zeros((), dtype=torch.int32), None, tree(params))
 
 
-def _adafactor_dir(gf, v, beta, eps):
+def _mean(t: torch.Tensor, dim: int, cut: Optional[LeafCut],
+          pdim: int) -> torch.Tensor:
+    """``t.mean(dim)``, where ``t``'s ``dim`` is the leaf's dimension
+    ``pdim``: on a rank that holds a cut of it, the rank's sum summed
+    over the lines that cut it (in rank order), over the whole
+    length."""
+    if cut is None or not cut.lines[pdim]:
+        return t.mean(dim)
+    s = t.sum(dim)
+    for line in cut.lines[pdim]:
+        line.all_reduce(s)
+    return s / cut.shape[pdim]
+
+
+def _adafactor_dir(gf, v, beta, eps, cut: Optional[LeafCut] = None):
     """The unclipped update of a block of gradient rows ``gf`` (f32) and
-    the new second moment of those rows."""
+    the new second moment of those rows (``cut``: the leaf's on a
+    rank)."""
     g2 = gf * gf + eps
     if isinstance(v, tuple):
         row, col = v
-        row2 = beta * row + (1 - beta) * g2.mean(-1)
-        col2 = beta * col + (1 - beta) * g2.mean(-2)
-        rms_factor = row2 / torch.clamp(row2.mean(-1, keepdim=True),
+        row2 = beta * row + (1 - beta) * _mean(g2, -1, cut, -1)
+        col2 = beta * col + (1 - beta) * _mean(g2, -2, cut, -2)
+        del g2
+        rms_factor = row2 / torch.clamp(_mean(row2, -1, cut, -2)[..., None],
                                         min=eps)
+        # in place: a leaf's f32 temporaries are two copies, not five
         precond = rms_factor[..., None] * col2[..., None, :]
-        return gf * torch.rsqrt(torch.clamp(precond, min=eps)), (row2, col2)
+        return precond.clamp_(min=eps).rsqrt_().mul_(gf), (row2, col2)
     v2 = beta * v + (1 - beta) * g2
     return gf * torch.rsqrt(torch.clamp(v2, min=eps)), v2
 
 
 @torch.no_grad()
 def adafactor_update(grads, state: OptState, params, lr,
-                     decay=0.8, eps=1e-30, clip=1.0, weight_decay=0.0):
+                     decay=0.8, eps=1e-30, clip=1.0, weight_decay=0.0,
+                     cuts: Optional[Dict[str, LeafCut]] = None):
+    """The update; ``cuts`` (each leaf's :class:`LeafCut` by flat path):
+    on a rank of a training mesh, whose ``params``, ``grads`` and state
+    are its slices."""
     step, t = _step(state)
     lr = torch.as_tensor(lr, dtype=torch.float32)
     beta = 1.0 - t ** (-decay)
@@ -140,9 +186,11 @@ def adafactor_update(grads, state: OptState, params, lr,
             pr, gr, vr = p.view(-1), g.view(-1), v.view(-1)
         blocks = _blocks(pr.shape[0], pr[0].numel())
 
+        cut = cuts[path] if cuts is not None else None
+
         def rows(s):
             vs = (vr[0][s], vr[1][s]) if fact else vr[s]
-            return _adafactor_dir(gr[s].float(), vs, beta, eps)
+            return _adafactor_dir(gr[s].float(), vs, beta, eps, cut)
 
         # update clipping by RMS over the whole leaf
         if len(blocks) == 1:
@@ -150,16 +198,21 @@ def adafactor_update(grads, state: OptState, params, lr,
             ss = torch.sum(upd * upd)
         else:
             ss = sum(torch.sum(u * u) for u, _ in map(rows, blocks))
-        rms = torch.sqrt(ss / p.numel() + 1e-30)
+        numel = p.numel()
+        if cut is not None:
+            for line in [ln for lines in cut.lines for ln in lines]:
+                line.all_reduce(ss)
+            numel = math.prod(cut.shape)
+        rms = torch.sqrt(ss / numel + 1e-30)
         scale = torch.clamp(rms / clip, min=1.0)
         for s in blocks:
             if len(blocks) > 1:
                 upd, v_new = rows(s)
-            upd = upd / scale
+            upd.div_(scale)
             pf = pr[s].float()
             if weight_decay:
                 upd = upd + weight_decay * pf
-            pr[s] = (pf - lr * upd).to(p.dtype)
+            pr[s].copy_(pf.sub_(upd.mul_(lr)))
             if fact:
                 vr[0][s], vr[1][s] = v_new
             else:

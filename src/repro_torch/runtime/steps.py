@@ -92,13 +92,15 @@ def make_train_step(model: Model, *, schedule: Callable,
     every rank (``report``), gathers the whole state (``gather_state``)
     and stops the ranks (``close``).  A mesh of one rank is the
     unsharded step.  The flags take JAX's training flags (``moe_impl=
-    "ep"``, ``batch_axes``, ``batch_divisor``, ``model_size``)."""
-    cfg = model.cfg
+    "ep"``, ``batch_axes``, ``batch_divisor``, ``model_size``).  On a
+    mesh of more than one rank ``model`` may be its config alone: the
+    ranks draw or are given their slices, and no whole model is built."""
+    cfg = getattr(model, "cfg", model)
     if mesh is not None:
         from .train_mesh import MeshTrainer, check_mesh_flags
         check_mesh_flags(cfg, flags, mesh, optimizer or cfg.optimizer)
         if len(mesh.devices) > 1:
-            trainer = MeshTrainer(model, schedule, flags,
+            trainer = MeshTrainer(cfg, schedule, flags,
                                   optimizer or cfg.optimizer, mesh, pool)
 
             def mesh_step(state, batch):

@@ -27,7 +27,15 @@ and mirrors each call to them as a command.  Every rank:
   gradient of its slices;
 * reads the grad norm by summing each leaf's squares over the ranks
   that hold distinct slices of it (a leaf replicated on an axis counts
-  once), and updates its slices by AdamW in place, with no collective.
+  once), and updates its slices in place: by AdamW with no collective,
+  or by Adafactor, whose state is laid out by each leaf's whole shape
+  and whose row and column means and update-RMS clip sum the rank's
+  parts over the lines that cut the leaf (``optim.optimizers.
+  LeafCut``).
+
+An architecture with an MTP head (deepseek_v3_671b) adds its loss at
+weight 0.3, through the same vocabulary-parallel CE
+(``transformer.mesh_mtp_logits``).
 
 Every sum adds the ranks' parts in rank order.  A rank that raises
 fails the step: rank 0 then raises with its traceback and stops the
@@ -36,6 +44,7 @@ others.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import uuid
 import weakref
@@ -45,15 +54,15 @@ import torch
 
 from ..models import transformer as tf
 from ..models.moe import check_moe_impl
-from ..models.params import DTYPES, _init_leaf, flatten, unflatten
+from ..models.params import DTYPES, _init_leaf, flatten, tree_map, unflatten
 from ..optim import make_optimizer
-from ..optim.optimizers import OptState
+from ..optim.optimizers import LeafCut, OptState, adafactor_init
 from ..sharding import group as tp_group
 from ..sharding.group import TrainGroup, line_sum, tp_reduce_parts
-from ..sharding.rules import (_batch_axes, _entry_slice, _names, batch_specs,
-                              local_train_state, owned, param_parts,
-                              param_specs, place, shard_tensor,
-                              train_state_specs)
+from ..sharding.rules import (Factors, _batch_axes, _entry_slice, _names,
+                              batch_specs, local_train_state, owned,
+                              param_parts, param_specs, place, shard_tensor,
+                              state_leaves)
 from .steps import TrainState, _square_sum
 
 
@@ -106,10 +115,41 @@ class Rank:
         self.specs = flatten(param_specs(self.template, self.mesh))
         self.parts = param_parts(self.template)
         self.group.specs = self.specs
+        self.group.parts = self.parts
         self.flags = dataclasses.replace(payload["flags"], train=self.group)
         self.opt_init, self.opt_update = make_optimizer(self.optimizer)
+        self.whole = flatten(tree_map(lambda s: s.shape, self.template))
+        self.cuts = None
+        if self.optimizer == "adafactor":
+            self.cuts = {k: self._leaf_cut(k) for k in self.specs}
+            self.opt_init = functools.partial(adafactor_init,
+                                              shapes=self.whole)
         self.state = None
         self.grads_finite = True
+
+    def _leaf_cut(self, path: str) -> LeafCut:
+        """The leaf's whole shape and, for each dimension, the lines that
+        cut it.  A factored leaf's row and column statistics are those of
+        the rank's slice, laid out by the param's spec
+        (:meth:`_factor_specs`)."""
+        spec = self._padded(path)
+        return LeafCut(self.whole[path],
+                       tuple([self.group.lines[a] for a in _names(e)
+                              if self.group.lines[a].size > 1]
+                             for e in spec))
+
+    def _padded(self, path: str) -> tuple:
+        spec = tuple(self.specs[path])
+        return spec + (None,) * (len(self.whole[path]) - len(spec))
+
+    def _factor_specs(self, path: str) -> Factors:
+        """A factored leaf's row and column specs: the param's without
+        its last dimension, and without its second to last.  These are
+        JAX's ``factor_specs`` for every leaf of the ten architectures
+        on every mesh (held by the tests), so that a rank's statistics
+        of its own slice are its slices of the factors."""
+        spec = self._padded(path)
+        return Factors(spec[:-1], spec[:-2] + spec[-1:])
 
     # ---- the state ------------------------------------------------------
     def _local(self, path: str, t: torch.Tensor) -> torch.Tensor:
@@ -135,15 +175,12 @@ class Rank:
         return self.state
 
     def resume(self, state):
-        """The rank's slices of a whole AdamW ``TrainState`` (such as a
-        loaded checkpoint's), on its device."""
+        """The rank's slices of a whole ``TrainState`` (such as a loaded
+        checkpoint's), on its device."""
         st = local_train_state(state, self.template, self.mesh, self.rank)
-
-        def move(tree):
-            return unflatten({k: v.to(self.device)
-                              for k, v in flatten(tree).items()})
-        self.state = TrainState(move(st.params), OptState(
-            st.opt.step, move(st.opt.m), move(st.opt.v)))
+        self.state = TrainState(_on(st.params, self.device), OptState(
+            st.opt.step, _on(st.opt.m, self.device),
+            _on(st.opt.v, self.device)))
         return self.state
 
     def shapes(self) -> Dict[str, tuple]:
@@ -151,10 +188,10 @@ class Rank:
         flat paths of ``rules.local_train_state_shapes``."""
         st = self.state
         out = {"step": tuple(st.opt.step.shape)}
-        for name, tree in (("params", st.params), ("m", st.opt.m),
-                           ("v", st.opt.v)):
-            out.update({f"{name}.{k}": tuple(v.shape)
-                        for k, v in flatten(tree).items()})
+        out.update({f"params.{k}": tuple(v.shape)
+                    for k, v in flatten(st.params).items()})
+        out.update({k: tuple(v.shape)
+                    for k, v in state_leaves(st.opt).items()})
         return out
 
     # ---- the step -------------------------------------------------------
@@ -192,8 +229,9 @@ class Rank:
         with torch.enable_grad():
             kw = {k: rows[k] for k in ("prefix_embeds", "enc_embeds")
                   if k in rows}
-            logits, aux, _ = tf.forward(state.params, cfg, rows["tokens"],
-                                        flags=self.flags, **kw)
+            logits, aux, hidden = tf.forward(state.params, cfg,
+                                             rows["tokens"], flags=self.flags,
+                                             **kw)
             labels = rows["labels"]
             nll = mesh_nll(logits, labels, cfg.padded_vocab, g.model)
             mask = torch.ones_like(nll)
@@ -204,11 +242,23 @@ class Rank:
             count = mask.sum().detach().clone()
             if g.split:
                 g.batch.all_reduce(count)
-            ce = (nll * mask).sum() / torch.clamp(count, min=1.0)
+            count = torch.clamp(count, min=1.0)
+            ce = (nll * mask).sum() / count
             loss = ce + cfg.router_aux_weight * aux
+            parts = {"loss": ce}
+            if cfg.mtp_depth:
+                # MTP: predict token t+2 from hidden_t (+ embed of t+1)
+                mtp = tf.mesh_mtp_logits(state.params, cfg, hidden,
+                                         rows["tokens"], self.flags)
+                mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], 1)
+                parts["mtp_loss"] = (mesh_nll(
+                    mtp, mtp_labels, cfg.padded_vocab, g.model) * mask
+                ).sum() / count
+                loss = loss + 0.3 * parts["mtp_loss"]
             # each rank's share of the global loss: its rows' part, or,
             # where every rank holds the whole batch, 1/n of it
             (loss if g.split else loss / g.batch.size).backward()
+        g.vocab = None
         grads = {path: p.grad if p.grad is not None else torch.zeros_like(p)
                  for path, p in leaves.items()}
         for p in leaves.values():
@@ -221,17 +271,21 @@ class Rank:
             gnorm = self._grad_norm(grads)
             self.grads_finite = bool(torch.stack(
                 [torch.isfinite(v).all() for v in grads.values()]).all())
-            ce = ce.detach().clone()
+            parts = {k: v.detach().clone() for k, v in parts.items()}
             if g.split:
-                g.batch.all_reduce(ce)
+                for v in parts.values():
+                    g.batch.all_reduce(v)
             aux = aux.detach()
+            kw = {"cuts": self.cuts} if self.cuts is not None else {}
             new_params, new_opt = self.opt_update(unflatten(grads), state.opt,
-                                                  state.params, lr)
+                                                  state.params, lr, **kw)
         del grads
         self.state = state = type(state)(new_params, new_opt)
-        return state, {"loss": ce, "aux": aux,
-                       "total_loss": ce + cfg.router_aux_weight * aux,
-                       "lr": lr, "grad_norm": gnorm}
+        total = parts["loss"] + cfg.router_aux_weight * aux
+        if "mtp_loss" in parts:
+            total = total + 0.3 * parts["mtp_loss"]
+        return state, {**parts, "aux": aux, "total_loss": total, "lr": lr,
+                       "grad_norm": gnorm}
 
     def _grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The global grad norm: each leaf's squares (f32), summed over
@@ -248,6 +302,34 @@ class Rank:
                 self.group.lines[a].all_reduce(t)
             total = total + t
         return torch.sqrt(total)
+
+    def update_sums(self, seed: int) -> Dict[str, List[float]]:
+        """Each param leaf's change since the draw from ``seed`` (what
+        :meth:`init` drew): the sum of its squares and its dot product
+        with the draw, in f64, each summed over the ranks that hold
+        distinct slices of the leaf (:meth:`_grad_norm`'s rule), by flat
+        path; the same on every rank.  A fingerprint of the updated
+        params that needs no gather."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        dt = DTYPES[self.cfg.dtype]
+        params = flatten(self.state.params)
+        sets: Dict[tuple, List[tuple]] = {}
+        for path, spec in flatten(self.template).items():
+            p0 = self._local(path, _init_leaf(spec, gen, dt, self.device)
+                             ).double()
+            d = params[path].detach().double().sub_(p0)
+            sq = torch.linalg.vector_norm(d) ** 2
+            sets.setdefault(self._cut_axes(path), []).append(
+                (path, torch.stack([sq, d.mul_(p0).sum()])))
+            del p0, d
+        out = {}
+        for axes in sorted(sets):
+            t = torch.stack([v for _, v in sets[axes]]).cpu()
+            for a in axes:
+                self.group.lines[a].all_reduce(t)
+            out.update({k: t[i].tolist()
+                        for i, (k, _) in enumerate(sets[axes])})
+        return out
 
     # ---- reports --------------------------------------------------------
     def report(self, reset: bool = False) -> List[Dict[str, Any]]:
@@ -269,30 +351,49 @@ class Rank:
     def record_drops(self, on: bool) -> None:
         self.group.drops = {} if on else None
 
-    def gather(self, state, params_only: bool = False) -> Optional[Any]:
+    def gather(self, state, params_only: bool = False,
+               opt_only: bool = False) -> Optional[Any]:
         """The whole TrainState on rank 0 (CPU tensors; None elsewhere):
-        every leaf's slices gathered to rank 0 and placed by its spec;
-        ``params_only``: m and v stay None."""
+        every leaf's slices gathered to rank 0 and placed by its spec (an
+        Adafactor factor by :meth:`_factor_specs`); ``params_only``: m and v stay
+        None; ``opt_only``: the params stay None."""
         state = self.state if state is None else state
-        out = {"m": None, "v": None}
-        trees = (("params", state.params),) if params_only else (
-            ("params", state.params), ("m", state.opt.m), ("v", state.opt.v))
+        out = {"params": None, "m": None, "v": None}
+        trees = [("params", state.params), ("m", state.opt.m),
+                 ("v", state.opt.v)]
+        trees = trees[:1] if params_only else trees[1:] if opt_only else \
+            trees
+
+        def whole(v, spec, parts=None):
+            got = self.coll.gather_tensor(v)
+            return None if got is None else place(got, spec, self.mesh,
+                                                  parts)
         for name, tree in trees:
-            whole = {}
+            if tree is None:
+                continue
+            flat = {}
             for k, v in flatten(tree).items():
-                parts = self.coll.gather_tensor(v)
-                if parts is not None:
-                    whole[k] = place(parts, self.specs[k], self.mesh,
-                                     self.parts[k])
-            out[name] = unflatten(whole)
+                if isinstance(v, tuple):
+                    # the column factor's last axis is the param's
+                    flat[k] = tuple(whole(f, s, p) for f, s, p in zip(
+                        v, self._factor_specs(k), (None, self.parts[k])))
+                else:
+                    flat[k] = whole(v, self.specs[k], self.parts[k])
+            out[name] = unflatten(flat)
         if self.rank != 0:
             return None
         return TrainState(out["params"], OptState(
             state.opt.step.detach().cpu().clone(), out["m"], out["v"]))
 
 
-def _cpu_tree(tree):
-    return unflatten({k: v.detach().cpu() for k, v in flatten(tree).items()})
+def _on(tree, device):
+    """A state tree (an Adafactor leaf a tuple of factors; None stays
+    None) with its tensors on ``device``, detached."""
+    if tree is None:
+        return None
+    return unflatten({k: tuple(f.detach().to(device) for f in v)
+                      if isinstance(v, tuple) else v.detach().to(device)
+                      for k, v in flatten(tree).items()})
 
 
 def _run_rank(coll, payload: Dict[str, Any]) -> None:
@@ -312,9 +413,7 @@ def _run_rank(coll, payload: Dict[str, Any]) -> None:
 
 
 def check_mesh_flags(cfg, flags, mesh, optimizer: str) -> None:
-    """Raise where the flags do not name the mesh they run on, or the
-    architecture or optimizer waits for ROADMAP item 11c-ii."""
-    tf.check_mesh_support(cfg, optimizer)
+    """Raise where the flags do not name the mesh they run on."""
     check_moe_impl(flags)
     mp = mesh.shape["model"]
     if flags.model_size not in (1, mp):
@@ -337,12 +436,10 @@ class MeshTrainer:
     rank 0's own :class:`Rank`.  ``make_train_step`` returns its
     :meth:`train_step` and :meth:`init_state`."""
 
-    def __init__(self, model, schedule: Callable, flags, optimizer: str,
+    def __init__(self, cfg, schedule: Callable, flags, optimizer: str,
                  mesh, pool=None):
-        self.model, self.schedule, self.mesh = model, schedule, mesh
-        cfg = model.cfg
+        self.schedule, self.mesh = schedule, mesh
         check_mesh_flags(cfg, flags, mesh, optimizer)
-        train_state_specs(tf.model_template(cfg), mesh, optimizer)
         payload = {"cfg": cfg, "mesh": mesh, "optimizer": optimizer,
                    "flags": flags, "tag": uuid.uuid4().hex}
         self.closed: Optional[str] = None
@@ -406,9 +503,9 @@ class MeshTrainer:
         if params is None:
             return self.call("init", None, seed)
         if isinstance(params, TrainState):
-            cpu = TrainState(_cpu_tree(params.params), OptState(
-                params.opt.step.cpu(), _cpu_tree(params.opt.m),
-                _cpu_tree(params.opt.v)))
+            cpu = TrainState(_on(params.params, "cpu"), OptState(
+                params.opt.step.cpu(), _on(params.opt.m, "cpu"),
+                _on(params.opt.v, "cpu")))
             return self.call("resume", cpu, local=(params,))
         flat = flatten(params)
         cpu = {k: v.detach().cpu() for k, v in flat.items()}
@@ -428,8 +525,15 @@ class MeshTrainer:
     def record_drops(self, on: bool = True) -> None:
         self.call("record_drops", on)
 
-    def gather_state(self, state, params_only: bool = False):
+    def update_sums(self, seed: int) -> Dict[str, List[float]]:
+        """Every param leaf's change since the ranks drew it from
+        ``seed`` (:meth:`Rank.update_sums`), summed over the ranks."""
+        return self.call("update_sums", seed)
+
+    def gather_state(self, state, params_only: bool = False,
+                     opt_only: bool = False):
         """The whole TrainState (CPU tensors), gathered from every rank
-        (``params_only``: its m and v None)."""
-        return self.call("gather", None, params_only,
-                         local=(state, params_only))
+        (``params_only``: its m and v None; ``opt_only``: its params
+        None)."""
+        return self.call("gather", None, params_only, opt_only,
+                         local=(state, params_only, opt_only))

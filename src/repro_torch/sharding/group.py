@@ -265,6 +265,12 @@ class Line:
                             self.index, self.size, timeout)
         self.reset()
 
+    @property
+    def rank(self) -> int:
+        """This rank's place on the line (what a serving group's ``rank``
+        is to the helpers that cut blocks, such as :func:`rank_block`)."""
+        return self.index
+
     def reset(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
 
@@ -366,6 +372,9 @@ class TrainGroup:
         self.split = False
         self.drops: Optional[Dict[str, int]] = None
         self.layer: Optional[str] = None
+        #: the step's embedding and head gathered over data, which an MTP
+        #: head reuses (``transformer.mesh_mtp_logits``)
+        self.vocab: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def model(self) -> Line:
@@ -460,13 +469,35 @@ def line_enter(x: torch.Tensor, line: Optional[Line]) -> torch.Tensor:
 
 
 def line_gather(x: torch.Tensor, line: Optional[Line], dim: int,
-                summed: bool = True) -> torch.Tensor:
+                summed: bool = True,
+                parts: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """``x`` all-gathered along ``dim`` over ``line``.  Backward: this
     rank's slice of the gradient summed over the line (a reduce-scatter:
     ZeRO's gather of a data-sharded weight, or activations each rank
     then uses for its own part), or with ``summed=False`` its slice
-    alone (activations that every rank then uses alike)."""
-    return x if _one(line) else _Gather.apply(x, line, dim, summed)
+    alone (activations that every rank then uses alike).  ``parts``:
+    ``dim`` is a fused axis of these blocks (``ParamSpec.parts``), of
+    which ``x`` holds its slice of each; the blocks come back whole, in
+    order."""
+    if _one(line):
+        return x
+    out = _Gather.apply(x, line, dim, summed)
+    if parts is None:
+        return out
+    n, k = x.shape[dim], line.size
+    at, order = 0, []
+    for p in parts:
+        # block p's slice of rank r sits at r * n + at in the gathered axis
+        order += [r * n + at + i for r in range(k) for i in range(p // k)]
+        at += p // k
+    return out.index_select(dim, torch.tensor(order, device=x.device))
+
+
+def line_reduce(x: torch.Tensor, line: Optional[Line]) -> torch.Tensor:
+    """A partial summed over ``line`` that each rank then uses for its own
+    part: an all-reduce forward and backward (``line_sum`` then
+    ``line_enter``)."""
+    return line_enter(line_sum(x, line), line)
 
 
 # ---------------------------------------------------------------------------

@@ -31,11 +31,12 @@ whole state: :func:`local_train_state`) and its batch
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.params import flatten, tree_map, unflatten
+from ..optim.optimizers import _factored
 from .group import mesh_coords
 
 Spec = Tuple[Any, ...]
@@ -122,24 +123,44 @@ def param_specs(template, mesh, rules=None):
                     template)
 
 
-#: a training mesh's refusal of what waits for ROADMAP item 11c-ii
-ADAFACTOR_REFUSAL = ("Adafactor on a training mesh: its factored row and "
-                     "column means and its update RMS clip reduce across "
-                     "shards; not yet ported to repro_torch (ROADMAP "
-                     "Queue 1 item 11c-ii)")
+class Factors(NamedTuple):
+    """The specs (or shapes, or tensors) of an Adafactor leaf's factored
+    second moment: the row statistics ``[..., R]`` and the column
+    statistics ``[..., C]`` of a param ``[..., R, C]``."""
+    row: Any
+    col: Any
+
+
+def factor_specs(shape, axes, mesh, rules=None) -> Factors:
+    """A factored leaf's row and column specs by the JAX rule: each the
+    spec ``resolve_spec`` gives its own dimensions (the row factor the
+    param's but its last, the column factor its but the second to
+    last), so that a column factor may cut its last dimension where the
+    param, whose second to last dimension claimed the axis first, does
+    not."""
+    return Factors(resolve_spec(shape[:-1], axes[:-1], mesh, rules),
+                   resolve_spec(shape[:-2] + shape[-1:],
+                                axes[:-2] + axes[-1:], mesh, rules))
 
 
 def train_state_specs(template, mesh, optimizer: str, rules=None):
     """The specs of a ``TrainState(params, OptState(step, m, v))`` (the
     JAX ``train_state_specs``): AdamW's ``m`` and ``v`` inherit each
-    param's spec (ZeRO through ``embed→data``) and ``step`` is
-    replicated.  Adafactor raises (:data:`ADAFACTOR_REFUSAL`)."""
+    param's spec (ZeRO through ``embed→data``); Adafactor has no ``m``,
+    and its ``v`` is a :class:`Factors` of :func:`factor_specs` where
+    the leaf is factored, else the param's spec.  ``step`` is
+    replicated."""
     from ..optim.optimizers import OptState
     from ..runtime.steps import TrainState
-    if optimizer == "adafactor":
-        raise NotImplementedError(ADAFACTOR_REFUSAL)
     pspec = param_specs(template, mesh, rules)
-    return TrainState(pspec, OptState((), pspec, pspec))
+    if optimizer != "adafactor":
+        return TrainState(pspec, OptState((), pspec, pspec))
+
+    def v_spec(s):
+        if _factored(s.shape):
+            return factor_specs(s.shape, s.axes, mesh, rules)
+        return resolve_spec(s.shape, s.axes, mesh, rules)
+    return TrainState(pspec, OptState((), None, tree_map(v_spec, template)))
 
 
 def batch_specs(batch_shapes: Dict[str, Tuple[int, ...]], mesh):
@@ -151,38 +172,77 @@ def batch_specs(batch_shapes: Dict[str, Tuple[int, ...]], mesh):
             for name, shape in batch_shapes.items()}
 
 
+def state_leaves(opt) -> Dict[str, Any]:
+    """The optimizer state's ``m`` and ``v`` leaves by flat path:
+    ``m.<path>`` and ``v.<path>``, an Adafactor factor as
+    ``v.<path>.0`` (rows) and ``v.<path>.1`` (columns), the keys of the
+    checkpoint's index; works on trees of tensors, specs or shapes."""
+    out = {}
+    for name, tree in (("m", opt.m), ("v", opt.v)):
+        for k, v in flatten(tree if tree is not None else {}).items():
+            if isinstance(v, Factors) or (
+                    isinstance(v, tuple) and v
+                    and isinstance(v[0], torch.Tensor)):
+                out[f"{name}.{k}.0"], out[f"{name}.{k}.1"] = v
+            else:
+                out[f"{name}.{k}"] = v
+    return out
+
+
 def local_train_state_shapes(template, mesh, optimizer: str,
                              rules=None) -> Dict[str, Tuple[int, ...]]:
     """A rank's shape of every leaf of a ``TrainState`` under
-    :func:`train_state_specs`, by its flat path (``params.<path>``,
-    ``m.<path>``, ``v.<path>``, ``step``): the same for every rank."""
+    :func:`train_state_specs`, by its flat path (``params.<path>``, and
+    :func:`state_leaves`' keys for the moments, ``step``): the same for
+    every rank."""
+    from ..optim.optimizers import OptState
     specs = train_state_specs(template, mesh, optimizer, rules)
     shapes = flatten(tree_map(lambda s: s.shape, template))
+    pspec, vspec = flatten(specs.params), flatten(specs.opt.v)
     out = {"step": ()}
-    for tree in ("params", "m", "v"):
-        spec = flatten(specs.params)
-        out.update({f"{tree}.{k}": local_shape(v, spec[k], mesh)
-                    for k, v in shapes.items()})
+    out.update({f"params.{k}": local_shape(v, pspec[k], mesh)
+                for k, v in shapes.items()})
+    whole = OptState((), shapes if specs.opt.m is not None else None,
+                     {k: Factors(v[:-1], v[:-2] + v[-1:])
+                      if isinstance(vspec[k], Factors) else v
+                      for k, v in shapes.items()})
+    spec = state_leaves(specs.opt)
+    out.update({k: local_shape(v, spec[k], mesh)
+                for k, v in state_leaves(whole).items()})
     return out
 
 
 def local_train_state(state, template, mesh, rank: int, rules=None):
-    """Rank ``rank``'s ``TrainState`` of a whole one (AdamW): every
-    params, m and v leaf cut by its spec (:func:`shard_tensor`, a fused
-    projection block by block), copies that own their storage; the step
-    kept."""
+    """Rank ``rank``'s ``TrainState`` of a whole one: every param and
+    moment leaf cut by its spec (:func:`train_state_specs`; a param's
+    fused projection block by block, an Adafactor factor by its own
+    spec, a column factor's blocks as its param's), copies that own
+    their storage; the step kept."""
     from ..optim.optimizers import OptState
     from ..runtime.steps import TrainState
     specs = flatten(param_specs(template, mesh, rules))
     parts = param_parts(template)
+    optimizer = "adamw" if state.opt.m is not None else "adafactor"
+    vspecs = flatten(train_state_specs(template, mesh, optimizer,
+                                       rules).opt.v)
 
-    def cut(tree):
-        return unflatten({k: owned(shard_tensor(v, specs[k], mesh, rank,
-                                                parts[k]))
-                          for k, v in flatten(tree).items()})
-    return TrainState(cut(state.params),
-                      OptState(state.opt.step.clone(), cut(state.opt.m),
-                               cut(state.opt.v)))
+    def cut(tree, table):
+        if tree is None:
+            return None
+        out = {}
+        for k, v in flatten(tree).items():
+            spec = table[k]
+            if isinstance(v, tuple):
+                # the column factor's last axis is the param's, fused
+                # blocks and all
+                out[k] = tuple(owned(shard_tensor(f, s, mesh, rank, p))
+                               for f, s, p in zip(v, spec, (None, parts[k])))
+            else:
+                out[k] = owned(shard_tensor(v, spec, mesh, rank, parts[k]))
+        return unflatten(out)
+    return TrainState(cut(state.params, specs),
+                      OptState(state.opt.step.clone(), cut(state.opt.m, specs),
+                               cut(state.opt.v, vspecs)))
 
 
 def place(parts, spec: Spec, mesh, fused: Optional[Tuple[int, ...]] = None

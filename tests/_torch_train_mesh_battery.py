@@ -24,7 +24,9 @@ mesh may sit as far from it as twice the port's own unsharded f32 step
 does (``held``).  The attention arm each case
 takes is asserted (``chunked_attention.ARMS``), the MoE cases' dropped
 pairs are held to ``ep_plain``'s, and the mesh's state shapes and its
-checkpoint are checked on one case.
+checkpoint are checked on one case.  The architectures and the
+optimizer a training mesh refused before the recurrent mixers, MLA and
+Adafactor were ported build and take one step (``builds/<arch>``).
 
 Prints one ``BATTERY {json}`` line: {case: {ok, detail}}.  By hand:
 ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_train_mesh_battery.py
@@ -32,6 +34,7 @@ Prints one ``BATTERY {json}`` line: {case: {ok, detail}}.  By hand:
 """
 import dataclasses
 import json
+import math
 import os
 import sys
 import tempfile
@@ -80,8 +83,8 @@ CASES = [
     ("phi3v/2x2", "phi_3_vision_4_2b", (2, 2), (4, 64), {}, "heads"),
     ("seamless/1x4", "seamless_m4t_large_v2", (1, 4), (4, 64), {}, "seq"),
 ]
-#: the case whose state shapes and checkpoint are checked
-STATE_CASE = "minicpm/2x2"
+#: the cases whose state shapes and checkpoint are checked
+STATE_CASES = {"minicpm/2x2"}
 
 
 def _imports():
@@ -100,14 +103,15 @@ def _imports():
                                         save_from_mesh)
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import TrainingMesh
-    from repro_torch.models import chunked_attention, moe
+    from repro_torch.models import chunked_attention, moe, xlstm
     from repro_torch.models.model import Model
     from repro_torch.models.params import flatten, params_from_jax, unflatten
     from repro_torch.models.transformer import TRAIN_FLAGS
     from repro_torch.optim import make_schedule
     from repro_torch.runtime.steps import make_train_step
     from repro_torch.sharding.group import WorkerPool
-    from repro_torch.sharding.rules import local_train_state_shapes
+    from repro_torch.sharding.rules import (local_train_state_shapes,
+                                            state_leaves)
     import test_torch_train as ttt
     T.update(locals())
 
@@ -192,7 +196,7 @@ def port_plain(cfg, np_params, kw, batches, dtype="float64"):
         c.lr_schedule, **SCHEDULE), flags=flags)
     state = init(model.params)
     leaves = T["flatten"](state.params)
-    grads = {}
+    grads, moments = {}, None
 
     def keep(k):
         def hook(q):
@@ -209,7 +213,10 @@ def port_plain(cfg, np_params, kw, batches, dtype="float64"):
         out.append(({k: float(v) for k, v in m.items()},
                     {k: v.detach().double().numpy() for k, v in
                      T["flatten"](state.params).items()}))
-    return out, grads
+        if moments is None:
+            moments = {k: v.detach().double().numpy() for k, v in
+                       T["state_leaves"](state.opt).items()}
+    return out, grads, moments
 
 
 def routed_drops(cfg, np_params, kw, b):
@@ -251,12 +258,24 @@ def verdict(name, fn):
           f"{RESULTS[name]['seconds']:.1f}s", flush=True)
 
 
+def scaled(params, scale):
+    """``params`` (a JAX tree) with each leaf named in ``scale`` (by its
+    last key) multiplied by its factor."""
+    def leaf(path, a):
+        return a * scale.get(path[-1].key, 1.0)
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
 def run_case(case, pool):
-    name, arch, shape, (B, S), change, arm = case
+    """A case ``(name, arch, mesh shape, (B, S), config changes, arm[,
+    scale])``; ``scale``: leaves multiplied after the seed's draw
+    (:func:`scaled`)."""
+    name, arch, shape, (B, S), change, arm, *scale = case
     ttt = T["ttt"]
     jcfg = dataclasses.replace(T["jax_get_config"](arch).reduced(), **change)
     cfg = dataclasses.replace(T["get_config"](arch).reduced(), **change)
-    jparams = T["JaxModel"](jcfg).init(jax.random.PRNGKey(0))
+    jparams = scaled(T["JaxModel"](jcfg).init(jax.random.PRNGKey(0)),
+                     scale[0] if scale else {})
     np_params = jax.tree.map(np.asarray, jparams)
     kw = flags_kw(arch, shape)
     batches = [batch_np(cfg, B, S, seed) for seed in range(STEPS)]
@@ -274,25 +293,32 @@ def run_case(case, pool):
     detail = {}
     try:
         state = init(model.params)
-        if name == STATE_CASE:
+        if name in STATE_CASES:
             detail.update(check_state(cfg, mesh, trainer, state, model))
             state = init(model.params)      # the case's initial state
         moe_case = arch == "granite_moe_3b_a800m"
         trainer.record_drops(moe_case)
         T["chunked_attention"].ARMS.clear()
+        T["xlstm"].ARMS.clear()
         got = []
         for i, b in enumerate(batches):
             state, m = step(state, tbatch(b, torch.float32))
             got.append({k: float(v) for k, v in m.items()})
             if i == 0:
-                first = T["flatten"](trainer.gather_state(state).params)
+                whole = trainer.gather_state(state)
+                first = T["flatten"](whole.params)
+                moments = {k: v.double().numpy() for k, v in
+                           T["state_leaves"](whole.opt).items()}
                 reports = trainer.report()
                 trainer.record_drops(False)
+        # the attention arms, and the mLSTM's as "mlstm_<arm>"
         arms = dict(T["chunked_attention"].ARMS)
+        arms.update({f"mlstm_{k}": v for k, v in T["xlstm"].ARMS.items()})
     finally:
         trainer.close()
     assert all(r["grads_finite"] for r in reports), "a rank's grads"
-    assert set(arms) == {arm}, (arms, arm)
+    assert set(arms) == ({arm} if isinstance(arm, str) else set(arm)), \
+        (arms, arm)
     detail["arms"] = arms
     if moe_case:
         mesh_drops = [sum(r["drops"][k] for r in reports
@@ -312,12 +338,16 @@ def run_case(case, pool):
 
     # one step: the metrics and every updated leaf
     (jm, jp) = want[0]
-    xs, xg = port_plain(cfg, np_params, kw, batches, "float64")
-    ps, _ = port_plain(cfg, np_params, kw, batches, "float32")
+    xs, xg, xv = port_plain(cfg, np_params, kw, batches, "float64")
+    ps, _, pv = port_plain(cfg, np_params, kw, batches, "float32")
     xm, xp = xs[0]
     tm = got[0]
-    for k in ("loss", "aux", "grad_norm"):
-        detail[k] = held(k, tm[k], jm[k], xm[k], ps[0][0][k])
+    for k in ("loss", "aux", "grad_norm", "mtp_loss"):
+        if k in jm:
+            detail[k] = held(k, tm[k], jm[k], xm[k], ps[0][0][k])
+    if cfg.optimizer == "adafactor":
+        # the factored state after the step: the unsharded f32 step's
+        detail["moments"] = moments_held(moments, pv, xv)
     assert tm["lr"] == jm["lr"], (tm["lr"], jm["lr"])
     keep = {k: np.abs(g) > 1e-3 * np.abs(g).max() for k, g in xg.items()}
     tp = {k: v.double().numpy() for k, v in first.items()}
@@ -338,6 +368,29 @@ def run_case(case, pool):
         assert jx <= ttt.ANCHOR["curve"], jx
         assert tx <= ttt.CURVE_RATIO * max(jx, px), (tx, jx, px)
     return detail
+
+
+def moments_held(got, plain, x):
+    """Every optimizer moment of the mesh after one step (``got``:
+    Adafactor's v, its factors as ``.0`` and ``.1``) within
+    1e-4 of the unsharded f32 step's (``plain``) of the leaf's largest
+    magnitude; or else, by the norm of the difference over the f64
+    step's (``x``), no further from it than twice the unsharded f32 step
+    or than 1e-4.  Returns (leaves held directly, leaves)."""
+    ttt = T["ttt"]
+    assert sorted(got) == sorted(plain), (sorted(got), sorted(plain))
+    bad, direct = [], 0
+    for k, p in plain.items():
+        t, xk = got[k], x[k]
+        if np.abs(t - p).max() <= ttt.TOL * max(np.abs(p).max(), 1e-30):
+            direct += 1
+            continue
+        n = max(np.linalg.norm(xk), 1e-30)
+        tx, px = np.linalg.norm(t - xk) / n, np.linalg.norm(p - xk) / n
+        if tx > max(2 * px, ttt.TOL):
+            bad.append((k, tx, px))
+    assert not bad, ("moments", bad)
+    return {"direct": direct, "leaves": len(plain)}
 
 
 def leaves_held(got, want, x, plain, keep):
@@ -398,11 +451,13 @@ def held(what, t, j, x, p):
 
 def check_state(cfg, mesh, trainer, state, model):
     """(d): each rank's TrainState shapes are ``train_state_specs``'s
-    local shapes, the mesh checkpoint of the initial state is byte for
-    byte the unsharded save of the same state, and a whole state one
-    step on, cut into the ranks' slices (``init_state`` of a
+    local shapes (Adafactor's factors by their own specs), the mesh
+    checkpoint of the initial state is byte for byte the unsharded save
+    of the same state, and a whole state one step on (its moments
+    non-zero), cut into the ranks' slices (``init_state`` of a
     ``TrainState``), gathers back bitwise."""
-    want = T["local_train_state_shapes"](model.template, mesh, "adamw")
+    want = T["local_train_state_shapes"](model.template, mesh,
+                                         cfg.optimizer)
     for r in trainer.report():
         assert r["shapes"] == want, (r["rank"], r["shapes"], want)
     step, init = T["make_train_step"](model, schedule=lambda s: 1e-3)
@@ -428,20 +483,90 @@ def check_state(cfg, mesh, trainer, state, model):
     resumed = trainer.init_state(whole)
     again = trainer.gather_state(resumed)
     assert int(again.opt.step) == int(whole.opt.step) == 1
-    for got, want_ in ((again.params, whole.params), (again.opt.m,
-                                                      whole.opt.m),
-                       (again.opt.v, whole.opt.v)):
-        want_ = T["flatten"](want_)
-        for k, v in T["flatten"](got).items():
+    for got, want_ in ((T["flatten"](again.params),
+                        T["flatten"](whole.params)),
+                       (T["state_leaves"](again.opt),
+                        T["state_leaves"](whole.opt))):
+        assert sorted(got) == sorted(want_)
+        for k, v in got.items():
             assert torch.equal(v, want_[k].detach()), k
     return {"state_leaves": len(want), "checkpoint_files": len(files),
             "resumed_bitwise": True}
+
+
+#: the architectures and optimizers a (1, 2) mesh once refused: each
+#: builds and takes one step
+BUILDS = {"xlstm_1_3b": None, "jamba_1_5_large_398b": None,
+          "deepseek_v3_671b": None, "minicpm_2b": "adafactor"}
+
+
+def check_build(arch, pool):
+    """``make_train_step(mesh=)`` of reduced ``arch``'s config (with its
+    own optimizer, or ``BUILDS``') on a (1, 2) mesh builds, the ranks
+    draw their slices from the seed, and one step on 2 x 16 tokens is
+    finite; each leaf's ``update_sums`` (the change's sum of squares and
+    its dot product with the draw, over the ranks' distinct slices) is
+    the unsharded step's on ``Model(cfg, seed=0)`` within 1e-2 (the sum
+    of the squares relative, the dot product of their scale), but for a
+    leaf whose gradient is f32 rounding noise (below 1e-6 of the tree's
+    largest: the mLSTM's input-gate bias, whose AdamW step is the
+    noise's sign)."""
+    cfg = T["get_config"](arch).reduced()
+    shape = (1, 2)
+    mesh = T["TrainingMesh"](("cpu",) * 2, axes_of(shape), shape)
+    flags = dataclasses.replace(T["TRAIN_FLAGS"], **flags_kw(arch, shape))
+    batch = tbatch(batch_np(cfg, 2, 16, 0), torch.float32)
+    step, init = T["make_train_step"](
+        cfg, schedule=lambda s: 1e-3, optimizer=BUILDS[arch], mesh=mesh,
+        flags=flags, pool=pool)
+    try:
+        _, m = step(init(seed=0), batch)
+        sums = step.trainer.update_sums(0)
+    finally:
+        step.trainer.close()
+    m = {k: float(v) for k, v in m.items()}
+    assert all(np.isfinite(v) for v in m.values()), m
+    model = T["Model"](cfg, device="cpu", seed=0)
+    w0 = {k: v.detach().double().clone()
+          for k, v in T["flatten"](model.params).items()}
+    pstep, pinit = T["make_train_step"](model, schedule=lambda s: 1e-3,
+                                        optimizer=BUILDS[arch], flags=flags)
+    top = {}
+
+    def keep(k):
+        def hook(q):
+            top[k] = float(q.grad.abs().max())
+        return hook
+    hooks = [q.requires_grad_(True).register_post_accumulate_grad_hook(
+        keep(k)) for k, q in T["flatten"](model.params).items()]
+    state, _ = pstep(pinit(model.params), batch)
+    for h in hooks:
+        h.remove()
+    noise = 1e-6 * max(top.values())
+    worst, where = 0.0, None
+    for k, p in T["flatten"](state.params).items():
+        if top.get(k, 0.0) <= noise:
+            continue
+        d = p.detach().double() - w0[k]
+        sq, dot = float((d * d).sum()), float((d * w0[k]).sum())
+        scale = math.sqrt(sq * float((w0[k] ** 2).sum()))
+        rel = max(abs(sums[k][0] - sq) / max(sq, 1e-30),
+                  abs(sums[k][1] - dot) / max(scale, 1e-30))
+        if rel > worst:
+            worst, where = rel, (k, sums[k], [sq, dot])
+    assert worst <= 1e-2, (arch, worst, where)
+    m["update_sums_rel"] = worst
+    return m
 
 
 def main(names):
     _imports()
     pools = {}
     t0 = time.perf_counter()
+    for arch in BUILDS:
+        if not names or f"builds/{arch}" in names:
+            pool = pools.setdefault(2, T["WorkerPool"]())
+            verdict(f"builds/{arch}", lambda: check_build(arch, pool))
     for case in CASES:
         if names and case[0] not in names:
             continue

@@ -140,12 +140,15 @@ def test_chunked_attention_matches_jax(S, T, q_offset):
     assert _rel(want, got.numpy()) <= TOL
 
 
-def test_sequence_parallel_attention_refused():
+def test_sequence_parallel_attention_refused(layer):
     """``sequence_parallel_attention`` is ported (ROADMAP item 11c-i):
-    without a training group it is ``chunked_attention``; MLA's
-    sequence-parallel branch stays refused on a training mesh, naming
-    item 11c-ii."""
-    from repro_torch.models.transformer import check_mesh_support
+    without a training group it is ``chunked_attention``.  MLA's
+    sequence-parallel branch is ported too (item 11c-ii): on a training
+    rank whose model line is one rank, ``mla.mesh_forward`` takes the
+    whole arm and is ``mla_forward``'s output bitwise, and JAX's
+    ``mla_apply`` within the layer limit."""
+    from repro_torch.models import chunked_attention as ca
+    from repro_torch.sharding.group import Line
     rng = np.random.RandomState(5)
     q, k, v = (torch.as_tensor(rng.randn(2, 24, 4, 16), dtype=torch.float32)
                for _ in range(3))
@@ -153,9 +156,17 @@ def test_sequence_parallel_attention_refused():
         sequence_parallel_attention(q, k, v, causal=True, window=0,
                                     flags=None),
         chunked_attention(q, k, v, causal=True))
-    with pytest.raises(NotImplementedError,
-                       match="MLA.*Queue 1 item 11c-ii"):
-        check_mesh_support(get_config("deepseek_v3_671b").reduced())
+    cfg, jcfg, jp, tp = layer
+    x, pos = _x(cfg, 2, 11, 2), _pos(2, 11)
+    one = Line("model", [0], 0, None, None)
+    flags = dataclasses.replace(FLAGS, train=types.SimpleNamespace(model=one))
+    ca.ARMS.clear()
+    got = mla.mesh_forward(tp, cfg, _t(x), _t(pos), flags)
+    assert dict(ca.ARMS) == {"whole": 1}
+    assert torch.equal(got, mla.mla_forward(tp, cfg, _t(x), _t(pos),
+                                            FLAGS)[0])
+    jy, _ = jax_mla.mla_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    assert _rel(jy, got.numpy()) <= TOL
 
 
 def test_prefill_matches_jax(layer):

@@ -1,4 +1,5 @@
-"""The port's training on a mesh (ROADMAP item 11c-i) on the CPU.
+"""The port's training on a mesh (ROADMAP item 11c-i) on the CPU (item
+11c-ii's mixers, MLA and Adafactor: ``test_torch_train_mesh_mixers.py``).
 
 The equivalence runs in ONE subprocess (``tests/_torch_train_mesh_battery.py``):
 JAX's ``make_train_step`` under an ``Auto``-typed mesh of 4 forced host
@@ -11,10 +12,11 @@ the expert-parallel cases' drops are held to ``moe.ep_plain``'s, and one
 case checks each rank's state shapes and the mesh checkpoint.  The
 tests here are thin assertions over its JSON verdicts, one per case.
 
-In this process: the meshes and their errors, ``train_state_specs`` and
-``batch_specs``, the refusals that name item 11c-ii (xlstm_1_3b,
-jamba_1_5_large_398b, deepseek_v3_671b, Adafactor), the flags a mesh
-checks, ``moe_impl="ep"`` without a mesh (``ep_plain``) and the
+The architectures and the optimizer a mesh refused before item 11c-ii
+(xlstm_1_3b, jamba_1_5_large_398b, deepseek_v3_671b, Adafactor) build
+and take a step there too.  In this process: the meshes and their
+errors, ``train_state_specs`` (AdamW's and Adafactor's) and
+``batch_specs``, the flags a mesh checks, ``moe_impl="ep"`` without a mesh (``ep_plain``) and the
 launcher's ``--host-mesh`` over two CPU ranks.
 """
 import dataclasses
@@ -147,8 +149,19 @@ def test_train_state_and_batch_specs():
     shapes = rules.local_train_state_shapes(tmpl, mesh, "adamw")
     assert shapes["params.embed.embedding"] == (512, 128)
     assert shapes["m.blocks.l0.ffn.w_down"] == (2, 256, 128)
-    with pytest.raises(NotImplementedError, match="11c-ii"):
-        rules.train_state_specs(tmpl, mesh, "adafactor")
+    ada = rules.train_state_specs(tmpl, mesh, "adafactor")
+    assert ada.opt.m is None and ada.params == st.params
+    # a factored leaf: rows by the param's spec but its last entry,
+    # columns by resolve_spec of its own dims; a vector: the param's
+    assert ada.opt.v["blocks"]["l0"]["ffn"]["w_down"] == rules.Factors(
+        (None, "model"), (None, "data"))
+    assert ada.opt.v["embed"]["embedding"] == rules.Factors(
+        ("model",), ("data",))
+    assert ada.opt.v["final_norm"]["scale"] == ("data",)
+    ashapes = rules.local_train_state_shapes(tmpl, mesh, "adafactor")
+    assert ashapes["v.blocks.l0.ffn.w_down.0"] == (2, 256)
+    assert ashapes["v.blocks.l0.ffn.w_down.1"] == (2, 128)
+    assert not any(k.startswith("m.") for k in ashapes)
     assert rules.batch_specs({"tokens": (4, 64), "odd": (3, 64)}, mesh) == \
         {"tokens": ("data",), "odd": ()}
     pod = TrainingMesh(("cpu",) * 4, ("pod", "data", "model"), (2, 1, 2))
@@ -156,27 +169,24 @@ def test_train_state_and_batch_specs():
         {"x": (("pod", "data"),)}
 
 
-REFUSALS = {"xlstm_1_3b": r"\['mlstm'\] mixers",
-            "jamba_1_5_large_398b": r"\['mamba'\] mixers",
-            "deepseek_v3_671b": "MLA",
+#: what a training mesh refused before the recurrent mixers, MLA, the
+#: MTP head and Adafactor were ported
+REFUSALS = {"xlstm_1_3b": "mLSTM", "jamba_1_5_large_398b": "Mamba",
+            "deepseek_v3_671b": "MLA, MTP, Adafactor",
             "minicpm_2b": "Adafactor"}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_mesh_refusals_name_11c_ii(name):
-    """What waits for item 11c-ii raises before any rank starts: the
-    recurrent mixers (reduced xlstm_1_3b's two mLSTM layers, jamba's
-    Mamba), MLA (deepseek_v3_671b, whose MTP head and Adafactor wait too)
-    and Adafactor (asked of minicpm_2b)."""
-    match = REFUSALS[name]
-    cfg = get_config(name).reduced()
-    model = Model(cfg, device="cpu")
-    mesh = TrainingMesh(("cpu",) * 2, ("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}.*Queue 1 item 11c-ii"):
-        make_train_step(model, schedule=lambda s: s, mesh=mesh,
-                        optimizer="adafactor" if name == "minicpm_2b"
-                        else None)
+def test_mesh_refusals_name_11c_ii(battery, name):
+    """What a training mesh once refused (ROADMAP item 11c-ii) now builds
+    on a (1, 2) mesh from its config and takes one step: reduced
+    xlstm_1_3b's mLSTM layers, jamba's Mamba and Adafactor,
+    deepseek_v3_671b's MLA, MTP head and Adafactor, and Adafactor asked
+    of minicpm_2b; the ranks' update sums of every leaf are the
+    unsharded step's (the battery's ``check_build``)."""
+    m = _check(battery, f"builds/{name}")
+    assert np.isfinite(m["loss"]) and m["grad_norm"] > 0
+    assert ("mtp_loss" in m) == (name == "deepseek_v3_671b")
 
 
 def test_mesh_flags_checked():

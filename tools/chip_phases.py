@@ -6,6 +6,7 @@ loop than the whole script while a phase is being written.
     python3 tools/chip_phases.py kernels,tp_mla,tp_hd,tp_encdec
     python3 tools/chip_phases.py window_kernels,window_main_path,mla_window,mla_layouts
     python3 tools/chip_phases.py train_mesh,train_mesh_seq,train_ep
+    python3 tools/chip_phases.py train_mesh_sp,train_mesh_hybrid,train_mesh_mla
 
 ``kernels`` holds K2, K4, K5 and K3 against their plain versions at one
 rank's heads under tensor-parallel serving (granite_moe_3b_a800m's 12
@@ -22,9 +23,10 @@ beside its plain version and SDPA with the same boolean mask;
 ``mla_layouts`` builds deepseek_v3_671b's two layers and serves
 ``mla_serve``'s requests on a roomy paged arena first, the reference
 that ``chip_smoke.py`` takes from ``mla_serve``.  The phases of ROADMAP
-item 11c-i, ``train_mesh``, ``train_mesh_seq`` and ``train_ep``, are
-``chip_smoke.py``'s (``train_mesh_seq`` starts its own 8 ranks here,
-where ``chip_smoke.py`` takes ``tp_hd``'s).  Builds the kernels first (``phase_build``).  Prints the
+item 11c-i, ``train_mesh``, ``train_mesh_seq`` and ``train_ep``, and of
+item 11c-ii, ``train_mesh_sp``, ``train_mesh_hybrid`` and
+``train_mesh_mla``, are ``chip_smoke.py``'s (``train_mesh_seq`` starts
+its own 8 ranks here, where ``chip_smoke.py`` takes ``tp_hd``'s).  Builds the kernels first (``phase_build``).  Prints the
 phases' JSON lines, then the card's name and power limit; exits
 non-zero without a card or at the first failed check.
 """
@@ -106,7 +108,10 @@ WINDOW_PHASES = {"window_main_path": cs.phase_window_main_path,
                  "mla_layouts": mla_layouts,
                  "train_mesh": cs.phase_train_mesh,
                  "train_mesh_seq": cs.phase_train_mesh_seq,
-                 "train_ep": cs.phase_train_ep}
+                 "train_ep": cs.phase_train_ep,
+                 "train_mesh_sp": cs.phase_train_mesh_sp,
+                 "train_mesh_hybrid": cs.phase_train_mesh_hybrid,
+                 "train_mesh_mla": cs.phase_train_mesh_mla}
 
 
 def main(argv) -> int:
