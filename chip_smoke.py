@@ -149,8 +149,15 @@ jamba's 32 over 4: K2, K4, K5, K3 and granite's 256-row chunk) and at
 the stub models' (K1 at widths 1024 and 3072,
 K3 over two rows of phi_3_vision_4_2b's 592-row prefill and of a
 16-token prompt, K2, K4 and K5 at 32 heads of 96 and 16 of 64), and
-``gemm_width`` reads granite's router and expert products.  Every phase
-and check
+``gemm_width`` reads granite's router and expert products.  Last, phase
+``cost_model`` (ROADMAP item 11d) counts four steps the run timed
+(minicpm_2b's captured paged tick, granite's, deepseek_7b's captured
+window tick, minicpm_2b's 8 x 256 train step) and the ``times`` phase's
+kernel rows on ``meta`` tensors with the op counter
+(``launch/op_cost.py``), on the host, and holds the counted roofline
+below each step's measured ms, each tick's counted bytes above its
+phase's bound and each kernel's counted bytes and operations within 1%
+of its row's bound.  Every phase and check
 prints a JSON line; any failure raises and exits non-zero.  The last
 lines are the card's name and power limit, the kernel summary, and
 ``{"ok": true, "device": {...}}``.
@@ -182,10 +189,9 @@ VERIFY_WIDTH = 4
 REPS = 10                     # timed calls per kernel and method
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
-# FLOP/s, f32 FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+# FLOP/s, f32 FLOP/s outside the tensor cores; ``setup`` reads them from
+# ``repro_torch.launch.mesh``, the roofline's one definition
+HBM_BPS = BF16_FLOPS = F32_FLOPS = None
 
 # tolerance of a kernel against its plain version, as allclose with
 # atol = rtol: f32 differs by reduction order and approximate rsqrt/exp
@@ -228,6 +234,18 @@ def add_counts(total, counts):
     return total
 
 
+#: the steps whose device time a phase measured, for ``cost_model`` to
+#: count on ``meta`` at their exact shapes and flags: dicts of the
+#: step's name, its phase, ``measured_ms`` and how it was read, the
+#: phase's own bound, and ``count`` (runs the step on meta under an op
+#: counter: (counter, argument bytes))
+COST_STEPS = []
+#: the ``times`` phase's kernel calls at its rows' shapes: name -> (the
+#: call on meta operands, with host positions, the row's bound bytes and
+#: operations)
+COST_KERNELS = {}
+
+
 def setup():
     import torch
     if not torch.cuda.is_available():
@@ -236,6 +254,10 @@ def setup():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BPS, BF16_FLOPS, F32_FLOPS
+    from repro_torch.launch import mesh
+    HBM_BPS, BF16_FLOPS, F32_FLOPS = (mesh.HBM_BW, mesh.PEAK_FLOPS_BF16,
+                                      mesh.PEAK_FLOPS_F32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch
@@ -2127,11 +2149,29 @@ def phase_captured(torch, captured, smi):
                                    max_len=SERVE_MAX_LEN),
              "eager": eager}
     for kind in ("paged", "slot"):
-        for name, r in interleaved_ticks(torch, steps, requests,
-                                         kind).items():
+        ticks = interleaved_ticks(torch, steps, requests, kind)
+        if kind == "paged":
+            paged = ticks
+        for name, r in ticks.items():
             emit({"phase": "captured_tick", "layout": kind, "steps": name,
                   **r, "nvidia_smi": smi})
     emit({"phase": "captured_graphs", **graph_count(steps["captured"])})
+    # the captured paged tick's device time (its ``graph_device_ms``),
+    # for cost_model, beside the tick's bytes bound (every weight once,
+    # each row's K/V at the middle of the ticks read)
+    engine = steps["captured"]
+    graph_ms = paged["captured"]["graph_device_ms"]
+    check(graph_ms is not None, "captured: no captured paged decode graph")
+    keys = sum(p.size + 3 + TICK_READS // 2
+               for p in requests[:SERVE_SLOTS])
+    nbytes = tick_weight_bytes(engine, SERVE_SLOTS) + 2 * keys \
+        * cfg.num_kv_heads * cfg.head_dim * 2 * cfg.num_layers
+    emit({"phase": "captured_tick_device", "layout": "paged",
+          "graph_device_ms": graph_ms, "bound_bytes": nbytes,
+          "bound_ms": nbytes / HBM_BPS * 1e3, "bound_by": "bytes"})
+    COST_STEPS.append(tick_cost(
+        "minicpm_2b captured paged tick, 4 slots", "captured", engine,
+        "paged", graph_ms, nbytes))
 
 
 def interleaved_ticks(torch, engines, requests, kind, ticks=TICK_READS,
@@ -2177,9 +2217,24 @@ def interleaved_ticks(torch, engines, requests, kind, ticks=TICK_READS,
                      "ms_p90": float(np.percentile(ms, 90)),
                      "ms_min": min(ms), "tokens_per_s": SERVE_SLOTS / (
                          med / 1e3),
+                     "graph_device_ms": graph_device_ms(
+                         torch, engines[name], kind),
                      **device_share(per, med, (
                          "rmsnorm_kernel", "fused_decode_mma_kernel"))}
     return out
+
+
+def graph_device_ms(torch, engine, kind, slots=SERVE_SLOTS):
+    """The captured decode graph's device ms on ``kind``'s layout at
+    ``slots`` rows, by CUDA events over queued replays (None for an
+    engine without one).  Read while the backend whose cache the graph
+    was captured on lives: a replay after it is freed reads freed
+    memory."""
+    graphs = [cs for key, cs in (engine.graphs.steps.items()
+                                 if engine.graphs is not None else ())
+              if key[:2] == ("decode", kind) and key[3] == slots]
+    return cuda_ms(torch, graphs[-1].graph.replay, profile=False)[0] \
+        if graphs else None
 
 
 # ---------------------------------------------------------------------------
@@ -3515,7 +3570,7 @@ def phase_moe_tick(torch, engine, smi):
     graph = [cs for key, cs in engine.graphs.steps.items()
              if key[:2] == ("decode", "paged") and key[3] == SERVE_SLOTS]
     check(len(graph) >= 1, "moe_tick: no captured paged decode graph")
-    graph_ms = cuda_ms(torch, graph[-1].graph.replay, profile=False)[0]
+    graph_ms = r["graph_device_ms"]
     x = torch.randn(SERVE_SLOTS, 1, cfg.d_model, device=engine.device).to(
         DTYPES[cfg.dtype])
     layer = engine.model.groups[0]["l0"]["ffn"]
@@ -3552,6 +3607,9 @@ def phase_moe_tick(torch, engine, smi):
           "top_kernels_ms_per_tick": tick_top,
           "top_kernels_ms_per_moe_layer": moe_top,
           "nvidia_smi": smi})
+    COST_STEPS.append(tick_cost(
+        "granite_moe_3b_a800m captured paged tick, 4 slots", "moe_tick",
+        engine, "paged", graph_ms, weights + kv))
 
 
 # ---------------------------------------------------------------------------
@@ -4822,6 +4880,10 @@ def phase_window_main_path(torch, smi):
     check(bool(np.array_equal(toks["captured"], toks["eager"]))
           and same_cache, "window_tick: the captured tick's tokens or "
                           "cache differ from the eager tick's")
+    if graph_ms is not None:
+        COST_STEPS.append(tick_cost(
+            "deepseek_7b captured window tick, 2 slots", "window_tick",
+            engine, "slot", graph_ms, nbytes, slots=WINDOW_SLOTS))
     del engine
     free_card(torch)
     return counts
@@ -5951,6 +6013,8 @@ def train_steps(torch, smi, cfg, arch, phase, rec=None):
             "grad_max_abs": g_max, "kernel_flags_refused": refused,
             **train_numbers(torch, cfg, model, shape, ms, smi, per)}
     emit(line)
+    if phase == "train_main_path":
+        COST_STEPS.append(train_cost(cfg, shape, line))
     # the grad norm sums each leaf's squares in f32, as JAX does: a
     # gradient element past sqrt(f32 max) overflows it to inf there too
     overflow = g_max > math.sqrt(torch.finfo(torch.float32).max)
@@ -6567,10 +6631,8 @@ def mesh_trainer(torch, cfg, shape, flags_kw, schedule, pool=None):
 
 def param_count(cfg):
     """The number of parameters of ``cfg``'s model, from its template."""
-    from repro_torch.models.params import flatten
-    from repro_torch.models.transformer import model_template
-    return sum(math.prod(s.shape)
-               for s in flatten(model_template(cfg)).values())
+    from repro_torch.models.model import Model
+    return Model(cfg, device="meta").param_count()
 
 
 def drawn_alike(torch, trainer, state, model):
@@ -7412,6 +7474,167 @@ def measure(torch, kernel, plain, library, profile=True, plain_queue=True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# cost_model — the op counter (``launch/op_cost.py``) held against steps
+# the card timed in this run
+# ---------------------------------------------------------------------------
+
+def on_meta(*ts):
+    """``meta`` tensors of ``ts``' shapes and dtypes."""
+    return tuple(t.to("meta") for t in ts)
+
+
+def tick_cost(name, phase, engine, layout, measured_ms, bound_bytes,
+              slots=SERVE_SLOTS):
+    """A decode tick's entry in COST_STEPS: ``engine``'s serve decode
+    step at its flags, ``slots`` rows, its ``max_len``, on the ``paged``
+    layout of ``interleaved_ticks`` (ROOMY_BLOCKS of SERVE_BLOCK) or the
+    slot layout."""
+    cfg, flags, max_len = engine.cfg, engine.flags, engine.max_len
+
+    def count():
+        import torch
+        from repro_torch.launch.dryrun import tree_bytes as nbytes
+        from repro_torch.launch.op_cost import OpCounter
+        from repro_torch.models.model import Model
+        from repro_torch.runtime.steps import make_serve_decode_step
+        model = Model(cfg, device="meta")
+
+        def meta(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        if layout == "paged":
+            cache = model.new_paged_cache(ROOMY_BLOCKS, SERVE_BLOCK)
+            tables = meta(slots, max_len // SERVE_BLOCK)
+        else:
+            cache, tables = model.new_cache(slots, max_len), None
+        args = (meta(slots, 1), cache, meta(slots), meta(
+            slots, dtype=torch.bool), tables)
+        step = make_serve_decode_step(model, flags)
+        with OpCounter() as c:
+            step(*args)
+        return c, nbytes(model.params) + nbytes(args)
+    return {"step": name, "phase": phase, "kind": "tick",
+            "measured_ms": measured_ms,
+            "measured_by": "CUDA events over queued replays of the "
+                           "captured graph",
+            "bound_bytes": bound_bytes,
+            "bound_ms": bound_bytes / HBM_BPS * 1e3, "count": count}
+
+
+def train_cost(cfg, shape, line):
+    """The train step's entry in COST_STEPS: ``make_train_step`` as
+    ``train_steps`` builds it, on a [B, S] batch."""
+    def count():
+        import torch
+        from repro_torch.launch.dryrun import tree_bytes as nbytes
+        from repro_torch.launch.op_cost import OpCounter
+        from repro_torch.models.model import Model
+        from repro_torch.runtime.steps import make_train_step
+        model = Model(cfg, device="meta")
+        step, init = make_train_step(model, schedule=launcher_schedule(
+            cfg, TRAIN_STEPS))
+        state = init(model.params)
+        batch = {k: torch.empty(shape, dtype=torch.long, device="meta")
+                 for k in ("tokens", "labels")}
+        with OpCounter() as c:
+            step(state, batch)
+        return c, nbytes(state.params) + nbytes((state.opt.m, state.opt.v)) \
+            + nbytes(batch)
+    device = line["device_ms_per_step"]
+    return {"step": f"{cfg.name} train step {shape[0]} x {shape[1]}",
+            "phase": "train_main_path", "kind": "train",
+            "measured_ms": device or line["median_step_ms"],
+            "measured_by": "torch.profiler's kernel sum over one step"
+                           if device else "the step's median wall ms (the "
+                           "profiler recorded no device time)",
+            "bound_ms": line["bound_ms"], "bound_flops": line["step_flops"],
+            "max_memory_allocated": line["max_memory_allocated"],
+            "count": count}
+
+
+def phase_cost_model(torch, smi, steps=None):
+    """The op counter against the steps this run timed (COST_STEPS:
+    ``steps`` of them when given) and the ``times`` phase's kernel rows
+    (COST_KERNELS): each counted on the host on ``meta`` tensors at the
+    step's exact shapes and flags, with the kernels' path where the card
+    ran the kernels; no step runs on the card.  For each step: the
+    counted FLOPs, bytes and collective bytes, the roofline ms with the
+    port's constants (``launch/analysis.py``), the measured device ms,
+    measured over counted bound, and the phase's own bound beside the
+    counted one; for the train step the counted peak beside
+    ``max_memory_allocated`` (printed only).  Gates: (a) no counted
+    roofline above its step's measured ms; (b) each decode tick's
+    counted bytes at least its phase's weights + K/V bound bytes; (c)
+    each kernel's counted bytes and operations within 1% of its
+    ``times`` row's bound."""
+    import collections
+    from repro_torch.launch.analysis import roofline
+    t0 = time.perf_counter()
+    if steps is not None:
+        check(len(COST_STEPS) == steps, f"cost_model: {len(COST_STEPS)} "
+                                        f"timed steps, not {steps}")
+    for st in COST_STEPS:
+        t1 = time.perf_counter()
+        c, args = st["count"]()
+        rl = roofline(c.flops, c.bytes, sum(c.coll.values()), 1)
+        roof_ms = max(rl["compute_s"], rl["memory_s"],
+                      rl["collective_s"]) * 1e3
+        line = {"phase": "cost_model", "step": st["step"],
+                "timed_by_phase": st["phase"], "counted_flops": c.flops,
+                "counted_bytes": c.bytes,
+                "counted_collective_bytes": sum(c.coll.values()),
+                "compute_ms": rl["compute_s"] * 1e3,
+                "memory_ms": rl["memory_s"] * 1e3,
+                "collective_ms": rl["collective_s"] * 1e3,
+                "dominant": rl["dominant"], "roofline_ms": roof_ms,
+                "measured_ms": st["measured_ms"],
+                "measured_by": st["measured_by"],
+                "measured_over_counted_bound": st["measured_ms"] / roof_ms,
+                "phase_bound_ms": st["bound_ms"],
+                "phase_bound_over_counted_bound": st["bound_ms"] / roof_ms,
+                "kernel_calls": dict(collections.Counter(
+                    k["name"] for k in c.kernels)),
+                "count_seconds": time.perf_counter() - t1,
+                "nvidia_smi": smi}
+        if st["kind"] == "tick":
+            line["phase_bound_bytes"] = st["bound_bytes"]
+        else:
+            line["phase_bound_flops"] = st["bound_flops"]
+            line["counted_peak_gb"] = (c.peak_bytes + args) / 2**30
+            line["max_memory_allocated_gb"] = \
+                st["max_memory_allocated"] / 2**30 \
+                if st["max_memory_allocated"] else None
+        emit(line)
+        check(roof_ms <= st["measured_ms"],
+              f"cost_model {st['step']}: counted roofline {roof_ms} ms "
+              f"above the measured {st['measured_ms']} ms")
+        if st["kind"] == "tick":
+            check(c.bytes >= st["bound_bytes"],
+                  f"cost_model {st['step']}: counted bytes {c.bytes} below "
+                  f"the phase's bound {st['bound_bytes']}")
+    for name, (call, nbytes, flops) in COST_KERNELS.items():
+        from repro_torch.launch.op_cost import OpCounter
+        with OpCounter() as c:
+            call()
+        check([k["name"] for k in c.kernels] == [name],
+              f"cost_model {name}: recorded {c.kernels}")
+        k = c.kernels[0]
+        emit({"phase": "cost_model", "kernel": name,
+              "counted_bytes": k["bytes"], "times_bound_bytes": nbytes,
+              "counted_operations": k["flops"],
+              "times_bound_operations": flops})
+        check(abs(k["bytes"] - nbytes) <= 0.01 * nbytes
+              and abs(k["flops"] - flops) <= 0.01 * flops,
+              f"cost_model {name}: counted {k['bytes']} bytes and "
+              f"{k['flops']} operations, the times bound {nbytes} and "
+              f"{flops}")
+    check(set(COST_KERNELS) == set(SOURCES),
+          f"cost_model: kernels {sorted(COST_KERNELS)}")
+    emit({"phase": "cost_model", "steps": len(COST_STEPS),
+          "kernels": len(COST_KERNELS),
+          "seconds": time.perf_counter() - t0})
+
+
 def bound(bytes_, flops, peak_flops):
     t_bytes, t_ops = bytes_ / HBM_BPS * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -7419,7 +7642,7 @@ def bound(bytes_, flops, peak_flops):
 
 def phase_times(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_decode import fused_flash_decode_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -7437,6 +7660,8 @@ def phase_times(torch):
     s = torch.ones(d, device=dev, dtype=bf)
     nbytes = 2 * x.numel() * 2 + d * 2
     b_ms, b_by = bound(nbytes, 4 * x.numel(), F32_FLOPS)
+    COST_KERNELS["rmsnorm"] = (
+        lambda: ops.rmsnorm(*on_meta(x, s)), nbytes, 4 * x.numel())
     rows["rmsnorm"] = {
         "shape": [4, d],
         **measure(torch, lambda: rmsnorm_cuda(x, s),
@@ -7464,19 +7689,25 @@ def phase_times(torch):
                for _ in range(3))
     pairs = B * H * S * (S + 1) // 2
     b_ms, b_by = bound(4 * q.numel() * 2, 4 * hd * pairs, BF16_FLOPS)
+    COST_KERNELS["flash_attention"] = (
+        lambda: ops.flash_attention(*on_meta(q, k, v)), 4 * q.numel() * 2,
+        4 * hd * pairs)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rows["flash_attention"] = {
         "shape": [B, S, H, hd],
         **measure(torch, lambda: flash_attention_cuda(q, k, v),
                   lambda: ref.flash_attention_ref(q, k, v),
                   lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=True)),
+                      qt, kt, vt, is_causal=True), profile=False),
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": 0,
         "launches_per_prefill": L}
 
     # K3 at the serve workload's chunk (256 rows at q_offset 512 over
-    # 768 keys) and at qwen3_32b's full prefill of 1024 rows
-    for r in time_flash_shapes(torch, g):
+    # 768 keys) and at qwen3_32b's full prefill of 1024 rows (the
+    # windowed prefill is timed by ``tools/chip_phases.py window_kernels``
+    # alone, to pay for ``cost_model``)
+    for r in time_flash_shapes(torch, g, [t for t in FLASH_TIMED
+                                          if len(t) == 7]):
         emit({"phase": "times", "kernel": "flash_attention", **r})
 
     # K2 at the decode tick's shape: 4 slots, max_len 512, S' = 1, rows
@@ -7490,16 +7721,23 @@ def phase_times(torch):
     kn, vn = (torch.randn(B, 1, H, hd, device=dev, generator=g).to(bf)
               for _ in range(2))
     freqs = ref.rope_freqs(hd, 10_000.0, dev)
+    # the bound reads each row's keys once (the new token's K/V are
+    # written once instead), q, the new K/V and the output once
     keys = int((pos + 1).sum())
     nbytes = (2 * keys * H * hd * 2 + 4 * qd.numel() * 2
-              + 2 * qd.numel() * 2 + tables.numel() * 4 + B * 4)
+              + tables.numel() * 4 + B * 4)
     b_ms, b_by = bound(nbytes, 4 * hd * H * keys, BF16_FLOPS)
+    COST_KERNELS["fused_flash_decode"] = (
+        lambda: ops.fused_flash_decode(*on_meta(
+            qd, kn, vn, arena[0], arena[1], tables), pos.cpu(),
+            *on_meta(freqs)), nbytes, 4 * hd * H * keys)
     rows["fused_flash_decode"] = {
         "shape": [B, 1, H, hd], "max_len": MAX_LEN,
         **measure(torch, lambda: fused_flash_decode_cuda(
             qd, kn, vn, arena[0], arena[1], tables, pos, freqs),
             lambda: ref.fused_flash_decode_ref(
-                qd, kn, vn, arena[0], arena[1], tables, pos, freqs), None),
+                qd, kn, vn, arena[0], arena[1], tables, pos, freqs), None,
+            profile=False),
         "library_note": "no single PyTorch call rotates, scatters into a "
                         "paged arena and attends",
         "bound_ms": b_ms, "bound_by": b_by, "launches_per_tick": L}
@@ -7557,7 +7795,7 @@ FLASH_TIMED = (("serve chunk minicpm_2b", 1, SERVE_CHUNK, 36, 36, 64,
                 LONG_WINDOW))
 
 
-def time_flash_shapes(torch, g):
+def time_flash_shapes(torch, g, shapes=None):
     """K3 at FLASH_TIMED beside its plain version and SDPA: with an
     explicit boolean mask where q_offset > 0 or a window is set (the
     same mask), ``is_causal`` otherwise.  The bound counts q, k, v read
@@ -7570,7 +7808,7 @@ def time_flash_shapes(torch, g):
     dev = torch.device("cuda")
     bf = torch.bfloat16
     rows = []
-    for name, B, S, H, KV, hd, off, *win in FLASH_TIMED:
+    for name, B, S, H, KV, hd, off, *win in shapes or FLASH_TIMED:
         window = win[0] if win else 0
         T = off + S
         q = torch.randn(B, S, H, hd, device=dev, generator=g).to(bf)
@@ -7668,7 +7906,7 @@ def paged_decode_inputs(torch, g, shape, keys, Sq):
     kv_bytes = 2 * sum(n + Sq - 1 for n in keys) * KV * hd * 2
     flops = 4 * hd * H * sum(n + s for n in keys for s in range(Sq))
     return ((q, kn, vn, kp, vp, tbl, pos, freqs),
-            bound(kv_bytes + io, flops, BF16_FLOPS), (kv_bytes, flops))
+            bound(kv_bytes + io, flops, BF16_FLOPS), (kv_bytes, flops, io))
 
 
 def time_paged_kernels(torch, g, shape, keys, Sq):
@@ -7682,9 +7920,16 @@ def time_paged_kernels(torch, g, shape, keys, Sq):
     from repro_torch.kernels.flash_decode import (
         fused_flash_decode_cuda, fused_flash_decode_splitk_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels import ops
     name, H, KV, hd = shape
-    args, b4, (kv_bytes, flops) = paged_decode_inputs(torch, g, shape, keys,
-                                                      Sq)
+    args, b4, (kv_bytes, flops, io) = paged_decode_inputs(torch, g, shape,
+                                                          keys, Sq)
+    if name == "minicpm_2b" and Sq == 1:
+        COST_KERNELS["fused_flash_decode_splitk"] = (
+            lambda: ops.fused_flash_decode(*on_meta(*args[:6]),
+                                           args[6].cpu(),
+                                           *on_meta(args[7]), split_k=True),
+            kv_bytes + io, flops)
     common = {"shape": list(args[0].shape), "arch": name, "kv_heads": KV,
               "keys": list(keys), "block_size": args[3].shape[1],
               "library_note": "no single PyTorch call rotates, scatters "
@@ -7708,8 +7953,12 @@ def time_paged_kernels(torch, g, shape, keys, Sq):
     B, T_len = tbl.shape[0], tbl.shape[1] * kp.shape[1]
     dev = kp.device
     q5 = torch.randn(B, H, hd, device=dev, generator=g).to(kp.dtype)
-    b5 = bound(kv_bytes + 2 * q5.numel() * 2 + tbl.numel() * 4 + B * 4,
-               flops, BF16_FLOPS)
+    b5_bytes = kv_bytes + 2 * q5.numel() * 2 + tbl.numel() * 4 + B * 4
+    b5 = bound(b5_bytes, flops, BF16_FLOPS)
+    if name == "minicpm_2b":
+        COST_KERNELS["paged_attention"] = (
+            lambda: ops.paged_attention(*on_meta(q5, kp, vp, tbl),
+                                        pos.cpu()), b5_bytes, flops)
     idx = torch.arange(T_len, device=dev)
     mask = (idx[None, :] <= pos[:, None].long())[:, None, None, :]
 
@@ -7860,6 +8109,8 @@ def main() -> int:
                     phase_train_hybrid(torch, smi)]
     free_card(torch)
     times = phase_times(torch)
+    # the op counter against the four steps timed above and the kernel rows
+    phase_cost_model(torch, smi, steps=4)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = times[name]

@@ -14,6 +14,14 @@ over ``("data", "model")``, ``(16, 16)``, or ``(2, 16, 16)`` over
 ``("pod", "data", "model")``, rank ``r`` at the row-major coordinates
 of ``r`` (as JAX lays a mesh's devices out) on ``devices[r]``.
 ``runtime.steps.make_train_step(..., mesh=)`` starts its ranks.
+
+The roofline constants below are one NVIDIA H100 SXM5 80GB's, from its
+data sheet: the counterpart of JAX's per-chip TPU figures, read by
+``launch/analysis.py``'s ``roofline``.  The production meshes (256 or
+512 cards) span nodes of 8, joined by InfiniBand, which is slower than
+NVLink; the collective term keeps JAX's single-constant design and
+prices every collective byte at one NVLink 4 link rate, so it is a
+lower bound off the node.
 """
 from __future__ import annotations
 
@@ -24,6 +32,17 @@ import torch
 
 #: seconds a collective waits for a rank before it fails the call
 DEFAULT_TIMEOUT_S = 60.0
+
+# H100 SXM5 80GB roofline constants (per card), NVIDIA H100 Tensor Core
+# GPU data sheet
+#: dense bf16 tensor-core FLOP/s (1979 TFLOP/s with sparsity, halved)
+PEAK_FLOPS_BF16 = 989e12
+#: f32 FLOP/s outside the tensor cores (an elementwise kernel's rate)
+PEAK_FLOPS_F32 = 67e12
+#: HBM3 bytes/s
+HBM_BW = 3.35e12
+#: NVLink 4 bytes/s each way (900 GB/s bidirectional per card)
+LINK_BW = 450e9
 
 
 @dataclasses.dataclass(frozen=True)

@@ -77,8 +77,7 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = cfg.reduced()
     model = Model(cfg, device=device, seed=args.seed)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} params={n_params:,d} "
+    print(f"arch={cfg.name} params={model.param_count():,d} "
           f"optimizer={cfg.optimizer} schedule={cfg.lr_schedule}")
 
     schedule = make_schedule(cfg.lr_schedule, peak_lr=args.lr,

@@ -18,13 +18,14 @@ heads and its slice of each recurrent state.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from . import transformer as tf
-from .config import ArchConfig
+from .config import ArchConfig, InputShape
 from .layers import rows_padded
 from .params import DTYPES, _init_leaf, flatten, unflatten
 from ..sharding.rules import owned, param_parts, param_specs, shard_tensor
@@ -83,7 +84,14 @@ class Model(nn.Module):
             return owned(shard_tensor(t, specs[path], self.mesh, rank,
                                       parts[path]))
 
-        if params is None:
+        if params is None and device.type == "meta":
+            # the abstract model: shapes and dtypes only, nothing drawn (a
+            # generator cannot live on ``meta``)
+            dt = DTYPES[cfg.dtype]
+            tree = unflatten({path: local(path, torch.empty(
+                spec.shape, dtype=dt, device=device))
+                for path, spec in flatten(self.template).items()})
+        elif params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             dt = DTYPES[cfg.dtype]
             tree = unflatten({path: local(path, _init_leaf(spec, gen, dt,
@@ -125,6 +133,52 @@ class Model(nn.Module):
     def params(self):
         """The weights as a nested dict of tensors (the JAX tree)."""
         return unflatten(dict(self.named_parameters()))
+
+    def abstract(self) -> Dict[str, Any]:
+        """The whole parameter tree as ``meta`` tensors of the template's
+        shapes and the config's dtype (JAX's ``Model.abstract``): no
+        allocation, nothing drawn, the whole model even on a mesh."""
+        dt = DTYPES[self.cfg.dtype]
+        return unflatten({path: torch.empty(spec.shape, dtype=dt,
+                                            device="meta")
+                          for path, spec in flatten(self.template).items()})
+
+    def param_count(self) -> int:
+        """The whole model's parameter count, from the template (JAX's
+        ``Model.param_count``): the same on every rank of a mesh."""
+        return sum(math.prod(spec.shape)
+                   for spec in flatten(self.template).values())
+
+    def input_shapes_for(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        """``meta`` tensors of JAX's ``input_shapes_for`` shapes and dtypes:
+        every model input of a step under ``shape``.  The modality stubs'
+        embeddings arrive precomputed: an encoder-decoder's encoder
+        frames ``enc_embeds`` [B, S, d] (its decoder prefills one token),
+        a ``frontend``'s ``prefix_embeds`` [B, P, d] before S - P
+        tokens."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32, dt = torch.int32, DTYPES[cfg.dtype]
+
+        def meta(dims, dtype):
+            return torch.empty(dims, dtype=dtype, device="meta")
+        specs: Dict[str, torch.Tensor] = {}
+        if shape.kind == "decode":
+            specs["tokens"] = meta((B, 1), i32)
+            return specs
+        if cfg.is_encoder_decoder:
+            specs["enc_embeds"] = meta((B, S, cfg.d_model), dt)
+            specs["tokens"] = meta((B, S if shape.kind == "train" else 1),
+                                   i32)
+        elif cfg.frontend:
+            P = cfg.num_prefix_embeddings
+            specs["prefix_embeds"] = meta((B, P, cfg.d_model), dt)
+            specs["tokens"] = meta((B, S - P), i32)
+        else:
+            specs["tokens"] = meta((B, S), i32)
+        if shape.kind == "train":
+            specs["labels"] = meta((B, S), i32)
+        return specs
 
     # ---- compute ------------------------------------------------------
     def forward(self, tokens: torch.Tensor,

@@ -58,7 +58,7 @@ from ..models.params import DTYPES, _init_leaf, flatten, tree_map, unflatten
 from ..optim import make_optimizer
 from ..optim.optimizers import LeafCut, OptState, adafactor_init
 from ..sharding import group as tp_group
-from ..sharding.group import TrainGroup, line_sum, tp_reduce_parts
+from ..sharding.group import line_sum, tp_reduce_parts
 from ..sharding.rules import (Factors, _batch_axes, _entry_slice, _names,
                               batch_specs, local_train_state, owned,
                               param_parts, param_specs, place, shard_tensor,
@@ -110,7 +110,7 @@ class Rank:
         self.device = torch.device(self.mesh.devices[self.rank])
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        self.group = TrainGroup(coll, self.mesh, payload["tag"])
+        self.group = coll.train_group(self.mesh, payload["tag"])
         self.template = tf.model_template(self.cfg)
         self.specs = flatten(param_specs(self.template, self.mesh))
         self.parts = param_parts(self.template)
@@ -161,9 +161,14 @@ class Rank:
         tree), or of the tree drawn from ``seed`` leaf by leaf as
         ``Model(cfg, seed=seed)`` draws it on this device (each leaf cut
         as it is drawn)."""
-        if params is None:
+        dt = DTYPES[self.cfg.dtype]
+        if params is None and self.device.type == "meta":
+            # the cost analysis's rank: shapes only, nothing drawn
+            local = {path: self._local(path, torch.empty(
+                spec.shape, dtype=dt, device=self.device))
+                for path, spec in flatten(self.template).items()}
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            dt = DTYPES[self.cfg.dtype]
             local = {path: self._local(path, _init_leaf(spec, gen, dt,
                                                         self.device))
                      for path, spec in flatten(self.template).items()}
@@ -269,8 +274,10 @@ class Rank:
             _reduce_parts([v for k, v in grads.items()
                            if "data" in self._cut_axes(k)], g.pod)
             gnorm = self._grad_norm(grads)
-            self.grads_finite = bool(torch.stack(
-                [torch.isfinite(v).all() for v in grads.values()]).all())
+            finite = torch.stack([torch.isfinite(v).all()
+                                  for v in grads.values()]).all()
+            # a meta step (the cost analysis) has no values to read
+            self.grads_finite = None if finite.is_meta else bool(finite)
             parts = {k: v.detach().clone() for k, v in parts.items()}
             if g.split:
                 for v in parts.values():
@@ -297,7 +304,9 @@ class Rank:
             sets.setdefault(self._cut_axes(k), []).append(_square_sum(v))
         total = torch.zeros((), dtype=torch.float32)
         for axes in sorted(sets):
-            t = torch.stack(sets[axes]).sum().cpu()
+            t = torch.stack(sets[axes]).sum()
+            # the sums are read on the host; a meta step's stay meta
+            t = t if t.is_meta else t.cpu()
             for a in axes:
                 self.group.lines[a].all_reduce(t)
             total = total + t

@@ -146,6 +146,10 @@ class Collectives:
         return [pickle.loads(o[:int(s)].numpy().tobytes())
                 for o, s in zip(out, sizes)]
 
+    def train_group(self, mesh, tag: str) -> "TrainGroup":
+        """This rank's side of a training mesh's lines."""
+        return TrainGroup(self, mesh, tag)
+
 
 def tp_reduce(y: torch.Tensor, flags, partial: bool = True) -> torch.Tensor:
     """The partial product ``y`` of a row-parallel weight summed over
@@ -358,16 +362,15 @@ class TrainGroup:
         rank = coll.rank
         self.mesh, self.rank, self.coll = mesh, rank, coll
         self.coords = mesh_coords(mesh, rank)
+        self.tag = tag
         n = len(mesh.devices)
         every = [mesh_coords(mesh, r) for r in range(n)]
-        timeout = datetime.timedelta(seconds=mesh.timeout_s)
-        store = dist.PrefixStore(f"train/{tag}", coll.store)
         self.lines: Dict[str, Line] = {}
         for name, axes in LINES:
             members = [r for r in range(n)
                        if all(every[r][a] == self.coords[a]
                               for a in mesh.axis_names if a not in axes)]
-            self.lines[name] = Line(name, members, rank, store, timeout)
+            self.lines[name] = self._line(name, members)
         self.specs: Dict[str, Tuple] = {}
         self.split = False
         self.drops: Optional[Dict[str, int]] = None
@@ -375,6 +378,11 @@ class TrainGroup:
         #: the step's embedding and head gathered over data, which an MTP
         #: head reuses (``transformer.mesh_mtp_logits``)
         self.vocab: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def _line(self, name: str, members: List[int]) -> Line:
+        timeout = datetime.timedelta(seconds=self.mesh.timeout_s)
+        store = dist.PrefixStore(f"train/{self.tag}", self.coll.store)
+        return Line(name, members, self.rank, store, timeout)
 
     @property
     def model(self) -> Line:
@@ -498,6 +506,113 @@ def line_reduce(x: torch.Tensor, line: Optional[Line]) -> torch.Tensor:
     part: an all-reduce forward and backward (``line_sum`` then
     ``line_enter``)."""
     return line_enter(line_sum(x, line), line)
+
+
+# ---------------------------------------------------------------------------
+# a recording stand-in for a rank's group (the cost analysis)
+# ---------------------------------------------------------------------------
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class RecordingCollectives:
+    """A stand-in for one rank's :class:`Collectives` on a mesh whose
+    other ranks do not exist: the same methods, no process, no store.
+    Each collective returns a result of the right shape (on ``meta``
+    tensors, the cost analysis's, an empty one) and records its kind,
+    its axis line and its output bytes (JAX's ``hlo_cost`` rule) with
+    the active ``launch/op_cost.py`` counter.  A serving rank's sums run
+    on the ``model`` line; a training rank's lines are
+    :class:`RecordingLine` (:meth:`train_group`).  A sum returns its
+    operand as it is: the cost analysis reads shapes, not values."""
+
+    def __init__(self, mesh, rank: int = 0):
+        self.mesh, self.rank, self.size = mesh, rank, len(mesh.devices)
+        self.reduce_calls = 0
+        self.reduce_s = 0.0
+
+    def record(self, kind: str, line: str, out: int, inp: int) -> None:
+        from ..launch import op_cost
+        op_cost.record_collective(kind, line, int(out), int(inp))
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size > 1:
+            self.record("all-reduce", "model", _nbytes(t), _nbytes(t))
+            self.reduce_calls += 1
+        return t
+
+    def barrier(self) -> None:
+        pass
+
+    def broadcast(self, obj: Any = None) -> Any:
+        return obj
+
+    def gather_tensor(self, t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        return [t] * self.size if self.rank == 0 else None
+
+    def all_gather(self, obj: Any) -> List[Any]:
+        return [obj] * self.size
+
+    def train_group(self, mesh, tag: str) -> "RecordingGroup":
+        return RecordingGroup(self, mesh, tag)
+
+
+class RecordingLine(Line):
+    """A :class:`Line` whose other members do not exist: each collective
+    returns a result of its shape and records itself with the rank's
+    :class:`RecordingCollectives`, under the line's name.  The line's own
+    ``calls`` and ``bytes`` count as a gloo line's do (what the rank
+    would receive)."""
+
+    def __init__(self, name: str, members: List[int], rank: int,
+                 recorder: RecordingCollectives):
+        self.name, self.members = name, members
+        self.size, self.index = len(members), members.index(rank)
+        self.pg = None
+        self.recorder = recorder
+        self.reset()
+
+    def _record(self, kind: str, out: torch.Tensor, inp: torch.Tensor,
+                received: int) -> None:
+        self.recorder.record(kind, self.name, _nbytes(out), _nbytes(inp))
+        self._count(time.perf_counter(), received)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size > 1:
+            self._record("all-reduce", t, t, (self.size - 1) * _nbytes(t))
+        return t
+
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        return self.all_reduce(t)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        out = t.new_empty(shape)
+        self._record("all-gather", out, t, (self.size - 1) * _nbytes(t))
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] //= self.size
+        out = t.new_empty(shape)
+        self._record("reduce-scatter", out, t,
+                     (self.size - 1) * _nbytes(out))
+        return out
+
+
+class RecordingGroup(TrainGroup):
+    """A :class:`TrainGroup` of :class:`RecordingLine` s: one rank of a
+    training mesh whose other ranks do not exist (the cost analysis runs
+    rank 0's step on ``meta`` tensors through it)."""
+
+    def _line(self, name: str, members: List[int]) -> Line:
+        return RecordingLine(name, members, self.rank, self.coll)
 
 
 # ---------------------------------------------------------------------------

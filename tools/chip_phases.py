@@ -7,6 +7,7 @@ loop than the whole script while a phase is being written.
     python3 tools/chip_phases.py window_kernels,window_main_path,mla_window,mla_layouts
     python3 tools/chip_phases.py train_mesh,train_mesh_seq,train_ep
     python3 tools/chip_phases.py train_mesh_sp,train_mesh_hybrid,train_mesh_mla
+    python3 tools/chip_phases.py window_main_path,cost_model
 
 ``kernels`` holds K2, K4, K5 and K3 against their plain versions at one
 rank's heads under tensor-parallel serving (granite_moe_3b_a800m's 12
@@ -26,7 +27,11 @@ that ``chip_smoke.py`` takes from ``mla_serve``.  The phases of ROADMAP
 item 11c-i, ``train_mesh``, ``train_mesh_seq`` and ``train_ep``, and of
 item 11c-ii, ``train_mesh_sp``, ``train_mesh_hybrid`` and
 ``train_mesh_mla``, are ``chip_smoke.py``'s (``train_mesh_seq`` starts
-its own 8 ranks here, where ``chip_smoke.py`` takes ``tp_hd``'s).  Builds the kernels first (``phase_build``).  Prints the
+its own 8 ranks here, where ``chip_smoke.py`` takes ``tp_hd``'s).
+``cost_model`` (ROADMAP item 11d) runs ``times`` and then holds the op
+counter against its kernel rows and against the steps timed by the
+phases named before it (``window_main_path`` registers deepseek_7b's
+captured window tick; ``chip_smoke.py`` runs it over four steps).  Builds the kernels first (``phase_build``).  Prints the
 phases' JSON lines, then the card's name and power limit; exits
 non-zero without a card or at the first failed check.
 """
@@ -119,7 +124,7 @@ def main(argv) -> int:
         "kernels", "tp_moe", "tp_hybrid", "tp_state", "tp_mixers_f32",
         "tp_mla", "tp_hd", "tp_encdec"]
     unknown = set(names) - {"kernels", "tp_mixers_f32", "window_kernels",
-                            *PHASES, *WINDOW_PHASES}
+                            "cost_model", *PHASES, *WINDOW_PHASES}
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
     torch = cs.setup()
@@ -132,6 +137,9 @@ def main(argv) -> int:
                 rank_kernels(torch)
             elif name == "window_kernels":
                 window_kernels(torch)
+            elif name == "cost_model":
+                cs.phase_times(torch)
+                cs.phase_cost_model(torch, smi)
             elif name in WINDOW_PHASES:
                 WINDOW_PHASES[name](torch, smi)
                 cs.free_card(torch)
