@@ -149,7 +149,12 @@ jamba's 32 over 4: K2, K4, K5, K3 and granite's 256-row chunk) and at
 the stub models' (K1 at widths 1024 and 3072,
 K3 over two rows of phi_3_vision_4_2b's 592-row prefill and of a
 16-token prompt, K2, K4 and K5 at 32 heads of 96 and 16 of 64), and
-``gemm_width`` reads granite's router and expert products.  Last, phase
+``gemm_width`` reads granite's router and expert products.  After the
+train phases, phase ``examples`` (ROADMAP item 20) runs the port's LLM
+examples as a user runs them: ``examples/torch_serve_llm.py`` (24
+requests through the launcher's ``GraphServer``, K1-K3 launched) and
+``examples/torch_train_lm.py`` (reduced qwen3_32b on a 1 x 1 host mesh,
+its loss improved).  Last, phase
 ``cost_model`` (ROADMAP item 11d) counts four steps the run timed
 (minicpm_2b's captured paged tick, granite's, deepseek_7b's captured
 window tick, minicpm_2b's 8 x 256 train step) and the ``times`` phase's
@@ -3463,7 +3468,7 @@ def phase_moe_preempt_decode(torch, engine, want):
 #: the launcher's runs: its own flags, once with the threaded clients and
 #: once through the asyncio front door
 LAUNCHER_ARGS = ["--arch", MOE_ARCH, "--no-reduced", "--paged",
-                 "--requests", "16", "--clients", "4",
+                 "--requests", "8", "--clients", "4",
                  "--max-new-tokens", "32"]
 
 
@@ -4122,7 +4127,7 @@ def phase_xlstm_graph_serve(torch, smi):
     """xlstm_1_3b at full width served by the port's launcher on the
     state layout (``launcher_serve``).  Returns the launch counts."""
     argv = ["--arch", XLSTM_ARCH, "--no-reduced", "--backend", "state",
-            "--requests", "16", "--clients", "4", "--max-new-tokens", "32"]
+            "--requests", "8", "--clients", "4", "--max-new-tokens", "32"]
     return launcher_serve(torch, smi, argv, xlstm_config(),
                           "fused_flash_decode", "xlstm_graph_serve")
 
@@ -6283,6 +6288,77 @@ def train_launcher(torch):
             "stderr": r.stderr.strip().splitlines()[-4:]}
 
 
+#: the train example's steps on the card: its own 200 took 23.2 s of
+#: the run's budget (26.7 s with the serve example), so it runs 80
+EXAMPLE_TRAIN_STEPS = 80
+
+
+def run_example(script, argv):
+    """``examples/<script>`` in this process (``runpy``, ``sys.argv`` set
+    to it and ``argv``), as ``python examples/<script>`` runs it: (its
+    exit code, its stdout's lines, wall seconds)."""
+    import io
+    import runpy
+    path = ROOT / "examples" / script
+    saved = sys.argv
+    sys.argv = [str(path)] + argv
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (e.code is not None)
+    finally:
+        sys.argv = saved
+    return code, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_examples(torch, smi):
+    """The port's LLM examples on the card as they stand (item 20):
+    ``examples/torch_serve_llm.py`` (reduced qwen3_32b, 24 requests from
+    6 clients through the ``GraphServer``, the launcher's default kernel
+    flags) must answer every request, and ``examples/torch_train_lm.py``
+    (reduced qwen3_32b, ``--host-mesh``: a 1 x 1 mesh, EXAMPLE_TRAIN_STEPS
+    steps of 8 x 128, the checkpoint into a temporary directory) must
+    exit 0 with its loss improved.  Each runs with the launch counters
+    at 0 first: the serve example launches K1 and K3, the train example
+    none.  Returns the launch counts."""
+    import tempfile
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for script, argv, want in (
+                ("torch_serve_llm.py", [], "served 24/24 requests"),
+                ("torch_train_lm.py", ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                       "--checkpoint-dir", ckpt],
+                 "(improved)")):
+            for name in build.launches:
+                build.launches[name] = 0
+            code, lines, secs = run_example(script, argv)
+            torch.cuda.synchronize()
+            counts = dict(build.launches)
+            free_card(torch)
+            emit({"phase": "examples", "script": f"examples/{script}",
+                  "argv": argv, "rc": code, "seconds": secs,
+                  "launches": counts, "lines": lines[-5:]})
+            check(code == 0, f"examples: {script} exited {code}")
+            check(any(want in ln for ln in lines),
+                  f"examples: {script} printed no {want!r} line")
+            if script == "torch_serve_llm.py":
+                check(counts["rmsnorm"] > 0 and counts["flash_attention"] > 0,
+                      f"examples: {script} launched {counts}")
+            else:
+                check(not any(counts.values()),
+                      f"examples: {script} launched {counts}")
+            add_counts(total, counts)
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return total
+
+
 def f32_forward_check(torch, cfg, arch, against_prefill=False):
     """The no-grad ``forward`` in f32 at full width and depth: with the
     kernel flags against the plain path (``against_prefill`` False: the
@@ -8108,6 +8184,8 @@ def main() -> int:
                     phase_train_recurrent(torch, smi),
                     phase_train_hybrid(torch, smi)]
     free_card(torch)
+    # the port's LLM examples as a user runs them (item 20)
+    example_counts = phase_examples(torch, smi)
     times = phase_times(torch)
     # the op counter against the four steps timed above and the kernel rows
     phase_cost_model(torch, smi, steps=4)
@@ -8118,7 +8196,7 @@ def main() -> int:
                     + preempt_counts[name]
                     + sum(c.get(name, 0) for c in moe_counts + rec_counts
                           + ds_counts + stub_counts + train_counts
-                          + tp_counts))
+                          + tp_counts + [example_counts]))
         check(launches > 0, f"{name}: no launch on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,

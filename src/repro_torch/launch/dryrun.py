@@ -78,8 +78,10 @@ __all__ = ["LONG_WINDOW", "adjusted_config", "build_lowering", "count_step",
 
 
 #: a case whose trace passes this many seconds is stopped and reported
-#: as not run, with its cause (xlstm_1_3b's token loops at train_4k and
-#: prefill_32k)
+#: as not run, with its cause.  The recurrent mixers' token loops are
+#: priced once and scaled by their trip count (``op_cost.OpCounter.scan``),
+#: so every production case traces well inside it on one CPU core
+#: (xlstm_1_3b's prefill_32k, the slowest, in a few minutes)
 MAX_SECONDS = 600.0
 
 

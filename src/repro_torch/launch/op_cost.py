@@ -36,10 +36,23 @@ no data, no device), so the port's own code is what is counted:
   tensor on it dies, read by weakref finalizers); the step's arguments
   are added by the caller (``launch/analysis.py``'s ``memory_stats``).
 
-Python loops (layer groups, the sLSTM's token loop) are counted as they
-run: nothing is multiplied by a trip count.  A data-dependent index (a
-boolean mask) is read as if every element were selected (``torch.fx``'s
-``meta_nonzero_assume_all_nonzero``): the most the step can touch.
+* **Token loops** (the recurrent mixers' per-token scans, routed
+  through ``models/layers.py``'s :func:`~repro_torch.models.layers.scan`)
+  are priced as ``hlo_cost`` prices a ``while`` body: once, times the
+  trip count (:meth:`OpCounter.scan`).  Of a loop of ``n > 3`` steps the
+  first and the last run and are counted; step 1 runs once and is
+  recorded ``n - 2`` times (everything it records: FLOPs, bytes, ops,
+  collectives, kernels), after a check that the carry's shapes and
+  dtypes are those step 0 left, so that steps 2 to ``n - 2`` are the
+  same ops.  Its backward is scaled alike, and the storages step 1
+  leaves alive are counted ``n - 2`` times in the peak.
+  ``OpCounter(scale_loops=False)`` runs every step, for the tests that
+  hold the two counts equal.  Other Python loops (layer groups, chunks)
+  are counted as they run.
+
+A data-dependent index (a boolean mask) is read as if every element
+were selected (``torch.fx``'s ``meta_nonzero_assume_all_nonzero``): the
+most the step can touch.
 
 All numbers are one rank's: the step the counter watches is rank 0's
 program.
@@ -47,13 +60,16 @@ program.
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import time
 import weakref
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 
 aten = torch.ops.aten
 
@@ -140,13 +156,21 @@ class OpCounter(TorchDispatchMode):
     module's docstring).  ``with OpCounter() as c: step(...)`` then read
     ``flops``, ``bytes``, ``coll`` (bytes by kind), ``coll_by_line``
     ({(line, kind): bytes}), ``coll_calls``, ``peak_bytes``, ``ops``
-    (calls by op name) and ``kernels`` (one record a kernel call).
-    ``max_seconds``: the step raises :class:`TraceTimeout` at the first
-    op after that many seconds of counting."""
+    (calls by op name) and ``kernels`` (one record a kernel call site,
+    with its ``calls``).  ``max_seconds``: the step raises
+    :class:`TraceTimeout` at the first op after that many seconds of
+    counting.  ``scale_loops``: price a token loop's step once, times
+    its trip count (:meth:`scan`); False runs every step."""
 
-    def __init__(self, max_seconds: Optional[float] = None):
+    def __init__(self, max_seconds: Optional[float] = None,
+                 scale_loops: bool = True):
         super().__init__()
         self.max_seconds = max_seconds
+        self.scale_loops = scale_loops
+        #: what each record is multiplied by (:meth:`repeat`), and the
+        #: factors entered, innermost last
+        self.scale = 1
+        self._scales: List[int] = []
         self.t0 = time.perf_counter()
         self.n_ops = 0
         self.flops = 0.0
@@ -159,6 +183,12 @@ class OpCounter(TorchDispatchMode):
         self.live = 0
         self.peak_bytes = 0
         self._storages: Dict[int, int] = {}
+        #: each live storage's (allocation serial, bytes)
+        self._born: Dict[int, tuple] = {}
+        self._allocs = 0
+        #: bytes counted beside a live storage and freed with it: the
+        #: copies a scaled loop step stands for (:meth:`scan`)
+        self._phantom: Dict[int, int] = {}
         self._nonzero = None
 
     # ---- the mode -------------------------------------------------------
@@ -176,6 +206,7 @@ class OpCounter(TorchDispatchMode):
             return super().__exit__(*exc)
         finally:
             _STACK.remove(self)
+            self._pop_to(0)
             cfg = _fx_config()
             if cfg is not None and self._nonzero is not None:
                 cfg.meta_nonzero_assume_all_nonzero = self._nonzero
@@ -184,7 +215,8 @@ class OpCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         p = func.overloadpacket
-        self.ops[p.__name__] += 1
+        k = self.scale
+        self.ops[p.__name__] += k
         self.n_ops += 1
         if self.max_seconds is not None and self.n_ops % 4096 == 0:
             spent = time.perf_counter() - self.t0
@@ -198,7 +230,7 @@ class OpCounter(TorchDispatchMode):
         self._track(ins, outs)
         if p in _FREE:
             return out
-        self.flops += _mm_flops(func, args, out)
+        self.flops += k * _mm_flops(func, args, out)
         if p in _GATHERS:
             src = args[1] if p == aten.embedding else args[0]
             moved = sum(nbytes(t) for t in ins if t is not src) + \
@@ -210,7 +242,7 @@ class OpCounter(TorchDispatchMode):
         else:
             moved = sum(nbytes(t) for t in ins) + \
                 sum(nbytes(t) for t in outs)
-        self.bytes += moved
+        self.bytes += k * moved
         return out
 
     # ---- peak memory ----------------------------------------------------
@@ -227,6 +259,8 @@ class OpCounter(TorchDispatchMode):
                 self._storages[key] += 1
             else:
                 self._storages[key] = 1
+                self._allocs += 1
+                self._born[key] = (self._allocs, size)
                 self.live += size
                 self.peak_bytes = max(self.peak_bytes, self.live)
             weakref.finalize(t, self._free, key, size)
@@ -240,23 +274,123 @@ class OpCounter(TorchDispatchMode):
             self._storages[key] = n - 1
             return
         del self._storages[key]
-        self.live -= size
+        del self._born[key]
+        self.live -= size + self._phantom.pop(key, 0)
 
     # ---- records from the stand-ins and the kernels ---------------------
     def collective(self, kind: str, line: str, out_bytes: int,
                    in_bytes: int) -> None:
-        self.coll[kind] += out_bytes
-        self.coll_by_line[(line, kind)] += out_bytes
-        self.coll_calls += 1
-        self.bytes += in_bytes + out_bytes
+        k = self.scale
+        self.coll[kind] += k * out_bytes
+        self.coll_by_line[(line, kind)] += k * out_bytes
+        self.coll_calls += k
+        self.bytes += k * (in_bytes + out_bytes)
 
     def kernel(self, name: str, moved: float, flops: float,
                peak: str) -> None:
-        self.kernels.append({"name": name, "bytes": float(moved),
-                             "flops": float(flops), "peak": peak})
-        self.ops[name] += 1
-        self.flops += flops
-        self.bytes += moved
+        k = self.scale
+        self.kernels.append({"name": name, "bytes": float(k * moved),
+                             "flops": float(k * flops), "peak": peak,
+                             "calls": k})
+        self.ops[name] += k
+        self.flops += k * flops
+        self.bytes += k * moved
+
+    # ---- token loops ----------------------------------------------------
+    def _push(self, k: int) -> int:
+        """Multiply every record by ``k`` until :meth:`_pop_to` the depth
+        returned."""
+        self._scales.append(k)
+        self.scale *= k
+        return len(self._scales) - 1
+
+    def _pop_to(self, depth: int) -> None:
+        while len(self._scales) > depth:
+            self.scale //= self._scales.pop()
+
+    @contextlib.contextmanager
+    def repeat(self, k: int):
+        """Inside the block everything recorded (FLOPs, bytes, ``ops``,
+        collectives, kernels) counts ``k`` times."""
+        depth = self._push(k)
+        try:
+            yield
+        finally:
+            self._pop_to(depth)
+
+    def _keep_copies(self, keys, copies: int) -> None:
+        """Count ``copies`` more of each live storage in ``keys``, freed
+        with it."""
+        for key in keys:
+            extra = copies * self._born[key][1]
+            self._phantom[key] = self._phantom.get(key, 0) + extra
+            self.live += extra
+        self.peak_bytes = max(self.peak_bytes, self.live)
+
+    def scan(self, body: Callable, carry, n: int, name: str):
+        """``layers.scan``'s loop priced once and scaled (the module's
+        docstring): steps 0 and ``n - 1`` run as they are, step 1 runs
+        once under :meth:`repeat` ``(n - 2)``.  Returns the carry after
+        step ``n - 1`` and the ``n`` outputs, step 1's standing for
+        steps 1 to ``n - 2`` (one tensor ``n - 2`` times in a list, so
+        a ``torch.stack`` of it is one op of the whole's bytes; under
+        autograd ``n - 2`` aliases, each a distinct input of the stack,
+        so that its backward adds no gradients together that the loop's
+        does not).  Where autograd records, a pair of identity markers
+        around step 1 scales its backward alike: the later marker's
+        backward enters ``repeat(n - 2)``, the earlier one's leaves it;
+        the engine runs a graph's nodes in descending creation order, so
+        the nodes between the two are step 1's.  The peak counts the
+        storages step 1 allocates and leaves alive ``n - 2`` times, each
+        copy freed with its storage: its outputs, and under autograd
+        what its backward keeps."""
+        k = n - 2
+        carry, out0 = body(0, carry)
+        sig = _signature(carry)
+        leaves, spec = pytree.tree_flatten(carry)
+        grad = torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in leaves)
+        link: dict = {}
+        if grad:
+            carry = pytree.tree_unflatten(
+                list(_Enter.apply(self, link, *leaves)), spec)
+        del leaves
+        first = self._allocs
+        with self.repeat(k):
+            carry, out1 = body(1, carry)
+        if _signature(carry) != sig:
+            raise ValueError(
+                f"{name}: the carry after step 1 {_signature(carry)} is not "
+                f"the carry after step 0 {sig}, so the loop's steps are not "
+                f"one body: it cannot be priced once and scaled")
+        leaves, spec = pytree.tree_flatten(carry)
+        outs, out_spec = pytree.tree_flatten(out1)
+        if grad:
+            got = _Exit.apply(self, link, k, len(leaves), *leaves, *outs)
+            carry = pytree.tree_unflatten(list(got[:len(leaves)]), spec)
+            w = len(outs)
+            copies = [pytree.tree_unflatten(
+                list(got[len(leaves) + i * w:len(leaves) + (i + 1) * w]),
+                out_spec) for i in range(k)]
+            del got
+        else:
+            copies = [out1] * k
+        # step 1's storages still alive: those only its carry holds die
+        # in step n - 1 unless its backward keeps them
+        born = {key for key in self._storages if self._born[key][0] > first}
+        held = {t.untyped_storage()._cdata for t in leaves
+                if isinstance(t, torch.Tensor)}
+        shown = {t.untyped_storage()._cdata for t in outs
+                 if isinstance(t, torch.Tensor)}
+        now = {key for key in born if key not in held or key in shown}
+        self._keep_copies(now, k - 1)
+        del leaves, outs, out1
+        before_last = self._allocs
+        carry, last = body(n - 1, carry)
+        later = {key for key in born - now if key in self._storages
+                 and self._born[key][0] <= before_last}
+        self._keep_copies(later, k - 1)
+        return carry, [out0] + copies + [last]
 
     def totals(self) -> Dict[str, float]:
         """``hlo_cost``'s keys: flops, bytes, ``coll`` (every kind) and
@@ -267,6 +401,62 @@ class OpCounter(TorchDispatchMode):
 
 
 _STACK: List[OpCounter] = []
+
+
+def _signature(tree):
+    """The shapes and dtypes of the tensors in ``tree``, with its
+    structure."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return str(spec), [(tuple(t.shape), t.dtype) if isinstance(
+        t, torch.Tensor) else t for t in leaves]
+
+
+def _aliases(ts):
+    """A new tensor object on each of ``ts``' storages, made unseen by the
+    counter (no op of the step's)."""
+    with _disable_current_modes():
+        return tuple(t.view_as(t) for t in ts)
+
+
+class _Enter(torch.autograd.Function):
+    """The identity before a scaled loop step: its backward, which runs
+    after the step's, leaves the step's ``repeat``."""
+
+    @staticmethod
+    def forward(ctx, counter, link, *ts):
+        ctx.counter, ctx.link = counter, link
+        ctx.set_materialize_grads(False)
+        return _aliases(ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if "depth" in ctx.link:
+            ctx.counter._pop_to(ctx.link.pop("depth"))
+        return (None, None) + grads
+
+
+class _Exit(torch.autograd.Function):
+    """The identity after a scaled loop step: the carry's ``n_carry``
+    tensors once, then each output ``k`` times (distinct aliases, one
+    per step it stands for); its backward enters ``repeat(k)`` and hands
+    the step the gradient of the first alias of each output (the
+    others' stand for steps 2 to ``k``)."""
+
+    @staticmethod
+    def forward(ctx, counter, link, k, n_carry, *ts):
+        ctx.counter, ctx.link, ctx.k, ctx.n_carry = counter, link, k, n_carry
+        ctx.set_materialize_grads(False)
+        carry, outs = ts[:n_carry], ts[n_carry:]
+        return _aliases(carry) + _aliases(
+            [t for _ in range(k) for t in outs])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.link["depth"] = ctx.counter._push(ctx.k)
+        n = len(grads) - ctx.n_carry
+        width = n // ctx.k
+        return (None, None, None, None) + grads[:ctx.n_carry] + \
+            grads[ctx.n_carry:ctx.n_carry + width]
 
 
 def _fx_config():

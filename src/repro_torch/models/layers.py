@@ -8,6 +8,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
@@ -160,6 +161,28 @@ def remat(fn: Callable, *args):
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def scan(body: Callable, carry, n: int, name: str):
+    """``carry, out = body(t, carry)`` for t in range(n): a token loop
+    (the JAX ``lax.scan``).  Returns the last carry and the list of the
+    ``n`` outputs.  On tensors it is this Python loop, op for op; under
+    the cost analysis's op counter (``launch/op_cost.py``) a loop of more
+    than 3 steps is priced once and scaled by its trip count
+    (``OpCounter.scan``), which raises, naming the loop (``name``), if
+    the carry's shapes or dtypes change from step to step.  Only a carry
+    on ``meta`` tensors, which hold no values, is scaled."""
+    from ..launch import op_cost
+    counter = op_cost.active()
+    if counter is not None and counter.scale_loops and n > 3 and all(
+            t.device.type == "meta" for t in pytree.tree_leaves(carry)
+            if isinstance(t, torch.Tensor)):
+        return counter.scan(body, carry, n, name)
+    outs = []
+    for t in range(n):
+        carry, out = body(t, carry)
+        outs.append(out)
+    return carry, outs
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

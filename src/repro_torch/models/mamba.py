@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from ..kernels.ref import upcast
 from .config import ArchConfig
-from .layers import each_row, linear, remat, softplus
+from .layers import each_row, linear, remat, scan, softplus
 from .params import DTYPES, ParamSpec, Template
 from ..sharding.group import (cut, line_enter, line_reduce, line_sum,
                               tp_reduce_parts)
@@ -136,14 +136,16 @@ def _mamba_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
     dt, Bm, Cm, A = _ssm_inputs(params, cfg, xc, tp=tp)
     # elementwise, so converted for the whole window with the same bits
     Bf, xcf = Bm.float(), xc.float()
-    ys = []
-    for t in range(x.shape[1]):
+
+    def step(t: int, state: State):
         y_t, state = _mamba_step(state, dt[:, t], Bf[:, t], Cm[:, t],
                                  xcf[:, t], x_in[:, t], A)
-        ys.append(y_t)
         if stack is not None:
             for k, a in state.items():
                 stack[k][:, t].copy_(a)
+        return state, y_t
+
+    state, ys = scan(step, state, x.shape[1], "_mamba_seq")
     y = torch.stack(ys, dim=1).to(x.dtype)
     y = y + params["D"].to(x.dtype) * xc
     y = y * F.silu(z.float()).to(x.dtype)

@@ -55,7 +55,8 @@ import torch.nn.functional as F
 
 from ..kernels.ref import NEG_INF, upcast
 from .config import ArchConfig
-from .layers import each_row, linear, no_tf32, pointwise, remat, softplus
+from .layers import (each_row, linear, no_tf32, pointwise, remat, scan,
+                     softplus)
 from .params import ParamSpec, Template
 from ..sharding.group import (block_rows, cut, gather_blocks, line_enter,
                               line_gather, line_reduce, line_sum, rank_block,
@@ -237,15 +238,15 @@ def _mlstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
         return st if m_tp is None else \
             dict(st, m=st["m"][:, rank_block(H, tp)])
 
-    nums, dens, ms = [], [], []
+    def step(t: int, state: State):
+        num, den, state = _mlstm_step(state, qs[:, t], kf[:, t], vf[:, t],
+                                      li[:, t], lf[:, t])
+        _write_stack(stack, t, held(state))
+        return state, (num, den, state["m"])
+
     with no_tf32(x.device):
-        for t in range(S):
-            num, den, state = _mlstm_step(state, qs[:, t], kf[:, t],
-                                          vf[:, t], li[:, t], lf[:, t])
-            nums.append(num)
-            dens.append(den)
-            ms.append(state["m"])
-            _write_stack(stack, t, held(state))
+        state, outs = scan(step, state, S, "_mlstm_seq")
+    nums, dens, ms = zip(*outs)
     num, den = torch.stack(nums, dim=1), torch.stack(dens, dim=1)
     if dk_tp is not None:
         num, den = tp_reduce_parts([num, den], tp)
@@ -597,14 +598,15 @@ def _slstm_seq(params, cfg: ArchConfig, x: torch.Tensor, state: State,
         return st if state_tp is None else \
             {k: v[:, rank_block(d, tp)] for k, v in st.items()}
 
-    hs = []
+    def step(t: int, state: State):
+        h_all = None if gate_tp is None else tp_reduce_parts(
+            [gather_blocks(state["h"], a, tp)], tp)[0]
+        state = _slstm_step(w_h, b, state, xg[:, t], h_all=h_all)
+        _write_stack(stack, t, held(state))
+        return state, state["h"]
+
     with no_tf32(x.device):
-        for t in range(x.shape[1]):
-            h_all = None if gate_tp is None else tp_reduce_parts(
-                [gather_blocks(state["h"], a, tp)], tp)[0]
-            state = _slstm_step(w_h, b, state, xg[:, t], h_all=h_all)
-            hs.append(state["h"])
-            _write_stack(stack, t, held(state))
+        state, hs = scan(step, state, x.shape[1], "_slstm_seq")
     y = linear(torch.stack(hs, dim=1).to(x.dtype), w_out, blocked=True)
     return y, held(state)
 
@@ -634,11 +636,12 @@ def _slstm_outer(w_h, b, c, n, h, m, xg):
     """One outer chunk of the sLSTM scan: the tokens of xg [B, L, 4d]
     one at a time from the state (c, n, h, m); returns the state after
     it and h [B, L, d] f32."""
-    state = {"c": c, "n": n, "h": h, "m": m}
-    hs = []
-    for t in range(xg.shape[1]):
+    def step(t: int, state: State):
         state = _slstm_step(w_h, b, state, xg[:, t], blocked=False)
-        hs.append(state["h"])
+        return state, state["h"]
+
+    state, hs = scan(step, {"c": c, "n": n, "h": h, "m": m}, xg.shape[1],
+                     "_slstm_outer")
     return (state["c"], state["n"], state["h"], state["m"],
             torch.stack(hs, dim=1))
 

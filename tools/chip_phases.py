@@ -8,6 +8,7 @@ loop than the whole script while a phase is being written.
     python3 tools/chip_phases.py train_mesh,train_mesh_seq,train_ep
     python3 tools/chip_phases.py train_mesh_sp,train_mesh_hybrid,train_mesh_mla
     python3 tools/chip_phases.py window_main_path,cost_model
+    python3 tools/chip_phases.py examples
 
 ``kernels`` holds K2, K4, K5 and K3 against their plain versions at one
 rank's heads under tensor-parallel serving (granite_moe_3b_a800m's 12
@@ -31,7 +32,9 @@ its own 8 ranks here, where ``chip_smoke.py`` takes ``tp_hd``'s).
 ``cost_model`` (ROADMAP item 11d) runs ``times`` and then holds the op
 counter against its kernel rows and against the steps timed by the
 phases named before it (``window_main_path`` registers deepseek_7b's
-captured window tick; ``chip_smoke.py`` runs it over four steps).  Builds the kernels first (``phase_build``).  Prints the
+captured window tick; ``chip_smoke.py`` runs it over four steps).
+``examples`` (ROADMAP item 20) runs ``examples/torch_serve_llm.py`` and
+``examples/torch_train_lm.py`` on the card.  Builds the kernels first (``phase_build``).  Prints the
 phases' JSON lines, then the card's name and power limit; exits
 non-zero without a card or at the first failed check.
 """
@@ -116,7 +119,8 @@ WINDOW_PHASES = {"window_main_path": cs.phase_window_main_path,
                  "train_ep": cs.phase_train_ep,
                  "train_mesh_sp": cs.phase_train_mesh_sp,
                  "train_mesh_hybrid": cs.phase_train_mesh_hybrid,
-                 "train_mesh_mla": cs.phase_train_mesh_mla}
+                 "train_mesh_mla": cs.phase_train_mesh_mla,
+                 "examples": cs.phase_examples}
 
 
 def main(argv) -> int:
